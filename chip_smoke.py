@@ -3,20 +3,23 @@
 
     python3 chip_smoke.py
 
-Builds the port's two CUDA kernels from ``csrc/`` (nvcc, sm_90a), drives the
-default frame path of ``Engine.render_frame`` at the headline scene
-(1280x720, view distance 12, textures and shading on, from the reference
-start pose), holds each kernel against its plain PyTorch twin on the card,
-and times kernels and frames.  Phases:
+Builds the port's CUDA kernels from ``csrc/`` (nvcc, sm_90a), drives the
+serial frame path of ``Engine.render_frame`` and the frames-in-flight path
+of ``Engine.render_frame_pipelined`` at the headline scene (1280x720, view
+distance 12, textures and shading on, from the reference start pose),
+holds each kernel against its plain PyTorch version on the card, and times
+kernels and frames.  Phases:
 
 1. environment (torch, CUDA, nvcc, the card's name and power limit);
-2. kernel build;
-3. the main path: world streamed until settled, prime(), 3 static frames
+2. kernel build, and the count of floating-point multiply-adds in each
+   source's PTX (the rounding contract wants none);
+3. the serial path: world streamed until settled, prime(), 3 static frames
    (render_fused, then render_prepared), 50 timed static frames, then 10
    moving frames that stream chunks (render_fused_insert where the remesh
-   batch fits its payload, else render_fused).  The kernels' launch counters are zeroed before it and read
-   after it; both must grow on every frame, and the stats must show no
-   overflow;
+   batch fits its payload, else render_fused).  The kernels' launch
+   counters are zeroed before it and read after it; K1 and K2 must grow on
+   every frame, and the stats must show no overflow.  The static and
+   moving frames are kept for phase 8;
 4. K1 (stage A) vs its twin, bit-exact on all five outputs: a fuzzed
    131072-quad stream and the real vd12 stream;
 5. K2 (tile raster) vs its twin on the port's own records at 128x128,
@@ -25,15 +28,32 @@ and times kernels and frames.  Phases:
    same step on the CPU (the twins);
 6. kernel and twin times at the vd12 shapes, median of 20 runs each;
 7. the static frame's device time under torch.profiler: the card's busy
-   time per frame, its idle share and the largest device activities.
+   time per frame, its idle share and the largest device activities;
+8. frames in flight: a second Engine, settled and primed like the first,
+   drives render_frame_pipelined over phase 3's camera sequence (3 static,
+   20 timed static, the 10 moving frames), then flush_pipeline.  The
+   counters are zeroed before it and read after it; K3 must launch once on
+   every steady step (a frame of the carried frame's gather cap), only a
+   change of cap may drain, and every emitted frame must equal phase 3's
+   serial frame for the same pose bit for bit (colour, depth, stats[:2]),
+   once and in order.  The pipelined static frame time is printed beside
+   phase 3's;
+9. K3 (the raster with the next frame's stage A) vs K2 and K1 on the vd12
+   records, with the fuzzed 131072-quad stream and then the real vd12
+   stream as the next stream: its frame must equal K2's and its geometry
+   K1's, bit for bit; then K3's time against a K2 plus a K1 launch (median
+   of 20) and against its plain version (median of 5).
 
-The script imports the port package and nothing else of the repo (the port
-shares the reference package's jax-free host layers); it checks that no
-jax module was loaded before it prints its result.  Every number
-printed comes from this run.  The line before the last is
-JSON with one entry per kernel; the last line is
-``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
-when there is no CUDA device or the package is not beside this script.
+The script imports the port package and nothing else of the repo; before
+it prints its result it checks that neither jax nor any module of the JAX
+package was loaded.  Every number printed comes from this run; each
+kernel's bound is computed from this run's inputs (``bound_ms``: the larger
+of its bytes over the card's memory rate and its operations over the
+card's float32 rate).  Its last three lines are the JSON object with one
+entry per kernel, the card's name and power limit as nvidia-smi gives
+them, and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
+result, when there is no CUDA device or the package is not beside this
+script.
 """
 
 from __future__ import annotations
@@ -50,6 +70,25 @@ PKG = "differential_projection_voxel_renderer_tpu_torch"
 REF = "differential_projection_voxel_renderer_tpu"
 WIDTH, HEIGHT, VIEW_DISTANCE = 1280, 720, 12
 START_POS, START_TARGET = (0.0, 10.0, 20.0), (0.0, 0.0, -60.0)
+N_TIMED, N_TIMED_PIPELINED, N_MOVING = 50, 20, 10
+
+# NVIDIA H100 SXM data sheet: HBM rate and dense float32 rate outside the
+# tensor cores, at the full 700 W power limit.  The float32 rate counts a
+# fused multiply-add as two operations; the kernels are built with
+# -fmad=false and issue none, so for the operations counted below their
+# own issue limit is half that rate (the bounds keep the data sheet's)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+N_SMS = 132
+# float32 operations a function needs, counted from the sources: stage A
+# per quad (the basis, four projected corners, the NDC divides, min/max,
+# the frustum, backface and sub-pixel tests and the bbox); the tile raster
+# per pixel of an item's box (four plane evaluations of a multiply and two
+# adds, four coverage products, six compares) and per item and column of
+# its box (the four hoisted column products)
+K1_OPS_PER_QUAD = 200
+K2_OPS_PER_PIXEL = 22
+K2_OPS_PER_ITEM_COLUMN = 4
 
 
 def log(msg: str) -> None:
@@ -69,8 +108,11 @@ def smi() -> str:
                 "--format=csv,noheader"]).splitlines()[0]
 
 
-def median_ms(fn, reps: int = 20) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` after one warm-up."""
+def median_ms(fn, reps: int = 20, batch: int = 1) -> float:
+    """Median over ``reps`` runs of the CUDA-event time of ``batch``
+    back-to-back calls of ``fn``, per call, after one warm-up call.  With
+    ``batch`` 1 the time includes the host's work before the launch; a
+    longer batch overlaps it with the previous call's device work."""
     import torch
 
     fn()
@@ -79,10 +121,11 @@ def median_ms(fn, reps: int = 20) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(batch):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / batch)
     return statistics.median(times)
 
 
@@ -95,12 +138,13 @@ def nonsky(color) -> int:
 
 
 def counters():
+    """Launch counts (K1, K2, K3)."""
     from differential_projection_voxel_renderer_tpu_torch.ops import (
         geometry,
         raster,
     )
 
-    return geometry.launches, raster.launches
+    return geometry.launches, raster.launches, raster.launches_geom
 
 
 def reset_counters() -> None:
@@ -111,12 +155,15 @@ def reset_counters() -> None:
 
     geometry.launches = 0
     raster.launches = 0
+    raster.launches_geom = 0
 
 
 # ------------------------------------------------------------- main path
 
 
-def main_path(torch):
+def new_engine(torch):
+    """An Engine on the card at the headline scene, its world settled and
+    primed at the start pose: (engine, world seconds, prime seconds)."""
     import numpy as np
 
     from differential_projection_voxel_renderer_tpu_torch.app.engine import (
@@ -127,16 +174,42 @@ def main_path(torch):
 
     t0 = time.perf_counter()
     eng = Engine(RenderConfig(WIDTH, HEIGHT),
-                 WorldConfig(view_distance=VIEW_DISTANCE), device="cuda")
+                 WorldConfig(view_distance=VIEW_DISTANCE))
     eng.camera.position = np.array(START_POS, np.float32)
     eng.camera.look_at(np.array(START_TARGET, np.float32))
     while eng.world.update(eng.camera.position):
         pass
     t1 = time.perf_counter()
     eng.prime()
-    t2 = time.perf_counter()
-    log(f"[3] world: {eng.world.chunk_count()} chunks in {t1 - t0:.1f} s; "
-        f"prime: {len(eng.pool.by_pos)} meshes in {t2 - t1:.1f} s")
+    return eng, t1 - t0, time.perf_counter() - t1
+
+
+def moving_poses():
+    """The moving frames' camera poses: creep forward and yaw 0.75 degrees
+    a frame, so that loaded but not yet meshed chunks turn visible a few at
+    a time and stream in as remesh batches small enough for the fused
+    insert."""
+    import numpy as np
+
+    pos = np.array(START_POS, np.float32)
+    look = np.array(START_TARGET, np.float32) - pos
+    for i in range(N_MOVING):
+        pos[2] -= 2.0
+        a = np.radians(0.75 * (i + 1))
+        rot = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                        [-np.sin(a), 0, np.cos(a)]], np.float32)
+        yield pos.copy(), pos + rot @ look
+
+
+def keep(res):
+    """A frame's (colour, depth, stats) as device copies."""
+    return res.color.clone(), res.depth.clone(), res.stats.clone()
+
+
+def main_path(torch):
+    eng, t_world, t_prime = new_engine(torch)
+    log(f"[3] world: {eng.world.chunk_count()} chunks in {t_world:.1f} s; "
+        f"prime: {len(eng.pool.by_pos)} meshes in {t_prime:.1f} s")
 
     entry = {}
     for name in ("render_fused", "render_prepared", "render_fused_insert"):
@@ -167,52 +240,199 @@ def main_path(torch):
 
     torch.cuda.synchronize()
     reset_counters()
+    static_frames = []
     for i in range(3):
         res, st, n = frame(True)
+        static_frames.append(keep(res))
         log(f"[3] static frame {i}: stats={st.tolist()} non-sky={n} "
             f"entry={dict(entry)}")
+    for f in static_frames[1:]:
+        if not all(torch.equal(a, b) for a, b in zip(f, static_frames[0])):
+            raise AssertionError("the static frames differ")
     # the static draw list's stream and camera, for the kernel checks
     static = (eng._upload_cache[1], eng.camera.view_projection_matrix(),
               eng.camera.position.copy())
-    n_timed = 50
     torch.cuda.synchronize()
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
     h0 = time.perf_counter()
     ev0.record()
-    for _ in range(n_timed):
+    for _ in range(N_TIMED):
         frame(False)
     ev1.record()
     ev1.synchronize()
-    host_ms = (time.perf_counter() - h0) * 1e3 / n_timed
-    dev_ms = ev0.elapsed_time(ev1) / n_timed
-    # moving frames: creep forward and yaw 0.75 degrees a frame, so that
-    # loaded but not yet meshed chunks turn visible a few at a time and
-    # stream in as remesh batches small enough for the fused insert
-    pos = np.array(START_POS, np.float32)
-    look = np.array(START_TARGET, np.float32) - pos
-    for i in range(10):
-        pos[2] -= 2.0
-        a = np.radians(0.75 * (i + 1))
-        rot = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
-                        [-np.sin(a), 0, np.cos(a)]], np.float32)
-        eng.camera.position = pos.copy()
-        eng.camera.look_at(pos + rot @ look)
+    host_ms = (time.perf_counter() - h0) * 1e3 / N_TIMED
+    dev_ms = ev0.elapsed_time(ev1) / N_TIMED
+    moving = []
+    for i, (pos, target) in enumerate(moving_poses()):
+        eng.camera.position = pos
+        eng.camera.look_at(target)
         res, st, n = frame(True)
+        moving.append(keep(res))
         log(f"[3] moving frame {i}: stats={st.tolist()} non-sky={n} "
             f"meshes={len(eng.pool.by_pos)} entry={dict(entry)}")
     torch.cuda.synchronize()
     launches = counters()
-    frames = 3 + n_timed + 10
-    if launches != (frames, frames):
+    frames = 3 + N_TIMED + N_MOVING
+    if launches != (frames, frames, 0):
         raise AssertionError(f"launches {launches} for {frames} frames")
     if not entry.get("render_fused_insert"):
         raise AssertionError(f"no frame took render_fused_insert: {entry}")
     log(f"[3] main path: {frames} frames, launches K1={launches[0]} "
         f"K2={launches[1]}, entry points {entry}")
     log(f"[3] static frame: {dev_ms:.3f} ms/frame between CUDA events, "
-        f"{host_ms:.3f} ms/frame host clock (mean of {n_timed})")
-    return eng, static, launches, dict(static_ms=dev_ms, host_ms=host_ms)
+        f"{host_ms:.3f} ms/frame host clock (mean of {N_TIMED})")
+    serial = dict(static=static_frames[0], moving=moving)
+    return (eng, static, launches, dict(static_ms=dev_ms, host_ms=host_ms),
+            serial)
+
+
+def same_frame(torch, res, ref):
+    """A device bool: ``res`` shows ``ref``'s colour, depth bits and
+    stats[:2] (no host sync)."""
+    return ((res.color == ref[0]).all()
+            & (res.depth.view(torch.int32) == ref[1].view(torch.int32)).all()
+            & (res.stats[:2] == ref[2][:2]).all())
+
+
+def pipelined_path(torch, serial):
+    """Phase 8: frames in flight on a second engine over phase 3's camera
+    sequence, every emitted frame held against the serial frame of its
+    pose, once and in order.  At the static pose the pipelined frames are
+    timed against serial frames of the same engine in alternating blocks
+    (serial, pipelined, pipelined, serial); each block checks its frames
+    on the card, and a pipelined block is seeded and flushed outside the
+    timer, so it times steady steps only.
+    Then 10 frames of each mode run under torch.profiler.  Returns
+    (launches, {"serial"|"pipelined": [(events ms, host ms) per block]},
+    {"serial"|"pipelined": profile_frames' result})."""
+    eng, t_world, t_prime = new_engine(torch)
+    log(f"[8] second engine: {eng.world.chunk_count()} chunks in "
+        f"{t_world:.1f} s; prime: {len(eng.pool.by_pos)} meshes in "
+        f"{t_prime:.1f} s")
+    # (call, (K1, K2, K3) launches, carried gather cap before, after)
+    steps = []
+
+    def carried():
+        carry = eng.renderer._pipe_carry
+        return None if carry is None else carry[0]
+
+    def call(kind):
+        before, cap0 = counters(), carried()
+        fn = {"serial": eng.render_frame,
+              "pipelined": eng.render_frame_pipelined}.get(kind)
+        res = eng.flush_pipeline() if fn is None else fn(dt=0.0)
+        steps.append((kind, tuple(a - b for a, b in zip(counters(), before)),
+                      cap0, carried()))
+        return res
+
+    def check(res, ref, what):
+        if res is None or not bool(same_frame(torch, res, ref)):
+            raise AssertionError(f"{what} differs from the serial frame of "
+                                 f"its pose")
+
+    static = serial["static"]
+    torch.cuda.synchronize()
+    reset_counters()
+    emitted = 0
+    for i in range(3):
+        res = call("pipelined")
+        if res is not None:
+            check(res, static, f"pipelined static frame {emitted}")
+            emitted += 1
+    check(call("flush"), static, "the flushed static frame")
+    emitted += 1
+    times = {"serial": [], "pipelined": []}
+    for kind in ("serial", "pipelined", "pipelined", "serial"):
+        ok = torch.ones((), dtype=torch.bool, device=eng.device)
+        n_out = 0
+        if kind == "pipelined":
+            if call(kind) is not None:  # seed the empty pipeline
+                raise AssertionError("a seeding call emitted a frame")
+        torch.cuda.synchronize()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        ev0.record()
+        for _ in range(N_TIMED_PIPELINED):
+            res = call(kind)
+            if res is not None:
+                ok = ok & same_frame(torch, res, static)
+                n_out += 1
+        ev1.record()
+        ev1.synchronize()
+        times[kind].append((ev0.elapsed_time(ev1) / N_TIMED_PIPELINED,
+                            (time.perf_counter() - h0) * 1e3
+                            / N_TIMED_PIPELINED))
+        if kind == "pipelined":
+            ok = ok & same_frame(torch, call("flush"), static)
+            n_out += 1
+        # a pipelined block enters one frame more than it times: the seed
+        if not bool(ok) or n_out != N_TIMED_PIPELINED + (kind == "pipelined"):
+            raise AssertionError(f"a {kind} static frame differs from the "
+                                 f"serial frame ({n_out} emitted)")
+        if kind == "pipelined":
+            emitted += n_out
+    profiles = {}
+    for mode in ("serial", "pipelined"):
+        outs = []
+        profiles[mode] = profile_frames(
+            torch, lambda mode=mode: outs.append(call(mode)))
+        if mode == "pipelined":
+            outs.append(call("flush"))
+        outs = [r for r in outs if r is not None]
+        if len(outs) != 11 or not all(bool(same_frame(torch, r, static))
+                                      for r in outs):
+            raise AssertionError(f"a profiled {mode} frame differs from the "
+                                 f"serial frame")
+        emitted += len(outs) if mode == "pipelined" else 0
+    moving = serial["moving"]
+    j = 0
+    for pos, target in moving_poses():
+        eng.camera.position = pos
+        eng.camera.look_at(target)
+        res = call("pipelined")
+        if res is not None:
+            check(res, moving[j], f"pipelined moving frame {j}")
+            j += 1
+    check(call("flush"), moving[j], f"pipelined moving frame {j}")
+    j += 1
+    if j != len(moving) or call("flush") is not None:
+        raise AssertionError(f"{j} moving frames emitted for {len(moving)}")
+    emitted += j
+    torch.cuda.synchronize()
+    launches = counters()
+
+    # a serial frame launches K1 and K2; the first pipelined call on an
+    # empty pipeline seeds it (K1); a steady step, whose frame has the
+    # carried frame's gather cap, launches K3 once; a frame of another cap
+    # drains the carried frame serially and seeds again (K1 twice, K2); a
+    # flush of a carried frame is serial (K1, K2), of an empty one nothing
+    drains = steady = 0
+    for i, (kind, got, cap0, cap1) in enumerate(steps):
+        if kind == "serial":
+            want = (1, 1, 0)
+        elif kind == "flush":
+            want = (0, 0, 0) if cap0 is None else (1, 1, 0)
+        elif cap0 is None:
+            want = (1, 0, 0)
+        elif cap0 == cap1:
+            want, steady = (0, 0, 1), steady + 1
+        else:
+            want, drains = (2, 1, 0), drains + 1
+        if got != want:
+            raise AssertionError(f"call {i} ({kind}, cap {cap0} -> {cap1}) "
+                                 f"launched K1/K2/K3 {got}, expected {want}")
+    if (launches[2] != steady
+            or launches != tuple(map(sum, zip(*(g for _, g, _, _ in steps))))):
+        raise AssertionError(f"launches {launches} over the calls, "
+                             f"{steady} steady steps")
+    log(f"[8] frames in flight: {emitted} pipelined frames emitted in order, "
+        f"each equal to the serial frame of its pose bit for bit (colour, "
+        f"depth, stats[:2]); launches K1={launches[0]} K2={launches[1]} "
+        f"K3={launches[2]} over {len(steps)} calls; K3 launched once on "
+        f"each of the {steady} steady steps; {drains} bucket drains")
+    return launches, times, profiles
 
 
 # ------------------------------------------------------------- K1 / K2
@@ -267,17 +487,129 @@ def k2_compare(torch, raster, parity, rec, h, w):
     return verdict, err, int((c1 != c2).sum())
 
 
-def profile_frames(torch, eng, n: int = 10):
-    """Device time of ``n`` static frames under torch.profiler.
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations"): the larger of the bytes over
+    the memory rate and the float32 operations over the float32 rate."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k1_work(args, out) -> tuple[int, int]:
+    """(bytes, operations) of stage A over a stream: every input read once,
+    every output written once, K1_OPS_PER_QUAD per stream entry."""
+    return nbytes(*args, *out.values()), K1_OPS_PER_QUAD * args[0].shape[0]
+
+
+def item_boxes(torch, pipeline, step_args, step_kw, rec):
+    """Each binned item's screen bbox (x0, x1, y0, y1), inclusive pixels,
+    each i32[cap]: render_step on the same inputs again, with its tile-box
+    packer and its binner observed to map items to quads.  Raises unless
+    that call gives ``rec``'s records and its bby row."""
+    seen = {}
+    pack = pipeline.proj_ops.pack_tilebox
+    binner = pipeline.raster_ops.build_tile_lists
+
+    def pack_spy(*a, **kw):
+        seen["box"] = a
+        return pack(*a, **kw)
+
+    def bin_spy(*a, **kw):
+        out = binner(*a, **kw)
+        seen["flat"] = out[0].long()
+        return out
+
+    pipeline.proj_ops.pack_tilebox = pack_spy
+    pipeline.raster_ops.build_tile_lists = bin_spy
+    try:
+        again = pipeline._step_camf(*step_args, debug_return_records=True,
+                                    **step_kw)
+    finally:
+        pipeline.proj_ops.pack_tilebox = pack
+        pipeline.raster_ops.build_tile_lists = binner
+    x0, x1, y0, y1 = (b[seen["flat"]] for b in seen["box"])
+    if not (torch.equal(again[0], rec[0])
+            and torch.equal(y0 | (y1 << 16), rec[0][20])):
+        raise AssertionError("the items' boxes do not match the records")
+    return x0, x1, y0, y1
+
+
+def k2_work(torch, raster, rec, boxes, height, width):
+    """(bytes, operations, the busiest tile's operations, pixels the
+    kernel evaluates, pixels the inputs need) of the tile raster on these
+    records.  A tile's walk ends at the first 128-item boundary where the
+    suffix-min of near depth lies beyond every depth the tile holds so far
+    (the occlusion break: no later item can win a pixel); the depth at
+    each boundary comes from K2 on the segment prefixes.  An item of the
+    walk needs the pixels of its screen bbox (``boxes``) inside its tile,
+    K2_OPS_PER_PIXEL each, plus K2_OPS_PER_ITEM_COLUMN per column of that
+    box.  The kernel evaluates more: every column of its tile for each row
+    of its octet's row range."""
+    records, starts, counts, orows, ozmin = rec
+    out_h = -height % 16 + height
+    tiles_y, tiles_x = out_h // 16, width // 128
+    kw = dict(height=height, width=width, tile_h=16, tile_w=128, out_h=out_h)
+    st, ends = starts.long(), (starts + counts).long()
+    if not torch.equal(st, torch.cumsum(counts.long(), 0) - counts.long()):
+        raise AssertionError("the tile segments are not contiguous")
+    walked = ends.clone()
+    for b in range(128, int(ends.max()), 128):
+        active = (st < b) & (b < walked)
+        if not bool(active.any()):
+            continue
+        pc = torch.minimum(torch.clamp(b - st, min=0), counts.long())
+        _, depth = raster.rasterize_tiles(records, starts, pc.int(), orows,
+                                          ozmin, **kw)
+        dmax = depth.view(tiles_y, 16, tiles_x, 128).amax(dim=(1, 3))
+        brk = active & (ozmin[b >> 3] > dmax.reshape(-1))
+        walked = torch.where(brk, torch.full_like(walked, b), walked)
+
+    def per_tile(per_item):
+        cum = torch.cat([torch.zeros(1, dtype=torch.long,
+                                     device=per_item.device),
+                         torch.cumsum(per_item, 0)])
+        return cum[walked] - cum[st]
+
+    n_kept = int(ends[-1])
+    tile = torch.repeat_interleave(
+        torch.arange(tiles_y * tiles_x, device=counts.device), counts.long())
+    ty, tx = tile // tiles_x * 16, tile % tiles_x * 128
+    x0, x1, y0, y1 = (b[:n_kept].long() for b in boxes)
+    cols = torch.clamp(torch.minimum(x1, tx + 127) - torch.maximum(x0, tx)
+                       + 1, min=0)
+    rows = torch.clamp(torch.minimum(y1, ty + 15) - torch.maximum(y0, ty)
+                       + 1, min=0)
+    cols = torch.where(rows > 0, cols, 0)
+    ops = per_tile(cols * (rows * K2_OPS_PER_PIXEL + K2_OPS_PER_ITEM_COLUMN))
+    octet_rows = ((orows >> 8) - (orows & 0xFF) + 1).long()
+    evaluated = per_tile(octet_rows.repeat_interleave(8)[:n_kept] * 128)
+    n_items = int((walked - st).sum())
+    # an item reads its 20 record words; an octet of 8 items its row range
+    # and suffix-min word; the frame writes colour and depth
+    moved = (n_items * (20 * 4 + 1) + nbytes(starts, counts)
+             + out_h * width * 8)
+    return (moved, int(ops.sum()), int(ops.max()), int(evaluated.sum()),
+            int(per_tile(cols * rows).sum()))
+
+
+def profile_frames(torch, frame_fn, n: int = 10):
+    """Device time of ``n`` calls of ``frame_fn`` (a static frame) under
+    torch.profiler, after one unprofiled call.
 
     Returns (busy ms/frame: the union of the intervals of every device
     activity, summed device ms/frame, activities/frame, wall ms/frame of
-    the profiled frames between CUDA events, [(ms/frame, name)] largest
-    first), or None when the profiler saw no device activity."""
+    the profiled frames between CUDA events, [(ms/frame, name)] of device
+    activities largest first, [(host ms/frame, calls/frame, name)] of the
+    host's operators by self time, largest first), or None when the
+    profiler saw no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    eng.render_frame(dt=0.0)
+    frame_fn()
     torch.cuda.synchronize()
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
@@ -285,7 +617,7 @@ def profile_frames(torch, eng, n: int = 10):
                              ProfilerActivity.CUDA]) as prof:
         ev0.record()
         for _ in range(n):
-            eng.render_frame(dt=0.0)
+            frame_fn()
         ev1.record()
         ev1.synchronize()
     wall = ev0.elapsed_time(ev1) / n
@@ -304,7 +636,26 @@ def profile_frames(torch, eng, n: int = 10):
     total = sum(by_name.values())
     top = sorted(((us / n / 1e3, k) for k, us in by_name.items()),
                  reverse=True)
-    return busy / n / 1e3, total / n / 1e3, len(spans) / n, wall, top
+    host = sorted(((a.self_cpu_time_total / n / 1e3, a.count / n, a.key[:50])
+                   for a in prof.key_averages()), reverse=True)
+    return busy / n / 1e3, total / n / 1e3, len(spans) / n, wall, top, host
+
+
+def log_profile(phase: str, what: str, prof, ref_ms: float, card: str):
+    if prof is None:
+        log(f"[{phase}] device time, {what}: not measured (the profiler saw "
+            f"no device activity)")
+        return
+    busy, total, acts, wall, top, host = prof
+    log(f"[{phase}] {what} under torch.profiler (10 frames): device busy "
+        f"{busy:.4f} ms/frame (union of {acts:.0f} device activities; "
+        f"their sum {total:.4f} ms), wall {wall:.3f} ms/frame profiled; "
+        f"idle share {1 - busy / wall:.3f} of the profiled frame, "
+        f"{1 - busy / ref_ms:.3f} of the unprofiled {ref_ms:.3f} ms; {card}")
+    for ms, name in top[:10]:
+        log(f"[{phase}]   {ms:.4f} ms/frame  {name}")
+    for ms, calls, name in host[:8]:
+        log(f"[{phase}]   host {ms:.4f} ms/frame, {calls:.1f} calls  {name}")
 
 
 def main() -> int:
@@ -342,9 +693,13 @@ def main() -> int:
     secs = _build.build(force=True, verbose=True)
     _build.lib()
     log(f"[2] built {_build.LIB_PATH} in {secs:.1f} s")
+    fma = _build.ptx_fma_counts()
+    log(f"[2] floating-point multiply-adds in the PTX: {fma}")
+    if any(fma.values()):
+        raise AssertionError("a kernel's PTX contracts multiply-adds")
 
     # ---- 3. main path
-    eng, (uploads, vp0, cp0), launches, frame = main_path(torch)
+    eng, (uploads, vp0, cp0), launches, frame, serial = main_path(torch)
 
     # ---- 4. K1 vs twin
     r = eng.renderer
@@ -402,43 +757,126 @@ def main() -> int:
                out_h=HEIGHT)
     k2_ms = median_ms(lambda: raster.rasterize_tiles(*rec720, **rkw))
     k2_plain = median_ms(lambda: raster.rasterize_tiles_plain(*rec720, **rkw))
+    k1_run = median_ms(lambda: geometry.project_cull(*fk1, **gkw), batch=20)
+    k2_run = median_ms(lambda: raster.rasterize_tiles(*rec720, **rkw),
+                       batch=20)
     log(f"[6] K1 131072 quads: kernel {k1_ms:.4f} ms, twin {k1_plain:.4f} ms"
         f" (median of 20; {card})")
     log(f"[6] K2 1280x720 vd12 records: kernel {k2_ms:.4f} ms, twin "
         f"{k2_plain:.4f} ms (median of 20; {card})")
+    log(f"[6] in runs of 20 back-to-back calls: K1 {k1_run:.4f} ms, K2 "
+        f"{k2_run:.4f} ms per call (median of 20 runs; {card})")
     log(f"[6] static frame {frame['static_ms']:.3f} ms (CUDA events), "
         f"{frame['host_ms']:.3f} ms host clock; {card}")
 
     # ---- 7. where a static frame's device time goes
-    prof = profile_frames(torch, eng)
-    if prof is None:
-        log("[7] device time: not measured (the profiler saw no device "
-            "activity)")
-    else:
-        busy, total, acts, wall, top = prof
-        log(f"[7] static frame under torch.profiler (10 frames): device busy "
-            f"{busy:.4f} ms/frame (union of {acts:.0f} device activities; "
-            f"their sum {total:.4f} ms), wall {wall:.3f} ms/frame profiled; "
-            f"idle share {1 - busy / wall:.3f} of the profiled frame, "
-            f"{1 - busy / frame['static_ms']:.3f} of the unprofiled "
-            f"{frame['static_ms']:.3f} ms; {card}")
-        for ms, name in top[:10]:
-            log(f"[7]   {ms:.4f} ms/frame  {name}")
+    log_profile("7", "static frame", profile_frames(
+        torch, lambda: eng.render_frame(dt=0.0)), frame["static_ms"], card)
 
-    if "jax" in sys.modules:
-        raise AssertionError("a module of the run imported jax")
+    # ---- 8. frames in flight
+    launches8, times8, profiles8 = pipelined_path(torch, serial)
+    for mode, runs in times8.items():
+        log(f"[8] static frame, {mode}, blocks of {N_TIMED_PIPELINED}: "
+            + ", ".join(f"{ev:.3f} ms (CUDA events) / {host:.3f} ms (host)"
+                        for ev, host in runs) + f"; {card}")
+    log(f"[8] static frame, phase 3 serial (mean of {N_TIMED}): "
+        f"{frame['static_ms']:.3f} / {frame['host_ms']:.3f} ms; {card}")
+    for mode, prof in profiles8.items():
+        ref_ms = statistics.mean(ev for ev, _ in times8[mode])
+        log_profile("8", f"{mode} static frame", prof, ref_ms, card)
+    del serial
+
+    # ---- 9. K3 vs K2 + K1
+    c2, d2 = raster.rasterize_tiles(*rec720, **rkw)
+    cp2, dp2 = raster.rasterize_tiles_plain(*rec720, **rkw)
+    if not (torch.equal(c2, cp2) and torch.equal(d2, dp2)):
+        raise AssertionError("K2 differs from its plain version at vd12")
+    k3_err = 0.0
+    vd12 = (quads, qw, total, vp, cp)
+    for label, nxt in (("fuzzed 131072-quad", fk1), ("vd12", vd12)):
+        c3, d3, g3 = raster.rasterize_tiles(*rec720, next_geom=nxt, **rkw)
+        if not (torch.equal(c3, c2) and torch.equal(d3, d2)):
+            raise AssertionError(f"K3's frame differs from K2's ({label})")
+        for ref in (geometry.project_cull(*nxt, **gkw),
+                    geometry.project_cull_plain(*nxt, **gkw)):
+            for k in ("valid", "bbx", "bby", "subpixel"):
+                if not torch.equal(g3[k], ref[k]):
+                    raise AssertionError(f"K3 {k} differs from K1 ({label})")
+            a, b = g3["depth_near"], ref["depth_near"]
+            if not bool(((a.view(torch.int32) == b.view(torch.int32))
+                         | (torch.isnan(a) & torch.isnan(b))).all()):
+                raise AssertionError(f"K3 depth_near differs ({label})")
+            fin = torch.isfinite(a) & torch.isfinite(b)
+            if bool(fin.any()):
+                k3_err = max(k3_err, float((a - b).abs()[fin].max()))
+        fin = torch.isfinite(d3) & torch.isfinite(d2)
+        k3_err = max(k3_err, float((d3 - d2).abs()[fin].max()))
+        log(f"[9] K3, {label} next stream: frame equal to K2's and its "
+            f"plain version's, geometry equal to K1's and its plain "
+            f"version's, bit for bit ({int(g3['valid'].sum())} valid)")
+    def k3():
+        return raster.rasterize_tiles(*rec720, next_geom=fk1, **rkw)
+
+    def k2_k1():
+        return (raster.rasterize_tiles(*rec720, **rkw),
+                geometry.project_cull(*fk1, **gkw))
+
+    k3_ms, k21_ms = median_ms(k3), median_ms(k2_k1)
+    k3_run, k21_run = median_ms(k3, batch=20), median_ms(k2_k1, batch=20)
+    k3_plain = median_ms(lambda: (
+        raster.rasterize_tiles_plain(*rec720, **rkw),
+        geometry.project_cull_plain(*fk1, **gkw)), reps=5)
+    log(f"[9] K3 (vd12 records, 131072-quad next stream): {k3_ms:.4f} ms a "
+        f"call, {k3_run:.4f} ms in runs of 20; K2 + K1 launches "
+        f"{k21_ms:.4f} ms a call, {k21_run:.4f} ms in runs of 20 (medians "
+        f"of 20); plain version {k3_plain:.4f} ms (median of 5); {card}")
+
+    # ---- bounds, from this run's inputs
+    k1_bytes, k1_ops = k1_work(fk1, geometry.project_cull(*fk1, **gkw))
+    k1_bound, k1_by = bound(k1_bytes, k1_ops)
+    boxes = item_boxes(torch, pipeline, (quads, qw, total, static_cam),
+                       step_kw, rec720)
+    k2_bytes, k2_ops, k2_tile_ops, k2_evaluated, k2_needed = k2_work(
+        torch, raster, rec720, boxes, HEIGHT, WIDTH)
+    k2_bound, k2_by = bound(k2_bytes, k2_ops)
+    k2_tile_ms = k2_tile_ops / (F32_OPS_PER_S / N_SMS) * 1e3
+    k3_bound, k3_by = bound(k2_bytes + k1_bytes, k2_ops + k1_ops)
+    k3_tile_ms = k2_tile_ms + k1_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[9] bounds: K1 {k1_bound:.5f} ms ({k1_by}: {k1_bytes} bytes, "
+        f"{k1_ops} ops); K2 {k2_bound:.5f} ms ({k2_by}: {k2_bytes} bytes, "
+        f"{k2_ops} ops), busiest tile {k2_tile_ms:.5f} ms at one SM's share "
+        f"({k2_tile_ops} ops); K3 {k3_bound:.5f} ms ({k3_by}), busiest tile "
+        f"plus K1's bytes {k3_tile_ms:.5f} ms (H100 SXM data sheet peaks)")
+    log(f"[9] K2 on the vd12 records: the kernel evaluates {k2_evaluated} "
+        f"item-pixels, the items' boxes in their tiles hold {k2_needed} "
+        f"(both over the items the occlusion break leaves)")
+
+    ref_mods = [m for m in sys.modules if m == REF or m.startswith(REF + ".")]
+    if "jax" in sys.modules or ref_mods:
+        raise AssertionError(f"the run imported jax or the JAX package: "
+                             f"{ref_mods[:5]}")
 
     kernels = [
         dict(name="K1 stage A (project_cull)", route="cuda",
              source=f"{PKG}/csrc/geometry.cu",
              replaces=f"{REF}/ops/geometry_pallas.py:73",
-             launches=launches[0], max_abs_err=k1_err, ms=k1_ms,
-             plain_ms=k1_plain),
+             launches=launches[0], max_abs_err=k1_err, ms=k1_run,
+             plain_ms=k1_plain, bound_ms=k1_bound, bound_by=k1_by,
+             library_ms=None),
         dict(name="K2 tile raster (rasterize_tiles)", route="cuda",
              source=f"{PKG}/csrc/raster.cu",
              replaces=f"{REF}/ops/raster.py:1131",
-             launches=launches[1], max_abs_err=k2_err, ms=k2_ms,
-             plain_ms=k2_plain),
+             launches=launches[1], max_abs_err=k2_err, ms=k2_run,
+             plain_ms=k2_plain, bound_ms=k2_bound, bound_by=k2_by,
+             library_ms=None, tile_bound_ms=k2_tile_ms),
+        dict(name="K3 tile raster + next frame's stage A "
+                  "(rasterize_tiles next_geom)", route="cuda",
+             source=f"{PKG}/csrc/raster.cu",
+             replaces=f"{REF}/ops/raster.py:678",
+             launches=launches8[2], max_abs_err=k3_err, ms=k3_run,
+             plain_ms=k3_plain, bound_ms=k3_bound, bound_by=k3_by,
+             library_ms=None, tile_bound_ms=k3_tile_ms,
+             k2_plus_k1_ms=k21_run),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,22 +1,29 @@
 """differential_projection_voxel_renderer_tpu_torch -- the voxel renderer's
-default frame path in PyTorch, with hand-written CUDA kernels for Hopper.
+serial and frames-in-flight frame paths in PyTorch, with hand-written CUDA
+kernels for Hopper.
 
 A port of ``differential_projection_voxel_renderer_tpu`` (JAX/Pallas),
-which stays the reference it is tested against.  The host layers (world,
-camera, chunks, meshing, culling, shading tables) are imported from the
-reference package; this package owns everything that runs on the device:
+which stays the reference it is tested against.  The port imports nothing
+of it; it keeps its own copies of the reference's jax-free host layers,
+under the same sub-package names:
 
+- ``utils``, ``models``, ``meshing`` (with ``native/src``, the C++ mesher,
+  built at first use into ``build/native/``), ``ops/culling.py``,
+  ``ops/occlusion.py``, ``ops/shading.py``, ``ops/texture.py`` -- world,
+  camera, chunks, meshing, culling and shading tables, as in the reference
 - ``ops``       -- projection and coefficients, kernel K1 (stage A,
                    ``ops/geometry.py`` + ``csrc/geometry.cu``), tile
-                   binning and kernel K2 (the tile raster, ``ops/raster.py``
-                   + ``csrc/raster.cu``); each kernel has a plain PyTorch
-                   twin that runs for CPU tensors
+                   binning, kernel K2 (the tile raster) and kernel K3 (the
+                   raster with the next frame's stage A, frames in flight;
+                   ``ops/raster.py`` + ``csrc/raster.cu``); each kernel has
+                   a plain PyTorch twin that runs for CPU tensors
 - ``rendering`` -- the render step and the Renderer (``pipeline.py``), and
                    the frame parity gates (``parity.py``)
 - ``app``       -- QuadPool, Engine, FrameResult (``engine.py``)
 
-The kernels build with nvcc at first use (``_build.py``).  The package
-imports torch and never jax.
+The kernels build with nvcc at first use (``_build.py``).  The entry
+points run on the card unless the caller passes ``device="cpu"``.  The
+package imports torch and never jax.
 """
 
 __version__ = "0.1.0"

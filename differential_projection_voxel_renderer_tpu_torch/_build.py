@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/*.cu`` compile with ``nvcc`` into one shared library with a plain C
-interface, ``build/kernels/libdpvr_kernels.so`` beside the package (the
-``build/`` directory is not versioned).  The library is built at first use
-and rebuilt when a source is newer; it is loaded with ``ctypes``.  Nothing
-here runs when the package is imported, so machines without ``nvcc`` (the
-CPU test runs) import every module.
+``csrc/*.cu`` compile with ``nvcc``, one process per source, all started
+together, and link into one shared library with a plain C interface,
+``build/kernels/libdpvr_kernels.so`` beside the package (the ``build/``
+directory is not versioned).  The library is built at first use and
+rebuilt when a source or header is newer; it is loaded with ``ctypes``.
+Nothing here runs when the package is imported, so machines without
+``nvcc`` (the CPU test runs) import every module.
 
 Flags: ``sm_90a`` (Hopper), ``-fmad=false`` (no multiply-add contraction:
 the frame must round like the reference's separate multiplies and adds),
@@ -25,12 +26,13 @@ import time
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("geometry.cu", "raster.cu")
+HEADERS = ("stage_a.cuh",)
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 LIB_PATH = os.path.join(BUILD_DIR, "libdpvr_kernels.so")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-prec-div=true", "-prec-sqrt=true", "-ftz=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _LOCK = threading.Lock()
@@ -45,9 +47,13 @@ _SIGNATURES = {
     "dpvr_project_cull": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _P, _P, _P, _P, _P, _P),
     # (records[24, cap], cap, starts, counts, octet_rows, octet_zmin,
-    #  tiles_y, tiles_x, height, width, color, depth, stream)
+    #  tiles_y, tiles_x, height, width, color, depth, then the next
+    #  stream's stage A -- null pointers and gq2 0 for K2 -- quads2,
+    #  quad_world2[3, gq2], view_proj2[16], cam_pos2[3], n_quads2, gq2,
+    #  backface, valid, bbx, bby, depth_near, subpixel, and the stream)
     "dpvr_rasterize_tiles": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _P, _P, _P),
+                             _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                             _P, _P, _P, _P, _P, _P),
 }
 
 
@@ -64,7 +70,23 @@ def _stale() -> bool:
         return True
     built = os.path.getmtime(LIB_PATH)
     return any(os.path.getmtime(os.path.join(CSRC, s)) > built
-               for s in SOURCES)
+               for s in SOURCES + HEADERS)
+
+
+def _run_all(cmds) -> list[subprocess.CompletedProcess]:
+    """Run the commands at once; raise with their output if one fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    done = []
+    for cmd, p in zip(cmds, procs):
+        out, _ = p.communicate()
+        done.append(subprocess.CompletedProcess(cmd, p.returncode, out))
+    for d in done:
+        if d.returncode != 0:
+            raise RuntimeError("nvcc failed:\n" + " ".join(d.args) + "\n"
+                               + d.stdout)
+    return done
 
 
 def build(force: bool = False, verbose: bool = False) -> float:
@@ -74,18 +96,40 @@ def build(force: bool = False, verbose: bool = False) -> float:
         return 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", tmp, *(os.path.join(CSRC, s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError("nvcc failed:\n" + proc.stdout + proc.stderr)
-    if verbose:
-        print(proc.stdout + proc.stderr)
-    os.replace(tmp, LIB_PATH)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+        objs = [os.path.join(tmp_dir, s + ".o") for s in SOURCES]
+        compiled = _run_all([
+            [nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+             "-c", "-o", o, os.path.join(CSRC, s)]
+            for s, o in zip(SOURCES, objs)])
+        tmp = os.path.join(tmp_dir, "lib.so")
+        _run_all([[nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                   "-shared", "-o", tmp, *objs]])
+        if verbose:
+            print("".join(c.stdout for c in compiled))
+        os.replace(tmp, LIB_PATH)
     return time.perf_counter() - t0
+
+
+def _is_float_fma(line: str) -> bool:
+    op = line.split()[0] if line.strip() else ""
+    return op.startswith("fma.") or (op.startswith("mad.") and ".f" in op)
+
+
+def ptx_fma_counts() -> dict[str, int]:
+    """Compile each source to PTX with the build's flags and count its
+    floating-point multiply-add instructions (the rounding contract wants
+    none)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+        outs = [os.path.join(tmp_dir, s + ".ptx") for s in SOURCES]
+        _run_all([[nvcc(), *NVCC_FLAGS, "-ptx", "-o", o,
+                   os.path.join(CSRC, s)] for s, o in zip(SOURCES, outs)])
+        counts = {}
+        for s, o in zip(SOURCES, outs):
+            with open(o) as f:
+                counts[s] = sum(_is_float_fma(line) for line in f)
+    return counts
 
 
 def lib() -> ctypes.CDLL:

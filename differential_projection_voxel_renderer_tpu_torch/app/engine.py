@@ -2,53 +2,44 @@
 culling funnel and the per-frame render call.
 
 Counterpart of ``differential_projection_voxel_renderer_tpu/app/engine.py``
-on its default serial path.  The host logic (streaming, remeshing, the
-culling funnel, draw-list build, the pool's host bookkeeping) is carried
-over as it is, on the shared host layers of the reference package; only
-the device calls change.  Every device tensor lives on the ``device`` the
-engine was built with.  Not ported yet (they raise NotImplementedError):
-the resident superset stream, device meshing and frames in flight; the
-one-frame-stale pool mode is left out with them.
+on its serial path (``render_frame``) and in frames-in-flight mode
+(``render_frame_pipelined`` / ``flush_pipeline``).  The host logic
+(streaming, remeshing, the culling funnel, draw-list build, the pool's
+host bookkeeping) is carried over as it is, on the port's own copies of
+the host layers (``models``, ``meshing``, ``ops/culling.py``,
+``ops/occlusion.py``, ``utils``); only the device calls change.  Every
+device tensor lives on the ``device`` the engine was built with, the card
+unless the caller asks for the CPU.  Not ported yet (they raise
+NotImplementedError): the resident superset stream and device meshing;
+the one-frame-stale pool mode is left out with them.
 """
 
 from __future__ import annotations
 
+import collections
 import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from differential_projection_voxel_renderer_tpu.meshing.greedy import (
-    mesh_chunk,
-)
-from differential_projection_voxel_renderer_tpu.models.camera import (
-    Camera,
-    CameraController,
-)
-from differential_projection_voxel_renderer_tpu.models.world import (
-    World,
-    WorldConfig,
-)
-from differential_projection_voxel_renderer_tpu.ops.culling import (
+from ..meshing.greedy import mesh_chunk
+from ..models.camera import Camera, CameraController
+from ..models.world import World, WorldConfig
+from ..ops.culling import (
     HorizonCullingConfig,
     horizon_cull_mask,
     sort_front_to_back,
 )
-from differential_projection_voxel_renderer_tpu.ops.occlusion import (
-    occlusion_pass,
-    project_chunk_rects,
+from ..ops.occlusion import occlusion_pass, project_chunk_rects
+from ..rendering.pipeline import (
+    Renderer,
+    _c6_of,
+    apply_insert_payload,
+    resolve_device,
 )
-from differential_projection_voxel_renderer_tpu.utils.config import (
-    CHUNK_SIZE,
-    QUADS_PER_CHUNK_CAP,
-    RenderConfig,
-)
-from differential_projection_voxel_renderer_tpu.utils.profiling import (
-    FUNCTION_COUNTERS,
-)
-
-from ..rendering.pipeline import Renderer, _c6_of, apply_insert_payload
+from ..utils.config import CHUNK_SIZE, QUADS_PER_CHUNK_CAP, RenderConfig
+from ..utils.profiling import FUNCTION_COUNTERS
 
 # RenderConfig and WorldConfig are re-exported: a caller of the port builds
 # an Engine naming this package only
@@ -81,11 +72,11 @@ class QuadPool:
     INSERT_FP = Renderer.INSERT_FP
 
     def __init__(self, slots: int = 4096, qcap: int = QUADS_PER_CHUNK_CAP,
-                 *, device):
+                 *, device="cuda"):
         if slots > 32767:
             raise ValueError("QuadPool slots must be <= 32767 "
                              "(int16 draw-list upload)")
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.slots = slots
         self.qcap = qcap
         self.quads = torch.zeros((slots, qcap), dtype=torch.int32,
@@ -102,7 +93,8 @@ class QuadPool:
         self._lookup_cache: tuple | None = None
 
     @classmethod
-    def from_numpy(cls, quads, counts6, positions, by_pos, *, device):
+    def from_numpy(cls, quads, counts6, positions, by_pos, *,
+                   device="cuda"):
         """A pool holding the given state: ``quads`` u32[S, Q] rows,
         ``counts6`` i32[S, 6] per-direction counts, ``positions`` i32[S, 3],
         ``by_pos`` {chunk position: slot}.  The free list holds the unused
@@ -343,12 +335,12 @@ class Engine:
                  pool_slots: int = 4096,
                  horizon_config: HorizonCullingConfig | None = None,
                  device_meshing: bool = False,
-                 resident_stream: bool | None = None, *, device):
+                 resident_stream: bool | None = None, *, device="cuda"):
         if resident_stream:
             raise NotImplementedError("resident_stream is not ported yet")
         if device_meshing:
             raise NotImplementedError("device_meshing is not ported yet")
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.config = render_config or RenderConfig()
         self.world = World(world_config or WorldConfig(
             view_distance=12, frustum_culling=True, max_chunks_per_frame=16))
@@ -377,6 +369,9 @@ class Engine:
         # (QuadPool.prepare_insert_payload + render_fused_insert)
         self.fused_insert = True
         self._pending_insert: np.ndarray | None = None
+        # (rendered meshes, visible chunks) of each entered but not yet
+        # emitted frame (render_frame_pipelined)
+        self._pipe_meta: collections.deque = collections.deque()
 
     # ------------------------------------------------------------- meshing
     def _remesh(self, visible_chunks) -> int:
@@ -539,6 +534,11 @@ class Engine:
         """One serial frame: funnel, then one of the three device entry
         points -- render_fused_insert (a remesh batch rides the frame),
         render_prepared (draw list unchanged) or render_fused."""
+        if (self.renderer._pipe_carry is not None
+                or self.renderer._pipe_done is not None):
+            raise RuntimeError(
+                "frames-in-flight pipeline is non-empty; call "
+                "flush_pipeline() before mixing in serial render_frame")
         frame_t0 = time.perf_counter()
         vp, sig, n, n_visible_meshes, _cam_same = self._funnel(dt)
         cam = self.camera
@@ -581,8 +581,54 @@ class Engine:
         self._frame_bookkeeping(stats, n, frame_t0)
         return FrameResult(color, depth, stats, n, n_visible_meshes)
 
-    def render_frame_pipelined(self, dt: float = 0.016):
-        raise NotImplementedError("frames in flight are not ported yet")
+    def render_frame_pipelined(self, dt: float = 0.016) -> FrameResult | None:
+        """Frames-in-flight frame: run this frame's funnel, enter it with
+        its stage A in the previous frame's raster launch (kernel K3;
+        rendering/pipeline.py render_*_pipelined), and return the previous
+        frame's FrameResult, or None on the first call.  Drain the last
+        frame with flush_pipeline().  Every emitted frame equals
+        render_frame's for the same camera sequence bit for bit, one frame
+        later."""
+        frame_t0 = time.perf_counter()
+        vp, sig, n, n_visible_meshes, _cam_same = self._funnel(dt)
+        cam = self.camera
+        if self._pending_insert is not None:
+            # the fused insert+render path is serial-only: apply the batch
+            # with the standalone scatter, in place, before the step; the
+            # carried frame's stream is a gathered copy, not a view of the
+            # pool, so the scatter cannot change it
+            self.pool.dispatch_insert_payload(self._pending_insert)
+            self._pending_insert = None
+        if (self._upload_cache is not None
+                and self._upload_cache[0] == sig
+                and self._upload_cache[1] is not None):
+            out = self.renderer.render_prepared_pipelined(
+                self._upload_cache[1], vp, cam.position)
+        else:
+            out, uploads = self.renderer.render_fused_pipelined(
+                self.pool.quads, self._last_visible_slots,
+                self._last_counts_sel, self._last_positions_sel,
+                vp, cam.position, dir_mask=self._last_dir_mask,
+                counts6_dev=self.pool.counts6_dev)
+            self._upload_cache = (sig, uploads)
+        self._pipe_meta.append((n, n_visible_meshes))
+        if out is None:
+            return None
+        color, depth, stats = out
+        pn, pv = self._pipe_meta.popleft()
+        self._frame_bookkeeping(stats, pn, frame_t0)
+        return FrameResult(color, depth, stats, pn, pv)
+
+    def flush_pipeline(self) -> FrameResult | None:
+        """Drain the frames-in-flight pipeline: render and return the
+        pending frame (None when the pipeline is empty)."""
+        out = self.renderer.pipeline_flush()
+        if out is None:
+            self._pipe_meta.clear()
+            return None
+        color, depth, stats = out
+        pn, pv = self._pipe_meta.popleft()
+        return FrameResult(color, depth, stats, pn, pv)
 
     def _frame_bookkeeping(self, stats, n, frame_t0) -> None:
         if FUNCTION_COUNTERS.enabled:

@@ -13,8 +13,8 @@
 //
 // What bounds it on an H100: arithmetic and instruction throughput, not
 // memory.  A tile reads 80 bytes per item once (~8 MB per 720p frame at
-// ~100k items) but evaluates up to 2048 pixels per item (~40 flops each, plus an IEEE
-// divide on covered pixels).  The design keeps the tile's colour and depth
+// ~100k items) but evaluates up to 2048 pixels per item (22 float ops
+// each, plus an IEEE divide on covered pixels).  The design keeps the tile's colour and depth
 // in registers (256 threads x 8 pixels: thread = one column, rows
 // g, g+2, .., g+14 for g = thread / 128, so short items still spread over
 // both halves of the block), stages the segment's records through shared
@@ -26,6 +26,21 @@
 // items' near depth (octet_zmin) lies beyond it: the exact occlusion break
 // of the TPU kernel, which only skips items that cannot win a pixel.
 //
+// K3: K2 and the next frame's stage A in one launch of the same kernel
+// (raster_kernel), for frames in flight.  Replaces `_fused_geom_pass` of
+// the same TPU file, which runs the geometry kernel's math inside the
+// raster call.  On the TPU the point was a flat per-call dispatch cost;
+// here it is the raster's tail: K2 lasts as long as its busiest tile's
+// serial walk, and most SMs idle while that tile finishes.  So the grid
+// is heterogeneous: blocks [0, n_tiles) run the tile raster (raster_tile),
+// and the blocks after them (none for K2) run stage A, one quad per
+// thread, with the same stage_a_quad as K1 (stage_a.cuh), so K3's
+// geometry equals K1's bit for bit.  Blocks are dispatched in index
+// order, so the tile blocks start first and the stage-A blocks fill the
+// SMs the tiles leave free.  What bounds it: K2's busiest tile plus K1's
+// bytes.  Stage-A blocks use no shared memory beyond the kernel's static
+// tile buffers and return before the tile code's barriers.
+//
 // Rounding contract: compiled with -fmad=false, IEEE division and no fast
 // math; the pixel NDC and the plane evaluations keep the reference's
 // operation order, with the column products a*nx hoisted per item exactly
@@ -33,6 +48,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "stage_a.cuh"
 
 namespace {
 
@@ -58,20 +75,24 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   return m;
 }
 
-__global__ void __launch_bounds__(kThreads)
-raster_tiles_kernel(const int* __restrict__ rec, int cap,
-                    const int* __restrict__ starts,
-                    const int* __restrict__ counts,
-                    const int* __restrict__ orows,
-                    const float* __restrict__ ozmin, int tiles_x, int height,
-                    int width, int* __restrict__ color_out,
-                    float* __restrict__ depth_out) {
-  __shared__ float sf[16][kChunk];
-  __shared__ int si[4][kChunk];
-  __shared__ int srow[kChunk];
-  __shared__ float red[kThreads / 32];
+// Shared memory of one tile block.
+struct TileSmem {
+  float sf[16][kChunk];
+  int si[4][kChunk];
+  int srow[kChunk];
+  float red[kThreads / 32];
+};
 
-  const int t = blockIdx.x;
+// Tile t of the frame, by the whole block.
+__device__ __forceinline__ void raster_tile(
+    int t, TileSmem& sm, const int* __restrict__ rec, int cap,
+    const int* __restrict__ starts, const int* __restrict__ counts,
+    const int* __restrict__ orows, const float* __restrict__ ozmin,
+    int tiles_x, int height, int width, int* __restrict__ color_out,
+    float* __restrict__ depth_out) {
+  float(&sf)[16][kChunk] = sm.sf;
+  int(&si)[4][kChunk] = sm.si;
+  int(&srow)[kChunk] = sm.srow;
   const int ty = t / tiles_x, tx = t - ty * tiles_x;
   const int start = starts[t];
   const int end = start + counts[t];
@@ -97,7 +118,7 @@ raster_tiles_kernel(const int* __restrict__ rec, int cap,
       float m = D[0];
 #pragma unroll
       for (int j = 1; j < kRowsPerThread; ++j) m = fmaxf(m, D[j]);
-      const float dmax = block_max(m, red);
+      const float dmax = block_max(m, sm.red);
       if (ozmin[base >> 3] > dmax) break;
     }
     const int lo = start > base ? start : base;
@@ -170,23 +191,71 @@ raster_tiles_kernel(const int* __restrict__ rec, int cap,
   }
 }
 
+// K2 and K3: blocks [0, n_tiles) are the tile blocks; with gq2 > 0 (K3)
+// the blocks past them run stage A of the next frame's stream, one quad
+// per thread.
+__global__ void __launch_bounds__(kThreads)
+raster_kernel(const int* __restrict__ rec, int cap,
+              const int* __restrict__ starts,
+              const int* __restrict__ counts,
+              const int* __restrict__ orows,
+              const float* __restrict__ ozmin, int n_tiles, int tiles_x,
+              int height, int width, int* __restrict__ color_out,
+              float* __restrict__ depth_out,
+              const int* __restrict__ quads2,
+              const float* __restrict__ wx2,
+              const float* __restrict__ wy2,
+              const float* __restrict__ wz2,
+              const float* __restrict__ view_proj2,
+              const float* __restrict__ cam_pos2,
+              const int* __restrict__ n_quads2, int gq2, int backface,
+              unsigned char* __restrict__ valid_out,
+              int* __restrict__ bbx_out, int* __restrict__ bby_out,
+              float* __restrict__ dn_out, int* __restrict__ sub_out) {
+  __shared__ TileSmem sm;
+  if ((int)blockIdx.x >= n_tiles) {
+    const int i = ((int)blockIdx.x - n_tiles) * kThreads + threadIdx.x;
+    if (i < gq2)
+      stage_a_quad(i, quads2, wx2, wy2, wz2, view_proj2, cam_pos2, n_quads2,
+                   nullptr, width, height, backface, valid_out, bbx_out,
+                   bby_out, dn_out, sub_out);
+    return;
+  }
+  raster_tile(blockIdx.x, sm, rec, cap, starts, counts, orows, ozmin,
+              tiles_x, height, width, color_out, depth_out);
+}
+
 }  // namespace
 
-extern "C" int dpvr_rasterize_tiles(const void* records, int cap,
-                                    const void* starts, const void* counts,
-                                    const void* octet_rows,
-                                    const void* octet_zmin, int tiles_y,
-                                    int tiles_x, int height, int width,
-                                    void* color, void* depth, void* stream) {
+// K2: the tile raster, with gq2 == 0 and the stage-A pointers null.  K3:
+// the same and, in the same launch, stage A of the next frame's stream
+// (quads2, quad_world2 f32[3, gq2], view_proj2 f32[16], cam_pos2 f32[3],
+// device scalar n_quads2) into valid/bbx/bby/dn/sub [gq2]
+extern "C" int dpvr_rasterize_tiles(
+    const void* records, int cap, const void* starts, const void* counts,
+    const void* octet_rows, const void* octet_zmin, int tiles_y, int tiles_x,
+    int height, int width, void* color, void* depth, const void* quads2,
+    const void* quad_world2, const void* view_proj2, const void* cam_pos2,
+    const void* n_quads2, int gq2, int backface, void* valid, void* bbx,
+    void* bby, void* dn, void* sub, void* stream) {
   const int n_tiles = tiles_y * tiles_x;
-  if (n_tiles > 0) {
-    raster_tiles_kernel<<<n_tiles, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+  const int geom_blocks = (gq2 + kThreads - 1) / kThreads;
+  const float* qw = static_cast<const float*>(quad_world2);
+  if (n_tiles + geom_blocks > 0) {
+    raster_kernel<<<n_tiles + geom_blocks, kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(records), cap,
         static_cast<const int*>(starts), static_cast<const int*>(counts),
         static_cast<const int*>(octet_rows),
-        static_cast<const float*>(octet_zmin), tiles_x, height, width,
-        static_cast<int*>(color), static_cast<float*>(depth));
+        static_cast<const float*>(octet_zmin), n_tiles, tiles_x, height,
+        width, static_cast<int*>(color), static_cast<float*>(depth),
+        static_cast<const int*>(quads2), qw, qw + gq2, qw + 2 * (size_t)gq2,
+        static_cast<const float*>(view_proj2),
+        static_cast<const float*>(cam_pos2),
+        static_cast<const int*>(n_quads2), gq2, backface,
+        static_cast<unsigned char*>(valid), static_cast<int*>(bbx),
+        static_cast<int*>(bby), static_cast<float*>(dn),
+        static_cast<int*>(sub));
   }
   return (int)cudaGetLastError();
 }

@@ -25,6 +25,35 @@ def device_i32(x, device) -> torch.Tensor:
     return torch.full((), int(x), dtype=torch.int32, device=device)
 
 
+def kernel_inputs(quads, quad_world, n_quads, view_proj, cam_pos):
+    """Checked stage-A inputs for a kernel launch (K1, or K3's next
+    stream): (quads, quad_world, view_proj, cam_pos, n_quads), contiguous
+    device tensors of the kernel's types on the quads' device."""
+    gq = quads.shape[0]
+    dev = quads.device
+    if quads.dtype != torch.int32 or not quads.is_contiguous():
+        raise ValueError("quads must be a contiguous int32 tensor")
+    qw = quad_world
+    if (not isinstance(qw, torch.Tensor) or qw.shape != (3, gq)
+            or qw.dtype != torch.float32 or qw.device != dev):
+        raise ValueError("quad_world must be f32[3, GQ] on the quads' device")
+    vp = view_proj.to(dev, torch.float32).contiguous()
+    cam = cam_pos.to(dev, torch.float32).contiguous()
+    if vp.numel() != 16 or cam.numel() != 3:
+        raise ValueError("view_proj must hold 16 floats and cam_pos 3")
+    return quads, qw.contiguous(), vp, cam, device_i32(n_quads, dev)
+
+
+def kernel_outputs(gq: int, device) -> dict[str, torch.Tensor]:
+    """Stage-A output tensors for a kernel launch, in its argument order."""
+    return dict(
+        valid=torch.empty(gq, dtype=torch.bool, device=device),
+        bbx=torch.empty(gq, dtype=torch.int32, device=device),
+        bby=torch.empty(gq, dtype=torch.int32, device=device),
+        depth_near=torch.empty(gq, dtype=torch.float32, device=device),
+        subpixel=torch.empty(gq, dtype=torch.int32, device=device))
+
+
 def project_cull_plain(quads, quad_world, n_quads, view_proj, cam_pos, *,
                        width: int, height: int, backface_culling: bool = True,
                        skip_quads=0):
@@ -65,31 +94,15 @@ def project_cull(quads, quad_world, n_quads, view_proj, cam_pos, *,
     global launches
     from .. import _build
 
-    gq = quads.shape[0]
-    dev = quads.device
-    if quads.dtype != torch.int32 or not quads.is_contiguous():
-        raise ValueError("quads must be a contiguous int32 tensor")
-    qw = quad_world
-    if (not isinstance(qw, torch.Tensor) or qw.shape != (3, gq)
-            or qw.dtype != torch.float32 or qw.device != dev):
-        raise ValueError("quad_world must be f32[3, GQ] on the quads' device")
-    qw = qw.contiguous()
-    vp = view_proj.to(dev, torch.float32).contiguous()
-    cam = cam_pos.to(dev, torch.float32).contiguous()
-    nq = device_i32(n_quads, dev)
+    ins = kernel_inputs(quads, quad_world, n_quads, view_proj, cam_pos)
     skip = (None if isinstance(skip_quads, int) and skip_quads == 0
-            else device_i32(skip_quads, dev))
-    valid = torch.empty(gq, dtype=torch.bool, device=dev)
-    bbx = torch.empty(gq, dtype=torch.int32, device=dev)
-    bby = torch.empty(gq, dtype=torch.int32, device=dev)
-    dn = torch.empty(gq, dtype=torch.float32, device=dev)
-    sub = torch.empty(gq, dtype=torch.int32, device=dev)
+            else device_i32(skip_quads, quads.device))
+    out = kernel_outputs(quads.shape[0], quads.device)
     err = _build.lib().dpvr_project_cull(
-        quads.data_ptr(), qw.data_ptr(), vp.data_ptr(), cam.data_ptr(),
-        nq.data_ptr(), None if skip is None else skip.data_ptr(),
-        gq, width, height, int(backface_culling), valid.data_ptr(),
-        bbx.data_ptr(), bby.data_ptr(), dn.data_ptr(), sub.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        *(x.data_ptr() for x in ins),
+        None if skip is None else skip.data_ptr(), quads.shape[0], width,
+        height, int(backface_culling), *(x.data_ptr() for x in out.values()),
+        torch.cuda.current_stream(quads.device).cuda_stream)
     _build.check(err, "project_cull")
     launches += 1
-    return dict(valid=valid, bbx=bbx, bby=bby, depth_near=dn, subpixel=sub)
+    return out

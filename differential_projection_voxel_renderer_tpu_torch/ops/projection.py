@@ -18,10 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from differential_projection_voxel_renderer_tpu.utils.config import (
-    MIN_TRIANGLE_AREA,
-    NEAR_W_EPS,
-)
+from ..utils.config import MIN_TRIANGLE_AREA, NEAR_W_EPS
 
 # Per-face chunk-local axes (ops/projection.py of the reference package):
 # faces 0..5 are +X,-X,+Y,-Y,+Z,-Z; the 3-bit face field can hold 6 and 7,

@@ -10,7 +10,10 @@ Counterpart of ``differential_projection_voxel_renderer_tpu/ops/raster.py``:
 - ``rasterize_tiles`` launches K2 for CUDA tensors and runs its plain twin
   ``rasterize_tiles_plain`` for CPU tensors.  The twin loops over the item
   RANK within a tile, batched over all tiles, so it takes about
-  ``max(tile_counts)`` steps of [T, 16, 128] tensor ops.
+  ``max(tile_counts)`` steps of [T, 16, 128] tensor ops.  Given the next
+  frame's stream (``next_geom``, frames in flight) it launches K3 instead,
+  the raster and the next frame's stage A in one kernel, whose plain
+  version is the twin followed by ``geometry.project_cull_plain``.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from differential_projection_voxel_renderer_tpu.utils.config import SKY_COLOR
+from ..utils.config import SKY_COLOR
+from . import geometry as geom_ops
 
 F_FIELDS = (
     "a00", "a01", "a02", "a10", "a11", "a12", "a20", "a21", "a22",
@@ -29,8 +33,9 @@ REC_FIELDS = F_FIELDS + I_FIELDS
 SKY_I32 = int(np.uint32(SKY_COLOR).astype(np.int32))
 U32_MASK = 0xFFFFFFFF
 
-# launches of the CUDA kernel (not of the twin)
+# launches of the CUDA kernels K2 and K3 (not of their plain versions)
 launches = 0
+launches_geom = 0
 
 
 def pick_tile(height: int, width: int) -> tuple[int, int]:
@@ -283,7 +288,8 @@ def rasterize_tiles_plain(records, tile_starts, tile_counts, octet_rows,
 
 def rasterize_tiles(records, tile_starts, tile_counts, octet_rows,
                     octet_zmin, *, height: int, width: int, tile_h: int,
-                    tile_w: int, out_h: int):
+                    tile_w: int, out_h: int, next_geom=None,
+                    backface_culling: bool = True):
     """Blend every tile's segment of the binned item stream.
 
     ``records`` i32[24, cap]: rows 0-15 the f32 blend fields (bitcast),
@@ -293,13 +299,24 @@ def rasterize_tiles(records, tile_starts, tile_counts, octet_rows,
     range (r0 | r1 << 8) of each aligned group of 8 items; ``octet_zmin``
     f32[cap/8] the suffix-min of near depth from each group to the end of
     its tile's segment.  Returns (color i32, depth f32), each
-    [out_h, width]; NDC uses the true ``height``."""
+    [out_h, width]; NDC uses the true ``height``.
+
+    ``next_geom`` (frames in flight) = (quads2 i32[GQ2], quad_world2
+    f32[3, GQ2], n2, view_proj2 f32[4, 4], cam_pos2 f32[3]), the next
+    frame's stream and camera: its stage A (at this frame's width and
+    height, ``backface_culling``) runs in the same call -- kernel K3 on the
+    card -- and a third output is ``geometry.project_cull``'s dict on it."""
     if records.device.type != "cuda":
-        return rasterize_tiles_plain(
+        color, depth = rasterize_tiles_plain(
             records, tile_starts, tile_counts, octet_rows, octet_zmin,
             height=height, width=width, tile_h=tile_h, tile_w=tile_w,
             out_h=out_h)
-    global launches
+        if next_geom is None:
+            return color, depth
+        return color, depth, geom_ops.project_cull_plain(
+            *next_geom, width=width, height=height,
+            backface_culling=backface_culling)
+    global launches, launches_geom
     from .. import _build
 
     _check_records(records, tile_starts, tile_counts, octet_rows,
@@ -313,11 +330,27 @@ def rasterize_tiles(records, tile_starts, tile_counts, octet_rows,
             raise ValueError("rasterize_tiles: wrong dtype or device")
     color = torch.empty((out_h, width), dtype=torch.int32, device=dev)
     depth = torch.empty((out_h, width), dtype=torch.float32, device=dev)
-    err = _build.lib().dpvr_rasterize_tiles(
+    raster_args = (
         ins[0].data_ptr(), records.shape[1], ins[1].data_ptr(),
         ins[2].data_ptr(), ins[3].data_ptr(), ins[4].data_ptr(),
         out_h // tile_h, width // tile_w, height, width, color.data_ptr(),
-        depth.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "rasterize_tiles")
-    launches += 1
-    return color, depth
+        depth.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if next_geom is None:
+        err = _build.lib().dpvr_rasterize_tiles(
+            *raster_args, *(None,) * 5, 0, int(backface_culling),
+            *(None,) * 5, stream)
+        _build.check(err, "rasterize_tiles")
+        launches += 1
+        return color, depth
+    gin = geom_ops.kernel_inputs(*next_geom)
+    if gin[0].device != dev:
+        raise ValueError("rasterize_tiles: next_geom on another device")
+    geom = geom_ops.kernel_outputs(gin[0].shape[0], dev)
+    err = _build.lib().dpvr_rasterize_tiles(
+        *raster_args, *(x.data_ptr() for x in gin), gin[0].shape[0],
+        int(backface_culling), *(x.data_ptr() for x in geom.values()),
+        stream)
+    _build.check(err, "rasterize_tiles (K3)")
+    launches_geom += 1
+    return color, depth, geom

@@ -13,15 +13,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from differential_projection_voxel_renderer_tpu.meshing.greedy import mesh_chunk
-from differential_projection_voxel_renderer_tpu.models.camera import Camera
-from differential_projection_voxel_renderer_tpu.models.chunk import Chunk
-from differential_projection_voxel_renderer_tpu.ops.shading import (
-    build_quad_color_tables,
-)
-from differential_projection_voxel_renderer_tpu.ops.texture import TextureAtlas
-
+from ..meshing.greedy import mesh_chunk
+from ..models.camera import Camera
+from ..models.chunk import Chunk
 from ..ops import projection
+from ..ops.shading import build_quad_color_tables
+from ..ops.texture import TextureAtlas
 
 
 def assert_kernel_parity(c1, d1, c2, d2):

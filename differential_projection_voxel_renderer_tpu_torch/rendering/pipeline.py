@@ -17,6 +17,11 @@ Counterpart of the production branch of
                 depth (the occlusion-break key)
 6. raster    -- kernel K2 (ops/raster.rasterize_tiles), then the crop
 
+Frames in flight (``Renderer.render_*_pipelined``): a step renders frame
+N-1 from its carried stage-A result (``pre_geom``) and computes frame N's
+stage A in the same raster launch (``next_geom``, kernel K3); the frames
+equal the serial step's bit for bit, one frame later.
+
 PyTorch runs eagerly, so there is no jit and no trace-time knob: the
 capacity buckets only size the tensors.  Capacities are static, so a step
 makes no host sync; ``n_quads``, the counts and the totals stay on the
@@ -29,17 +34,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from differential_projection_voxel_renderer_tpu.ops.shading import (
-    build_quad_color_tables,
-)
-from differential_projection_voxel_renderer_tpu.ops.texture import TextureAtlas
-from differential_projection_voxel_renderer_tpu.utils.config import (
-    RenderConfig,
-)
-
 from ..ops import geometry as geom_ops
 from ..ops import projection as proj_ops
 from ..ops import raster as raster_ops
+from ..ops.shading import build_quad_color_tables
+from ..ops.texture import TextureAtlas
+from ..utils.config import RenderConfig
 
 U32 = raster_ops.U32_MASK
 
@@ -49,11 +49,31 @@ def _to_i32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device.  The port's entry points run on the
+    card unless the caller asks for the CPU: a CUDA device that is not
+    there raises, nothing falls back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the "
+            "CPU")
+    return dev
+
+
+def _pre_geom_of(ga):
+    """K1/K3 output dict -> the pre_geom tuple (valid, bbx, bby,
+    depth_near, subpix_total)."""
+    return (ga["valid"], ga["bbx"], ga["bby"], ga["depth_near"],
+            ga["subpixel"].sum(dtype=torch.int32))
+
+
 def render_step(quads, quad_world, n_quads, view_proj, cam_pos, *,
                 color_tables, width: int, height: int, tile_h: int,
                 tile_w: int, render_cap: int,
                 backface_culling: bool = True, tile_k_cap: int = 8192,
-                debug_return_records: bool = False):
+                debug_return_records: bool = False, pre_geom=None,
+                next_geom=None):
     """One frame from the gathered stream: ``quads`` i32[GQ] words,
     ``quad_world`` f32[3, GQ], ``n_quads`` i32 scalar, ``view_proj``
     f32[4, 4], ``cam_pos`` f32[3] (all on one device); ``color_tables``
@@ -61,18 +81,29 @@ def render_step(quads, quad_world, n_quads, view_proj, cam_pos, *,
     depth f32[H, W], stats i32[6] = [gathered, rasterized, overflow,
     bin_overflow, subpixel_culled, 0]).  ``debug_return_records`` returns
     the raster's inputs (records, tile_starts, tile_counts, octet_rows,
-    octet_zmin) instead."""
+    octet_zmin) instead.
+
+    Frames in flight: ``pre_geom`` = (valid, bbx, bby, depth_near,
+    subpix_total), this stream's stage A computed earlier, skips stage A
+    (``valid`` is masked with the stream range); ``next_geom`` = (quads2,
+    quad_world2, n2, view_proj2, cam_pos2) computes the next frame's stage
+    A in the raster call (K3) and returns its pre_geom tuple as a fourth
+    output."""
+    if next_geom is not None and debug_return_records:
+        raise ValueError("next_geom cannot return the raster's inputs")
     dev = quads.device
     gq = quads.shape[0]
     i32 = torch.int32
     n_quads = geom_ops.device_i32(n_quads, dev)
 
-    ga = geom_ops.project_cull(quads, quad_world, n_quads, view_proj,
-                               cam_pos, width=width, height=height,
-                               backface_culling=backface_culling)
-    valid_a, bbx_a, bby_a, dn_a = (ga["valid"], ga["bbx"], ga["bby"],
-                                   ga["depth_near"])
-    subpix_total = ga["subpixel"].sum(dtype=i32)
+    if pre_geom is None:
+        valid_a, bbx_a, bby_a, dn_a, subpix_total = _geom_stage(
+            quads, quad_world, n_quads, view_proj, cam_pos, width=width,
+            height=height, backface_culling=backface_culling)
+    else:
+        valid_a, bbx_a, bby_a, dn_a, subpix_total = pre_geom
+        valid_a = valid_a & (torch.arange(gq, dtype=i32, device=dev)
+                             < n_quads)
     count = valid_a.sum(dtype=i32)
 
     out_h = -height % tile_h + height  # pad to a tile multiple
@@ -149,15 +180,18 @@ def render_step(quads, quad_world, n_quads, view_proj, cam_pos, *,
     if debug_return_records:
         return records, tile_starts, tile_counts, octet_rows, octet_zmin
 
-    color, depth = raster_ops.rasterize_tiles(
+    out = raster_ops.rasterize_tiles(
         records, tile_starts, tile_counts, octet_rows, octet_zmin,
         height=height, width=width, tile_h=tile_h, tile_w=tile_w,
-        out_h=out_h)
+        out_h=out_h, next_geom=next_geom, backface_culling=backface_culling)
+    color, depth = out[:2]
     if out_h != height:
         color, depth = color[:height], depth[:height]
     stats = torch.stack([n_quads, count, overflow, bin_overflow,
                          subpix_total, torch.zeros((), dtype=i32,
                                                    device=dev)])
+    if next_geom is not None:
+        return color, depth, stats, _pre_geom_of(out[2])
     return color, depth, stats
 
 
@@ -361,6 +395,60 @@ def _fused_frame_insert(quad_pool, counts6_pool, frame_u, *, vcap: int,
     return quad_pool, counts6_pool, color, depth, stats
 
 
+def _geom_stage(quads, quad_world, n_quads, view_proj, cam_pos, *,
+                width: int, height: int, backface_culling: bool):
+    """Stage A alone -> the pre_geom tuple; seeds the frames-in-flight
+    pipeline (a steady step gets it from K3)."""
+    return _pre_geom_of(geom_ops.project_cull(
+        quads, quad_world, n_quads, view_proj, cam_pos, width=width,
+        height=height, backface_culling=backface_culling))
+
+
+def _geom_camf(quads, quad_world, n_quads, cam_f, **geom_kw):
+    view_proj, cam_pos = _unpack_cam(cam_f)
+    return _geom_stage(quads, quad_world, n_quads, view_proj, cam_pos,
+                       **geom_kw)
+
+
+def _pipe_step_camf(quads_p, qw_p, n_p, cam_p, pre_p, quads_c, qw_c, n_c,
+                    cam_c, **step_kw):
+    """Frames-in-flight step: render frame N-1 (its stream, camera and
+    carried ``pre_p``) and compute frame N's stage A in the same raster
+    launch (K3).  Returns (color, depth, stats) of frame N-1 and frame N's
+    pre_geom."""
+    vp_p, cp_p = _unpack_cam(cam_p)
+    vp_c, cp_c = _unpack_cam(cam_c)
+    return render_step(quads_p, qw_p, n_p, vp_p, cp_p, pre_geom=pre_p,
+                       next_geom=(quads_c, qw_c, n_c, vp_c, cp_c), **step_kw)
+
+
+def _pipe_fused5(quad_pool, counts6_pool, meta_i, cam_c, quads_p, qw_p, n_p,
+                 cam_p, pre_p, *, vcap: int, gather_cap: int, **step_kw):
+    """Frames-in-flight step with the CURRENT frame's draw-list expansion
+    (META5): expansion(N) + render(N-1) + stage A(N).  Returns (color,
+    depth, stats, pre_c, quads_c, qw_c, total_c)."""
+    slots, mask6, positions = _unpack_meta5(meta_i, vcap)
+    quads_c, qw_c, total_c = _expand_uploads_impl(
+        quad_pool, slots, counts6_pool[slots.long()], mask6, positions,
+        gather_cap)
+    color, depth, stats, pre_c = _pipe_step_camf(
+        quads_p, qw_p, n_p, cam_p, pre_p, quads_c, qw_c, total_c, cam_c,
+        **step_kw)
+    return color, depth, stats, pre_c, quads_c, qw_c, total_c
+
+
+def _geom_fused5(quad_pool, counts6_pool, meta_i, cam_f, *, vcap: int,
+                 gather_cap: int, **geom_kw):
+    """Draw-list expansion + stage A only: seeds the pipeline when the
+    draw list changed and no frame is carried.  Returns (pre, quads, qw,
+    total)."""
+    slots, mask6, positions = _unpack_meta5(meta_i, vcap)
+    quads, qw, total = _expand_uploads_impl(
+        quad_pool, slots, counts6_pool[slots.long()], mask6, positions,
+        gather_cap)
+    return _geom_camf(quads, qw, total, cam_f, **geom_kw), quads, qw, total
+
+
 class Renderer:
     """The render step's configuration, capacity buckets and colour tables
     on one device (reference ``Renderer``, production path only)."""
@@ -370,10 +458,10 @@ class Renderer:
     INSERT_FP = 8192
 
     def __init__(self, config: RenderConfig | None = None,
-                 atlas: TextureAtlas | None = None, *, device):
+                 atlas: TextureAtlas | None = None, *, device="cuda"):
         self.config = cfg = config or RenderConfig()
         self.atlas = atlas or TextureAtlas()
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         for flag in ("span_mode", "packed_raster", "two_pass_near_quads",
                      "temporal_hiz"):
             if getattr(cfg, flag):
@@ -398,6 +486,9 @@ class Renderer:
         self.gather_buckets = tuple(
             sorted(c for c in cands if c >= 16384)) or (cfg.gather_cap,)
         self._cam_cache: tuple | None = None
+        self._pipe_carry: tuple | None = None  # (cap, uploads, cam_f, pre)
+        self._pipe_done: tuple | None = None   # serially rendered result
+        #                                        awaiting emission
 
     def _bucket_kw(self, gather_cap: int) -> dict:
         cfg = self.config
@@ -529,3 +620,115 @@ class Renderer:
                           insert_payload),
             vcap=vcap, gather_cap=cap, kp=self.INSERT_KP, mc=self.INSERT_MC,
             **self._bucket_kw(cap))
+
+    # ------------------------------------------- frames-in-flight pipeline
+    def _check_pipelined(self) -> None:
+        cfg = self.config
+        if (cfg.temporal_hiz or cfg.two_pass_near_quads or cfg.span_mode
+                or cfg.packed_raster):
+            raise ValueError(
+                "pipelined rendering excludes temporal_hiz, two-pass "
+                "occlusion, span mode and the packed kernel")
+
+    def _geom_kw(self) -> dict:
+        k = self._base_step_kw
+        return dict(width=k["width"], height=k["height"],
+                    backface_culling=k["backface_culling"])
+
+    def render_prepared_pipelined(self, uploads, view_proj, cam_pos):
+        """Frames-in-flight render (one frame of latency): enter frame N
+        (its stage A rides in the carried frame's raster launch, K3) and
+        return frame N-1's (color, depth, stats), or None when the pipeline
+        was empty (drain the tail with pipeline_flush).  Exactly one result
+        is emitted per entered frame across render_*_pipelined /
+        pipeline_flush calls, in order, each equal to render_prepared's
+        frame bit for bit.  The carry keeps references to frame N-1's
+        stream; nothing writes a stream in place."""
+        self._check_pipelined()
+        quads, quad_world, total = uploads
+        cap = int(quads.shape[0])
+        cam = self._cam_dev(view_proj, cam_pos)
+        out, carry = self._pipe_drain_if(cap)
+        if carry is None:
+            pre = _geom_camf(quads, quad_world, total, cam, **self._geom_kw())
+            self._pipe_carry = (cap, uploads, cam, pre)
+            return out
+        _, up_p, cam_p, pre_p = carry
+        color, depth, stats, pre_c = _pipe_step_camf(
+            up_p[0], up_p[1], up_p[2], cam_p, pre_p, quads, quad_world, total,
+            cam, **self._bucket_kw(cap))
+        self._pipe_carry = (cap, uploads, cam, pre_c)
+        return color, depth, stats
+
+    def render_fused_pipelined(self, quad_pool, visible_slots, counts_sel,
+                               positions_sel, view_proj, cam_pos,
+                               dir_mask=None, counts6_dev=None):
+        """Pipelined render with the CURRENT frame's draw-list expansion in
+        the same step (the moving/streaming path; META5).  Returns
+        (result_or_None, uploads): ``result`` is the OLDEST pending frame's
+        (color, depth, stats) and ``uploads`` frame N's expanded stream.  A
+        truncated draw list or a missing counts6 mirror renders serially
+        (render_fused) after draining the pipeline; a done-queue keeps the
+        emission order."""
+        self._check_pipelined()
+        slots_a, _, mask6, pos_a, cap, truncated = self._prep_meta(
+            visible_slots, counts_sel, positions_sel, dir_mask)
+        if counts6_dev is None or truncated:
+            out = self.pipeline_flush()
+            color, depth, stats, uploads = self.render_fused(
+                quad_pool, visible_slots, counts_sel, positions_sel,
+                view_proj, cam_pos, dir_mask=dir_mask,
+                counts6_dev=counts6_dev)
+            if out is None:
+                return (color, depth, stats), uploads
+            # the pipeline held a frame: emit it now, queue the serial one
+            self._pipe_done = (color, depth, stats)
+            return out, uploads
+        vcap = self.config.visible_chunks_cap
+        cam = self._cam_dev(view_proj, cam_pos)
+        meta = self._upload(_pack_meta5(vcap, slots_a, mask6, pos_a))
+        out, carry = self._pipe_drain_if(cap)
+        if carry is None:
+            pre, quads, qw, total = _geom_fused5(
+                quad_pool, counts6_dev, meta, cam, vcap=vcap, gather_cap=cap,
+                **self._geom_kw())
+            uploads = (quads, qw, total)
+            self._pipe_carry = (cap, uploads, cam, pre)
+            return out, uploads
+        _, up_p, cam_p, pre_p = carry
+        color, depth, stats, pre_c, quads, qw, total = _pipe_fused5(
+            quad_pool, counts6_dev, meta, cam, up_p[0], up_p[1], up_p[2],
+            cam_p, pre_p, vcap=vcap, gather_cap=cap, **self._bucket_kw(cap))
+        uploads = (quads, qw, total)
+        self._pipe_carry = (cap, uploads, cam, pre_c)
+        return (color, depth, stats), uploads
+
+    def _pipe_drain_if(self, cap: int):
+        """Emit a done-queue entry or drain a carry of another bucket.
+        Returns (result_or_None, carry_or_None): ``carry`` is usable for a
+        pipelined step at ``cap``; ``result`` must be emitted first."""
+        done = self._pipe_done
+        self._pipe_done = None
+        carry = self._pipe_carry
+        if done is not None:
+            # the done-queue is only ever filled with an empty carry
+            assert carry is None, "done-queue entry beside a live carry"
+            return done, None
+        if carry is not None and carry[0] != cap:
+            return self.pipeline_flush(), None
+        return None, carry
+
+    def pipeline_flush(self):
+        """Drain the frames-in-flight state: emit the done-queue entry or
+        render the carried frame serially (its stage A runs again: the same
+        math, the same frame).  Returns (color, depth, stats) or None."""
+        done = self._pipe_done
+        self._pipe_done = None
+        if done is not None:
+            return done
+        carry = self._pipe_carry
+        if carry is None:
+            return None
+        self._pipe_carry = None
+        cap, up, cam, _pre = carry
+        return _step_camf(up[0], up[1], up[2], cam, **self._bucket_kw(cap))

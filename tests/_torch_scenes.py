@@ -23,6 +23,9 @@ from differential_projection_voxel_renderer_tpu.rendering.pipeline import (
 from differential_projection_voxel_renderer_tpu_torch.ops import (
     projection as TP,
 )
+from differential_projection_voxel_renderer_tpu_torch.rendering import (
+    pipeline as TPL,
+)
 from differential_projection_voxel_renderer_tpu_torch.rendering.parity import (
     SMALL_SCENES,
 )
@@ -94,3 +97,64 @@ def torch_step_kw(sc, render_cap, device="cpu"):
     return dict(color_tables=TP.color_table_tensors(TABLES, device),
                 width=w, height=h, tile_h=16, tile_w=128,
                 render_cap=render_cap, tile_k_cap=2 * gc)
+
+
+def engine_records(eng):
+    """The port engine's raster input for the frame just rendered (the draw
+    list re-expanded from the pool, which already holds the frame's
+    inserts)."""
+    r = eng.renderer
+    up = r.prepare_uploads(eng.pool.quads, eng._last_visible_slots,
+                           eng._last_counts_sel, eng._last_positions_sel,
+                           dir_mask=eng._last_dir_mask)
+    cam = r._cam_dev(eng.camera.view_projection_matrix(),
+                     eng.camera.position)
+    return TPL._step_camf(*up, cam, debug_return_records=True,
+                          **r._bucket_kw(int(up[0].shape[0])))[0].numpy()
+
+
+def _texel_flip(records, yy, xx, depth, h, w):
+    """A record covers pixel (yy, xx) of an h x w frame at ``depth`` with 8u
+    or 8v within 8 f32 ulps of an integer (float64 evaluation of the f32
+    records)."""
+    f = records[:16].view(np.float32).astype(np.float64)
+    nx = (2.0 * (xx + 0.5) - w) / w
+    ny = 1.0 - 2.0 * (yy + 0.5) / h
+    qu = f[0] * nx + f[1] * ny + f[2]
+    qv = f[3] * nx + f[4] * ny + f[5]
+    qw = f[6] * nx + f[7] * ny + f[8]
+    z = f[9] * nx + f[10] * ny + f[11]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        at = ((qw > 0) & (qu >= f[12] * qw) & (qu <= f[13] * qw)
+              & (qv >= f[14] * qw) & (qv <= f[15] * qw)
+              & (np.abs(z - depth) <= 4 * np.spacing(np.float32(1.0))))
+        edge = np.zeros_like(at)
+        for s in (8.0 * qu / qw, 8.0 * qv / qw):
+            ulp = np.spacing(np.abs(s).astype(np.float32)).astype(np.float64)
+            edge |= np.abs(s - np.round(s)) <= 8 * ulp
+    return bool((at & edge).any())
+
+
+def assert_engine_frame_gates(ref, got, records):
+    """The JAX engine's frame ``ref`` against the port engine's ``got``,
+    each (color u32, depth, stats, rendered meshes, visible chunks), with
+    the port's raster input ``records``: the gates of
+    tests/test_torch_engine.py (its docstring gives the reasons)."""
+    (c1, d1), (c2, d2) = ref[:2], got[:2]
+    np.testing.assert_array_equal(np.isfinite(d1), np.isfinite(d2))
+    fin = np.isfinite(d1)
+    ulp4 = 4 * np.spacing(np.maximum(np.abs(d1), np.float32(1.0)))
+    assert (np.abs(d1[fin] - d2[fin]) <= ulp4[fin]).all()
+    c2 = c2.copy()
+    flips = np.argwhere((c1 != c2) & (d1 == d2))
+    for yy, xx in flips:
+        assert _texel_flip(records, yy, xx, d1[yy, xx], *d1.shape), (yy, xx)
+        c2[yy, xx] = c1[yy, xx]
+    assert len(flips) <= 4
+    # same colour and depth within 4 ulps is the gate's own per-pixel
+    # rule, applied here before its mismatch-count cap
+    parity.assert_kernel_parity_boundary(
+        c1, d1, c2, np.where(c1 == c2, d1, d2), records)
+    np.testing.assert_array_equal(ref[2], got[2])
+    assert ref[3:] == got[3:]
+    assert (got[0] != np.uint32(0xFF87CEEB)).sum() > 1000

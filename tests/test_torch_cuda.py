@@ -6,14 +6,17 @@ without a card) and no JAX, so it runs on a machine that has neither:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 (``--noconftest``: tests/conftest.py configures JAX.)  Kernel and twin run
-on the same card, on the same tensors, and must agree bit for bit.
+on the same card, on the same tensors, and must agree bit for bit.  The
+file imports nothing of the JAX package.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from differential_projection_voxel_renderer_tpu.models.camera import Camera
+from differential_projection_voxel_renderer_tpu_torch.models.camera import (
+    Camera,
+)
 from differential_projection_voxel_renderer_tpu_torch.ops import geometry
 from differential_projection_voxel_renderer_tpu_torch.ops import projection
 from differential_projection_voxel_renderer_tpu_torch.ops import raster
@@ -118,3 +121,43 @@ def test_render_step_on_card_matches_cpu(cuda_device, name):
     rec = pipeline.render_step(*cargs, debug_return_records=True, **ckw)
     parity.frame_parity(c1.cpu().numpy(), d1.cpu().numpy(), c2.numpy(),
                         d2.numpy(), rec[0].numpy())
+
+
+def _same_geometry(got, want):
+    for k in ("valid", "bbx", "bby", "subpixel"):
+        assert torch.equal(got[k], want[k]), k
+    a, b = got["depth_near"], want["depth_near"]
+    assert bool(((a.view(torch.int32) == b.view(torch.int32))
+                 | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(parity.SMALL_SCENES))
+def test_raster_geom_kernel_matches_plain(cuda_device, name):
+    """K3 (the raster with the next frame's stage A) against its plain
+    version, K2's twin and K1's twin, and against the K2 and K1 kernels: a
+    fuzzed next stream and the scene's own stream, bit for bit."""
+    args, kw = parity.small_scene(name, cuda_device)
+    h, w = kw["height"], kw["width"]
+    rec = pipeline.render_step(*args, debug_return_records=True, **kw)
+    rkw = dict(height=h, width=w, tile_h=16, tile_w=128, out_h=h)
+    words, qw = _fuzz_stream(8192)
+    c = Camera(np.asarray(CAMERAS["far"][0], np.float32), w / h)
+    c.look_at(np.asarray(CAMERAS["far"][1], np.float32))
+    fuzz = (words.to(cuda_device), qw.to(cuda_device),
+            torch.tensor(7000, dtype=torch.int32, device=cuda_device),
+            torch.from_numpy(c.view_projection_matrix()).to(cuda_device),
+            torch.from_numpy(c.position.copy()).to(cuda_device))
+    c2, d2 = raster.rasterize_tiles_plain(*rec, **rkw)
+    c3, d3 = raster.rasterize_tiles(*rec, **rkw)
+    assert torch.equal(c2, c3) and torch.equal(d2, d3)
+    for nxt in (fuzz, args):
+        before = (raster.launches_geom, raster.launches, geometry.launches)
+        c1, d1, g1 = raster.rasterize_tiles(*rec, next_geom=nxt, **rkw)
+        assert (raster.launches_geom, raster.launches,
+                geometry.launches) == (before[0] + 1,) + before[1:]
+        assert torch.equal(c1, c2) and torch.equal(d1, d2)
+        _same_geometry(g1, geometry.project_cull_plain(*nxt, width=w,
+                                                       height=h))
+        _same_geometry(g1, geometry.project_cull(*nxt, width=w, height=h))
+        assert bool(g1["valid"].any())

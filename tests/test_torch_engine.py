@@ -34,10 +34,10 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_scenes as S
 from differential_projection_voxel_renderer_tpu.app import engine as JE
-from differential_projection_voxel_renderer_tpu.models.world import WorldConfig
-from differential_projection_voxel_renderer_tpu.rendering import parity
-from differential_projection_voxel_renderer_tpu.utils.config import RenderConfig
+from differential_projection_voxel_renderer_tpu.models import world as JW
+from differential_projection_voxel_renderer_tpu.utils import config as JCFG
 from differential_projection_voxel_renderer_tpu_torch.app import engine as TE
 from differential_projection_voxel_renderer_tpu_torch.rendering import (
     pipeline as TPL,
@@ -47,19 +47,30 @@ from differential_projection_voxel_renderer_tpu_torch.rendering import (
 # ops stall on an oversubscribed pool when several test workers share a host
 torch.set_num_threads(1)
 
+REF = "differential_projection_voxel_renderer_tpu"
+
 # camera path: (position, look-at target); frames 0-1 hold the primed pose
 POSE0 = ((0.0, 40.0, 60.0), (0.0, 0.0, 0.0))
 PATH = [POSE0, POSE0] + [((x, 40.0, 60.0 - x), (x, 0.0, -x))
                          for x in (24.0, 48.0, 72.0, 96.0, 120.0)]
 
 
-def _configs():
+def _configs(render_config_cls, world_config_cls):
+    """The engine configuration, built from the given package's classes."""
     return dict(
-        render_config=RenderConfig(width=256, height=128, gather_cap=16384,
-                                   quads_cap=8192),
-        world_config=WorldConfig(view_distance=3, frustum_culling=True,
-                                 max_chunks_per_frame=4),
+        render_config=render_config_cls(width=256, height=128,
+                                        gather_cap=16384, quads_cap=8192),
+        world_config=world_config_cls(view_distance=3, frustum_culling=True,
+                                      max_chunks_per_frame=4),
         pool_slots=512)
+
+
+def _jax_configs():
+    return _configs(JCFG.RenderConfig, JW.WorldConfig)
+
+
+def _port_configs():
+    return _configs(TE.RenderConfig, TE.WorldConfig)
 
 
 def _pose(eng, pose):
@@ -86,23 +97,10 @@ class _Spy:
         return call
 
 
-def _records(eng):
-    """The port's raster input for the frame just rendered (the draw list
-    re-expanded from the pool, which already holds the frame's inserts)."""
-    r = eng.renderer
-    up = r.prepare_uploads(eng.pool.quads, eng._last_visible_slots,
-                           eng._last_counts_sel, eng._last_positions_sel,
-                           dir_mask=eng._last_dir_mask)
-    cam = r._cam_dev(eng.camera.view_projection_matrix(),
-                     eng.camera.position)
-    return TPL._step_camf(*up, cam, debug_return_records=True,
-                          **r._bucket_kw(int(up[0].shape[0])))[0].numpy()
-
-
 @pytest.fixture(scope="module")
 def runs():
-    jeng = JE.Engine(**_configs())
-    teng = TE.Engine(**_configs(), device="cpu")
+    jeng = JE.Engine(**_jax_configs())
+    teng = TE.Engine(**_port_configs(), device="cpu")
     spy = _Spy(teng.renderer)
     for eng in (jeng, teng):
         _pose(eng, POSE0)
@@ -119,54 +117,15 @@ def runs():
                         np.asarray(res.stats) if eng is jeng
                         else res.stats.numpy(),
                         res.rendered_meshes, res.visible_chunks))
-        out.append(_records(teng))
+        out.append(S.engine_records(teng))
         frames.append(out)
     return jeng, teng, frames, spy.calls
-
-
-def _texel_flip(records, yy, xx, depth):
-    """A record covers pixel (yy, xx) at ``depth`` with 8u or 8v within 8
-    f32 ulps of an integer (float64 evaluation of the f32 records)."""
-    f = records[:16].view(np.float32).astype(np.float64)
-    h, w = 128, 256
-    nx = (2.0 * (xx + 0.5) - w) / w
-    ny = 1.0 - 2.0 * (yy + 0.5) / h
-    qu = f[0] * nx + f[1] * ny + f[2]
-    qv = f[3] * nx + f[4] * ny + f[5]
-    qw = f[6] * nx + f[7] * ny + f[8]
-    z = f[9] * nx + f[10] * ny + f[11]
-    with np.errstate(divide="ignore", invalid="ignore"):
-        at = ((qw > 0) & (qu >= f[12] * qw) & (qu <= f[13] * qw)
-              & (qv >= f[14] * qw) & (qv <= f[15] * qw)
-              & (np.abs(z - depth) <= 4 * np.spacing(np.float32(1.0))))
-        edge = np.zeros_like(at)
-        for s in (8.0 * qu / qw, 8.0 * qv / qw):
-            ulp = np.spacing(np.abs(s).astype(np.float32)).astype(np.float64)
-            edge |= np.abs(s - np.round(s)) <= 8 * ulp
-    return bool((at & edge).any())
 
 
 @pytest.mark.parametrize("frame", range(len(PATH)))
 def test_engine_frame_matches_jax(runs, frame):
     ref, got, records = runs[2][frame]
-    (c1, d1), (c2, d2) = ref[:2], got[:2]
-    np.testing.assert_array_equal(np.isfinite(d1), np.isfinite(d2))
-    fin = np.isfinite(d1)
-    ulp4 = 4 * np.spacing(np.maximum(np.abs(d1), np.float32(1.0)))
-    assert (np.abs(d1[fin] - d2[fin]) <= ulp4[fin]).all()
-    c2 = c2.copy()
-    flips = np.argwhere((c1 != c2) & (d1 == d2))
-    for yy, xx in flips:
-        assert _texel_flip(records, yy, xx, d1[yy, xx]), (yy, xx)
-        c2[yy, xx] = c1[yy, xx]
-    assert len(flips) <= 4
-    # same colour and depth within 4 ulps is the gate's own per-pixel
-    # rule, applied here before its mismatch-count cap
-    parity.assert_kernel_parity_boundary(
-        c1, d1, c2, np.where(c1 == c2, d1, d2), records)
-    np.testing.assert_array_equal(ref[2], got[2])
-    assert ref[3:] == got[3:]
-    assert (got[0] != np.uint32(0xFF87CEEB)).sum() > 1000
+    S.assert_engine_frame_gates(ref, got, records)
 
 
 def test_engine_took_every_entry_point(runs):
@@ -209,21 +168,27 @@ def test_pool_round_trip_from_numpy(runs):
 @pytest.mark.parametrize("flag", ["span_mode", "packed_raster",
                                   "two_pass_near_quads", "temporal_hiz"])
 def test_unported_render_modes_raise(flag):
-    cfg = RenderConfig(width=256, height=128)
+    cfg = TE.RenderConfig(width=256, height=128)
     setattr(cfg, flag, 1 if flag == "two_pass_near_quads" else True)
     with pytest.raises(NotImplementedError):
         TPL.Renderer(cfg, device="cpu")
 
 
-def test_port_imports_without_jax():
-    """The port and every submodule import with jax blocked."""
-    code = textwrap.dedent("""
-        import importlib, pkgutil, sys
+@pytest.mark.parametrize("blocked", ["jax", REF])
+def test_port_imports_without_jax(blocked):
+    """Every module of the port imports with ``blocked`` (jax, or the JAX
+    package) unimportable, and meshing a chunk through the port loads the
+    port's own native mesher, built under ``build/native/``, not the JAX
+    package's."""
+    code = textwrap.dedent(f"""
+        import importlib, os, pkgutil, sys
+
+        BLOCKED = {blocked!r}
 
         class Block:
             def find_spec(self, name, path=None, target=None):
-                if name == "jax" or name.startswith("jax."):
-                    raise ImportError("jax is blocked")
+                if name == BLOCKED or name.startswith(BLOCKED + "."):
+                    raise ImportError(BLOCKED + " is blocked")
 
         sys.meta_path.insert(0, Block())
         import differential_projection_voxel_renderer_tpu_torch as pkg
@@ -231,13 +196,25 @@ def test_port_imports_without_jax():
             pkg.__path__, pkg.__name__ + ".")]
         for name in names:
             importlib.import_module(name)
+        from differential_projection_voxel_renderer_tpu_torch.meshing import (
+            greedy, native_bridge)
+        from differential_projection_voxel_renderer_tpu_torch.models import (
+            chunk)
+        mesh = greedy.mesh_chunk(chunk.Chunk.generate_terrain((0, 0, 0)))
+        assert mesh is not None
+        lib = native_bridge._build_and_load()
+        build = os.path.join(os.getcwd(), "build", "native")
+        assert lib is not None and os.path.dirname(lib._name) == build
         assert "jax" not in sys.modules
+        assert not [m for m in sys.modules
+                    if m == {REF!r} or m.startswith({REF!r} + ".")]
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=120)
+                         text=True, timeout=300,
+                         cwd=os.path.join(os.path.dirname(__file__), ".."))
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 10
+    assert int(out.stdout.strip()) >= 25
 
 
 def test_chip_smoke_imports_only_the_port():

@@ -1,0 +1,215 @@
+"""The port's copies of the host layers against the JAX package's, on the
+CPU: meshing, terrain generation, the camera, the culling passes, the
+colour tables and the configuration defaults.  The port keeps its own
+copies (it imports nothing of the JAX package), so each copy is held to
+its original on the same inputs, made from numpy seeds.  All comparisons
+are exact.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+from differential_projection_voxel_renderer_tpu.meshing import greedy as JG
+from differential_projection_voxel_renderer_tpu.models import camera as JC
+from differential_projection_voxel_renderer_tpu.models import chunk as JK
+from differential_projection_voxel_renderer_tpu.models import world as JW
+from differential_projection_voxel_renderer_tpu.ops import culling as JCU
+from differential_projection_voxel_renderer_tpu.ops import occlusion as JO
+from differential_projection_voxel_renderer_tpu.ops import shading as JS
+from differential_projection_voxel_renderer_tpu.ops import texture as JT
+from differential_projection_voxel_renderer_tpu.rendering import (
+    parity as JPAR,
+)
+from differential_projection_voxel_renderer_tpu.utils import config as JCFG
+from differential_projection_voxel_renderer_tpu_torch.meshing import (
+    greedy as TG,
+)
+from differential_projection_voxel_renderer_tpu_torch.models import (
+    camera as TC,
+)
+from differential_projection_voxel_renderer_tpu_torch.models import (
+    chunk as TK,
+)
+from differential_projection_voxel_renderer_tpu_torch.models import (
+    world as TW,
+)
+from differential_projection_voxel_renderer_tpu_torch.ops import (
+    culling as TCU,
+)
+from differential_projection_voxel_renderer_tpu_torch.ops import (
+    occlusion as TO,
+)
+from differential_projection_voxel_renderer_tpu_torch.ops import (
+    shading as TS,
+)
+from differential_projection_voxel_renderer_tpu_torch.ops import (
+    texture as TT,
+)
+from differential_projection_voxel_renderer_tpu_torch.rendering import (
+    parity as TPAR,
+)
+from differential_projection_voxel_renderer_tpu_torch.utils import (
+    config as TCFG,
+)
+
+
+def _same_mesh(a, b):
+    assert (a is None) == (b is None)
+    if a is not None:
+        np.testing.assert_array_equal(a, b)
+        assert a.dtype == b.dtype
+
+
+@pytest.mark.parametrize("seed", [42, 7, 1234])
+def test_mesh_fuzz_chunk_matches_jax(seed):
+    ref, got = JPAR.fuzz_chunk(seed), TPAR.fuzz_chunk(seed)
+    np.testing.assert_array_equal(ref.dense(), got.dense())
+    mesh = TG.mesh_chunk(got)
+    assert mesh is not None and len(mesh) > 1000
+    _same_mesh(JG.mesh_chunk(ref), mesh)
+
+
+@pytest.mark.parametrize("center", [(0, 0, 0), (5, 0, -3), (-7, -1, 2)])
+def test_mesh_terrain_with_neighbours_matches_jax(center):
+    """The centre chunk meshed against its 26 generated neighbours."""
+    offs = [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
+            for dz in (-1, 0, 1)]
+    worlds = []
+    for K in (JK, TK):
+        worlds.append({
+            p: K.Chunk.generate_terrain(p)
+            for p in (tuple(c + o for c, o in zip(center, off))
+                      for off in offs)})
+    ref, got = worlds
+    for p in ref:
+        np.testing.assert_array_equal(ref[p].dense(), got[p].dense())
+    _same_mesh(JG.mesh_chunk(ref[center], ref),
+               TG.mesh_chunk(got[center], got))
+
+
+@pytest.mark.parametrize("pos", [(0, 0, 0), (3, -1, 9), (-12, 0, 4),
+                                 (40, 1, -25)])
+def test_terrain_voxels_match_jax(pos):
+    ref, got = JK.Chunk.generate_terrain(pos), TK.Chunk.generate_terrain(pos)
+    assert ref.is_uniform == got.is_uniform
+    np.testing.assert_array_equal(ref.dense(), got.dense())
+    np.testing.assert_array_equal(
+        JK.sample_terrain_height(np.arange(-50, 50), np.arange(100, 0, -1)),
+        TK.sample_terrain_height(np.arange(-50, 50), np.arange(100, 0, -1)))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_camera_matches_jax(seed):
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(-200, 200, 3).astype(np.float32)
+    tgt = pos + rng.normal(size=3).astype(np.float32) * 50
+    aspect = float(rng.uniform(0.5, 3.0))
+    dx, dy = rng.normal(size=2)
+    ref, got = JC.Camera(pos, aspect), TC.Camera(pos, aspect)
+    for cam in (ref, got):
+        cam.look_at(tgt)
+        cam.rotate(float(dx), float(dy))
+    np.testing.assert_array_equal(ref.view_projection_matrix(),
+                                  got.view_projection_matrix())
+    fr, fg = ref.extract_frustum(), got.extract_frustum()
+    np.testing.assert_array_equal(fr.planes, fg.planes)
+    mins = rng.integers(-10, 10, (200, 3)).astype(np.float32) * 32
+    np.testing.assert_array_equal(fr.inside_mins(mins, 32.0),
+                                  fg.inside_mins(mins, 32.0))
+
+
+def _chunk_centers(rng, n):
+    return (rng.integers(-12, 13, (n, 3)) * 32 + 16).astype(np.float32)
+
+
+@pytest.mark.parametrize("use_native", [True, False])
+def test_culling_passes_match_jax(use_native):
+    rng = np.random.default_rng(5)
+    centers = _chunk_centers(rng, 600)
+    cam_pos = np.array([3.0, 40.0, -7.0], np.float32)
+    order = TCU.sort_front_to_back(centers, cam_pos)
+    np.testing.assert_array_equal(
+        JCU.sort_front_to_back(centers, cam_pos), order)
+    centers = centers[order]
+    keep = TCU.horizon_cull_mask(centers, cam_pos, use_native=use_native)
+    np.testing.assert_array_equal(
+        JCU.horizon_cull_mask(centers, cam_pos, use_native=use_native), keep)
+    assert 0 < keep.sum() < len(keep)
+
+    cam = TC.Camera(cam_pos, 16 / 9)
+    cam.look_at(np.array([0.0, 0.0, -200.0], np.float32))
+    vp = cam.view_projection_matrix()
+    got = TO.project_chunk_rects(centers, vp, 1280, 720)
+    for r, g in zip(JO.project_chunk_rects(centers, vp, 1280, 720), got):
+        np.testing.assert_array_equal(r, g)
+    rects, near, _ = got
+    use_occ = rng.integers(0, 2, len(rects)).astype(bool)
+    for eps in (0.005, 1e-4):
+        np.testing.assert_array_equal(
+            JO.occlusion_pass(rects, near, use_occ, 1280, 720, epsilon=eps,
+                              use_native=use_native),
+            TO.occlusion_pass(rects, near, use_occ, 1280, 720, epsilon=eps,
+                              use_native=use_native))
+
+
+@pytest.mark.parametrize("shading,textures", [(True, True), (True, False),
+                                              (False, True)])
+def test_color_tables_match_jax(shading, textures):
+    ref_atlas, got_atlas = JT.TextureAtlas(), TT.TextureAtlas()
+    ref_t, got_t = ref_atlas.kernel_tables(), got_atlas.kernel_tables()
+    assert ref_t.keys() == got_t.keys()
+    for k in ref_t:
+        np.testing.assert_array_equal(ref_t[k], got_t[k])
+    ref = JS.build_quad_color_tables(ref_t, enable_shading=shading,
+                                     enable_textures=textures)
+    got = TS.build_quad_color_tables(got_t, enable_shading=shading,
+                                     enable_textures=textures)
+    assert ref.keys() == got.keys()
+    for k in ref:
+        np.testing.assert_array_equal(ref[k], got[k])
+
+
+def test_config_defaults_match_jax():
+    assert (dataclasses.asdict(JCFG.RenderConfig())
+            == dataclasses.asdict(TCFG.RenderConfig()))
+    assert (dataclasses.asdict(JW.WorldConfig())
+            == dataclasses.asdict(TW.WorldConfig()))
+    for name in ("CHUNK_SIZE", "NEAR_W_EPS", "MIN_TRIANGLE_AREA",
+                 "SKY_COLOR", "GATHER_QUADS_CAP", "RENDER_QUADS_CAP",
+                 "QUADS_PER_CHUNK_CAP", "VISIBLE_CHUNKS_CAP",
+                 "TERRAIN_SEED"):
+        assert getattr(JCFG, name) == getattr(TCFG, name), name
+
+
+def test_native_build_is_atomic(tmp_path):
+    """Processes that build the port's native mesher at once all load a
+    whole library: it is compiled into a temporary file and renamed into
+    place."""
+    import os
+    import shutil
+    import subprocess
+    import sys
+
+    from differential_projection_voxel_renderer_tpu_torch.meshing import (
+        native_bridge,
+    )
+
+    pkg = tmp_path / "pkg"
+    (pkg / "meshing").mkdir(parents=True)
+    (pkg / "native" / "src").mkdir(parents=True)
+    shutil.copy(native_bridge.__file__, pkg / "meshing")
+    shutil.copy(native_bridge.SRC, pkg / "native" / "src")
+    bridge = str(pkg / "meshing" / "native_bridge.py")
+    code = ("import importlib.util as u; "
+            f"s = u.spec_from_file_location('nb', {bridge!r}); "
+            "m = u.module_from_spec(s); s.loader.exec_module(m); "
+            "print(m.mesh_chunk_full is not None)")
+    procs = [subprocess.Popen([sys.executable, "-c", code],
+                              stdout=subprocess.PIPE, text=True)
+             for _ in range(4)]
+    outs = [p.communicate(timeout=300)[0].strip() for p in procs]
+    assert outs == ["True"] * 4
+    assert os.listdir(tmp_path / "build" / "native") == [
+        os.path.basename(native_bridge.LIB_PATH)]
