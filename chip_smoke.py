@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``csrc/`` (nvcc, sm_90a), drives the
-serial frame path of ``Engine.render_frame`` and the frames-in-flight path
-of ``Engine.render_frame_pipelined`` at the headline scene (1280x720, view
-distance 12, textures and shading on, from the reference start pose),
+serial frame path of ``Engine.render_frame``, the frames-in-flight path
+of ``Engine.render_frame_pipelined`` and the packed raster path at the
+headline scene (1280x720, view distance 12, textures and shading on, from
+the reference start pose),
 holds each kernel against its plain PyTorch version on the card, and times
 kernels and frames.  Phases:
 
@@ -42,7 +43,20 @@ kernels and frames.  Phases:
    records, with the fuzzed 131072-quad stream and then the real vd12
    stream as the next stream: its frame must equal K2's and its geometry
    K1's, bit for bit; then K3's time against a K2 plus a K1 launch (median
-   of 20) and against its plain version (median of 5).
+   of 20) and against its plain version (median of 5);
+10. the packed raster (RenderConfig.packed_raster): a third Engine,
+   settled and primed like the first, drives phase 3's camera sequence (3
+   static, 20 timed static, the 10 moving frames).  The counters are
+   zeroed before it and read after it; every frame must launch K1 and K4
+   once and K2/K3 never, show no overflow, and equal phase 3's serial frame
+   of its pose bit for bit (colour, depth, stats[:2]).  Then 10 packed
+   frames under torch.profiler; K4 (the packed tile raster) vs its plain
+   version, bit-exact, on the port's packed records at 128x128, 640x128
+   and 1280x720 (where its frame must also equal K2's), and the 128x128
+   packed frame on the card vs the same step on the CPU; K4's time (a call
+   and in runs of 20) beside K2's on the default records of the same pose,
+   its plain version's, and its bound (its walk found as the kernel's
+   per-bin occlusion break finds it).
 
 The script imports the port package and nothing else of the repo; before
 it prints its result it checks that neither jax nor any module of the JAX
@@ -138,32 +152,37 @@ def nonsky(color) -> int:
 
 
 def counters():
-    """Launch counts (K1, K2, K3)."""
+    """Launch counts (K1, K2, K3, K4)."""
     from differential_projection_voxel_renderer_tpu_torch.ops import (
         geometry,
         raster,
+        raster_packed,
     )
 
-    return geometry.launches, raster.launches, raster.launches_geom
+    return (geometry.launches, raster.launches, raster.launches_geom,
+            raster_packed.launches)
 
 
 def reset_counters() -> None:
     from differential_projection_voxel_renderer_tpu_torch.ops import (
         geometry,
         raster,
+        raster_packed,
     )
 
     geometry.launches = 0
     raster.launches = 0
     raster.launches_geom = 0
+    raster_packed.launches = 0
 
 
 # ------------------------------------------------------------- main path
 
 
-def new_engine(torch):
-    """An Engine on the card at the headline scene, its world settled and
-    primed at the start pose: (engine, world seconds, prime seconds)."""
+def new_engine(torch, config=None):
+    """An Engine on the card at the headline scene (``config``, by default
+    RenderConfig(WIDTH, HEIGHT)), its world settled and primed at the start
+    pose: (engine, world seconds, prime seconds)."""
     import numpy as np
 
     from differential_projection_voxel_renderer_tpu_torch.app.engine import (
@@ -173,7 +192,7 @@ def new_engine(torch):
     )
 
     t0 = time.perf_counter()
-    eng = Engine(RenderConfig(WIDTH, HEIGHT),
+    eng = Engine(config or RenderConfig(WIDTH, HEIGHT),
                  WorldConfig(view_distance=VIEW_DISTANCE))
     eng.camera.position = np.array(START_POS, np.float32)
     eng.camera.look_at(np.array(START_TARGET, np.float32))
@@ -206,11 +225,9 @@ def keep(res):
     return res.color.clone(), res.depth.clone(), res.stats.clone()
 
 
-def main_path(torch):
-    eng, t_world, t_prime = new_engine(torch)
-    log(f"[3] world: {eng.world.chunk_count()} chunks in {t_world:.1f} s; "
-        f"prime: {len(eng.pool.by_pos)} meshes in {t_prime:.1f} s")
-
+def count_entry_points(renderer) -> dict:
+    """Wrap the renderer's three serial entry points so that each call that
+    renders counts in the returned dict."""
     entry = {}
     for name in ("render_fused", "render_prepared", "render_fused_insert"):
         def wrap(fn, name=name):
@@ -220,7 +237,16 @@ def main_path(torch):
                     entry[name] = entry.get(name, 0) + 1
                 return out
             return call
-        setattr(eng.renderer, name, wrap(getattr(eng.renderer, name)))
+        setattr(renderer, name, wrap(getattr(renderer, name)))
+    return entry
+
+
+def main_path(torch):
+    eng, t_world, t_prime = new_engine(torch)
+    log(f"[3] world: {eng.world.chunk_count()} chunks in {t_world:.1f} s; "
+        f"prime: {len(eng.pool.by_pos)} meshes in {t_prime:.1f} s")
+
+    entry = count_entry_points(eng.renderer)
 
     def frame(check: bool):
         before = counters()
@@ -274,7 +300,7 @@ def main_path(torch):
     torch.cuda.synchronize()
     launches = counters()
     frames = 3 + N_TIMED + N_MOVING
-    if launches != (frames, frames, 0):
+    if launches != (frames, frames, 0, 0):
         raise AssertionError(f"launches {launches} for {frames} frames")
     if not entry.get("render_fused_insert"):
         raise AssertionError(f"no frame took render_fused_insert: {entry}")
@@ -310,7 +336,7 @@ def pipelined_path(torch, serial):
     log(f"[8] second engine: {eng.world.chunk_count()} chunks in "
         f"{t_world:.1f} s; prime: {len(eng.pool.by_pos)} meshes in "
         f"{t_prime:.1f} s")
-    # (call, (K1, K2, K3) launches, carried gather cap before, after)
+    # (call, (K1, K2, K3, K4) launches, carried gather cap before, after)
     steps = []
 
     def carried():
@@ -411,18 +437,18 @@ def pipelined_path(torch, serial):
     drains = steady = 0
     for i, (kind, got, cap0, cap1) in enumerate(steps):
         if kind == "serial":
-            want = (1, 1, 0)
+            want = (1, 1, 0, 0)
         elif kind == "flush":
-            want = (0, 0, 0) if cap0 is None else (1, 1, 0)
+            want = (0, 0, 0, 0) if cap0 is None else (1, 1, 0, 0)
         elif cap0 is None:
-            want = (1, 0, 0)
+            want = (1, 0, 0, 0)
         elif cap0 == cap1:
-            want, steady = (0, 0, 1), steady + 1
+            want, steady = (0, 0, 1, 0), steady + 1
         else:
-            want, drains = (2, 1, 0), drains + 1
+            want, drains = (2, 1, 0, 0), drains + 1
         if got != want:
             raise AssertionError(f"call {i} ({kind}, cap {cap0} -> {cap1}) "
-                                 f"launched K1/K2/K3 {got}, expected {want}")
+                                 f"launched K1-K4 {got}, expected {want}")
     if (launches[2] != steady
             or launches != tuple(map(sum, zip(*(g for _, g, _, _ in steps))))):
         raise AssertionError(f"launches {launches} over the calls, "
@@ -433,6 +459,89 @@ def pipelined_path(torch, serial):
         f"K3={launches[2]} over {len(steps)} calls; K3 launched once on "
         f"each of the {steady} steady steps; {drains} bucket drains")
     return launches, times, profiles
+
+
+def packed_path(torch, serial):
+    """Phase 10: the packed raster (RenderConfig.packed_raster) on a third
+    engine, settled and primed like phase 3's, over phase 3's camera
+    sequence: 3 static frames, N_TIMED_PIPELINED timed static frames, the
+    N_MOVING moving frames.  Every frame must launch K1 and K4 once and
+    K2/K3 never, show no overflow, and equal phase 3's serial frame of its
+    pose bit for bit (colour, depth, stats[:2]).  Returns (engine,
+    launches, {"static_ms", "host_ms"}, the first static frame's stats)."""
+    from differential_projection_voxel_renderer_tpu_torch.app.engine import (
+        RenderConfig,
+    )
+
+    eng, t_world, t_prime = new_engine(
+        torch, RenderConfig(WIDTH, HEIGHT, packed_raster=True))
+    log(f"[10] packed engine: {eng.world.chunk_count()} chunks in "
+        f"{t_world:.1f} s; prime: {len(eng.pool.by_pos)} meshes in "
+        f"{t_prime:.1f} s")
+    entry = count_entry_points(eng.renderer)
+
+    def frame(ref, what):
+        before = counters()
+        res = eng.render_frame(dt=0.0)
+        got = tuple(a - b for a, b in zip(counters(), before))
+        if got != (1, 0, 0, 1):
+            raise AssertionError(f"{what} launched K1-K4 {got}, expected "
+                                 f"(1, 0, 0, 1)")
+        return res, same_frame(torch, res, ref)
+
+    def check(res, same, what):
+        st = res.stats.cpu().numpy()
+        if st[2] != 0 or st[3] != 0:
+            raise AssertionError(f"{what}: overflow in stats {st}")
+        if not bool(same):
+            raise AssertionError(f"{what} differs from phase 3's serial "
+                                 f"frame of its pose")
+        return st
+
+    static, moving = serial["static"], serial["moving"]
+    torch.cuda.synchronize()
+    reset_counters()
+    for i in range(3):
+        st = check(*frame(static, f"packed static frame {i}"),
+                   f"packed static frame {i}")
+        log(f"[10] packed static frame {i}: stats={st.tolist()}, equal to "
+            f"phase 3's serial frame bit for bit; entry={dict(entry)}")
+        if i == 0:
+            stats0 = st
+    ok = torch.ones((), dtype=torch.bool, device=eng.device)
+    torch.cuda.synchronize()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    h0 = time.perf_counter()
+    ev0.record()
+    for _ in range(N_TIMED_PIPELINED):
+        ok = ok & frame(static, "a timed packed static frame")[1]
+    ev1.record()
+    ev1.synchronize()
+    host_ms = (time.perf_counter() - h0) * 1e3 / N_TIMED_PIPELINED
+    dev_ms = ev0.elapsed_time(ev1) / N_TIMED_PIPELINED
+    if not bool(ok):
+        raise AssertionError("a timed packed static frame differs from the "
+                             "serial frame")
+    for i, (pos, target) in enumerate(moving_poses()):
+        eng.camera.position = pos
+        eng.camera.look_at(target)
+        st = check(*frame(moving[i], f"packed moving frame {i}"),
+                   f"packed moving frame {i}")
+        log(f"[10] packed moving frame {i}: stats={st.tolist()}, equal to "
+            f"phase 3's bit for bit; entry={dict(entry)}")
+    torch.cuda.synchronize()
+    launches = counters()
+    frames = 3 + N_TIMED_PIPELINED + N_MOVING
+    if launches != (frames, 0, 0, frames):
+        raise AssertionError(f"launches {launches} for {frames} frames")
+    if not entry.get("render_fused_insert"):
+        raise AssertionError(f"no frame took render_fused_insert: {entry}")
+    log(f"[10] packed path: {frames} frames, each equal to phase 3's serial "
+        f"frame of its pose bit for bit; launches K1={launches[0]} "
+        f"K2={launches[1]} K3={launches[2]} K4={launches[3]}, entry points "
+        f"{entry}")
+    return eng, launches, dict(static_ms=dev_ms, host_ms=host_ms), stats0
 
 
 # ------------------------------------------------------------- K1 / K2
@@ -508,11 +617,15 @@ def k1_work(args, out) -> tuple[int, int]:
 def item_boxes(torch, pipeline, step_args, step_kw, rec):
     """Each binned item's screen bbox (x0, x1, y0, y1), inclusive pixels,
     each i32[cap]: render_step on the same inputs again, with its tile-box
-    packer and its binner observed to map items to quads.  Raises unless
-    that call gives ``rec``'s records and its bby row."""
+    packer and its binner (the packed path's with ``packed_raster``)
+    observed to map items to quads.  Raises unless that call gives
+    ``rec``'s blend fields and the items' bby row."""
     seen = {}
+    packed = step_kw.get("packed_raster", False)
+    mod, attr = ((pipeline.packed_ops, "build_bin_lists") if packed
+                 else (pipeline.raster_ops, "build_tile_lists"))
     pack = pipeline.proj_ops.pack_tilebox
-    binner = pipeline.raster_ops.build_tile_lists
+    binner = getattr(mod, attr)
 
     def pack_spy(*a, **kw):
         seen["box"] = a
@@ -524,25 +637,50 @@ def item_boxes(torch, pipeline, step_args, step_kw, rec):
         return out
 
     pipeline.proj_ops.pack_tilebox = pack_spy
-    pipeline.raster_ops.build_tile_lists = bin_spy
+    setattr(mod, attr, bin_spy)
     try:
-        again = pipeline._step_camf(*step_args, debug_return_records=True,
-                                    **step_kw)
+        # the packed path's "gather" output: (blend fields, words with bby
+        # in row 4, ...); the default path keeps bby in record row 20
+        again = pipeline._step_camf(
+            *step_args, debug_return_records="gather" if packed else True,
+            **step_kw)
     finally:
         pipeline.proj_ops.pack_tilebox = pack
-        pipeline.raster_ops.build_tile_lists = binner
+        setattr(mod, attr, binner)
     x0, x1, y0, y1 = (b[seen["flat"]] for b in seen["box"])
-    if not (torch.equal(again[0], rec[0])
-            and torch.equal(y0 | (y1 << 16), rec[0][20])):
+    same, bby = ((torch.equal(again[0].view(torch.int32), rec[0][:16]),
+                  again[1][4]) if packed
+                 else (torch.equal(again[0], rec[0]), again[0][20]))
+    if not (same and torch.equal(y0 | (y1 << 16), bby)):
         raise AssertionError("the items' boxes do not match the records")
     return x0, x1, y0, y1
 
 
+def walk_sums(torch, per_item, st, walked):
+    """Per segment, the sum of ``per_item`` over its walk [st, walked)."""
+    cum = torch.cat([torch.zeros(1, dtype=torch.long, device=per_item.device),
+                     torch.cumsum(per_item, 0)])
+    return cum[walked] - cum[st]
+
+
+def box_in_window(torch, boxes, n, cx0, cx1, ty):
+    """(columns, rows) of the first ``n`` items' screen boxes inside
+    columns [cx0, cx1] and the 16 rows from ``ty``; no columns where no
+    rows."""
+    x0, x1, y0, y1 = (b[:n].long() for b in boxes)
+    cols = torch.clamp(torch.minimum(x1, cx1) - torch.maximum(x0, cx0) + 1,
+                       min=0)
+    rows = torch.clamp(torch.minimum(y1, ty + 15) - torch.maximum(y0, ty)
+                       + 1, min=0)
+    return torch.where(rows > 0, cols, 0), rows
+
+
 def k2_work(torch, raster, rec, boxes, height, width):
     """(bytes, operations, the busiest tile's operations, pixels the
-    kernel evaluates, pixels the inputs need) of the tile raster on these
-    records.  A tile's walk ends at the first 128-item boundary where the
-    suffix-min of near depth lies beyond every depth the tile holds so far
+    kernel evaluates, pixels the inputs need, the longest tile walk in
+    items) of the tile raster on these records.  A tile's walk ends at the
+    first 128-item boundary where the suffix-min of near depth lies beyond
+    every depth the tile holds so far
     (the occlusion break: no later item can win a pixel); the depth at
     each boundary comes from K2 on the segment prefixes.  An item of the
     walk needs the pixels of its screen bbox (``boxes``) inside its tile,
@@ -569,21 +707,13 @@ def k2_work(torch, raster, rec, boxes, height, width):
         walked = torch.where(brk, torch.full_like(walked, b), walked)
 
     def per_tile(per_item):
-        cum = torch.cat([torch.zeros(1, dtype=torch.long,
-                                     device=per_item.device),
-                         torch.cumsum(per_item, 0)])
-        return cum[walked] - cum[st]
+        return walk_sums(torch, per_item, st, walked)
 
     n_kept = int(ends[-1])
     tile = torch.repeat_interleave(
         torch.arange(tiles_y * tiles_x, device=counts.device), counts.long())
     ty, tx = tile // tiles_x * 16, tile % tiles_x * 128
-    x0, x1, y0, y1 = (b[:n_kept].long() for b in boxes)
-    cols = torch.clamp(torch.minimum(x1, tx + 127) - torch.maximum(x0, tx)
-                       + 1, min=0)
-    rows = torch.clamp(torch.minimum(y1, ty + 15) - torch.maximum(y0, ty)
-                       + 1, min=0)
-    cols = torch.where(rows > 0, cols, 0)
+    cols, rows = box_in_window(torch, boxes, n_kept, tx, tx + 127, ty)
     ops = per_tile(cols * (rows * K2_OPS_PER_PIXEL + K2_OPS_PER_ITEM_COLUMN))
     octet_rows = ((orows >> 8) - (orows & 0xFF) + 1).long()
     evaluated = per_tile(octet_rows.repeat_interleave(8)[:n_kept] * 128)
@@ -593,7 +723,81 @@ def k2_work(torch, raster, rec, boxes, height, width):
     moved = (n_items * (20 * 4 + 1) + nbytes(starts, counts)
              + out_h * width * 8)
     return (moved, int(ops.sum()), int(ops.max()), int(evaluated.sum()),
-            int(per_tile(cols * rows).sum()))
+            int(per_tile(cols * rows).sum()), int((walked - st).max()))
+
+
+def k4_work(torch, raster_packed, rec, boxes, height, width):
+    """(bytes, operations, the busiest tile's operations, items walked, of
+    items kept, the longest wide-bin walk, the longest bucket walk) of K4
+    on these packed records.  A bin's walk ends at its occlusion break,
+    found as the kernel finds it: the wide bin at 128-item chunk bases
+    strictly inside it, against the max depth of its tile over the wide
+    prefix so far; a bucket at 32-item chunk bases at or past its start,
+    against the max depth of its 512 pixels after the tile's wide walk and
+    the bucket's own prefix.  The depths come from K4 on those
+    prefixes.  An item of a walk needs the pixels of its screen bbox
+    (``boxes``) inside its bin's columns (the tile's 128, or the bucket's
+    32) and its tile's rows, K2_OPS_PER_PIXEL each, plus
+    K2_OPS_PER_ITEM_COLUMN per column of that box."""
+    BINS_PER_TILE = raster_packed.BINS_PER_TILE
+    records, starts, counts, orows, ozmin = rec
+    out_h = -height % 16 + height
+    tiles_y, tiles_x = out_h // 16, width // 128
+    n_tiles = tiles_y * tiles_x
+    kw = dict(height=height, width=width, out_h=out_h)
+    st, cn = starts.long(), counts.long()
+    ends = st + cn
+    if not torch.equal(st, torch.cumsum(cn, 0) - cn):
+        raise AssertionError("the bin segments are not contiguous")
+    kind = torch.arange(st.numel(), device=st.device) % BINS_PER_TILE
+    wide = kind == 0
+    walked = ends.clone()
+
+    def depth_of(prefix):
+        return raster_packed.rasterize_packed(
+            records, starts, prefix.int(), orows, ozmin, **kw)[1]
+
+    for b in range(128, int(ends[wide].max()), 128):
+        active = wide & (st < b) & (b < walked)
+        if not bool(active.any()):
+            continue
+        pc = torch.where(wide, torch.minimum(torch.clamp(b - st, min=0), cn),
+                         0)
+        dmax = depth_of(pc).view(tiles_y, 16, tiles_x, 128).amax(dim=(1, 3))
+        dmax = dmax.reshape(-1).repeat_interleave(BINS_PER_TILE)
+        walked = torch.where(active & (ozmin[b >> 3] > dmax),
+                             torch.full_like(walked, b), walked)
+    for b in range(0, int(ends.max()), 32):
+        active = ~wide & (st <= b) & (b < walked)
+        if not bool(active.any()):
+            continue
+        pc = torch.where(wide, walked - st,
+                         torch.minimum(torch.clamp(b - st, min=0), cn))
+        dmax = depth_of(pc).view(tiles_y, 16, tiles_x, 4, 32).amax(
+            dim=(1, 4)).reshape(n_tiles, 4)
+        dmax = torch.cat([dmax[:, :1], dmax], 1).reshape(-1)
+        walked = torch.where(active & (ozmin[b >> 3] > dmax),
+                             torch.full_like(walked, b), walked)
+
+    n_kept = int(ends[-1])
+    bins = torch.repeat_interleave(torch.arange(st.numel(),
+                                                device=st.device), cn)
+    tile, k = bins // BINS_PER_TILE, bins % BINS_PER_TILE
+    ty = tile // tiles_x * 16
+    cx0 = tile % tiles_x * 128 + torch.where(k == 0, 0, 32 * (k - 1))
+    cx1 = cx0 + torch.where(k == 0, 127, 31)
+    cols, rows = box_in_window(torch, boxes, n_kept, cx0, cx1, ty)
+    ops = walk_sums(torch, cols * (rows * K2_OPS_PER_PIXEL
+                                   + K2_OPS_PER_ITEM_COLUMN), st, walked)
+    n_items = int((walked - st).sum())
+    # an item reads its 20 record words; an octet of 8 items its row range
+    # and suffix-min word; the frame writes colour and depth
+    moved = (n_items * (20 * 4 + 1) + nbytes(starts, counts)
+             + out_h * width * 8)
+    tile_ops = ops.view(n_tiles, BINS_PER_TILE).sum(1)
+    walk = walked - st
+    return (moved, int(ops.sum()), int(tile_ops.max()), n_items, n_kept,
+            int(walk[wide].max()), int(walk[~wide].max()))
 
 
 def profile_frames(torch, frame_fn, n: int = 10):
@@ -673,6 +877,7 @@ def main() -> int:
         from differential_projection_voxel_renderer_tpu_torch.ops import (
             geometry,
             raster,
+            raster_packed,
         )
         from differential_projection_voxel_renderer_tpu_torch.rendering import (
             parity,
@@ -784,7 +989,6 @@ def main() -> int:
     for mode, prof in profiles8.items():
         ref_ms = statistics.mean(ev for ev, _ in times8[mode])
         log_profile("8", f"{mode} static frame", prof, ref_ms, card)
-    del serial
 
     # ---- 9. K3 vs K2 + K1
     c2, d2 = raster.rasterize_tiles(*rec720, **rkw)
@@ -836,7 +1040,7 @@ def main() -> int:
     k1_bound, k1_by = bound(k1_bytes, k1_ops)
     boxes = item_boxes(torch, pipeline, (quads, qw, total, static_cam),
                        step_kw, rec720)
-    k2_bytes, k2_ops, k2_tile_ops, k2_evaluated, k2_needed = k2_work(
+    k2_bytes, k2_ops, k2_tile_ops, k2_evaluated, k2_needed, k2_walk = k2_work(
         torch, raster, rec720, boxes, HEIGHT, WIDTH)
     k2_bound, k2_by = bound(k2_bytes, k2_ops)
     k2_tile_ms = k2_tile_ops / (F32_OPS_PER_S / N_SMS) * 1e3
@@ -849,7 +1053,107 @@ def main() -> int:
         f"plus K1's bytes {k3_tile_ms:.5f} ms (H100 SXM data sheet peaks)")
     log(f"[9] K2 on the vd12 records: the kernel evaluates {k2_evaluated} "
         f"item-pixels, the items' boxes in their tiles hold {k2_needed} "
-        f"(both over the items the occlusion break leaves)")
+        f"(both over the items the occlusion break leaves); the longest "
+        f"tile walk is {k2_walk} items")
+
+    # ---- 10. the packed raster path
+    eng10, launches10, frame10, stats10 = packed_path(torch, serial)
+    del serial
+    log(f"[10] packed static frame {frame10['static_ms']:.3f} ms (CUDA "
+        f"events), {frame10['host_ms']:.3f} ms host clock (mean of "
+        f"{N_TIMED_PIPELINED}); phase 3's serial static frame "
+        f"{frame['static_ms']:.3f} / {frame['host_ms']:.3f} ms (mean of "
+        f"{N_TIMED}); {card}")
+    log_profile("10", "packed frame at the last moving pose", profile_frames(
+        torch, lambda: eng10.render_frame(dt=0.0)), frame10["static_ms"],
+        card)
+    k4_err = 0.0
+
+    def depth_err(a, b):
+        fin = torch.isfinite(a) & torch.isfinite(b)
+        return float((a - b).abs()[fin].max()) if bool(fin.any()) else 0.0
+
+    for name in parity.SMALL_SCENES:
+        gargs, gkw2 = parity.small_scene(name, "cuda")
+        rec = pipeline.render_step(*gargs, packed_raster=True,
+                                   debug_return_records=True, **gkw2)
+        pkw = dict(height=gkw2["height"], width=gkw2["width"])
+        c4, d4 = raster_packed.rasterize_packed(*rec, **pkw)
+        c5, d5 = raster_packed.rasterize_packed_plain(*rec, **pkw)
+        if not (torch.equal(c4, c5) and torch.equal(d4, d5)):
+            raise AssertionError(f"K4 differs from its plain version "
+                                 f"({name})")
+        k4_err = max(k4_err, depth_err(d4, d5))
+        n_bucket = int(rec[2].view(-1, 5)[:, 1:].sum())
+        log(f"[10] K4 {name}: equal to its plain version bit for bit; "
+            f"{int(rec[2].sum())} items, {n_bucket} in buckets")
+    gargs, gkw2 = parity.small_scene("fuzz 128x128", "cuda")
+    cargs, ckw = parity.small_scene("fuzz 128x128", "cpu")
+    c_gpu, d_gpu, s_gpu = pipeline.render_step(*gargs, packed_raster=True,
+                                               **gkw2)
+    c_cpu, d_cpu, s_cpu = pipeline.render_step(*cargs, packed_raster=True,
+                                               **ckw)
+    rec_cpu = pipeline.render_step(*cargs, packed_raster=True,
+                                   debug_return_records=True, **ckw)
+    v = parity.frame_parity(c_gpu.cpu().numpy(), d_gpu.cpu().numpy(),
+                            c_cpu.numpy(), d_cpu.numpy(), rec_cpu[0].numpy())
+    if not torch.equal(s_gpu.cpu(), s_cpu):
+        raise AssertionError("packed 128x128: stats differ card vs CPU")
+    log(f"[10] packed 128x128 frame, card vs CPU twins: {v}")
+    pstep_kw = eng10.renderer._bucket_kw(int(quads.shape[0]))
+    recp = pipeline._step_camf(quads, qw, total, static_cam,
+                               debug_return_records=True, **pstep_kw)
+    pkw = dict(height=HEIGHT, width=WIDTH)
+    c4, d4 = raster_packed.rasterize_packed(*recp, **pkw)
+    c5, d5 = raster_packed.rasterize_packed_plain(*recp, **pkw)
+    if not (torch.equal(c4, c5) and torch.equal(d4, d5)):
+        raise AssertionError("K4 differs from its plain version at vd12")
+    k4_err = max(k4_err, depth_err(d4, d5))
+    if not (torch.equal(c4, c2) and torch.equal(d4, d2)):
+        raise AssertionError("K4's vd12 frame differs from K2's")
+    pcounts = recp[2].view(-1, 5)
+    log(f"[10] K4 1280x720 vd12 packed records: equal to its plain version "
+        f"and to K2's frame on the default records, bit for bit; "
+        f"{int(pcounts.sum())} items ({int(pcounts[:, 0].sum())} wide, "
+        f"{int(pcounts[:, 1:].sum())} in buckets; the default binning "
+        f"holds {int(rec720[2].sum())}), at most {int(pcounts.max())} in "
+        f"one bin; the static frame's stats {stats10.tolist()}; item cap "
+        f"{pstep_kw['tile_k_cap']}")
+    k4_ms = median_ms(lambda: raster_packed.rasterize_packed(*recp, **pkw))
+    k4_run = median_ms(lambda: raster_packed.rasterize_packed(*recp, **pkw),
+                       batch=20)
+    k2_run10 = median_ms(lambda: raster.rasterize_tiles(*rec720, **rkw),
+                         batch=20)
+    k4_plain = median_ms(lambda: raster_packed.rasterize_packed_plain(
+        *recp, **pkw), reps=5)
+    # where K4's time goes: its launch on the wide bins alone and on the
+    # buckets alone (the other bins' counts set to 0)
+    wide_bin = torch.arange(recp[2].numel(), device="cuda") % 5 == 0
+    k4_phase_ms = {}
+    for label, keep in (("wide bins only", wide_bin),
+                        ("buckets only", ~wide_bin)):
+        part = (recp[0], recp[1], torch.where(keep, recp[2], 0), *recp[3:])
+        k4_phase_ms[label] = median_ms(
+            lambda part=part: raster_packed.rasterize_packed(*part, **pkw),
+            batch=20)
+    log(f"[10] K4 (vd12 packed records): {k4_ms:.4f} ms a call, "
+        f"{k4_run:.4f} ms in runs of 20 (medians of 20); K2 on the default "
+        f"records of the same pose {k2_run10:.4f} ms in runs of 20; plain "
+        f"version {k4_plain:.4f} ms (median of 5); K4 on "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in k4_phase_ms.items())
+        + f" in runs of 20; {card}")
+    boxes_p = item_boxes(torch, pipeline, (quads, qw, total, static_cam),
+                         pstep_kw, recp)
+    k4_bytes, k4_ops, k4_tile_ops, k4_items, k4_kept, walk_w, walk_b = (
+        k4_work(torch, raster_packed, recp, boxes_p, HEIGHT, WIDTH))
+    k4_bound, k4_by = bound(k4_bytes, k4_ops)
+    k4_tile_ms = k4_tile_ops / (F32_OPS_PER_S / N_SMS) * 1e3
+    log(f"[10] bound: K4 {k4_bound:.5f} ms ({k4_by}: {k4_bytes} bytes, "
+        f"{k4_ops} ops), busiest tile {k4_tile_ms:.5f} ms at one SM's share "
+        f"({k4_tile_ops} ops); the occlusion break leaves {k4_items} of "
+        f"{k4_kept} items; the longest walks are {walk_w} items in a wide "
+        f"bin (by 256 threads) and {walk_b} in a bucket (by 64) (H100 SXM "
+        f"data sheet peaks)")
 
     ref_mods = [m for m in sys.modules if m == REF or m.startswith(REF + ".")]
     if "jax" in sys.modules or ref_mods:
@@ -877,6 +1181,13 @@ def main() -> int:
              plain_ms=k3_plain, bound_ms=k3_bound, bound_by=k3_by,
              library_ms=None, tile_bound_ms=k3_tile_ms,
              k2_plus_k1_ms=k21_run),
+        dict(name="K4 packed tile raster (rasterize_packed)", route="cuda",
+             source=f"{PKG}/csrc/raster_packed.cu",
+             replaces=f"{REF}/ops/raster_packed.py:205",
+             launches=launches10[3], max_abs_err=k4_err, ms=k4_run,
+             plain_ms=k4_plain, bound_ms=k4_bound, bound_by=k4_by,
+             library_ms=None, tile_bound_ms=k4_tile_ms,
+             k2_same_frame_ms=k2_run10),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

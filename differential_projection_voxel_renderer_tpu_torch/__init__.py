@@ -1,6 +1,6 @@
 """differential_projection_voxel_renderer_tpu_torch -- the voxel renderer's
-serial and frames-in-flight frame paths in PyTorch, with hand-written CUDA
-kernels for Hopper.
+serial, frames-in-flight and packed-raster frame paths in PyTorch, with
+hand-written CUDA kernels for Hopper.
 
 A port of ``differential_projection_voxel_renderer_tpu`` (JAX/Pallas),
 which stays the reference it is tested against.  The port imports nothing
@@ -15,8 +15,11 @@ under the same sub-package names:
                    ``ops/geometry.py`` + ``csrc/geometry.cu``), tile
                    binning, kernel K2 (the tile raster) and kernel K3 (the
                    raster with the next frame's stage A, frames in flight;
-                   ``ops/raster.py`` + ``csrc/raster.cu``); each kernel has
-                   a plain PyTorch twin that runs for CPU tensors
+                   ``ops/raster.py`` + ``csrc/raster.cu``), the packed
+                   binning and kernel K4 (the packed tile raster;
+                   ``ops/raster_packed.py`` + ``csrc/raster_packed.cu``);
+                   each kernel has a plain PyTorch twin that runs for CPU
+                   tensors
 - ``rendering`` -- the render step and the Renderer (``pipeline.py``), and
                    the frame parity gates (``parity.py``)
 - ``app``       -- QuadPool, Engine, FrameResult (``engine.py``)

@@ -25,8 +25,8 @@ import time
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("geometry.cu", "raster.cu")
-HEADERS = ("stage_a.cuh",)
+SOURCES = ("geometry.cu", "raster.cu", "raster_packed.cu")
+HEADERS = ("stage_a.cuh", "tile_raster.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 LIB_PATH = os.path.join(BUILD_DIR, "libdpvr_kernels.so")
 NVCC_FLAGS = (
@@ -54,6 +54,10 @@ _SIGNATURES = {
     "dpvr_rasterize_tiles": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                              _P, _P, _P, _P, _P, _P, _P, _I, _I,
                              _P, _P, _P, _P, _P, _P),
+    # (records[24, cap], cap, starts[T * 5], counts[T * 5], octet_rows,
+    #  octet_zmin, tiles_y, tiles_x, height, width, color, depth, stream)
+    "dpvr_rasterize_packed": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _P, _P, _P),
 }
 
 

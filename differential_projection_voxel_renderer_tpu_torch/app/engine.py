@@ -2,7 +2,8 @@
 culling funnel and the per-frame render call.
 
 Counterpart of ``differential_projection_voxel_renderer_tpu/app/engine.py``
-on its serial path (``render_frame``) and in frames-in-flight mode
+on its serial path (``render_frame``, also with
+``RenderConfig.packed_raster``) and in frames-in-flight mode
 (``render_frame_pipelined`` / ``flush_pipeline``).  The host logic
 (streaming, remeshing, the culling funnel, draw-list build, the pool's
 host bookkeeping) is carried over as it is, on the port's own copies of

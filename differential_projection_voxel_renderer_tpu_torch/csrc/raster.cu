@@ -3,13 +3,9 @@
 //
 // Replaces the TPU kernels `_raster_kernel_shared` and `_raster_kernel`
 // (both around `_walk_block`) of
-// differential_projection_voxel_renderer_tpu/ops/raster.py.  Per pixel of
-// the tile and per item of its segment: q = A (nx, ny, 1); coverage
-// qw > 0, u0 qw <= qu <= u1 qw, v0 qw <= qv <= v1 qw; planar depth
-// z = z0 nx + z1 ny + z2; the texel bit (8 qv/qw & 7) * 8 + (8 qu/qw & 7)
-// of the 64-bit parity mask picks colour_odd or colour_even; the blend is
-// the commutative lexicographic (depth, colour) minimum.  Rows outside the
-// item's octet row range (octet_rows[k / 8]) are skipped, as on the TPU.
+// differential_projection_voxel_renderer_tpu/ops/raster.py.  The per-pixel
+// code (coverage, planar depth, texel colour, the commutative blend) and
+// the segment walk are in tile_raster.cuh, shared with K4.
 //
 // What bounds it on an H100: arithmetic and instruction throughput, not
 // memory.  A tile reads 80 bytes per item once (~8 MB per 720p frame at
@@ -25,6 +21,7 @@
 // its accumulated depth and stops once the suffix-min of the remaining
 // items' near depth (octet_zmin) lies beyond it: the exact occlusion break
 // of the TPU kernel, which only skips items that cannot win a pixel.
+// (The rounding contract is in tile_raster.cuh.)
 //
 // K3: K2 and the next frame's stage A in one launch of the same kernel
 // (raster_kernel), for frames in flight.  Replaces `_fused_geom_pass` of
@@ -40,48 +37,11 @@
 // SMs the tiles leave free.  What bounds it: K2's busiest tile plus K1's
 // bytes.  Stage-A blocks use no shared memory beyond the kernel's static
 // tile buffers and return before the tile code's barriers.
-//
-// Rounding contract: compiled with -fmad=false, IEEE division and no fast
-// math; the pixel NDC and the plane evaluations keep the reference's
-// operation order, with the column products a*nx hoisted per item exactly
-// as the TPU kernel hoists them (_eval_bases).
-
-#include <cuda_runtime.h>
-#include <stdint.h>
 
 #include "stage_a.cuh"
+#include "tile_raster.cuh"
 
 namespace {
-
-constexpr int kTileH = 16;
-constexpr int kTileW = 128;
-constexpr int kThreads = 256;
-constexpr int kRowsPerThread = kTileH * kTileW / kThreads;  // 8
-constexpr int kChunk = 128;  // items staged per shared-memory chunk
-constexpr int kFields = 20;  // 16 f32 blend fields + 4 colour/mask words
-constexpr int kSky = (int)0xFF87CEEBu;  // utils/config.py SKY_COLOR
-
-__device__ __forceinline__ float block_max(float v, float* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) red[warp] = v;
-  __syncthreads();
-  float m = red[0];
-#pragma unroll
-  for (int w = 1; w < kThreads / 32; ++w) m = fmaxf(m, red[w]);
-  __syncthreads();
-  return m;
-}
-
-// Shared memory of one tile block.
-struct TileSmem {
-  float sf[16][kChunk];
-  int si[4][kChunk];
-  int srow[kChunk];
-  float red[kThreads / 32];
-};
 
 // Tile t of the frame, by the whole block.
 __device__ __forceinline__ void raster_tile(
@@ -90,105 +50,15 @@ __device__ __forceinline__ void raster_tile(
     const int* __restrict__ orows, const float* __restrict__ ozmin,
     int tiles_x, int height, int width, int* __restrict__ color_out,
     float* __restrict__ depth_out) {
-  float(&sf)[16][kChunk] = sm.sf;
-  int(&si)[4][kChunk] = sm.si;
-  int(&srow)[kChunk] = sm.srow;
   const int ty = t / tiles_x, tx = t - ty * tiles_x;
-  const int start = starts[t];
-  const int end = start + counts[t];
   const int col = threadIdx.x & (kTileW - 1);
   const int g = threadIdx.x / kTileW;
-
-  const float wf = (float)width, hf = (float)height;
-  const float px = (float)(tx * kTileW) + (float)col;
-  const float nx = (2.0f * (px + 0.5f) - wf) / wf;
-  float ny[kRowsPerThread], D[kRowsPerThread];
+  float nx, ny[kRowsPerThread], D[kRowsPerThread];
   int C[kRowsPerThread];
-#pragma unroll
-  for (int j = 0; j < kRowsPerThread; ++j) {
-    const float py = (float)(ty * kTileH + g + 2 * j);
-    ny[j] = 1.0f - (2.0f * (py + 0.5f)) / hf;
-    D[j] = __int_as_float(0x7f800000);
-    C[j] = kSky;
-  }
-
-  for (int base = (start / kChunk) * kChunk; base < end; base += kChunk) {
-    if (base > start) {
-      // exact occlusion break at a chunk boundary inside the segment
-      float m = D[0];
-#pragma unroll
-      for (int j = 1; j < kRowsPerThread; ++j) m = fmaxf(m, D[j]);
-      const float dmax = block_max(m, sm.red);
-      if (ozmin[base >> 3] > dmax) break;
-    }
-    const int lo = start > base ? start : base;
-    const int hi = end < base + kChunk ? end : base + kChunk;
-    for (int idx = threadIdx.x; idx < kFields * kChunk; idx += kThreads) {
-      const int f = idx / kChunk, i = idx - f * kChunk;
-      const int k = base + i;
-      if (k >= lo && k < hi) {
-        const int val = rec[(size_t)f * cap + k];
-        if (f < 16)
-          sf[f][i] = __int_as_float(val);
-        else
-          si[f - 16][i] = val;
-      }
-    }
-    for (int i = threadIdx.x; i < kChunk; i += kThreads) {
-      const int k = base + i;
-      if (k >= lo && k < hi) srow[i] = orows[k >> 3];
-    }
-    __syncthreads();
-
-    for (int k = lo; k < hi; ++k) {
-      const int i = k - base;
-      const int rr = srow[i];
-      const int r0 = rr & 0xFF, r1 = rr >> 8;
-      // this thread's rows g + 2j that fall in [r0, r1]
-      const int j0 = r0 > g ? (r0 - g + 1) >> 1 : 0;
-      const int j1 = r1 >= g ? (r1 - g) >> 1 : -1;
-      if (j0 > j1) continue;
-      const float a00 = sf[0][i], a01 = sf[1][i], a02 = sf[2][i];
-      const float a10 = sf[3][i], a11 = sf[4][i], a12 = sf[5][i];
-      const float a20 = sf[6][i], a21 = sf[7][i], a22 = sf[8][i];
-      const float z0 = sf[9][i], z1 = sf[10][i], z2 = sf[11][i];
-      const float u0 = sf[12][i], u1 = sf[13][i];
-      const float v0 = sf[14][i], v1 = sf[15][i];
-      const int ce = si[0][i], co = si[1][i];
-      const int mlo = si[2][i], mhi = si[3][i];
-      const float bu = a00 * nx, bv = a10 * nx, bw = a20 * nx, bz = z0 * nx;
-#pragma unroll
-      for (int j = 0; j < kRowsPerThread; ++j) {
-        if (j < j0 || j > j1) continue;
-        const float qu = (bu + a01 * ny[j]) + a02;
-        const float qv = (bv + a11 * ny[j]) + a12;
-        const float qw = (bw + a21 * ny[j]) + a22;
-        const float z = (bz + z1 * ny[j]) + z2;
-        const bool cover = (qw > 0.0f) && (qu >= u0 * qw) && (qu <= u1 * qw) &&
-                           (qv >= v0 * qw) && (qv <= v1 * qw) && (z == z);
-        if (!cover) continue;
-        const float inv = 1.0f / qw;
-        const int tu = __float2int_rz((qu * inv) * 8.0f) & 7;
-        const int tv = __float2int_rz((qv * inv) * 8.0f) & 7;
-        const int bit_idx = tv * 8 + tu;
-        const unsigned word = (unsigned)(bit_idx < 32 ? mlo : mhi);
-        const int c = ((word >> (bit_idx & 31)) & 1u) ? co : ce;
-        if (z < D[j] || (z == D[j] && c < C[j])) {
-          D[j] = z;
-          C[j] = c;
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int j = 0; j < kRowsPerThread; ++j) {
-    const size_t o = (size_t)(ty * kTileH + g + 2 * j) * width +
-                     tx * kTileW + col;
-    color_out[o] = C[j];
-    depth_out[o] = D[j];
-  }
+  init_pixels(ty, tx, g, col, height, width, nx, ny, D, C);
+  walk_tile_segment(starts[t], starts[t] + counts[t], sm, rec, cap, orows,
+                    ozmin, g, nx, ny, D, C);
+  store_pixels(ty, tx, g, col, width, D, C, color_out, depth_out);
 }
 
 // K2 and K3: blocks [0, n_tiles) are the tile blocks; with gq2 > 0 (K3)

@@ -237,6 +237,17 @@ def _check_records(records, tile_starts, tile_counts, octet_rows,
     return cap, n_tiles
 
 
+def kernel_inputs(name, records, starts, counts, octet_rows, octet_zmin):
+    """The raster inputs as contiguous tensors of a kernel's types (int32,
+    octet_zmin float32) on the records' device; raises otherwise."""
+    ins = [x.contiguous() for x in (records, starts, counts, octet_rows,
+                                    octet_zmin)]
+    for x, dt in zip(ins, (torch.int32,) * 4 + (torch.float32,)):
+        if x.dtype != dt or x.device != records.device:
+            raise ValueError(f"{name}: wrong dtype or device")
+    return ins
+
+
 def rasterize_tiles_plain(records, tile_starts, tile_counts, octet_rows,
                           octet_zmin, *, height: int, width: int,
                           tile_h: int, tile_w: int, out_h: int):
@@ -323,11 +334,8 @@ def rasterize_tiles(records, tile_starts, tile_counts, octet_rows,
                    octet_zmin, out_h=out_h, width=width, tile_h=tile_h,
                    tile_w=tile_w)
     dev = records.device
-    ins = [x.contiguous() for x in (records, tile_starts, tile_counts,
-                                    octet_rows, octet_zmin)]
-    for x, dt in zip(ins, (torch.int32,) * 4 + (torch.float32,)):
-        if x.dtype != dt or x.device != dev:
-            raise ValueError("rasterize_tiles: wrong dtype or device")
+    ins = kernel_inputs("rasterize_tiles", records, tile_starts, tile_counts,
+                        octet_rows, octet_zmin)
     color = torch.empty((out_h, width), dtype=torch.int32, device=dev)
     depth = torch.empty((out_h, width), dtype=torch.float32, device=dev)
     raster_args = (

@@ -22,6 +22,14 @@ N-1 from its carried stage-A result (``pre_geom``) and computes frame N's
 stage A in the same raster launch (``next_geom``, kernel K3); the frames
 equal the serial step's bit for bit, one frame later.
 
+The packed raster (``RenderConfig.packed_raster``, ``_packed_tail``)
+always compacts, keyed by 4 bits of log-quantized near depth so the
+stream comes out front to back, then bins into five bins per tile (the
+wide quads and four 32-pixel buckets, ops/raster_packed.build_bin_lists),
+takes a per-bin suffix-min of near depth, and rasterizes with kernel K4
+(ops/raster_packed.rasterize_packed).  Its frame equals the default
+path's; it does not run frames in flight.
+
 PyTorch runs eagerly, so there is no jit and no trace-time knob: the
 capacity buckets only size the tensors.  Capacities are static, so a step
 makes no host sync; ``n_quads``, the counts and the totals stay on the
@@ -37,6 +45,7 @@ import torch
 from ..ops import geometry as geom_ops
 from ..ops import projection as proj_ops
 from ..ops import raster as raster_ops
+from ..ops import raster_packed as packed_ops
 from ..ops.shading import build_quad_color_tables
 from ..ops.texture import TextureAtlas
 from ..utils.config import RenderConfig
@@ -72,7 +81,8 @@ def render_step(quads, quad_world, n_quads, view_proj, cam_pos, *,
                 color_tables, width: int, height: int, tile_h: int,
                 tile_w: int, render_cap: int,
                 backface_culling: bool = True, tile_k_cap: int = 8192,
-                debug_return_records: bool = False, pre_geom=None,
+                packed_raster: bool = False,
+                debug_return_records: bool | str = False, pre_geom=None,
                 next_geom=None):
     """One frame from the gathered stream: ``quads`` i32[GQ] words,
     ``quad_world`` f32[3, GQ], ``n_quads`` i32 scalar, ``view_proj``
@@ -83,14 +93,19 @@ def render_step(quads, quad_world, n_quads, view_proj, cam_pos, *,
     the raster's inputs (records, tile_starts, tile_counts, octet_rows,
     octet_zmin) instead.
 
+    ``packed_raster``: the packed raster path (``_packed_tail``, kernel
+    K4); its ``debug_return_records`` may also be "bin" or "gather" (see
+    there).
+
     Frames in flight: ``pre_geom`` = (valid, bbx, bby, depth_near,
     subpix_total), this stream's stage A computed earlier, skips stage A
     (``valid`` is masked with the stream range); ``next_geom`` = (quads2,
     quad_world2, n2, view_proj2, cam_pos2) computes the next frame's stage
     A in the raster call (K3) and returns its pre_geom tuple as a fourth
     output."""
-    if next_geom is not None and debug_return_records:
-        raise ValueError("next_geom cannot return the raster's inputs")
+    if next_geom is not None and (debug_return_records or packed_raster):
+        raise ValueError("next_geom runs with the tile raster and cannot "
+                         "return the raster's inputs")
     dev = quads.device
     gq = quads.shape[0]
     i32 = torch.int32
@@ -109,7 +124,7 @@ def render_step(quads, quad_world, n_quads, view_proj, cam_pos, *,
     out_h = -height % tile_h + height  # pad to a tile multiple
     tiles_y, tiles_x = out_h // tile_h, width // tile_w
     rc = min(gq, render_cap)
-    if gq <= rc:
+    if gq <= rc and not packed_raster:
         # no compaction: the binner takes the raw stream with its mask
         count_c = count
         overflow = torch.zeros((), dtype=i32, device=dev)
@@ -118,7 +133,17 @@ def render_step(quads, quad_world, n_quads, view_proj, cam_pos, *,
         valid_c = valid_a
     else:
         stream_q = torch.arange(gq, dtype=i32, device=dev)
-        idx = torch.sort(torch.where(valid_a, stream_q, 2**30)).values[:rc]
+        if packed_raster:
+            # the packed path always compacts, front to back: the key puts
+            # 4 bits of log-quantized near depth above the stream index, so
+            # the binner needs no finer depth order
+            qbits = max(1, (gq - 1).bit_length())
+            assert 16 << qbits <= 2**30, "depth class + index overflow"
+            key = torch.where(
+                valid_a, (_depth_class(dn_a) << qbits) | stream_q, 2**30)
+            idx = torch.sort(key).values[:rc] & ((1 << qbits) - 1)
+        else:
+            idx = torch.sort(torch.where(valid_a, stream_q, 2**30)).values[:rc]
         idx = torch.clamp(idx, max=gq - 1).long()
         quads_c, wq_c = quads[idx], quad_world[:, idx]
         bbx_c, bby_c, dn_c = bbx_a[idx], bby_a[idx], dn_a[idx]
@@ -128,6 +153,25 @@ def render_step(quads, quad_world, n_quads, view_proj, cam_pos, *,
 
     coeffs = proj_ops.quad_coefficients(
         quads_c, (wq_c[0], wq_c[1], wq_c[2]), view_proj, color_tables)
+
+    def stats_of(bin_overflow):
+        return torch.stack([n_quads, count, overflow, bin_overflow,
+                            subpix_total, torch.zeros((), dtype=i32,
+                                                      device=dev)])
+
+    if packed_raster:
+        f_full = torch.stack([coeffs[k] for k in raster_ops.F_FIELDS])
+        i_full = torch.stack([coeffs[k] for k in raster_ops.I_FIELDS]
+                             + [bby_c, dn_c.view(i32)])
+        out = _packed_tail(
+            f_full, i_full, bbx_c, bby_c, count_c, height=height,
+            width=width, tile_h=tile_h, out_h=out_h, tiles_y=tiles_y,
+            tiles_x=tiles_x, tile_k_cap=tile_k_cap,
+            debug_return_records=debug_return_records)
+        if debug_return_records:
+            return out
+        color, depth, bin_overflow = out
+        return color[:height], depth[:height], stats_of(bin_overflow)
     # every per-item row that crosses the binning, as one i32[22, rc]
     all22 = torch.stack(
         [coeffs[k].view(i32) for k in raster_ops.F_FIELDS]
@@ -139,8 +183,7 @@ def render_step(quads, quad_world, n_quads, view_proj, cam_pos, *,
         tile_h=tile_h, tile_w=tile_w)
     # within-tile order "42": 4 bits of log-quantized near depth (drives
     # the occlusion break), 2 bits of the covered 4-row band
-    dq4 = torch.clamp(
-        (-torch.log2(torch.clamp(1.0 - dn_c, min=1e-9))).to(i32), 0, 15)
+    dq4 = _depth_class(dn_c)
     y0_c = bby_c & 0xFFFF
     ly0_c = torch.clamp(y0_c - (y0_c // tile_h) * tile_h, 0, tile_h - 1)
     band = torch.clamp(ly0_c >> 2, max=3)
@@ -184,15 +227,94 @@ def render_step(quads, quad_world, n_quads, view_proj, cam_pos, *,
         records, tile_starts, tile_counts, octet_rows, octet_zmin,
         height=height, width=width, tile_h=tile_h, tile_w=tile_w,
         out_h=out_h, next_geom=next_geom, backface_culling=backface_culling)
-    color, depth = out[:2]
-    if out_h != height:
-        color, depth = color[:height], depth[:height]
-    stats = torch.stack([n_quads, count, overflow, bin_overflow,
-                         subpix_total, torch.zeros((), dtype=i32,
-                                                   device=dev)])
+    color, depth = out[0][:height], out[1][:height]
     if next_geom is not None:
-        return color, depth, stats, _pre_geom_of(out[2])
-    return color, depth, stats
+        return color, depth, stats_of(bin_overflow), _pre_geom_of(out[2])
+    return color, depth, stats_of(bin_overflow)
+
+
+def _depth_class(dn) -> torch.Tensor:
+    """4-bit log-quantized near depth: floor(-log2(max(1 - dn, 1e-9))),
+    clipped to [0, 15]."""
+    return torch.clamp(
+        (-torch.log2(torch.clamp(1.0 - dn, min=1e-9))).to(torch.int32), 0, 15)
+
+
+def _segmented_suffix_min(seg, vals):
+    """out[g] = min of ``vals`` over g' >= g with seg[g'] == seg[g], for a
+    non-decreasing ``seg`` and ``vals`` without NaN (the reference's
+    segmented reverse ``associative_scan``): one reverse cummin over an
+    int64 key (segment << 32 | order-mapped float bits), in which later
+    segments carry larger keys and so never win."""
+    bits = vals.view(torch.int32).long() & U32
+    omap = bits ^ torch.where((bits >> 31) != 0, U32, 1 << 31)
+    low = torch.cummin(((seg.long() << 32) | omap).flip(0),
+                       0).values.flip(0) & U32
+    fbits = torch.where((low >> 31) != 0, low ^ (1 << 31), ~low & U32)
+    return _to_i32(fbits).view(torch.float32)
+
+
+def _packed_tail(f_full, i_full, bbx_c, bby_c, count_c, *, height: int,
+                 width: int, tile_h: int, out_h: int, tiles_y: int,
+                 tiles_x: int, tile_k_cap: int, debug_return_records):
+    """Binning, metadata and raster of the packed path (the reference's
+    ``_packed_tail``) on the compacted, front-to-back stream: ``f_full``
+    f32[16, rc] blend fields, ``i_full`` i32[6, rc] (colour/mask words,
+    bby, near-depth bits).  Returns (color, depth, bin_overflow), color and
+    depth [out_h, width]; or, with ``debug_return_records`` True, the
+    raster's inputs (records, starts, counts, octet_rows, octet_zmin);
+    "bin" stops after the binning (flat, b_of_item, valid_slot, starts,
+    counts), "gather" after the record gather (f_binned, i_binned, starts,
+    counts, b_of_item)."""
+    i32 = torch.int32
+    bucketbox = proj_ops.pack_tilebox(
+        bbx_c & 0xFFFF, bbx_c >> 16, bby_c & 0xFFFF, bby_c >> 16,
+        tile_h=tile_h, tile_w=packed_ops.BUCKET_W)
+    # within-bin order: 2 bits of near depth (early occlusion break), then
+    # the 2-bit covered-row band (row coherence); the compaction order
+    # refines by 4 bits of depth inside each class
+    by0 = bby_c & 0xFFFF
+    band2 = torch.clamp(
+        torch.clamp(by0 - (by0 // tile_h) * tile_h, 0, tile_h - 1) >> 2,
+        max=3)
+    dq2 = _depth_class(i_full[5].view(torch.float32)) >> 2
+    flat, b_of_item, valid_slot, starts, counts, bin_overflow = (
+        packed_ops.build_bin_lists(
+            bucketbox, count_c, (dq2 << 2) | band2, dq2 << 2,
+            tiles_y=tiles_y, tiles_x=tiles_x, item_cap=tile_k_cap))
+    if debug_return_records == "bin":
+        return flat, b_of_item, valid_slot, starts, counts
+    f_binned = f_full[:, flat.long()]
+    ig = i_full[:, flat.long()]
+    if debug_return_records == "gather":
+        return f_binned, ig, starts, counts, b_of_item
+    # covered tile-local row range per item -> per-octet bounds; pad slots
+    # are inert (empty row range, +inf depth)
+    tpy0 = (b_of_item // packed_ops.BINS_PER_TILE // tiles_x) * tile_h
+    ly0 = torch.clamp((ig[4] & 0xFFFF) - tpy0, 0, tile_h - 1)
+    ly1 = torch.clamp((ig[4] >> 16) - tpy0, 0, tile_h - 1)
+    ly0 = torch.where(valid_slot, ly0, tile_h - 1)
+    ly1 = torch.where(valid_slot, ly1, 0)
+    n_items = flat.shape[0]
+    n_oct = n_items // 8
+    octet_rows = (ly0.view(n_oct, 8).amin(1)
+                  | (ly1.view(n_oct, 8).amax(1) << 8))
+    # the exact occlusion-break key: the suffix-min of near depth to the
+    # end of each BIN, over 8-group minima, keyed by each group's first
+    # item (the kernel tests it only at groups that start inside a bin);
+    # a binned quad's near depth lies in [0, 1] (stage A's frustum test)
+    dn_i = torch.where(valid_slot, ig[5].view(torch.float32), float("inf"))
+    octet_zmin = _segmented_suffix_min(b_of_item.view(n_oct, 8)[:, 0],
+                                       dn_i.view(n_oct, 8).amin(1))
+    records = torch.cat([f_binned.view(i32), ig[:4],
+                         torch.zeros((4, n_items), dtype=i32,
+                                     device=flat.device)])
+    if debug_return_records:
+        return records, starts, counts, octet_rows, octet_zmin
+    color, depth = packed_ops.rasterize_packed(
+        records, starts, counts, octet_rows, octet_zmin, height=height,
+        width=width, tile_h=tile_h, out_h=out_h)
+    return color, depth, bin_overflow
 
 
 # ----------------------------------------------------------- draw lists
@@ -462,8 +584,12 @@ class Renderer:
         self.config = cfg = config or RenderConfig()
         self.atlas = atlas or TextureAtlas()
         self.device = resolve_device(device)
-        for flag in ("span_mode", "packed_raster", "two_pass_near_quads",
-                     "temporal_hiz"):
+        if cfg.packed_raster and cfg.two_pass_near_quads:
+            raise ValueError(
+                "packed_raster and two_pass_near_quads are mutually "
+                "exclusive: the packed kernel cannot blend onto the near "
+                "pass's framebuffer")
+        for flag in ("span_mode", "two_pass_near_quads", "temporal_hiz"):
             if getattr(cfg, flag):
                 raise NotImplementedError(
                     f"RenderConfig.{flag} is not ported yet")
@@ -477,7 +603,8 @@ class Renderer:
             color_tables=proj_ops.color_table_tensors(self._tables_np,
                                                       self.device),
             width=cfg.width, height=cfg.height, tile_h=tile_h,
-            tile_w=tile_w, backface_culling=cfg.backface_culling)
+            tile_w=tile_w, backface_culling=cfg.backface_culling,
+            packed_raster=cfg.packed_raster)
         # capacity buckets: the mid-stage tensors scale with the gather
         # and render caps, so small scenes take a small bucket; the
         # quads_cap-sized bucket runs without compaction

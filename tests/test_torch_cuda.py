@@ -20,6 +20,7 @@ from differential_projection_voxel_renderer_tpu_torch.models.camera import (
 from differential_projection_voxel_renderer_tpu_torch.ops import geometry
 from differential_projection_voxel_renderer_tpu_torch.ops import projection
 from differential_projection_voxel_renderer_tpu_torch.ops import raster
+from differential_projection_voxel_renderer_tpu_torch.ops import raster_packed
 from differential_projection_voxel_renderer_tpu_torch.rendering import parity
 from differential_projection_voxel_renderer_tpu_torch.rendering import pipeline
 
@@ -161,3 +162,37 @@ def test_raster_geom_kernel_matches_plain(cuda_device, name):
                                                        height=h))
         _same_geometry(g1, geometry.project_cull(*nxt, width=w, height=h))
         assert bool(g1["valid"].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(parity.SMALL_SCENES))
+def test_packed_kernel_matches_twin(cuda_device, name):
+    """K4 against its plain version on the port's packed records."""
+    args, kw = parity.small_scene(name, cuda_device)
+    rec = pipeline.render_step(*args, packed_raster=True,
+                               debug_return_records=True, **kw)
+    rkw = dict(height=kw["height"], width=kw["width"])
+    before = raster_packed.launches
+    c1, d1 = raster_packed.rasterize_packed(*rec, **rkw)
+    assert raster_packed.launches == before + 1
+    c2, d2 = raster_packed.rasterize_packed_plain(*rec, **rkw)
+    assert torch.equal(c1, c2) and torch.equal(d1, d2)
+    assert int(rec[2].view(-1, 5)[:, 1:].sum()) > 0  # buckets were walked
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(parity.SMALL_SCENES))
+def test_packed_step_on_card_matches_cpu(cuda_device, name):
+    """The packed step on the card (K1, K4) vs on the CPU (twins), and
+    against the default step on the card."""
+    gargs, gkw = parity.small_scene(name, cuda_device)
+    cargs, ckw = parity.small_scene(name, "cpu")
+    c1, d1, s1 = pipeline.render_step(*gargs, packed_raster=True, **gkw)
+    c2, d2, s2 = pipeline.render_step(*cargs, packed_raster=True, **ckw)
+    assert torch.equal(s1.cpu(), s2)
+    rec = pipeline.render_step(*cargs, packed_raster=True,
+                               debug_return_records=True, **ckw)
+    parity.frame_parity(c1.cpu().numpy(), d1.cpu().numpy(), c2.numpy(),
+                        d2.numpy(), rec[0].numpy())
+    c0, d0, _ = pipeline.render_step(*gargs, **gkw)
+    assert torch.equal(c1, c0) and torch.equal(d1, d0)

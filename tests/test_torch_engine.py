@@ -168,8 +168,17 @@ def test_pool_round_trip_from_numpy(runs):
 @pytest.mark.parametrize("flag", ["span_mode", "packed_raster",
                                   "two_pass_near_quads", "temporal_hiz"])
 def test_unported_render_modes_raise(flag):
+    """Unported modes raise NotImplementedError.  The packed raster is
+    ported: its Renderer builds, and only its combination with the two-pass
+    mode is refused, with the JAX Renderer's ValueError."""
     cfg = TE.RenderConfig(width=256, height=128)
     setattr(cfg, flag, 1 if flag == "two_pass_near_quads" else True)
+    if flag == "packed_raster":
+        assert TPL.Renderer(cfg, device="cpu")._base_step_kw["packed_raster"]
+        cfg.two_pass_near_quads = 1
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            TPL.Renderer(cfg, device="cpu")
+        return
     with pytest.raises(NotImplementedError):
         TPL.Renderer(cfg, device="cpu")
 
