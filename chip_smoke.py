@@ -12,8 +12,10 @@ holds each kernel against its plain PyTorch version on the card, and times
 kernels and frames.  Phases:
 
 1. environment (torch, CUDA, nvcc, the card's name and power limit);
-2. kernel build, and the count of floating-point multiply-adds in each
-   source's PTX (the rounding contract wants none);
+2. kernel build, the count of floating-point multiply-adds in each
+   source's PTX (the rounding contract wants none), and ptxas's registers,
+   spills and shared memory of each kernel with the resident blocks an SM
+   holds of K2/K3 and K4 (no spills and at least 4 blocks, or it fails);
 3. the serial path: world streamed until settled, prime(), 3 static frames
    (render_fused, then render_prepared), 50 timed static frames, then 10
    moving frames that stream chunks (render_fused_insert where the remesh
@@ -55,8 +57,10 @@ kernels and frames.  Phases:
    and 1280x720 (where its frame must also equal K2's), and the 128x128
    packed frame on the card vs the same step on the CPU; K4's time (a call
    and in runs of 20) beside K2's on the default records of the same pose,
-   its plain version's, and its bound (its walk found as the kernel's
-   per-bin occlusion break finds it).
+   its plain version's, on the wide bins alone, on the buckets alone and
+   on the tile with the longest slice walk alone, and its bound (its walk
+   found as the per-bin occlusion break finds it in the plain version's
+   order, the fewest items any order of K4's slices walks).
 
 The script imports the port package and nothing else of the repo; before
 it prints its result it checks that neither jax nor any module of the JAX
@@ -675,18 +679,27 @@ def box_in_window(torch, boxes, n, cx0, cx1, ty):
     return torch.where(rows > 0, cols, 0), rows
 
 
+def item_rows(torch, bby, row0):
+    """Rows of each item's screen box (bby = y0 | y1 << 16) inside the
+    16-row tile that starts at ``row0``, as the kernels clamp them."""
+    y0 = torch.clamp((bby & 0xFFFF) - row0, 0, 15)
+    y1 = torch.clamp((bby >> 16) - row0, 0, 15)
+    return (y1 - y0 + 1).long()
+
+
 def k2_work(torch, raster, rec, boxes, height, width):
     """(bytes, operations, the busiest tile's operations, pixels the
     kernel evaluates, pixels the inputs need, the longest tile walk in
     items) of the tile raster on these records.  A tile's walk ends at the
-    first 128-item boundary where the suffix-min of near depth lies beyond
-    every depth the tile holds so far
-    (the occlusion break: no later item can win a pixel); the depth at
-    each boundary comes from K2 on the segment prefixes.  An item of the
-    walk needs the pixels of its screen bbox (``boxes``) inside its tile,
+    first octet base (a multiple of 8) strictly inside its segment where
+    the suffix-min of near depth lies beyond every depth the tile holds so
+    far (the occlusion break: no later item can win a pixel); the depth at
+    each base comes from K2 on the segment prefixes, all tiles at once, the
+    m-th base of each tile in the m-th launch.  An item of the walk needs
+    the pixels of its screen bbox (``boxes``) inside its tile,
     K2_OPS_PER_PIXEL each, plus K2_OPS_PER_ITEM_COLUMN per column of that
     box.  The kernel evaluates more: every column of its tile for each row
-    of its octet's row range."""
+    of its own box."""
     records, starts, counts, orows, ozmin = rec
     out_h = -height % 16 + height
     tiles_y, tiles_x = out_h // 16, width // 128
@@ -695,16 +708,18 @@ def k2_work(torch, raster, rec, boxes, height, width):
     if not torch.equal(st, torch.cumsum(counts.long(), 0) - counts.long()):
         raise AssertionError("the tile segments are not contiguous")
     walked = ends.clone()
-    for b in range(128, int(ends.max()), 128):
-        active = (st < b) & (b < walked)
+    first = torch.div(st, 8, rounding_mode="floor")
+    for m in range(1, int(counts.max()) // 8 + 2):
+        b = (first + m) * 8
+        active = b < walked
         if not bool(active.any()):
-            continue
-        pc = torch.minimum(torch.clamp(b - st, min=0), counts.long())
+            break
+        pc = torch.where(active, b - st, 0)
         _, depth = raster.rasterize_tiles(records, starts, pc.int(), orows,
                                           ozmin, **kw)
         dmax = depth.view(tiles_y, 16, tiles_x, 128).amax(dim=(1, 3))
-        brk = active & (ozmin[b >> 3] > dmax.reshape(-1))
-        walked = torch.where(brk, torch.full_like(walked, b), walked)
+        zm = ozmin[torch.clamp(b >> 3, max=ozmin.numel() - 1)]
+        walked = torch.where(active & (zm > dmax.reshape(-1)), b, walked)
 
     def per_tile(per_item):
         return walk_sums(torch, per_item, st, walked)
@@ -715,32 +730,39 @@ def k2_work(torch, raster, rec, boxes, height, width):
     ty, tx = tile // tiles_x * 16, tile % tiles_x * 128
     cols, rows = box_in_window(torch, boxes, n_kept, tx, tx + 127, ty)
     ops = per_tile(cols * (rows * K2_OPS_PER_PIXEL + K2_OPS_PER_ITEM_COLUMN))
-    octet_rows = ((orows >> 8) - (orows & 0xFF) + 1).long()
-    evaluated = per_tile(octet_rows.repeat_interleave(8)[:n_kept] * 128)
+    evaluated = per_tile(item_rows(torch, records[20, :n_kept], ty) * 128)
     n_items = int((walked - st).sum())
-    # an item reads its 20 record words; an octet of 8 items its row range
-    # and suffix-min word; the frame writes colour and depth
-    moved = (n_items * (20 * 4 + 1) + nbytes(starts, counts)
+    # an item reads its 21 record words and its octet's suffix-min word;
+    # the frame writes colour and depth
+    moved = (n_items * (21 * 4) + n_items // 8 * 4 + nbytes(starts, counts)
              + out_h * width * 8)
     return (moved, int(ops.sum()), int(ops.max()), int(evaluated.sum()),
             int(per_tile(cols * rows).sum()), int((walked - st).max()))
 
 
 def k4_work(torch, raster_packed, rec, boxes, height, width):
-    """(bytes, operations, the busiest tile's operations, items walked, of
-    items kept, the longest wide-bin walk, the longest bucket walk) of K4
-    on these packed records.  A bin's walk ends at its occlusion break,
-    found as the kernel finds it: the wide bin at 128-item chunk bases
-    strictly inside it, against the max depth of its tile over the wide
-    prefix so far; a bucket at 32-item chunk bases at or past its start,
+    """The work of K4 on these packed records, a dict: bytes, ops
+    (operations), tile_ops (the busiest tile's), items (walked), kept,
+    walk_wide and walk_bucket (the longest walks), slices_bucket (the most
+    32-item slices of one bucket's walk), slices_tile and tile (the most
+    bucket slices one tile walks, and that tile), and box_w, box_h and
+    tile_box_w, tile_box_h (the mean columns and rows of the walked
+    bucket items' boxes in their buckets, over all tiles and in that
+    tile).  A bin's walk ends at its occlusion break in the
+    serial order of the plain version -- the wide bin, then each bucket --
+    which walks the fewest items of any order of K4's slices, since it
+    tests each octet against the nearest depths possible: the wide bin at
+    octet bases strictly inside it, against the max depth of its tile over
+    the wide prefix so far; a bucket at octet bases at or past its start,
     against the max depth of its 512 pixels after the tile's wide walk and
-    the bucket's own prefix.  The depths come from K4 on those
-    prefixes.  An item of a walk needs the pixels of its screen bbox
-    (``boxes``) inside its bin's columns (the tile's 128, or the bucket's
-    32) and its tile's rows, K2_OPS_PER_PIXEL each, plus
-    K2_OPS_PER_ITEM_COLUMN per column of that box."""
+    the bucket's own prefix.  The depths come from K4 on those prefixes,
+    all bins at once, the m-th octet base of each in the m-th launch.  An
+    item of a walk needs the pixels of its screen bbox (``boxes``) inside
+    its bin's columns (the tile's 128, or the bucket's 32) and its tile's
+    rows, K2_OPS_PER_PIXEL each, plus K2_OPS_PER_ITEM_COLUMN per column of
+    that box."""
     BINS_PER_TILE = raster_packed.BINS_PER_TILE
-    records, starts, counts, orows, ozmin = rec
+    records, starts, counts, orows, ozmin, item_bby, item_bbx = rec
     out_h = -height % 16 + height
     tiles_y, tiles_x = out_h // 16, width // 128
     n_tiles = tiles_y * tiles_x
@@ -755,29 +777,32 @@ def k4_work(torch, raster_packed, rec, boxes, height, width):
 
     def depth_of(prefix):
         return raster_packed.rasterize_packed(
-            records, starts, prefix.int(), orows, ozmin, **kw)[1]
+            records, starts, prefix.int(), orows, ozmin, item_bby, item_bbx,
+            **kw)[1]
 
-    for b in range(128, int(ends[wide].max()), 128):
-        active = wide & (st < b) & (b < walked)
+    first = torch.div(st, 8, rounding_mode="floor")
+    for m in range(1, int(cn[wide].max()) // 8 + 2):
+        b = (first + m) * 8
+        active = wide & (b < walked)
         if not bool(active.any()):
-            continue
-        pc = torch.where(wide, torch.minimum(torch.clamp(b - st, min=0), cn),
-                         0)
-        dmax = depth_of(pc).view(tiles_y, 16, tiles_x, 128).amax(dim=(1, 3))
+            break
+        dmax = depth_of(torch.where(active, b - st, 0)).view(
+            tiles_y, 16, tiles_x, 128).amax(dim=(1, 3))
         dmax = dmax.reshape(-1).repeat_interleave(BINS_PER_TILE)
-        walked = torch.where(active & (ozmin[b >> 3] > dmax),
-                             torch.full_like(walked, b), walked)
-    for b in range(0, int(ends.max()), 32):
-        active = ~wide & (st <= b) & (b < walked)
+        zm = ozmin[torch.clamp(b >> 3, max=ozmin.numel() - 1)]
+        walked = torch.where(active & (zm > dmax), b, walked)
+    first = torch.div(st + 7, 8, rounding_mode="floor")
+    for m in range(0, int(cn[~wide].max()) // 8 + 2):
+        b = (first + m) * 8
+        active = ~wide & (b < walked)
         if not bool(active.any()):
-            continue
-        pc = torch.where(wide, walked - st,
-                         torch.minimum(torch.clamp(b - st, min=0), cn))
+            break
+        pc = torch.where(wide, walked - st, torch.where(active, b - st, 0))
         dmax = depth_of(pc).view(tiles_y, 16, tiles_x, 4, 32).amax(
             dim=(1, 4)).reshape(n_tiles, 4)
         dmax = torch.cat([dmax[:, :1], dmax], 1).reshape(-1)
-        walked = torch.where(active & (ozmin[b >> 3] > dmax),
-                             torch.full_like(walked, b), walked)
+        zm = ozmin[torch.clamp(b >> 3, max=ozmin.numel() - 1)]
+        walked = torch.where(active & (zm > dmax), b, walked)
 
     n_kept = int(ends[-1])
     bins = torch.repeat_interleave(torch.arange(st.numel(),
@@ -790,14 +815,31 @@ def k4_work(torch, raster_packed, rec, boxes, height, width):
     ops = walk_sums(torch, cols * (rows * K2_OPS_PER_PIXEL
                                    + K2_OPS_PER_ITEM_COLUMN), st, walked)
     n_items = int((walked - st).sum())
-    # an item reads its 20 record words; an octet of 8 items its row range
-    # and suffix-min word; the frame writes colour and depth
-    moved = (n_items * (20 * 4 + 1) + nbytes(starts, counts)
+    # an item reads its 20 record words, its bby and bbx and its octet's
+    # suffix-min word; the frame writes colour and depth
+    moved = (n_items * (22 * 4) + n_items // 8 * 4 + nbytes(starts, counts)
              + out_h * width * 8)
     tile_ops = ops.view(n_tiles, BINS_PER_TILE).sum(1)
     walk = walked - st
-    return (moved, int(ops.sum()), int(tile_ops.max()), n_items, n_kept,
-            int(walk[wide].max()), int(walk[~wide].max()))
+    # the 32-aligned slices of each bucket's walk
+    slices = torch.where(~wide & (walk > 0),
+                         torch.div(walked - 1, 32, rounding_mode="floor")
+                         - torch.div(st, 32, rounding_mode="floor") + 1, 0)
+    tile_slices = slices.view(n_tiles, BINS_PER_TILE).sum(1)
+    busiest = int(tile_slices.argmax())
+    # the walked bucket items' boxes in their buckets
+    pos = torch.arange(n_kept, device=st.device)
+    in_walk = (k > 0) & (pos < walked[bins])
+    in_tile = in_walk & (tile == busiest)
+    return dict(
+        bytes=moved, ops=int(ops.sum()), tile_ops=int(tile_ops.max()),
+        items=n_items, kept=n_kept, walk_wide=int(walk[wide].max()),
+        walk_bucket=int(walk[~wide].max()), slices_bucket=int(slices.max()),
+        slices_tile=int(tile_slices.max()), tile=busiest,
+        box_w=float(cols[in_walk].float().mean()),
+        box_h=float(rows[in_walk].float().mean()),
+        tile_box_w=float(cols[in_tile].float().mean()),
+        tile_box_h=float(rows[in_tile].float().mean()))
 
 
 def profile_frames(torch, frame_fn, n: int = 10):
@@ -895,13 +937,39 @@ def main() -> int:
     log(f"[1] nvcc: {run([_build.nvcc(), '--version']).splitlines()[-1]}")
 
     # ---- 2. build
-    secs = _build.build(force=True, verbose=True)
-    _build.lib()
+    secs, ptxas_log = _build.build(force=True, verbose=True)
+    lib = _build.lib()
     log(f"[2] built {_build.LIB_PATH} in {secs:.1f} s")
     fma = _build.ptx_fma_counts()
     log(f"[2] floating-point multiply-adds in the PTX: {fma}")
     if any(fma.values()):
         raise AssertionError("a kernel's PTX contracts multiply-adds")
+    ptxas = {}
+    for entry, rep in _build.ptxas_report(ptxas_log).items():
+        for kernel in ("project_cull_kernel", "raster_kernel",
+                       "raster_packed_kernel"):
+            if f"{len(kernel)}{kernel}" in entry:
+                ptxas[kernel] = rep
+    blocks = dict(raster_kernel=lib.dpvr_rasterize_tiles_blocks_per_sm(),
+                  raster_packed_kernel=(
+                      lib.dpvr_rasterize_packed_blocks_per_sm()))
+    ptxas["raster_packed_kernel"]["smem"] = (
+        lib.dpvr_rasterize_packed_smem_bytes())
+    for kernel, rep in sorted(ptxas.items()):
+        log(f"[2] ptxas -v {kernel}: {rep['registers']} registers, "
+            f"{rep['spill_stores']} bytes of spill stores and "
+            f"{rep['spill_loads']} of spill loads, {rep['smem']} bytes of "
+            f"shared memory a block"
+            + (f", {blocks[kernel]} resident blocks an SM "
+               f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)"
+               if kernel in blocks else ""))
+    if len(ptxas) != 3:
+        raise AssertionError(f"ptxas reported {sorted(ptxas)}")
+    for kernel, n in blocks.items():
+        rep = ptxas[kernel]
+        if rep["spill_stores"] or rep["spill_loads"] or n < 4:
+            raise AssertionError(f"{kernel}: spills or under 4 blocks an SM "
+                                 f"({rep}, {n} blocks)")
 
     # ---- 3. main path
     eng, (uploads, vp0, cp0), launches, frame, serial = main_path(torch)
@@ -1079,7 +1147,7 @@ def main() -> int:
                                    debug_return_records=True, **gkw2)
         pkw = dict(height=gkw2["height"], width=gkw2["width"])
         c4, d4 = raster_packed.rasterize_packed(*rec, **pkw)
-        c5, d5 = raster_packed.rasterize_packed_plain(*rec, **pkw)
+        c5, d5 = raster_packed.rasterize_packed_plain(*rec[:5], **pkw)
         if not (torch.equal(c4, c5) and torch.equal(d4, d5)):
             raise AssertionError(f"K4 differs from its plain version "
                                  f"({name})")
@@ -1105,7 +1173,7 @@ def main() -> int:
                                debug_return_records=True, **pstep_kw)
     pkw = dict(height=HEIGHT, width=WIDTH)
     c4, d4 = raster_packed.rasterize_packed(*recp, **pkw)
-    c5, d5 = raster_packed.rasterize_packed_plain(*recp, **pkw)
+    c5, d5 = raster_packed.rasterize_packed_plain(*recp[:5], **pkw)
     if not (torch.equal(c4, c5) and torch.equal(d4, d5)):
         raise AssertionError("K4 differs from its plain version at vd12")
     k4_err = max(k4_err, depth_err(d4, d5))
@@ -1125,13 +1193,22 @@ def main() -> int:
     k2_run10 = median_ms(lambda: raster.rasterize_tiles(*rec720, **rkw),
                          batch=20)
     k4_plain = median_ms(lambda: raster_packed.rasterize_packed_plain(
-        *recp, **pkw), reps=5)
-    # where K4's time goes: its launch on the wide bins alone and on the
-    # buckets alone (the other bins' counts set to 0)
-    wide_bin = torch.arange(recp[2].numel(), device="cuda") % 5 == 0
+        *recp[:5], **pkw), reps=5)
+    boxes_p = item_boxes(torch, pipeline, (quads, qw, total, static_cam),
+                         pstep_kw, recp)
+    w4 = k4_work(torch, raster_packed, recp, boxes_p, HEIGHT, WIDTH)
+    busiest = w4["tile"]
+    k4_bound, k4_by = bound(w4["bytes"], w4["ops"])
+    k4_tile_ms = w4["tile_ops"] / (F32_OPS_PER_S / N_SMS) * 1e3
+    # where K4's time goes: its launch on the wide bins alone, on the
+    # buckets alone, and on the tile with the longest slice walk alone (the
+    # other bins' counts set to 0)
+    bin_ids = torch.arange(recp[2].numel(), device="cuda")
+    wide_bin = bin_ids % 5 == 0
     k4_phase_ms = {}
     for label, keep in (("wide bins only", wide_bin),
-                        ("buckets only", ~wide_bin)):
+                        ("buckets only", ~wide_bin),
+                        (f"tile {busiest} only", bin_ids // 5 == busiest)):
         part = (recp[0], recp[1], torch.where(keep, recp[2], 0), *recp[3:])
         k4_phase_ms[label] = median_ms(
             lambda part=part: raster_packed.rasterize_packed(*part, **pkw),
@@ -1142,18 +1219,19 @@ def main() -> int:
         f"version {k4_plain:.4f} ms (median of 5); K4 on "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in k4_phase_ms.items())
         + f" in runs of 20; {card}")
-    boxes_p = item_boxes(torch, pipeline, (quads, qw, total, static_cam),
-                         pstep_kw, recp)
-    k4_bytes, k4_ops, k4_tile_ops, k4_items, k4_kept, walk_w, walk_b = (
-        k4_work(torch, raster_packed, recp, boxes_p, HEIGHT, WIDTH))
-    k4_bound, k4_by = bound(k4_bytes, k4_ops)
-    k4_tile_ms = k4_tile_ops / (F32_OPS_PER_S / N_SMS) * 1e3
-    log(f"[10] bound: K4 {k4_bound:.5f} ms ({k4_by}: {k4_bytes} bytes, "
-        f"{k4_ops} ops), busiest tile {k4_tile_ms:.5f} ms at one SM's share "
-        f"({k4_tile_ops} ops); the occlusion break leaves {k4_items} of "
-        f"{k4_kept} items; the longest walks are {walk_w} items in a wide "
-        f"bin (by 256 threads) and {walk_b} in a bucket (by 64) (H100 SXM "
-        f"data sheet peaks)")
+    log(f"[10] bound: K4 {k4_bound:.5f} ms ({k4_by}: {w4['bytes']} bytes, "
+        f"{w4['ops']} ops), busiest tile {k4_tile_ms:.5f} ms at one SM's "
+        f"share ({w4['tile_ops']} ops); the occlusion break, in the plain "
+        f"version's order, leaves {w4['items']} of {w4['kept']} items; the "
+        f"longest walks are {w4['walk_wide']} items in a wide bin (by 256 "
+        f"threads) and {w4['walk_bucket']} in a bucket "
+        f"({w4['slices_bucket']} slices of 32, each by one warp); the "
+        f"longest slice walk is tile {busiest}'s, {w4['slices_tile']} "
+        f"bucket slices over its 8 warps (H100 SXM data sheet peaks)")
+    log(f"[10] walked bucket items' boxes in their buckets: "
+        f"{w4['box_w']:.2f} columns x {w4['box_h']:.2f} rows on average; "
+        f"in tile {busiest}: {w4['tile_box_w']:.2f} x "
+        f"{w4['tile_box_h']:.2f}")
 
     ref_mods = [m for m in sys.modules if m == REF or m.startswith(REF + ".")]
     if "jax" in sys.modules or ref_mods:
@@ -1172,7 +1250,10 @@ def main() -> int:
              replaces=f"{REF}/ops/raster.py:1131",
              launches=launches[1], max_abs_err=k2_err, ms=k2_run,
              plain_ms=k2_plain, bound_ms=k2_bound, bound_by=k2_by,
-             library_ms=None, tile_bound_ms=k2_tile_ms),
+             library_ms=None, tile_bound_ms=k2_tile_ms,
+             registers=ptxas["raster_kernel"]["registers"],
+             spill_bytes=ptxas["raster_kernel"]["spill_stores"],
+             blocks_per_sm=blocks["raster_kernel"]),
         dict(name="K3 tile raster + next frame's stage A "
                   "(rasterize_tiles next_geom)", route="cuda",
              source=f"{PKG}/csrc/raster.cu",
@@ -1187,7 +1268,11 @@ def main() -> int:
              launches=launches10[3], max_abs_err=k4_err, ms=k4_run,
              plain_ms=k4_plain, bound_ms=k4_bound, bound_by=k4_by,
              library_ms=None, tile_bound_ms=k4_tile_ms,
-             k2_same_frame_ms=k2_run10),
+             k2_same_frame_ms=k2_run10,
+             registers=ptxas["raster_packed_kernel"]["registers"],
+             spill_bytes=ptxas["raster_packed_kernel"]["spill_stores"],
+             blocks_per_sm=blocks["raster_packed_kernel"],
+             split_ms=k4_phase_ms),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

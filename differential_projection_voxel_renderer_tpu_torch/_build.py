@@ -46,18 +46,24 @@ _SIGNATURES = {
     #  stream)
     "dpvr_project_cull": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _P, _P, _P, _P, _P, _P),
-    # (records[24, cap], cap, starts, counts, octet_rows, octet_zmin,
-    #  tiles_y, tiles_x, height, width, color, depth, then the next
-    #  stream's stage A -- null pointers and gq2 0 for K2 -- quads2,
-    #  quad_world2[3, gq2], view_proj2[16], cam_pos2[3], n_quads2, gq2,
-    #  backface, valid, bbx, bby, depth_near, subpixel, and the stream)
-    "dpvr_rasterize_tiles": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+    # (records[24, cap], cap, starts, counts, octet_zmin, tiles_y,
+    #  tiles_x, height, width, color, depth, then the next stream's stage
+    #  A -- null pointers and gq2 0 for K2 -- quads2, quad_world2[3, gq2],
+    #  view_proj2[16], cam_pos2[3], n_quads2, gq2, backface, valid, bbx,
+    #  bby, depth_near, subpixel, and the stream)
+    "dpvr_rasterize_tiles": (_P, _I, _P, _P, _P, _I, _I, _I, _I,
                              _P, _P, _P, _P, _P, _P, _P, _I, _I,
                              _P, _P, _P, _P, _P, _P),
-    # (records[24, cap], cap, starts[T * 5], counts[T * 5], octet_rows,
-    #  octet_zmin, tiles_y, tiles_x, height, width, color, depth, stream)
-    "dpvr_rasterize_packed": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+    # (records[24, cap], cap, starts[T * 5], counts[T * 5], item_bby[cap],
+    #  item_bbx[cap], octet_zmin, tiles_y, tiles_x, height, width, color,
+    #  depth, stream)
+    "dpvr_rasterize_packed": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _P, _P, _P),
+    # resident blocks an SM holds of the K2/K3 and the K4 kernel, and K4's
+    # dynamic shared memory a block
+    "dpvr_rasterize_tiles_blocks_per_sm": (),
+    "dpvr_rasterize_packed_blocks_per_sm": (),
+    "dpvr_rasterize_packed_smem_bytes": (),
 }
 
 
@@ -93,11 +99,13 @@ def _run_all(cmds) -> list[subprocess.CompletedProcess]:
     return done
 
 
-def build(force: bool = False, verbose: bool = False) -> float:
+def build(force: bool = False, verbose: bool = False) -> tuple[float, str]:
     """Compile the kernels if missing or stale; returns the seconds spent
-    (0.0 when the library was current)."""
+    (0.0 when the library was current) and, with ``verbose``, ptxas's
+    report of each kernel's registers, spills and shared memory (also
+    printed; else "")."""
     if not force and not _stale():
-        return 0.0
+        return 0.0, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
@@ -109,10 +117,11 @@ def build(force: bool = False, verbose: bool = False) -> float:
         tmp = os.path.join(tmp_dir, "lib.so")
         _run_all([[nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                    "-shared", "-o", tmp, *objs]])
+        log = "".join(c.stdout for c in compiled) if verbose else ""
         if verbose:
-            print("".join(c.stdout for c in compiled))
+            print(log)
         os.replace(tmp, LIB_PATH)
-    return time.perf_counter() - t0
+    return time.perf_counter() - t0, log
 
 
 def _is_float_fma(line: str) -> bool:
@@ -149,6 +158,27 @@ def lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _LIB = so
         return _LIB
+
+
+def ptxas_report(log: str) -> dict[str, dict[str, int]]:
+    """Per kernel entry (mangled name) in a ptxas -v report: registers,
+    spill store and load bytes, static shared memory bytes."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            out[name] = dict(registers=0, spill_stores=0, spill_loads=0,
+                             smem=0)
+        elif name and "spill stores" in line:
+            w = line.replace(",", " ").split()
+            out[name]["spill_stores"] = int(w[w.index("spill") - 2])
+            out[name]["spill_loads"] = int(w[w.index("loads") - 3])
+        elif name and "Used" in line and "registers" in line:
+            w = line.replace(",", " ").split()
+            out[name]["registers"] = int(w[w.index("registers") - 1])
+            if "smem" in w:
+                out[name]["smem"] = int(w[w.index("smem") - 2])
+    return out
 
 
 def check(err: int, name: str) -> None:

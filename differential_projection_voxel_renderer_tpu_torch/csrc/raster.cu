@@ -7,21 +7,24 @@
 // code (coverage, planar depth, texel colour, the commutative blend) and
 // the segment walk are in tile_raster.cuh, shared with K4.
 //
-// What bounds it on an H100: arithmetic and instruction throughput, not
-// memory.  A tile reads 80 bytes per item once (~8 MB per 720p frame at
-// ~100k items) but evaluates up to 2048 pixels per item (22 float ops
-// each, plus an IEEE divide on covered pixels).  The design keeps the tile's colour and depth
-// in registers (256 threads x 8 pixels: thread = one column, rows
-// g, g+2, .., g+14 for g = thread / 128, so short items still spread over
-// both halves of the block), stages the segment's records through shared
-// memory in 128-item chunks (field-major records make the staging loads
-// coalesced; every thread then reads the same shared word, a broadcast),
-// and blends serially per pixel, so no atomics are needed and block order
-// is free.  At each 128-aligned chunk boundary the block takes the max of
-// its accumulated depth and stops once the suffix-min of the remaining
-// items' near depth (octet_zmin) lies beyond it: the exact occlusion break
-// of the TPU kernel, which only skips items that cannot win a pixel.
-// (The rounding contract is in tile_raster.cuh.)
+// What bounds it on an H100: instruction throughput, not memory.  A tile reads
+// 84 bytes per item once (~8 MB per 720p frame at ~100k items) but evaluates
+// up to 2048 pixels per item (22 float ops each, plus an IEEE divide on pixels
+// that can win). The load is balanced: the busiest tile's work at one SM's
+// share is about the average tile's, and every tile is resident at once
+// (__launch_bounds__(256, 4): four blocks of 64 registers an SM, 528 slots for
+// the 450 tiles of a 720p frame), so the time is the SM's instruction slots
+// spent on the per-item code. The design keeps the tile's colour and depth in
+// registers (256 threads x 8 pixels: thread = one column, rows g, g+2, ..,
+// g+14 for g = thread / 128, so short items still spread over both halves of
+// the block), stages the segment's records through shared memory in 128-item
+// chunks (field-major records make the staging loads coalesced; every thread
+// then reads the same shared word, a broadcast), and blends serially per
+// pixel, so no atomics are needed and block order is free. tile_raster.cuh
+// cuts the per-item instructions: each item is evaluated on its own rows only
+// (its bby, record row 20), texels only where the pixel can still win, and the
+// exact occlusion break is tested at every octet base. Why tensor cores and
+// TMA do not apply, and the rounding contract: tile_raster.cuh.
 //
 // K3: K2 and the next frame's stage A in one launch of the same kernel
 // (raster_kernel), for frames in flight.  Replaces `_fused_geom_pass` of
@@ -47,28 +50,28 @@ namespace {
 __device__ __forceinline__ void raster_tile(
     int t, TileSmem& sm, const int* __restrict__ rec, int cap,
     const int* __restrict__ starts, const int* __restrict__ counts,
-    const int* __restrict__ orows, const float* __restrict__ ozmin,
-    int tiles_x, int height, int width, int* __restrict__ color_out,
-    float* __restrict__ depth_out) {
+    const float* __restrict__ ozmin, int tiles_x, int height, int width,
+    float* ny, int* __restrict__ color_out, float* __restrict__ depth_out) {
   const int ty = t / tiles_x, tx = t - ty * tiles_x;
   const int col = threadIdx.x & (kTileW - 1);
   const int g = threadIdx.x / kTileW;
-  float nx, ny[kRowsPerThread], D[kRowsPerThread];
+  float D[kRowsPerThread];
   int C[kRowsPerThread];
-  init_pixels(ty, tx, g, col, height, width, nx, ny, D, C);
-  walk_tile_segment(starts[t], starts[t] + counts[t], sm, rec, cap, orows,
-                    ozmin, g, nx, ny, D, C);
-  store_pixels(ty, tx, g, col, width, D, C, color_out, depth_out);
+  init_pixels(ty, height, ny, D, C);
+  // record row 20 holds each item's screen rows (bby)
+  walk_tile_segment(starts[t], starts[t] + counts[t], sm, rec, cap,
+                    rec + (size_t)20 * cap, ozmin, ty * kTileH, g,
+                    pixel_nx(tx * kTileW + col, width), ny, D, C);
+  store_pixels(tiles_x, width, D, C, color_out, depth_out);
 }
 
 // K2 and K3: blocks [0, n_tiles) are the tile blocks; with gq2 > 0 (K3)
 // the blocks past them run stage A of the next frame's stream, one quad
 // per thread.
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 4)
 raster_kernel(const int* __restrict__ rec, int cap,
               const int* __restrict__ starts,
               const int* __restrict__ counts,
-              const int* __restrict__ orows,
               const float* __restrict__ ozmin, int n_tiles, int tiles_x,
               int height, int width, int* __restrict__ color_out,
               float* __restrict__ depth_out,
@@ -83,6 +86,7 @@ raster_kernel(const int* __restrict__ rec, int cap,
               int* __restrict__ bbx_out, int* __restrict__ bby_out,
               float* __restrict__ dn_out, int* __restrict__ sub_out) {
   __shared__ TileSmem sm;
+  __shared__ float ny[kTileH];
   if ((int)blockIdx.x >= n_tiles) {
     const int i = ((int)blockIdx.x - n_tiles) * kThreads + threadIdx.x;
     if (i < gq2)
@@ -91,19 +95,21 @@ raster_kernel(const int* __restrict__ rec, int cap,
                    bby_out, dn_out, sub_out);
     return;
   }
-  raster_tile(blockIdx.x, sm, rec, cap, starts, counts, orows, ozmin,
-              tiles_x, height, width, color_out, depth_out);
+  raster_tile(blockIdx.x, sm, rec, cap, starts, counts, ozmin, tiles_x,
+              height, width, ny, color_out, depth_out);
 }
 
 }  // namespace
 
-// K2: the tile raster, with gq2 == 0 and the stage-A pointers null.  K3:
+// K2: the tile raster on records i32[24, cap] (rows 0-19 the blend
+// fields and words, row 20 each item's bby), starts/counts i32[tiles],
+// octet_zmin f32[cap / 8], with gq2 == 0 and the stage-A pointers null.  K3:
 // the same and, in the same launch, stage A of the next frame's stream
 // (quads2, quad_world2 f32[3, gq2], view_proj2 f32[16], cam_pos2 f32[3],
 // device scalar n_quads2) into valid/bbx/bby/dn/sub [gq2]
 extern "C" int dpvr_rasterize_tiles(
     const void* records, int cap, const void* starts, const void* counts,
-    const void* octet_rows, const void* octet_zmin, int tiles_y, int tiles_x,
+    const void* octet_zmin, int tiles_y, int tiles_x,
     int height, int width, void* color, void* depth, const void* quads2,
     const void* quad_world2, const void* view_proj2, const void* cam_pos2,
     const void* n_quads2, int gq2, int backface, void* valid, void* bbx,
@@ -116,7 +122,6 @@ extern "C" int dpvr_rasterize_tiles(
                     static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(records), cap,
         static_cast<const int*>(starts), static_cast<const int*>(counts),
-        static_cast<const int*>(octet_rows),
         static_cast<const float*>(octet_zmin), n_tiles, tiles_x, height,
         width, static_cast<int*>(color), static_cast<float*>(depth),
         static_cast<const int*>(quads2), qw, qw + gq2, qw + 2 * (size_t)gq2,
@@ -128,4 +133,15 @@ extern "C" int dpvr_rasterize_tiles(
         static_cast<int*>(sub));
   }
   return (int)cudaGetLastError();
+}
+
+// Resident blocks of raster_kernel an SM can hold (the occupancy that
+// __launch_bounds__(256, 4) asks for), or -1 on an error.
+extern "C" int dpvr_rasterize_tiles_blocks_per_sm() {
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, raster_kernel,
+                                                    kThreads, 0) !=
+      cudaSuccess)
+    return -1;
+  return n;
 }

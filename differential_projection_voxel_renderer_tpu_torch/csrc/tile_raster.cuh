@@ -8,8 +8,32 @@
 // coverage qw > 0, u0 qw <= qu <= u1 qw, v0 qw <= qv <= v1 qw; planar
 // depth z = z0 nx + z1 ny + z2; the texel bit (8 qv/qw & 7) * 8 +
 // (8 qu/qw & 7) of the 64-bit parity mask picks colour_odd or colour_even;
-// the blend is the commutative lexicographic (depth, colour) minimum.  Rows
-// outside the item's octet row range (octet_rows[k / 8]) are skipped.
+// the blend is the commutative lexicographic (depth, colour) minimum.
+//
+// What bounds the walk on an H100, and what this code does about it.
+// Each SM holds three or four tiles whose warps run the same per-pixel
+// code, so the walk is bound by instruction throughput, not by memory (an
+// item's 84 bytes are staged once and then read as shared-memory
+// broadcasts) and, with that many warps to an SM, not by one warp's
+// latency.  So the per-item work is cut in three exact ways:
+//   - rows: an item is evaluated only on the rows of its own screen box
+//     (its bby, clamped to the tile) instead of its 8-item octet's union.
+//     This is exact because no item covers a pixel outside its own box
+//     (the box is floor/ceil of the projected corners, at least half a
+//     pixel beyond every covered pixel centre; tests/test_torch_raster_walk.py
+//     checks it on the test scenes).  The skip is warp-uniform: a warp
+//     holds one row set of 32 columns;
+//   - texels: the texel colour, with its IEEE 1/qw, two float-to-int
+//     conversions and the mask lookup, is computed only where the covered
+//     pixel's z <= D.  The blend can never take a pixel with z > D, so
+//     this too is exact;
+//   - the occlusion break is tested at every 8-item octet base inside the
+//     segment (the reference's granularity), not every 128 items, with
+//     one barrier (__syncthreads_and of each thread's own test).
+// Tensor cores do not apply: the plane evaluations must round as the
+// reference's separate float32 multiplies and adds (no TF32, no FMA).
+// TMA and cp.async do not apply either: staging 84 bytes an item is far
+// under 1% of an item's ~1000 cycles of instructions.
 //
 // Rounding contract: compiled with -fmad=false, IEEE division and no fast
 // math; the pixel NDC and the plane evaluations keep the reference's
@@ -31,129 +55,157 @@ constexpr int kChunk = 128;  // items staged per shared-memory chunk
 constexpr int kFields = 20;  // 16 f32 blend fields + 4 colour/mask words
 constexpr int kSky = (int)0xFF87CEEBu;  // utils/config.py SKY_COLOR
 
-__device__ __forceinline__ float block_max(float v, float* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) red[warp] = v;
-  __syncthreads();
-  float m = red[0];
-#pragma unroll
-  for (int w = 1; w < kThreads / 32; ++w) m = fmaxf(m, red[w]);
-  __syncthreads();
-  return m;
-}
-
-// Shared memory of one tile block.
+// Shared memory of one tile block's segment walk.
 struct TileSmem {
   float sf[16][kChunk];
   int si[4][kChunk];
-  int srow[kChunk];
-  float red[kThreads / 32];
+  int srow[kChunk];            // the item's own tile-local rows r0 | r1 << 8
+  float szmin[kChunk / 8];     // octet_zmin of the chunk's octets
 };
 
-// This thread's pixels of tile (ty, tx): the column's NDC x, the rows' NDC
-// y, and the accumulators at (+inf, sky).
+// NDC of pixel centres (the reference's _pixel_ndc).
+__device__ __forceinline__ float pixel_nx(int px, int width) {
+  const float wf = (float)width;
+  return (2.0f * ((float)px + 0.5f) - wf) / wf;
+}
+
+__device__ __forceinline__ float pixel_ny(int py, int height) {
+  return 1.0f - (2.0f * ((float)py + 0.5f)) / (float)height;
+}
+
+// The NDC y of the tile's 16 rows into shared memory ``ny`` (threads
+// 0..15; the caller's next barrier publishes it), and this thread's
+// accumulators at (+inf, sky).  The rows' NDC stays in shared memory, read
+// as a broadcast per row, to keep 64 registers a thread.
 __device__ __forceinline__ void init_pixels(
-    int ty, int tx, int g, int col, int height, int width, float& nx,
-    float (&ny)[kRowsPerThread], float (&D)[kRowsPerThread],
+    int ty, int height, float* ny, float (&D)[kRowsPerThread],
     int (&C)[kRowsPerThread]) {
-  const float wf = (float)width, hf = (float)height;
-  const float px = (float)(tx * kTileW) + (float)col;
-  nx = (2.0f * (px + 0.5f) - wf) / wf;
+  if (threadIdx.x < kTileH)
+    ny[threadIdx.x] = pixel_ny(ty * kTileH + threadIdx.x, height);
 #pragma unroll
   for (int j = 0; j < kRowsPerThread; ++j) {
-    const float py = (float)(ty * kTileH + g + 2 * j);
-    ny[j] = 1.0f - (2.0f * (py + 0.5f)) / hf;
     D[j] = __int_as_float(0x7f800000);
     C[j] = kSky;
   }
 }
 
+// threadIdx.x and blockIdx.x read afresh: indices derived from them are
+// computed where they are used, not hoisted ahead of a walk and kept in
+// registers (or spilled) across it.
+__device__ __forceinline__ int fresh_tid() {
+  int v;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(v));
+  return v;
+}
+
+__device__ __forceinline__ int fresh_ctaid() {
+  int v;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(v));
+  return v;
+}
+
+// This thread's pixels of the block's tile into the frame.
 __device__ __forceinline__ void store_pixels(
-    int ty, int tx, int g, int col, int width,
-    const float (&D)[kRowsPerThread], const int (&C)[kRowsPerThread],
-    int* __restrict__ color_out, float* __restrict__ depth_out) {
+    int tiles_x, int width, const float (&D)[kRowsPerThread],
+    const int (&C)[kRowsPerThread], int* __restrict__ color_out,
+    float* __restrict__ depth_out) {
+  const int t = fresh_ctaid(), tid = fresh_tid();
+  const int ty = t / tiles_x, tx = t - ty * tiles_x;
+  const size_t o0 = (size_t)(ty * kTileH + tid / kTileW) * width +
+                    tx * kTileW + (tid & (kTileW - 1));
 #pragma unroll
   for (int j = 0; j < kRowsPerThread; ++j) {
-    const size_t o = (size_t)(ty * kTileH + g + 2 * j) * width +
-                     tx * kTileW + col;
+    const size_t o = o0 + (size_t)(2 * j) * width;
     color_out[o] = C[j];
     depth_out[o] = D[j];
   }
 }
 
-// Blend staged item i into this thread's pixels: ``sf``/``si`` hold the 16
-// float fields and 4 words of ``kStride`` staged items, field-major, and
-// ``rr`` is the item's octet row range (r0 | r1 << 8, tile-local).
-template <int kStride>
+// An item's screen rows (bby = y0 | y1 << 16) as tile-local rows
+// r0 | r1 << 8, clamped to the tile whose first row is ``row0`` (the same
+// clamp as the octet row ranges of rendering/pipeline.py).
+__device__ __forceinline__ int tile_rows(int bby, int row0) {
+  const int y0 = bby & 0xFFFF, y1 = (int)((unsigned)bby >> 16);
+  const int r0 = min(max(y0 - row0, 0), kTileH - 1);
+  const int r1 = min(max(y1 - row0, 0), kTileH - 1);
+  return r0 | (r1 << 8);
+}
+
+__device__ __forceinline__ float max8(const float (&D)[kRowsPerThread]) {
+  float m = D[0];
+#pragma unroll
+  for (int j = 1; j < kRowsPerThread; ++j) m = fmaxf(m, D[j]);
+  return m;
+}
+
+// Blend staged item i into this thread's rows j0..j1 (NDC y ny[2 * j],
+// D[j], C[j]): ``sm`` holds the 16 float fields and 4 words of the chunk's
+// items, field-major.
 __device__ __forceinline__ void blend_item(
-    const float* sf, const int* si, int i, int rr, int g, float nx,
-    const float (&ny)[kRowsPerThread], float (&D)[kRowsPerThread],
-    int (&C)[kRowsPerThread]) {
-  const int r0 = rr & 0xFF, r1 = rr >> 8;
-  // this thread's rows g + 2j that fall in [r0, r1]
-  const int j0 = r0 > g ? (r0 - g + 1) >> 1 : 0;
-  const int j1 = r1 >= g ? (r1 - g) >> 1 : -1;
-  if (j0 > j1) return;
-  const float a00 = sf[0 * kStride + i], a01 = sf[1 * kStride + i];
-  const float a02 = sf[2 * kStride + i], a10 = sf[3 * kStride + i];
-  const float a11 = sf[4 * kStride + i], a12 = sf[5 * kStride + i];
-  const float a20 = sf[6 * kStride + i], a21 = sf[7 * kStride + i];
-  const float a22 = sf[8 * kStride + i], z0 = sf[9 * kStride + i];
-  const float z1 = sf[10 * kStride + i], z2 = sf[11 * kStride + i];
-  const float u0 = sf[12 * kStride + i], u1 = sf[13 * kStride + i];
-  const float v0 = sf[14 * kStride + i], v1 = sf[15 * kStride + i];
-  const int ce = si[0 * kStride + i], co = si[1 * kStride + i];
-  const int mlo = si[2 * kStride + i], mhi = si[3 * kStride + i];
+    const TileSmem& sm, int i, int j0, int j1, float nx, const float* ny,
+    float (&D)[kRowsPerThread], int (&C)[kRowsPerThread]) {
+  const float a00 = sm.sf[0][i], a01 = sm.sf[1][i];
+  const float a02 = sm.sf[2][i], a10 = sm.sf[3][i];
+  const float a11 = sm.sf[4][i], a12 = sm.sf[5][i];
+  const float a20 = sm.sf[6][i], a21 = sm.sf[7][i];
+  const float a22 = sm.sf[8][i], z0 = sm.sf[9][i];
+  const float z1 = sm.sf[10][i], z2 = sm.sf[11][i];
   const float bu = a00 * nx, bv = a10 * nx, bw = a20 * nx, bz = z0 * nx;
 #pragma unroll
   for (int j = 0; j < kRowsPerThread; ++j) {
     if (j < j0 || j > j1) continue;
-    const float qu = (bu + a01 * ny[j]) + a02;
-    const float qv = (bv + a11 * ny[j]) + a12;
-    const float qw = (bw + a21 * ny[j]) + a22;
-    const float z = (bz + z1 * ny[j]) + z2;
+    const float y = ny[2 * j];
+    const float qu = (bu + a01 * y) + a02;
+    const float qv = (bv + a11 * y) + a12;
+    const float qw = (bw + a21 * y) + a22;
+    const float z = (bz + z1 * y) + z2;
+    // the coverage bounds are read here, per row, which keeps them out of
+    // the registers the row loop holds (64 a thread)
+    const float u0 = sm.sf[12][i], u1 = sm.sf[13][i];
+    const float v0 = sm.sf[14][i], v1 = sm.sf[15][i];
     const bool cover = (qw > 0.0f) && (qu >= u0 * qw) && (qu <= u1 * qw) &&
                        (qv >= v0 * qw) && (qv <= v1 * qw) && (z == z);
-    if (!cover) continue;
+    // the blend below takes z < D, or z == D with a smaller colour: a
+    // pixel with z > D cannot change, so its texel is never computed
+    if (!cover || !(z <= D[j])) continue;
     const float inv = 1.0f / qw;
     const int tu = __float2int_rz((qu * inv) * 8.0f) & 7;
     const int tv = __float2int_rz((qv * inv) * 8.0f) & 7;
     const int bit_idx = tv * 8 + tu;
-    const unsigned word = (unsigned)(bit_idx < 32 ? mlo : mhi);
-    const int c = ((word >> (bit_idx & 31)) & 1u) ? co : ce;
-    if (z < D[j] || (z == D[j] && c < C[j])) {
+    const unsigned word = (unsigned)(bit_idx < 32 ? sm.si[2][i] : sm.si[3][i]);
+    const int c = ((word >> (bit_idx & 31)) & 1u) ? sm.si[1][i] : sm.si[0][i];
+    if (z < D[j] || c < C[j]) {
       D[j] = z;
       C[j] = c;
     }
   }
 }
 
-// Blend items [start, end) of the stream over the whole tile, by the whole
-// block: the segment's records are staged through shared memory in
-// 128-item chunks (field-major records make the staging loads coalesced;
-// every thread then reads the same shared word, a broadcast).  At each
-// 128-aligned chunk boundary strictly inside the segment the block takes
-// the max of its accumulated depth and stops once the suffix-min of the
-// remaining items' near depth (octet_zmin) lies beyond it: the exact
-// occlusion break, which only skips items that cannot win a pixel.  The
-// group at such a boundary starts inside the segment, so its suffix-min
-// bounds every later item of the segment.
+// This thread's rows g + 2j that fall in the tile-local range rr.
+__device__ __forceinline__ void rows_of(int rr, int g, int& j0, int& j1) {
+  const int r0 = rr & 0xFF, r1 = rr >> 8;
+  j0 = r0 > g ? (r0 - g + 1) >> 1 : 0;
+  j1 = r1 >= g ? (r1 - g) >> 1 : -1;
+}
+
+// Blend items [start, end) of the stream over the whole tile (first row
+// ``row0``, rows' NDC y in shared ``ny``), by the whole block: the
+// segment's records are staged through shared memory in 128-item chunks
+// (field-major records make the staging loads coalesced; every thread then
+// reads the same shared word, a broadcast), with each item's own row range
+// from ``item_bby`` and the chunk's octet_zmin.  At each 8-aligned octet
+// base strictly inside the segment the block stops once the suffix-min of
+// the remaining items' near depth (octet_zmin) lies beyond every depth it
+// holds: the exact occlusion break, which only skips items that cannot win
+// a pixel.  The octet at such a base starts inside the segment, so its
+// suffix-min bounds every later item of the segment.  Every thread tests
+// its own pixels and one __syncthreads_and combines the tests.
 __device__ __forceinline__ void walk_tile_segment(
     int start, int end, TileSmem& sm, const int* __restrict__ rec, int cap,
-    const int* __restrict__ orows, const float* __restrict__ ozmin, int g,
-    float nx, const float (&ny)[kRowsPerThread], float (&D)[kRowsPerThread],
+    const int* __restrict__ item_bby, const float* __restrict__ ozmin,
+    int row0, int g, float nx, const float* ny, float (&D)[kRowsPerThread],
     int (&C)[kRowsPerThread]) {
   for (int base = (start / kChunk) * kChunk; base < end; base += kChunk) {
-    if (base > start) {
-      float m = D[0];
-#pragma unroll
-      for (int j = 1; j < kRowsPerThread; ++j) m = fmaxf(m, D[j]);
-      const float dmax = block_max(m, sm.red);
-      if (ozmin[base >> 3] > dmax) break;
-    }
     const int lo = start > base ? start : base;
     const int hi = end < base + kChunk ? end : base + kChunk;
     for (int idx = threadIdx.x; idx < kFields * kChunk; idx += kThreads) {
@@ -169,15 +221,25 @@ __device__ __forceinline__ void walk_tile_segment(
     }
     for (int i = threadIdx.x; i < kChunk; i += kThreads) {
       const int k = base + i;
-      if (k >= lo && k < hi) sm.srow[i] = orows[k >> 3];
+      if (k >= lo && k < hi) sm.srow[i] = tile_rows(item_bby[k], row0);
+      if (i < kChunk / 8 && (base >> 3) + i < (cap >> 3))
+        sm.szmin[i] = ozmin[(base >> 3) + i];
     }
     __syncthreads();
+    bool stop = false;
     for (int k = lo; k < hi; ++k) {
       const int i = k - base;
-      blend_item<kChunk>(&sm.sf[0][0], &sm.si[0][0], i, sm.srow[i], g, nx,
-                         ny, D, C);
+      if ((k & 7) == 0 && k > start &&
+          __syncthreads_and(sm.szmin[i >> 3] > max8(D))) {
+        stop = true;
+        break;
+      }
+      int j0, j1;
+      rows_of(sm.srow[i], g, j0, j1);
+      if (j0 <= j1) blend_item(sm, i, j0, j1, nx, ny + g, D, C);
     }
     __syncthreads();
+    if (stop) break;
   }
 }
 

@@ -237,10 +237,11 @@ def _check_records(records, tile_starts, tile_counts, octet_rows,
     return cap, n_tiles
 
 
-def kernel_inputs(name, records, starts, counts, octet_rows, octet_zmin):
+def kernel_inputs(name, records, starts, counts, rows, octet_zmin):
     """The raster inputs as contiguous tensors of a kernel's types (int32,
-    octet_zmin float32) on the records' device; raises otherwise."""
-    ins = [x.contiguous() for x in (records, starts, counts, octet_rows,
+    octet_zmin float32) on the records' device; raises otherwise.  ``rows``
+    is the int32 row input: octet_rows, or K4's item_bby."""
+    ins = [x.contiguous() for x in (records, starts, counts, rows,
                                     octet_zmin)]
     for x, dt in zip(ins, (torch.int32,) * 4 + (torch.float32,)):
         if x.dtype != dt or x.device != records.device:
@@ -304,7 +305,10 @@ def rasterize_tiles(records, tile_starts, tile_counts, octet_rows,
     """Blend every tile's segment of the binned item stream.
 
     ``records`` i32[24, cap]: rows 0-15 the f32 blend fields (bitcast),
-    16-19 colour_even/odd and mask_lo/hi, 20-23 unused here;
+    16-19 colour_even/odd and mask_lo/hi, 20 the item's screen rows (bby,
+    y0 | y1 << 16: K2 evaluates an item on its own rows, the plain version
+    on its octet's, the same frame since no item covers a pixel outside its
+    own box), 21-23 unused here;
     ``tile_starts``/``tile_counts`` i32[T] (row-major tiles) delimit each
     tile's segment; ``octet_rows`` i32[cap/8] the covered tile-local row
     range (r0 | r1 << 8) of each aligned group of 8 items; ``octet_zmin``
@@ -338,11 +342,12 @@ def rasterize_tiles(records, tile_starts, tile_counts, octet_rows,
                         octet_rows, octet_zmin)
     color = torch.empty((out_h, width), dtype=torch.int32, device=dev)
     depth = torch.empty((out_h, width), dtype=torch.float32, device=dev)
+    # the kernel reads each item's own rows (record row 20, bby) instead of
+    # octet_rows, which only the plain version reads
     raster_args = (
         ins[0].data_ptr(), records.shape[1], ins[1].data_ptr(),
-        ins[2].data_ptr(), ins[3].data_ptr(), ins[4].data_ptr(),
-        out_h // tile_h, width // tile_w, height, width, color.data_ptr(),
-        depth.data_ptr())
+        ins[2].data_ptr(), ins[4].data_ptr(), out_h // tile_h,
+        width // tile_w, height, width, color.data_ptr(), depth.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
     if next_geom is None:
         err = _build.lib().dpvr_rasterize_tiles(

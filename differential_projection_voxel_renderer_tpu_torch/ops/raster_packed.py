@@ -221,9 +221,9 @@ def rasterize_packed_plain(records, starts, counts, octet_rows, octet_zmin,
     return frame(color), frame(depth)
 
 
-def rasterize_packed(records, starts, counts, octet_rows, octet_zmin, *,
-                     height: int, width: int, tile_h: int = 16,
-                     out_h: int | None = None):
+def rasterize_packed(records, starts, counts, octet_rows, octet_zmin,
+                     item_bby=None, item_bbx=None, *, height: int,
+                     width: int, tile_h: int = 16, out_h: int | None = None):
     """Blend every tile's five bins of the packed item stream.
 
     ``records`` i32[24, cap] (cap a multiple of CHAP_Q): rows 0-15 the f32
@@ -234,7 +234,15 @@ def rasterize_packed(records, starts, counts, octet_rows, octet_zmin, *,
     aligned group of 8 items; ``octet_zmin`` f32[cap/8] the suffix-min of
     near depth from each group to the end of the bin of its first item.
     Returns (color i32, depth f32), each [out_h, width]; NDC uses the true
-    ``height``."""
+    ``height``.
+
+    ``item_bby`` and ``item_bbx`` i32[cap], each item's screen rows and
+    columns (y0 | y1 << 16 and x0 | x1 << 16, the ``bby``/``bbx`` of stage
+    A), are inputs of the kernel only: K4 evaluates an item on the pixels
+    of its own box, where the plain version evaluates its octet's rows and
+    its bin's columns (the same frame, since no item covers a pixel outside
+    its own box).  A CUDA call needs them; the plain version ignores
+    them."""
     out_h = out_h or height
     if records.device.type != "cuda":
         return rasterize_packed_plain(
@@ -246,15 +254,23 @@ def rasterize_packed(records, starts, counts, octet_rows, octet_zmin, *,
     cap, _ = _check_records(
         records, starts, counts, octet_rows, octet_zmin, out_h=out_h,
         width=width, tile_h=tile_h)
+    for box in (item_bby, item_bbx):
+        if (box is None or box.shape != (cap,) or box.dtype != torch.int32
+                or box.device != records.device):
+            raise ValueError("rasterize_packed: item_bby and item_bbx must "
+                             "be i32[cap] on the records' device")
+    if cap >= 2**30:
+        raise ValueError("rasterize_packed: cap must be below 2**30")
     dev = records.device
     ins = kernel_inputs("rasterize_packed", records, starts, counts,
-                        octet_rows, octet_zmin)
+                        item_bby, octet_zmin)
     color = torch.empty((out_h, width), dtype=torch.int32, device=dev)
     depth = torch.empty((out_h, width), dtype=torch.float32, device=dev)
-    rec, st, cn, rows, zmin = (x.data_ptr() for x in ins)
+    rec, st, cn, bby, zmin = (x.data_ptr() for x in ins)
+    bbx = item_bbx.contiguous()
     err = _build.lib().dpvr_rasterize_packed(
-        rec, cap, st, cn, rows, zmin, out_h // tile_h, width // 128, height,
-        width, color.data_ptr(), depth.data_ptr(),
+        rec, cap, st, cn, bby, bbx.data_ptr(), zmin, out_h // tile_h,
+        width // 128, height, width, color.data_ptr(), depth.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "rasterize_packed")
     launches += 1

@@ -94,7 +94,8 @@ def render_step(quads, quad_world, n_quads, view_proj, cam_pos, *,
     octet_zmin) instead.
 
     ``packed_raster``: the packed raster path (``_packed_tail``, kernel
-    K4); its ``debug_return_records`` may also be "bin" or "gather" (see
+    K4); its ``debug_return_records`` adds K4's item_bby and item_bbx as
+    sixth and seventh outputs and may also be "bin" or "gather" (see
     there).
 
     Frames in flight: ``pre_geom`` = (valid, bbx, bby, depth_near,
@@ -162,7 +163,7 @@ def render_step(quads, quad_world, n_quads, view_proj, cam_pos, *,
     if packed_raster:
         f_full = torch.stack([coeffs[k] for k in raster_ops.F_FIELDS])
         i_full = torch.stack([coeffs[k] for k in raster_ops.I_FIELDS]
-                             + [bby_c, dn_c.view(i32)])
+                             + [bby_c, dn_c.view(i32), bbx_c])
         out = _packed_tail(
             f_full, i_full, bbx_c, bby_c, count_c, height=height,
             width=width, tile_h=tile_h, out_h=out_h, tiles_y=tiles_y,
@@ -259,10 +260,11 @@ def _packed_tail(f_full, i_full, bbx_c, bby_c, count_c, *, height: int,
                  tiles_x: int, tile_k_cap: int, debug_return_records):
     """Binning, metadata and raster of the packed path (the reference's
     ``_packed_tail``) on the compacted, front-to-back stream: ``f_full``
-    f32[16, rc] blend fields, ``i_full`` i32[6, rc] (colour/mask words,
-    bby, near-depth bits).  Returns (color, depth, bin_overflow), color and
+    f32[16, rc] blend fields, ``i_full`` i32[7, rc] (colour/mask words,
+    bby, near-depth bits, bbx).  Returns (color, depth, bin_overflow), color and
     depth [out_h, width]; or, with ``debug_return_records`` True, the
-    raster's inputs (records, starts, counts, octet_rows, octet_zmin);
+    raster's inputs (records, starts, counts, octet_rows, octet_zmin, and
+    K4's item_bby and item_bbx; the first five are the reference's);
     "bin" stops after the binning (flat, b_of_item, valid_slot, starts,
     counts), "gather" after the record gather (f_binned, i_binned, starts,
     counts, b_of_item)."""
@@ -309,11 +311,14 @@ def _packed_tail(f_full, i_full, bbx_c, bby_c, count_c, *, height: int,
     records = torch.cat([f_binned.view(i32), ig[:4],
                          torch.zeros((4, n_items), dtype=i32,
                                      device=flat.device)])
+    # each item's screen box: K4 evaluates an item on its own pixels
+    item_bby, item_bbx = ig[4], ig[6]
     if debug_return_records:
-        return records, starts, counts, octet_rows, octet_zmin
+        return (records, starts, counts, octet_rows, octet_zmin, item_bby,
+                item_bbx)
     color, depth = packed_ops.rasterize_packed(
-        records, starts, counts, octet_rows, octet_zmin, height=height,
-        width=width, tile_h=tile_h, out_h=out_h)
+        records, starts, counts, octet_rows, octet_zmin, item_bby, item_bbx,
+        height=height, width=width, tile_h=tile_h, out_h=out_h)
     return color, depth, bin_overflow
 
 

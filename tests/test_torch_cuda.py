@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_streams as TS
+from differential_projection_voxel_renderer_tpu_torch import _build
 from differential_projection_voxel_renderer_tpu_torch.models.camera import (
     Camera,
 )
@@ -175,7 +177,7 @@ def test_packed_kernel_matches_twin(cuda_device, name):
     before = raster_packed.launches
     c1, d1 = raster_packed.rasterize_packed(*rec, **rkw)
     assert raster_packed.launches == before + 1
-    c2, d2 = raster_packed.rasterize_packed_plain(*rec, **rkw)
+    c2, d2 = raster_packed.rasterize_packed_plain(*rec[:5], **rkw)
     assert torch.equal(c1, c2) and torch.equal(d1, d2)
     assert int(rec[2].view(-1, 5)[:, 1:].sum()) > 0  # buckets were walked
 
@@ -196,3 +198,69 @@ def test_packed_step_on_card_matches_cpu(cuda_device, name):
                         d2.numpy(), rec[0].numpy())
     c0, d0, _ = pipeline.render_step(*gargs, **gkw)
     assert torch.equal(c1, c0) and torch.equal(d1, d0)
+
+
+
+def _same_bits(a, b):
+    """(colour, depth) pairs equal bit for bit (depth signs included)."""
+    return (torch.equal(a[0], b[0])
+            and torch.equal(a[1].view(torch.int32), b[1].view(torch.int32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [7, 8, 9])
+def test_packed_kernel_long_bucket_matches_twin(cuda_device, seed):
+    """K4 on a tile whose last bucket holds 1100 items and whose other
+    buckets are near empty (the case its bucket phase spreads over all
+    eight warps), with ties on signed zeros, bit for bit."""
+    args, kw = TS.long_bucket_stream(seed)
+    args = [a.to(cuda_device) for a in args]
+    before = raster_packed.launches
+    got = raster_packed.rasterize_packed(*args, **kw)
+    assert raster_packed.launches == before + 1
+    ref = raster_packed.rasterize_packed_plain(*args[:5], **kw)
+    assert _same_bits(got, ref)
+    zero = ref[1] == 0
+    assert bool((zero & (ref[1].view(torch.int32) < 0)).any())
+    assert bool((zero & (ref[1].view(torch.int32) == 0)).any())
+
+
+@pytest.mark.cuda
+def test_raster_kernel_breaks_at_octet_base(cuda_device):
+    """K2's occlusion break fires at an octet base that is not a multiple
+    of 128: on a stream whose octet_zmin claims the break there while the
+    items after it would win pixels, the kernel equals its plain version
+    on the segment cut at that base, and neither on the full segment nor
+    on the segment cut one octet earlier."""
+    args, kw, brk, start = TS.octet_break_stream()
+    args = [a.to(cuda_device) for a in args]
+    assert brk % 128 and brk % 8 == 0
+
+    def twin(end):
+        counts = args[2].clone()
+        counts[1] = end - start
+        return raster.rasterize_tiles_plain(args[0], args[1], counts,
+                                            *args[3:], **kw)
+
+    got = raster.rasterize_tiles(*args, **kw)
+    assert _same_bits(got, twin(brk))
+    assert not _same_bits(got, twin(brk - 8))
+    assert not _same_bits(got, twin(start + int(args[2][1])))
+
+
+@pytest.mark.cuda
+def test_ptx_has_no_multiply_adds(cuda_device):
+    """The rounding contract: no floating-point multiply-add in the PTX of
+    any kernel source."""
+    counts = _build.ptx_fma_counts()
+    assert set(counts) == set(_build.SOURCES)
+    assert not any(counts.values()), counts
+
+
+@pytest.mark.cuda
+def test_raster_kernels_fit_four_blocks_an_sm(cuda_device):
+    """K2/K3 and K4 hold four resident 256-thread blocks an SM (all 450
+    tiles of a 1280x720 frame at once on 132 SMs)."""
+    lib = _build.lib()
+    assert lib.dpvr_rasterize_tiles_blocks_per_sm() >= 4
+    assert lib.dpvr_rasterize_packed_blocks_per_sm() >= 4
