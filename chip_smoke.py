@@ -7,9 +7,9 @@ Builds the port's CUDA kernels from ``csrc/`` (nvcc, sm_90a), drives the
 serial frame path of ``Engine.render_frame``, the frames-in-flight path
 of ``Engine.render_frame_pipelined`` and the packed raster path at the
 headline scene (1280x720, view distance 12, textures and shading on, from
-the reference start pose),
-holds each kernel against its plain PyTorch version on the card, and times
-kernels and frames.  Phases:
+the reference start pose) and the cost-probe path at the probes' 736x1280
+frame, holds each kernel against its plain PyTorch version on the card,
+and times kernels and frames.  Phases:
 
 1. environment (torch, CUDA, nvcc, the card's name and power limit);
 2. kernel build, the count of floating-point multiply-adds in each
@@ -60,7 +60,23 @@ kernels and frames.  Phases:
    its plain version's, on the wide bins alone, on the buckets alone and
    on the tile with the longest slice walk alone, and its bound (its walk
    found as the per-bin occlusion break finds it in the plain version's
-   order, the fewest items any order of K4's slices walks).
+   order, the fewest items any order of K4's slices walks);
+11. the cost-probe path (the port's ``benches``: the TPU cost probes
+   ``benches/micro_fixed.py``, ``micro_fixed2.py`` and ``micro_fixed3.py``
+   as probes of the port's launch path): the counters are zeroed, every
+   variant (micro_fixed's levels 0-2, micro_fixed2's 63 labels and its
+   SOLO10 sweep 1x1 .. 4x5, micro_fixed3's levels 0-3 and h0-h4) is
+   driven once through its module's ``run_variant`` and the counters are
+   read; each must launch its kernel (M1, M2, or K2 on the empty stream)
+   as often as it calls it.  Every output must equal the plain versions'
+   bit for bit where the kernel writes (levels 1-2 also on random tile
+   counts, which stage records), and K2's empty frame must be the constant
+   frame.  Each variant is timed (a call, runs of 20, 30 queued, host us a
+   call) beside its plain version, its library call (``Tensor.fill_`` on
+   each output for M1 and K2, ``torch.add`` into each output for M2) and
+   its bound; then the host us a launch against the operand count, K1's
+   wrapper against its C entry point called alone, and K2's empty floor
+   beside its vd12 time of phase 6.
 
 The script imports the port package and nothing else of the repo; before
 it prints its result it checks that neither jax nor any module of the JAX
@@ -68,7 +84,9 @@ package was loaded.  Every number printed comes from this run; each
 kernel's bound is computed from this run's inputs (``bound_ms``: the larger
 of its bytes over the card's memory rate and its operations over the
 card's float32 rate).  Its last three lines are the JSON object with one
-entry per kernel, the card's name and power limit as nvidia-smi gives
+entry per kernel (K1-K4, and M1 at ``a_base`` and M2 at ``make9``'s 4x5
+form with every probe site each replaces; K2's entry also gives its empty
+floor), the card's name and power limit as nvidia-smi gives
 them, and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, when there is no CUDA device or the package is not beside this
 script.
@@ -107,6 +125,10 @@ N_SMS = 132
 K1_OPS_PER_QUAD = 200
 K2_OPS_PER_PIXEL = 22
 K2_OPS_PER_ITEM_COLUMN = 4
+# micro_fixed2's scalar x in phase 11 (SKY + x must differ from SKY), and
+# the turns of the host-time comparisons
+PROBE_X = 7
+PROBE_TURNS = 7
 
 
 def log(msg: str) -> None:
@@ -128,23 +150,13 @@ def smi() -> str:
 
 def median_ms(fn, reps: int = 20, batch: int = 1) -> float:
     """Median over ``reps`` runs of the CUDA-event time of ``batch``
-    back-to-back calls of ``fn``, per call, after one warm-up call.  With
-    ``batch`` 1 the time includes the host's work before the launch; a
-    longer batch overlaps it with the previous call's device work."""
-    import torch
+    back-to-back calls of ``fn``, per call, after one warm-up call (the
+    cost probes' ``common.median_ms``)."""
+    from differential_projection_voxel_renderer_tpu_torch.benches import (
+        common,
+    )
 
-    fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(batch):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / batch)
-    return statistics.median(times)
+    return common.median_ms(fn, reps, batch)
 
 
 def nonsky(color) -> int:
@@ -170,6 +182,7 @@ def counters():
 def reset_counters() -> None:
     from differential_projection_voxel_renderer_tpu_torch.ops import (
         geometry,
+        micro,
         raster,
         raster_packed,
     )
@@ -178,6 +191,8 @@ def reset_counters() -> None:
     raster.launches = 0
     raster.launches_geom = 0
     raster_packed.launches = 0
+    micro.launches_fill = 0
+    micro.launches_copy = 0
 
 
 # ------------------------------------------------------------- main path
@@ -904,6 +919,219 @@ def log_profile(phase: str, what: str, prof, ref_ms: float, card: str):
         log(f"[{phase}]   host {ms:.4f} ms/frame, {calls:.1f} calls  {name}")
 
 
+# ------------------------------------------------------------- cost probes
+
+
+def probe_modules() -> dict:
+    from differential_projection_voxel_renderer_tpu_torch.benches import (
+        micro_fixed,
+        micro_fixed2,
+        micro_fixed3,
+    )
+
+    return dict(micro_fixed=micro_fixed, micro_fixed2=micro_fixed2,
+                micro_fixed3=micro_fixed3)
+
+
+def probe_variants():
+    """[(module name, module, label, run arguments)] of the cost-probe
+    path: micro_fixed's levels, micro_fixed2's 63 labels and its SOLO10
+    sweep (x = PROBE_X), micro_fixed3's levels and h variants."""
+    m = probe_modules()
+    return ([("micro_fixed", m["micro_fixed"], str(lv), ())
+             for lv in m["micro_fixed"].LEVELS]
+            + [("micro_fixed2", m["micro_fixed2"], lab, (PROBE_X,))
+               for lab in m["micro_fixed2"].LABELS + m["micro_fixed2"].SWEEP]
+            + [("micro_fixed3", m["micro_fixed3"], lab, ())
+               for lab in m["micro_fixed3"].LABELS])
+
+
+def probe_launches():
+    """Launch counts (M1, M2, K1, K2, K3, K4)."""
+    from differential_projection_voxel_renderer_tpu_torch.ops import micro
+
+    return (micro.launches_fill, micro.launches_copy, *counters())
+
+
+def library_call(torch, v, outs):
+    """The PyTorch calls that compute a variant's function on the same
+    inputs into its outputs: ``Tensor.fill_`` of each output with its value
+    (M1, and K2 on the empty stream, whose frame is constant), or
+    ``torch.add`` into each output for each of M2's calls."""
+    if v.kernel in ("M1", "K2"):
+        vals = [o.reshape(-1)[0].clone() for o in outs]
+        return lambda: [o.fill_(c) for o, c in zip(outs, vals)]
+    in0 = torch.zeros_like(outs[0])
+    adds = [torch.tensor(a + (PROBE_X if ax else 0), dtype=torch.int32,
+                         device=in0.device) for _, a, ax in v.pairs]
+
+    def lib():
+        for _ in range(v.calls):
+            for (m, _, _), o, c in zip(v.pairs, outs, adds):
+                torch.add(in0, in0 if m == 2 else c, out=o)
+    return lib
+
+
+def probe_path(torch, card, k1_call):
+    """Phase 11: the cost-probe path.  Drives every variant once through
+    its module's ``run_variant`` with the counters zeroed before and read
+    after (each variant must launch its kernel as often as it calls it);
+    holds every output to the plain versions' bit for bit, micro_fixed's
+    and micro_fixed3's levels 1-2 also on random tile counts (the record
+    stage), and K2's empty frame to the constant frame; then times each
+    variant (a call, runs of 20, 30 queued, replayed from a CUDA graph,
+    host us a call), its plain version and its library call, and computes
+    its bound; then the host's cost of a call against the operand count
+    and the binding's beside K1's wrapper (``k1_call``: K1's args and
+    kwargs).  Returns a dict: ``variants`` {(module, label): times},
+    ``launches`` (M1, M2, K1-K4), ``errors`` (the max abs error of each
+    kernel against its plain version) and ``binding``."""
+    from differential_projection_voxel_renderer_tpu_torch import _build
+    from differential_projection_voxel_renderer_tpu_torch.benches import (
+        common,
+    )
+    from differential_projection_voxel_renderer_tpu_torch.ops import (
+        geometry,
+        micro,
+    )
+    from differential_projection_voxel_renderer_tpu_torch.ops.raster import (
+        SKY_I32,
+    )
+
+    t0 = time.perf_counter()
+    variants = probe_variants()
+    expect = [0] * 6
+    outs = {}
+    torch.cuda.synchronize()
+    reset_counters()
+    for name, mod, label, args in variants:
+        v = mod.variant(label)
+        before = probe_launches()
+        outs[name, label] = (v, mod.run_variant(label, *args))
+        got = tuple(a - b for a, b in zip(probe_launches(), before))
+        k = {"M1": 0, "M2": 1, "K2": 3}[v.kernel]
+        want = tuple(v.calls if i == k else 0 for i in range(6))
+        if got != want:
+            raise AssertionError(f"{name} {label} launched M1, M2, K1-K4 "
+                                 f"{got}, expected {want}")
+        expect[k] += v.calls
+    torch.cuda.synchronize()
+    launches = probe_launches()
+    if launches != tuple(expect):
+        raise AssertionError(f"probe launches {launches}, expected {expect}")
+    log(f"[11] cost-probe path: {len(variants)} variants through "
+        f"run_variant; launches M1={launches[0]} M2={launches[1]} "
+        f"K2={launches[3]} (K1, K3, K4 none)")
+
+    errs = {"M1": 0.0, "M2": 0.0, "K2": 0.0}
+    for name, mod, label, args in variants:
+        v, got = outs[name, label]
+        ref = mod.run_variant(label, *args, plain=True)
+        if not common.same_bits(v.written(got), v.written(ref)):
+            raise AssertionError(f"{name} {label}: {v.kernel} differs from "
+                                 f"its plain version")
+        for a, b in zip(v.written(got), v.written(ref)):
+            d = (a.double() - b.double()).abs()
+            d = d[torch.isfinite(d)]
+            if d.numel():
+                errs[v.kernel] = max(errs[v.kernel], float(d.max()))
+    for name in ("micro_fixed", "micro_fixed3"):
+        mod = probe_modules()[name]
+        inputs = mod.build_inputs(seed=11)
+        for level in ("1", "2"):
+            if not common.same_bits(mod.run_variant(level, inputs),
+                                    mod.run_variant(level, inputs,
+                                                    plain=True)):
+                raise AssertionError(f"{name} level {level} on random tile "
+                                     f"counts differs from its plain version")
+    c3, d3 = outs["micro_fixed3", "3"][1]
+    if not (bool((c3 == SKY_I32).all()) and bool(torch.isinf(d3).all())
+            and bool((d3 > 0).all())):
+        raise AssertionError("K2 on the empty stream is not the constant "
+                             "frame")
+    log(f"[11] every variant equal to its plain version bit for bit where "
+        f"the kernel writes (micro_fixed and micro_fixed3 levels 1-2 also "
+        f"on random tile counts); K2 on the empty 736x1280 stream gives the "
+        f"constant frame (SKY, +inf)")
+
+    rows = {}
+    for name, mod, label, args in variants:
+        v, got = outs[name, label]
+        t = mod.time_variant(label, *args)
+        t["plain_ms"] = median_ms(mod.prepare(label, *args, plain=True),
+                                  reps=5)
+        t["library_ms"] = median_ms(library_call(torch, v, got), batch=20)
+        t["bound_ms"], t["bound_by"] = bound(v.bytes, 0)
+        t.update(kernel=v.kernel, site=v.site, launches=v.calls,
+                 bytes=v.bytes)
+        rows[name, label] = t
+        log(f"[11] {name} {label} ({v.kernel}, {v.site}): a call "
+            f"{t['call_ms']:.4f} ms, runs of 20 {t['run_ms']:.4f}, 30 queued "
+            f"{t['queued_ms']:.4f}, CUDA graph {t['graph_ms']:.4f}, host "
+            f"{t['host_us']:.1f} us a call; plain "
+            f"{t['plain_ms']:.4f}, library {t['library_ms']:.4f}, bound "
+            f"{t['bound_ms']:.5f} ms ({v.bytes} bytes)")
+
+    # host us a call against operand count, and the binding alone (the C
+    # entry points called with prepared pointers), all in turns
+    lib = _build.lib()
+    args, kw = k1_call
+    ins = geometry.kernel_inputs(*args)
+    gout = geometry.kernel_outputs(ins[0].shape[0], ins[0].device)
+    stream = torch.cuda.current_stream().cuda_stream
+    k1_ptrs = (*(x.data_ptr() for x in ins), None, ins[0].shape[0],
+               kw["width"], kw["height"], 1,
+               *(x.data_ptr() for x in gout.values()), stream)
+    cin = [torch.zeros((1024, 128), dtype=torch.int32, device="cuda")
+           for _ in range(9)]
+    xs = torch.zeros(1, dtype=torch.int32, device="cuda")
+    m2_ptrs = (*(t.data_ptr() for t in cin[:4]), None, None, None, None,
+               *(t.data_ptr() for t in cin[4:]), None, None, None,
+               xs.data_ptr(), micro._copy_params(
+                   1024, 64, 4, tuple((1, i, True) for i in range(5))),
+               stream)
+    m2mod = probe_modules()["micro_fixed2"]
+    fns = {lab.split("_")[1]: m2mod.prepare(lab, PROBE_X)
+           for lab in m2mod.SWEEP}
+    fns.update({
+        "K1 wrapper": lambda: geometry.project_cull(*args, **kw),
+        "K1 C entry": lambda: lib.dpvr_project_cull(*k1_ptrs),
+        "M2 C entry": lambda: lib.dpvr_blocked_copy(*m2_ptrs)})
+    per = {k: [] for k in fns}
+    for _ in range(PROBE_TURNS):
+        for k, fn in fns.items():
+            per[k].append(common.host_us(fn, blocks=1))
+    host = {k: statistics.median(v) for k, v in per.items()}
+    k1_graph = common.graph_ms(fns["K1 wrapper"])
+    sweep = {k: host[k] for k in fns if "x" in k and " " not in k}
+    ops = [sum(map(int, k.split("x"))) for k in sweep]
+    slope, icept = statistics.linear_regression(ops, list(sweep.values()))
+    log("[11] host us a call by operands (M2's wrapper, n_in x n_out; "
+        f"median of {PROBE_TURNS} blocks of 50, taken in turns): "
+        + ", ".join(f"{k} {us:.1f}" for k, us in sweep.items())
+        + f"; least squares {icept:.1f} + {slope:.2f} an operand; {card}")
+    log(f"[11] host us a call: K1's wrapper {host['K1 wrapper']:.1f}, K1's "
+        f"C entry alone (ctypes and launch, 16 arguments) "
+        f"{host['K1 C entry']:.1f}; M2's wrapper at 4x5 {sweep['4x5']:.1f}, "
+        f"its C entry alone (19 arguments) {host['M2 C entry']:.1f}; the "
+        f"binding is {host['K1 C entry'] / host['K1 wrapper']:.2f} of K1's "
+        f"wrapper call; K1's device time a call (131072 quads, from a CUDA "
+        f"graph) {k1_graph * 1e3:.1f} us; {card}")
+    binding = dict(k1_host_us=host["K1 wrapper"],
+                   k1_bare_us=host["K1 C entry"],
+                   m2_bare_us=host["M2 C entry"], sweep_us=sweep,
+                   us_per_operand=slope, us_at_zero=icept,
+                   k1_graph_ms=k1_graph)
+    k2e = rows["micro_fixed3", "3"]
+    log(f"[11] K2 on the empty 736x1280 stream: {k2e['call_ms']:.4f} ms a "
+        f"call, {k2e['run_ms']:.4f} ms in runs of 20, {k2e['graph_ms']:.4f} "
+        f"ms from a CUDA graph, {k2e['host_us']:.1f} us of host a call; "
+        f"bound {k2e['bound_ms']:.5f} ms; {time.perf_counter() - t0:.1f} s "
+        f"for phase 11; {card}")
+    return dict(variants=rows, launches=launches, errors=errs,
+                binding=binding)
+
+
 def main() -> int:
     import torch
 
@@ -916,6 +1144,9 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     try:
         from differential_projection_voxel_renderer_tpu_torch import _build
+        from differential_projection_voxel_renderer_tpu_torch.benches import (
+            common,
+        )
         from differential_projection_voxel_renderer_tpu_torch.ops import (
             geometry,
             raster,
@@ -947,7 +1178,8 @@ def main() -> int:
     ptxas = {}
     for entry, rep in _build.ptxas_report(ptxas_log).items():
         for kernel in ("project_cull_kernel", "raster_kernel",
-                       "raster_packed_kernel"):
+                       "raster_packed_kernel", "fill_tiles_kernel",
+                       "blocked_copy_kernel"):
             if f"{len(kernel)}{kernel}" in entry:
                 ptxas[kernel] = rep
     blocks = dict(raster_kernel=lib.dpvr_rasterize_tiles_blocks_per_sm(),
@@ -963,7 +1195,7 @@ def main() -> int:
             + (f", {blocks[kernel]} resident blocks an SM "
                f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)"
                if kernel in blocks else ""))
-    if len(ptxas) != 3:
+    if len(ptxas) != 5:
         raise AssertionError(f"ptxas reported {sorted(ptxas)}")
     for kernel, n in blocks.items():
         rep = ptxas[kernel]
@@ -1233,6 +1465,23 @@ def main() -> int:
         f"in tile {busiest}: {w4['tile_box_w']:.2f} x "
         f"{w4['tile_box_h']:.2f}")
 
+    # ---- 11. the cost-probe path
+    probes = probe_path(torch, card, (fk1, gkw))
+    launches11, rows11 = probes["launches"], probes["variants"]
+    k2e = rows11["micro_fixed3", "3"]
+    k2_graph = common.graph_ms(lambda: raster.rasterize_tiles(*rec720,
+                                                              **rkw))
+    log(f"[11] K2's floor: on the empty stream {k2e['run_ms']:.4f} ms in "
+        f"runs of 20 ({k2e['call_ms']:.4f} a call, {k2e['graph_ms']:.4f} "
+        f"from a CUDA graph), at vd12 {k2_run:.4f} ms in runs ({k2_ms:.4f} "
+        f"a call, phase 6; {k2_graph:.4f} from a CUDA graph): the empty "
+        f"floor is {k2e['run_ms'] / k2_run:.2f} of it in runs, "
+        f"{k2e['graph_ms'] / k2_graph:.2f} of its device time; {card}")
+    m1, m2 = rows11["micro_fixed2", "a_base"], rows11["micro_fixed2",
+                                                      "solo10_4x5"]
+    sites = {k: sorted({r["site"] for r in rows11.values()
+                        if r["kernel"] == k}) for k in ("M1", "M2")}
+
     ref_mods = [m for m in sys.modules if m == REF or m.startswith(REF + ".")]
     if "jax" in sys.modules or ref_mods:
         raise AssertionError(f"the run imported jax or the JAX package: "
@@ -1253,7 +1502,11 @@ def main() -> int:
              library_ms=None, tile_bound_ms=k2_tile_ms,
              registers=ptxas["raster_kernel"]["registers"],
              spill_bytes=ptxas["raster_kernel"]["spill_stores"],
-             blocks_per_sm=blocks["raster_kernel"]),
+             blocks_per_sm=blocks["raster_kernel"],
+             graph_ms=k2_graph, empty_ms=k2e["run_ms"],
+             empty_graph_ms=k2e["graph_ms"],
+             empty_bound_ms=k2e["bound_ms"],
+             empty_library_ms=k2e["library_ms"]),
         dict(name="K3 tile raster + next frame's stage A "
                   "(rasterize_tiles next_geom)", route="cuda",
              source=f"{PKG}/csrc/raster.cu",
@@ -1273,6 +1526,31 @@ def main() -> int:
              spill_bytes=ptxas["raster_packed_kernel"]["spill_stores"],
              blocks_per_sm=blocks["raster_packed_kernel"],
              split_ms=k4_phase_ms),
+        dict(name="M1 constant tile fill (fill_tiles), at a_base",
+             route="cuda", source=f"{PKG}/csrc/micro.cu",
+             replaces="benches/micro_fixed2.py:65",
+             launches=launches11[0], max_abs_err=probes["errors"]["M1"],
+             ms=m1["run_ms"],
+             plain_ms=m1["plain_ms"], bound_ms=m1["bound_ms"],
+             bound_by=m1["bound_by"], library_ms=m1["library_ms"],
+             call_ms=m1["call_ms"], queued_ms=m1["queued_ms"],
+             graph_ms=m1["graph_ms"], host_us=m1["host_us"],
+             replaces_all=sites["M1"],
+             registers=ptxas["fill_tiles_kernel"]["registers"],
+             spill_bytes=ptxas["fill_tiles_kernel"]["spill_stores"]),
+        dict(name="M2 blocked copy (blocked_copy), at make9 4x5",
+             route="cuda", source=f"{PKG}/csrc/micro.cu",
+             replaces="benches/micro_fixed2.py:678",
+             launches=launches11[1], max_abs_err=probes["errors"]["M2"],
+             ms=m2["run_ms"],
+             plain_ms=m2["plain_ms"], bound_ms=m2["bound_ms"],
+             bound_by=m2["bound_by"], library_ms=m2["library_ms"],
+             call_ms=m2["call_ms"], queued_ms=m2["queued_ms"],
+             graph_ms=m2["graph_ms"], host_us=m2["host_us"],
+             replaces_all=sites["M2"],
+             binding_us=probes["binding"],
+             registers=ptxas["blocked_copy_kernel"]["registers"],
+             spill_bytes=ptxas["blocked_copy_kernel"]["spill_stores"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -25,7 +25,7 @@ import time
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("geometry.cu", "raster.cu", "raster_packed.cu")
+SOURCES = ("geometry.cu", "raster.cu", "raster_packed.cu", "micro.cu")
 HEADERS = ("stage_a.cuh", "tile_raster.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 LIB_PATH = os.path.join(BUILD_DIR, "libdpvr_kernels.so")
@@ -64,6 +64,11 @@ _SIGNATURES = {
     "dpvr_rasterize_tiles_blocks_per_sm": (),
     "dpvr_rasterize_packed_blocks_per_sm": (),
     "dpvr_rasterize_packed_smem_bytes": (),
+    # M1: (color, depth, x, order, starts, counts, meta_rows, meta_zmin,
+    #  recs, bidx, extra0..4, rec_cap, params (host int[13]), stream)
+    "dpvr_fill_tiles": (_P,) * 15 + (_I, _P, _P),
+    # M2: (in0..7, out0..7, x, params (host int[21]), stream)
+    "dpvr_blocked_copy": (_P,) * 16 + (_P, _P, _P),
 }
 
 

@@ -16,10 +16,17 @@ import torch
 
 import _torch_streams as TS
 from differential_projection_voxel_renderer_tpu_torch import _build
+from differential_projection_voxel_renderer_tpu_torch.benches import (
+    common as bench_common,
+    micro_fixed,
+    micro_fixed2,
+    micro_fixed3,
+)
 from differential_projection_voxel_renderer_tpu_torch.models.camera import (
     Camera,
 )
 from differential_projection_voxel_renderer_tpu_torch.ops import geometry
+from differential_projection_voxel_renderer_tpu_torch.ops import micro
 from differential_projection_voxel_renderer_tpu_torch.ops import projection
 from differential_projection_voxel_renderer_tpu_torch.ops import raster
 from differential_projection_voxel_renderer_tpu_torch.ops import raster_packed
@@ -264,3 +271,93 @@ def test_raster_kernels_fit_four_blocks_an_sm(cuda_device):
     lib = _build.lib()
     assert lib.dpvr_rasterize_tiles_blocks_per_sm() >= 4
     assert lib.dpvr_rasterize_packed_blocks_per_sm() >= 4
+
+
+PROBE_MODULES = {"micro_fixed": (micro_fixed, micro_fixed.LEVELS),
+                 "micro_fixed2": (micro_fixed2,
+                                  micro_fixed2.LABELS + micro_fixed2.SWEEP),
+                 "micro_fixed3": (micro_fixed3, micro_fixed3.LABELS)}
+
+
+def _launches():
+    return {"M1": micro.launches_fill, "M2": micro.launches_copy,
+            "K2": raster.launches}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("module", sorted(PROBE_MODULES))
+def test_probe_kernels_match_plain(cuda_device, module):
+    """Every cost-probe variant: its kernel (M1, M2, or K2 on an empty
+    stream) launched as often as the variant calls it, and its outputs
+    equal to the plain versions' bit for bit where the kernel writes."""
+    mod, labels = PROBE_MODULES[module]
+    args = (7,) if module == "micro_fixed2" else ()
+    for label in labels:
+        v = mod.variant(label)
+        before = _launches()
+        got = mod.run_variant(label, *args)
+        torch.cuda.synchronize()
+        grew = {k: n - before[k] for k, n in _launches().items()}
+        assert grew == {k: v.calls if k == v.kernel else 0 for k in grew}, (
+            label, grew)
+        ref = mod.run_variant(label, *args, plain=True)
+        assert bench_common.same_bits(v.written(got), v.written(ref)), label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("module", ["micro_fixed", "micro_fixed3"])
+def test_probe_record_stage_matches_plain(cuda_device, module):
+    """Levels 1-2 on random tile counts, where blocks stage their first
+    record block in shared memory, and on the original's zeros."""
+    mod = PROBE_MODULES[module][0]
+    for seed in (None, 11):
+        inputs = mod.build_inputs(seed=seed)
+        for level in ("1", "2"):
+            v = mod.variant(level)
+            got = mod.run_variant(level, inputs)
+            ref = mod.run_variant(level, inputs, plain=True)
+            assert bench_common.same_bits(got, ref), (seed, level)
+            assert bench_common.same_bits(v.written(got), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flag", ["X_FROM_META", "X_PLUS_REC", "MAP_ORDER",
+                                  "X_PLUS_SCRATCH"])
+def test_fill_kernel_reads_its_operands(cuda_device, flag):
+    """M1 against its plain version on random operands."""
+    rng = np.random.default_rng(3)
+    lay = bench_common.frame_layout(
+        flags=micro.DEPTH | micro.DEPTH_ADD_X | getattr(micro, flag),
+        smem_bytes=4 * 460, smem_a=460)
+    ops = dict(x=rng.integers(-2**31, 2**31, 1),
+               order=rng.permutation(lay.steps),
+               starts=rng.integers(-2**31, 2**31, 460),
+               counts=rng.integers(-2**31, 2**31, 460),
+               recs=rng.integers(-2**31, 2**31, (24, 98304)),
+               bidx=rng.integers(0, 384, lay.steps))
+    ops = {k: torch.from_numpy(a.astype(np.int32)).to(cuda_device)
+           for k, a in ops.items()}
+    before = micro.launches_fill
+    got = micro.fill_tiles(lay, **ops)
+    assert micro.launches_fill == before + 1
+    assert bench_common.same_bits(got, micro.fill_tiles_plain(lay, **ops))
+
+
+@pytest.mark.cuda
+def test_copy_kernel_matches_plain(cuda_device):
+    """M2 on random int32 with eight inputs and eight outputs (sums wrap),
+    and in place."""
+    rng = np.random.default_rng(5)
+    ins = [torch.from_numpy(rng.integers(-2**31, 2**31, (256, 128))
+                            .astype(np.int32)).to(cuda_device)
+           for _ in range(8)]
+    x = torch.tensor([2**31 - 3], dtype=torch.int32, device=cuda_device)
+    pairs = tuple((1 + k % 2, k, k % 3 == 0) for k in range(8))
+    before = micro.launches_copy
+    got = micro.blocked_copy(ins, x, pairs)
+    assert micro.launches_copy == before + 1
+    ref = micro.blocked_copy_plain(ins, x, pairs)
+    assert bench_common.same_bits(got, ref)
+    buf = ins[0].clone()
+    out = micro.blocked_copy([buf], x, pairs[:2], out=(buf, None))
+    assert out[0] is buf and bench_common.same_bits(out, ref[:2])
