@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``csrc/`` (nvcc, sm_90a), drives the
-serial frame path of ``Engine.render_frame``, the frames-in-flight path
-of ``Engine.render_frame_pipelined`` and the packed raster path at the
+serial frame path of ``Engine.render_frame`` (also in the two-pass and
+temporal Hi-Z modes), the frames-in-flight path of
+``Engine.render_frame_pipelined``, the packed raster path and the row
+bands and camera batch of ``parallel/sharded_render.py`` at the
 headline scene (1280x720, view distance 12, textures and shading on, from
 the reference start pose) and the cost-probe path at the probes' 736x1280
 frame, holds each kernel against its plain PyTorch version on the card,
@@ -76,7 +78,35 @@ and times kernels and frames.  Phases:
    each output for M1 and K2, ``torch.add`` into each output for M2) and
    its bound; then the host us a launch against the operand count, K1's
    wrapper against its C entry point called alone, and K2's empty floor
-   beside its vd12 time of phase 6.
+   beside its vd12 time of phase 6;
+12. exact occlusion: a two-pass engine (RenderConfig(two_pass_near_quads=
+   8192)) and a temporal one (RenderConfig(temporal_hiz=True)), settled
+   and primed like the first, drive phase 3's camera sequence (3 static
+   frames, the 10 moving frames) with the counters zeroed before and read
+   per frame (two-pass: K1 once, K2 twice; temporal: K1 and K2 once).
+   Every frame must equal phase 3's of its pose bit for bit (colour, depth,
+   stats[0], and stats[1] + stats[5], the rasterized and the Hi-Z-culled
+   counts); the temporal engine's first two static frames cull nothing
+   (the plain path, then the seed), its later static frames cull, its
+   moving frames never.  Then the three engines' static frames are timed
+   at the start pose in alternating blocks of 20 (serial, two-pass,
+   temporal, temporal, two-pass, serial), each frame checked on the card;
+   K2 with an init frame (the far pass on the near pass's frame: the wall
+   scene at 128x128 and the vd12 static stream) against its plain version
+   and against the single pass; K2 with and without the init frame on the
+   same vd12 records, a call and in runs of 20; the Hi-Z cull at vd12
+   recomputed on stage A with the port's 4-ulp margin and with the
+   reference's strict test, and the quads on which they differ;
+13. row bands and the camera batch on the phase-3 engine's pool:
+   ``parallel/sharded_render.make_sharded_render`` with dp = 2 cameras
+   (phase 3's static and last moving pose and draw lists) and tp = 2
+   (360-row bands in 368-row buffers) and tp = 3 (240 rows): K1 and K2
+   launch tp times a camera, and the stacked bands must equal phase 3's
+   frames bit for bit; ``make_sharded_render_dp`` over the two cameras
+   too.  K2 with ``y0_px`` against its plain version on the last band of
+   each split (K2 must leave a padded buffer's padded rows as they
+   started; the pixels each writes there are printed), and each band's K2
+   time beside the full frame's.
 
 The script imports the port package and nothing else of the repo; before
 it prints its result it checks that neither jax nor any module of the JAX
@@ -86,7 +116,8 @@ of its bytes over the card's memory rate and its operations over the
 card's float32 rate).  Its last three lines are the JSON object with one
 entry per kernel (K1-K4, and M1 at ``a_base`` and M2 at ``make9``'s 4x5
 form with every probe site each replaces; K2's entry also gives its empty
-floor), the card's name and power limit as nvidia-smi gives
+floor, its launches on the paths of phases 12-13, its time with an init
+frame and each band's), the card's name and power limit as nvidia-smi gives
 them, and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, when there is no CUDA device or the package is not beside this
 script.
@@ -107,6 +138,9 @@ REF = "differential_projection_voxel_renderer_tpu"
 WIDTH, HEIGHT, VIEW_DISTANCE = 1280, 720, 12
 START_POS, START_TARGET = (0.0, 10.0, 20.0), (0.0, 0.0, -60.0)
 N_TIMED, N_TIMED_PIPELINED, N_MOVING = 50, 20, 10
+# exact occlusion: the two-pass mode's near pass (MacrotileRenderConfig's
+# default), and the wall scene's (tests/test_macrotile.py)
+NEAR_QUADS, WALL_NEAR = 8192, 16
 
 # NVIDIA H100 SXM data sheet: HBM rate and dense float32 rate outside the
 # tensor cores, at the full 700 W power limit.  The float32 rate counts a
@@ -294,6 +328,8 @@ def main_path(torch):
     for f in static_frames[1:]:
         if not all(torch.equal(a, b) for a, b in zip(f, static_frames[0])):
             raise AssertionError("the static frames differ")
+    static_list = draw_list(eng)
+    cams = [(eng.camera.view_projection_matrix(), eng.camera.position.copy())]
     # the static draw list's stream and camera, for the kernel checks
     static = (eng._upload_cache[1], eng.camera.view_projection_matrix(),
               eng.camera.position.copy())
@@ -316,6 +352,9 @@ def main_path(torch):
         moving.append(keep(res))
         log(f"[3] moving frame {i}: stats={st.tolist()} non-sky={n} "
             f"meshes={len(eng.pool.by_pos)} entry={dict(entry)}")
+    moving_list = draw_list(eng)
+    cams.append((eng.camera.view_projection_matrix(),
+                 eng.camera.position.copy()))
     torch.cuda.synchronize()
     launches = counters()
     frames = 3 + N_TIMED + N_MOVING
@@ -327,9 +366,17 @@ def main_path(torch):
         f"K2={launches[1]}, entry points {entry}")
     log(f"[3] static frame: {dev_ms:.3f} ms/frame between CUDA events, "
         f"{host_ms:.3f} ms/frame host clock (mean of {N_TIMED})")
-    serial = dict(static=static_frames[0], moving=moving)
+    serial = dict(static=static_frames[0], moving=moving,
+                  lists=(static_list, moving_list), cams=cams)
     return (eng, static, launches, dict(static_ms=dev_ms, host_ms=host_ms),
             serial)
+
+
+def draw_list(eng):
+    """The chunk positions of the frame just rendered, front to back (its
+    draw list, as positions: pool slots may be reused later)."""
+    n = eng._last_n_visible
+    return eng.pool.positions[eng._last_visible_slots[:n]].copy()
 
 
 def same_frame(torch, res, ref):
@@ -338,6 +385,16 @@ def same_frame(torch, res, ref):
     return ((res.color == ref[0]).all()
             & (res.depth.view(torch.int32) == ref[1].view(torch.int32)).all()
             & (res.stats[:2] == ref[2][:2]).all())
+
+
+def same_culled_frame(torch, res, ref):
+    """``same_frame`` for a frame with the Hi-Z cull: ``ref``'s colour and
+    depth bits, its gathered count, and its rasterized count split into
+    the rasterized and the culled (stats[1] + stats[5])."""
+    return ((res.color == ref[0]).all()
+            & (res.depth.view(torch.int32) == ref[1].view(torch.int32)).all()
+            & (res.stats[0] == ref[2][0])
+            & (res.stats[1] + res.stats[5] == ref[2][1]))
 
 
 def pipelined_path(torch, serial):
@@ -563,6 +620,401 @@ def packed_path(torch, serial):
     return eng, launches, dict(static_ms=dev_ms, host_ms=host_ms), stats0
 
 
+def occlusion_path(torch, serial_eng, serial, card):
+    """Phase 12: exact occlusion.  A two-pass engine
+    (RenderConfig(two_pass_near_quads=NEAR_QUADS)) and a temporal one
+    (RenderConfig(temporal_hiz=True)), settled and primed like phase 3's,
+    drive phase 3's camera sequence (3 static frames, the N_MOVING moving
+    frames).  The counters are zeroed before each engine's sequence and read
+    per frame: a two-pass frame launches K1 once and K2 twice, a temporal
+    frame K1 and K2 once.  Every frame must equal phase 3's serial frame of
+    its pose bit for bit (colour, depth, stats[:2]) and show no overflow.
+    The temporal engine's first static frame takes the plain path and its
+    second seeds the pyramid (stats[5] == 0 on both); later static frames
+    cull (stats[5] > 0); moving frames never cull.  Then all three engines
+    go back to the start pose and their static frames are timed in
+    alternating blocks of N_TIMED_PIPELINED (serial, two-pass, temporal,
+    temporal, two-pass, serial), each frame checked on the card.  Returns
+    ({mode: launches (K1-K4) over its sequence}, {mode: [(events ms, host
+    ms) per block]}, {mode: [stats[5] of the 3 static frames, then of each
+    timed block's last frame]}, and 10 static frames of each mode under
+    torch.profiler, {mode: profile_frames' result})."""
+    import numpy as np
+
+    from differential_projection_voxel_renderer_tpu_torch.app.engine import (
+        RenderConfig,
+    )
+
+    engines = {}
+    for mode, cfg in (("two-pass", dict(two_pass_near_quads=NEAR_QUADS)),
+                      ("temporal", dict(temporal_hiz=True))):
+        eng, t_world, t_prime = new_engine(
+            torch, RenderConfig(WIDTH, HEIGHT, **cfg))
+        engines[mode] = eng
+        log(f"[12] {mode} engine: {eng.world.chunk_count()} chunks in "
+            f"{t_world:.1f} s; prime: {len(eng.pool.by_pos)} meshes in "
+            f"{t_prime:.1f} s")
+    want = {"serial": (1, 1, 0, 0), "two-pass": (1, 2, 0, 0),
+            "temporal": (1, 1, 0, 0)}
+    static, moving = serial["static"], serial["moving"]
+
+    def frame(mode, eng, ref, what):
+        before = counters()
+        res = eng.render_frame(dt=0.0)
+        got = tuple(a - b for a, b in zip(counters(), before))
+        if got != want[mode]:
+            raise AssertionError(f"{what} launched K1-K4 {got}, expected "
+                                 f"{want[mode]}")
+        return res, same_culled_frame(torch, res, ref)
+
+    def check(res, same, what):
+        st = res.stats.cpu().numpy()
+        if st[2] != 0 or st[3] != 0:
+            raise AssertionError(f"{what}: overflow in stats {st}")
+        if not bool(same):
+            raise AssertionError(f"{what} differs from phase 3's serial "
+                                 f"frame of its pose")
+        return st
+
+    launches, culled = {}, {}
+    for mode, eng in engines.items():
+        torch.cuda.synchronize()
+        reset_counters()
+        culled[mode] = []
+        for i in range(3):
+            st = check(*frame(mode, eng, static, f"{mode} static frame {i}"),
+                       f"{mode} static frame {i}")
+            culled[mode].append(int(st[5]))
+            log(f"[12] {mode} static frame {i}: stats={st.tolist()}, equal "
+                f"to phase 3's serial frame bit for bit")
+        moving_culled = []
+        for i, (pos, target) in enumerate(moving_poses()):
+            eng.camera.position = pos
+            eng.camera.look_at(target)
+            st = check(*frame(mode, eng, moving[i],
+                              f"{mode} moving frame {i}"),
+                       f"{mode} moving frame {i}")
+            moving_culled.append(int(st[5]))
+        torch.cuda.synchronize()
+        launches[mode] = counters()
+        frames = 3 + N_MOVING
+        if launches[mode] != tuple(w * frames for w in want[mode]):
+            raise AssertionError(f"{mode}: launches {launches[mode]} for "
+                                 f"{frames} frames")
+        if mode == "temporal" and (culled[mode][:2] != [0, 0]
+                                   or culled[mode][2] <= 0
+                                   or any(moving_culled)):
+            raise AssertionError(f"temporal hiz_culled: static "
+                                 f"{culled[mode]}, moving {moving_culled}")
+        log(f"[12] {mode}: {frames} frames, each equal to phase 3's serial "
+            f"frame of its pose bit for bit; launches K1={launches[mode][0]}"
+            f" K2={launches[mode][1]}; hiz_culled on the static frames "
+            f"{culled[mode]}, on the moving frames {moving_culled}")
+
+    # the static pose again, on all three engines, then timed blocks
+    engines = dict(serial=serial_eng, **engines)
+    for mode, eng in engines.items():
+        eng.camera.position = np.array(START_POS, np.float32)
+        eng.camera.look_at(np.array(START_TARGET, np.float32))
+        for i in range(3):
+            res = eng.render_frame(dt=0.0)
+            if not bool(same_culled_frame(torch, res, static)):
+                raise AssertionError(f"{mode} at the start pose again differs "
+                                     f"from phase 3's static frame")
+    times = {m: [] for m in engines}
+    for mode in ("serial", "two-pass", "temporal", "temporal", "two-pass",
+                 "serial"):
+        eng = engines[mode]
+        ok = torch.ones((), dtype=torch.bool, device=eng.device)
+        torch.cuda.synchronize()
+        before = counters()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        ev0.record()
+        for _ in range(N_TIMED_PIPELINED):
+            res = eng.render_frame(dt=0.0)
+            ok = ok & same_culled_frame(torch, res, static)
+        ev1.record()
+        ev1.synchronize()
+        times[mode].append((ev0.elapsed_time(ev1) / N_TIMED_PIPELINED,
+                            (time.perf_counter() - h0) * 1e3
+                            / N_TIMED_PIPELINED))
+        got = tuple(a - b for a, b in zip(counters(), before))
+        if not bool(ok) or got != tuple(N_TIMED_PIPELINED * w
+                                        for w in want[mode]):
+            raise AssertionError(f"a timed {mode} static frame differs from "
+                                 f"phase 3's, or launched K1-K4 {got}")
+        if mode != "serial":
+            culled[mode].append(int(res.stats[5]))
+    profiles = {mode: profile_frames(
+        torch, lambda eng=engines[mode]: eng.render_frame(dt=0.0))
+        for mode in ("two-pass", "temporal")}
+    return launches, times, culled, profiles
+
+
+def k2_init_checks(torch, raster, parity, pipeline, hiz, static_cam,
+                   uploads, step_kw, full_rec, ref_frame, card):
+    """Phase 12, K2 with an init frame against its plain version: the far
+    pass of the wall scene at 128x128 (near pass WALL_NEAR quads) and of the
+    vd12 static stream (near pass NEAR_QUADS), each on its near pass's
+    frame; both must equal the plain version (bit for bit, or the
+    boundary-verified gate) and their single-pass frames bit for bit.  Then
+    K2 with the init frame against K2 without it on the same vd12 records
+    (the far pass's, and the whole stream's ``full_rec``), a call, in runs
+    of 20 and from a CUDA graph.  Returns (max |depth error|, timings dict,
+    the far-pass records' item count)."""
+    from differential_projection_voxel_renderer_tpu_torch.benches import (
+        common,
+    )
+
+    err = 0.0
+    gargs, gkw = parity.wall_scene("cuda")
+    rkw = dict(height=128, width=128, tile_h=16, tile_w=128, out_h=128)
+    cases = []
+    c1, d1, _ = pipeline.render_step(*gargs[:2], WALL_NEAR, *gargs[3:],
+                                     **gkw)
+    rec = pipeline.render_step(*gargs, skip_quads=WALL_NEAR,
+                               hiz_level1=hiz.build_max_pyramid(d1),
+                               debug_return_records=True, **gkw)
+    full = pipeline.render_step(*gargs, **gkw)[:2]
+    cases.append(("wall scene 128x128", rec, c1, d1, full, rkw))
+    quads, qw, total = uploads
+    c1, d1, _ = pipeline._step_camf(quads, qw, torch.clamp(total,
+                                                           max=NEAR_QUADS),
+                                    static_cam, **step_kw)
+    rec720 = pipeline._step_camf(quads, qw, total, static_cam,
+                                 skip_quads=NEAR_QUADS,
+                                 hiz_level1=hiz.build_max_pyramid(d1),
+                                 debug_return_records=True, **step_kw)
+    rkw720 = dict(height=HEIGHT, width=WIDTH, tile_h=16, tile_w=128,
+                  out_h=HEIGHT)
+    cases.append(("vd12 1280x720", rec720, c1, d1, ref_frame, rkw720))
+    for name, rec, c1, d1, full, kw in cases:
+        verdict, e, nmis, _ = k2_compare(
+            torch, raster, parity, rec, kw["height"], kw["width"],
+            init_color=c1, init_depth=d1)
+        err = max(err, e)
+        c, d = raster.rasterize_tiles(*rec, init_color=c1, init_depth=d1,
+                                      **kw)
+        if not (torch.equal(c, full[0]) and torch.equal(d, full[1])):
+            raise AssertionError(f"K2 with the near frame ({name}) differs "
+                                 f"from the single pass")
+        log(f"[12] K2 with an init frame, {name} far pass "
+            f"({int(rec[2].sum())} items on the near pass's frame): {verdict} "
+            f"against its plain version ({nmis} colour mismatches); equal to "
+            f"the single-pass frame bit for bit")
+    init = dict(init_color=cases[1][2], init_depth=cases[1][3])
+    t = {}
+    # the far pass's records, and the whole static stream's (the frame the
+    # same either way: the near items blend again onto their own depths)
+    for what, r in (("far", rec720), ("full", full_rec)):
+        for label, kw in (("init", dict(init, **rkw720)), ("no_init", rkw720)):
+            def k2(r=r, kw=kw):
+                return raster.rasterize_tiles(*r, **kw)
+            t[f"{what}_{label}_ms"] = median_ms(k2)
+            t[f"{what}_{label}_run_ms"] = median_ms(k2, batch=20)
+            t[f"{what}_{label}_graph_ms"] = common.graph_ms(k2)
+        log(f"[12] K2 on the vd12 {what}-pass records "
+            f"({int(r[2].sum())} items), with the near pass's frame / "
+            f"without: a call {t[f'{what}_init_ms']:.4f} / "
+            f"{t[f'{what}_no_init_ms']:.4f} ms, in runs of 20 "
+            f"{t[f'{what}_init_run_ms']:.4f} / "
+            f"{t[f'{what}_no_init_run_ms']:.4f}, from a CUDA graph "
+            f"{t[f'{what}_init_graph_ms']:.4f} / "
+            f"{t[f'{what}_no_init_graph_ms']:.4f} (medians); {card}")
+    return err, t, int(rec720[2].sum())
+
+
+def margin_check(torch, pipeline, hiz, static_cam, uploads, step_kw,
+                 ref_frame):
+    """Phase 12: the Hi-Z cull's margin at vd12.  The temporal step on the
+    static stream, culling against the pyramid of its own frame, and the
+    two-pass step, each run with the port's margin
+    (pipeline.HIZ_MARGIN_ULPS); the same culls recomputed on the step's
+    stage A with the margin and with the reference's strict test.  Returns
+    {mode: (quads the step culled, pixels that differ from the single
+    pass, quads culled with the margin, quads culled strictly, quads on
+    which the two tests differ)}."""
+    quads, qw, total = uploads
+    c, d, st, _ = pipeline._step_camf_hiz(
+        quads, qw, total, static_cam, hiz.build_max_pyramid(ref_frame[1]),
+        **step_kw)
+    c2, d2, st2 = pipeline._step_camf(
+        quads, qw, total, static_cam, **dict(step_kw, near_quads=NEAR_QUADS))
+    valid, bbx, bby, dn, _ = pipeline._geom_camf(
+        quads, qw, total, static_cam, width=step_kw["width"],
+        height=step_kw["height"],
+        backface_culling=step_kw["backface_culling"])
+    _, d_near, _ = pipeline._step_camf(
+        quads, qw, torch.clamp(total, max=NEAR_QUADS), static_cam, **step_kw)
+    idx = torch.arange(quads.shape[0], device=quads.device)
+    out = {}
+    for mode, (cc, dd, ss), depth, mask in (
+            ("temporal", (c, d, st), ref_frame[1], valid),
+            ("two-pass", (c2, d2, st2), d_near, valid & (idx >= NEAR_QUADS))):
+        h1 = hiz.build_max_pyramid(depth)
+        margin, strict = (hiz.quads_occluded_exact(
+            h1, bbx, bby, x, height=step_kw["height"],
+            width=step_kw["width"]) & mask
+            for x in (pipeline._ulps_below(dn, pipeline.HIZ_MARGIN_ULPS), dn))
+        px = int(((cc != ref_frame[0]) | (dd != ref_frame[1])).sum())
+        out[mode] = (int(ss[5]), px, int(margin.sum()), int(strict.sum()),
+                     int((margin != strict).sum()))
+    return out
+
+
+def band_path(torch, eng, serial, card):
+    """Phase 13: row bands and the camera batch on the phase-3 engine's
+    pool.  The draw lists of phase 3's static pose and last moving pose
+    (kept as chunk positions) become the batch of dp = 2 cameras.
+    make_sharded_render with tp = 2 (360-row bands padded to 368) and tp =
+    3 (240 rows, 15 tiles each): the counters are zeroed before and read
+    after (K1 and K2 launch tp times a camera), and the stacked bands must
+    equal phase 3's frame of each pose bit for bit (colour and depth).
+    make_sharded_render_dp over the same cameras (the draw lists expanded
+    with every face direction) must equal them too.  Then K2 with y0_px
+    against its plain version on the last band of each split, and each
+    band's K2 time (in runs of 20, and from a CUDA graph) beside the full
+    frame's on the same stream.  Returns (launches {"tp=2", "tp=3", "dp"},
+    {band: (runs ms, graph ms)}, max |depth error| of the band checks)."""
+    import numpy as np
+
+    from differential_projection_voxel_renderer_tpu_torch.parallel import (
+        sharded_render as sr,
+    )
+    from differential_projection_voxel_renderer_tpu_torch.rendering import (
+        parity,
+        pipeline,
+    )
+    from differential_projection_voxel_renderer_tpu_torch.ops import raster
+
+    cfg = eng.config
+    vcap = cfg.visible_chunks_cap
+    refs = [serial["static"], serial["moving"][-1]]
+    visible = np.zeros((2, vcap), np.int32)
+    nvis = np.zeros(2, np.int32)
+    for i, pos in enumerate(serial["lists"]):
+        slots, has = eng.pool.lookup_slots(pos)
+        if not has.all():
+            raise AssertionError("a chunk of phase 3's draw list left the "
+                                 "pool")
+        visible[i, :len(slots)] = slots
+        nvis[i] = len(slots)
+    most = max(int(eng.pool.counts[visible[i, :nvis[i]]].sum())
+               for i in range(2))
+    gather_cap = max(cfg.gather_cap, 1 << (most - 1).bit_length())
+    caps = dict(gather_cap=gather_cap, render_cap=cfg.quads_cap,
+                tile_k_cap=cfg.tile_k_cap)
+    dev = eng.device
+    vps = torch.from_numpy(np.stack([c[0] for c in serial["cams"]])).to(dev)
+    cps = torch.from_numpy(np.stack([c[1] for c in serial["cams"]])).to(dev)
+    args = (eng.pool.quads, torch.from_numpy(eng.pool.counts).to(dev),
+            torch.from_numpy(eng.pool.positions).to(dev),
+            torch.from_numpy(visible).to(dev),
+            torch.from_numpy(nvis).to(dev), vps, cps)
+
+    def same(i, color, depth):
+        return (torch.equal(color, refs[i][0])
+                and torch.equal(depth.view(torch.int32),
+                                refs[i][1].view(torch.int32)))
+
+    launches = {}
+    for tp in (2, 3):
+        fn = sr.make_sharded_render((2, tp), width=WIDTH, height=HEIGHT,
+                                    device=dev, **caps)
+        torch.cuda.synchronize()
+        reset_counters()
+        color, depth, count = fn(*args)
+        torch.cuda.synchronize()
+        launches[f"tp={tp}"] = counters()
+        if launches[f"tp={tp}"] != (2 * tp, 2 * tp, 0, 0):
+            raise AssertionError(f"tp={tp}: launches {launches[f'tp={tp}']}")
+        for i in range(2):
+            if not same(i, color[i], depth[i]):
+                raise AssertionError(f"tp={tp}: camera {i}'s stacked bands "
+                                     f"differ from phase 3's frame")
+        bh = HEIGHT // tp
+        log(f"[13] make_sharded_render dp=2 x tp={tp} (bands of {bh} rows, "
+            f"K2 buffers of {-bh % 16 + bh}): "
+            f"the stacked bands equal phase 3's static and last moving "
+            f"frames bit for bit; launches K1={launches[f'tp={tp}'][0]} "
+            f"K2={launches[f'tp={tp}'][1]}; counts (bands' sum / tp) "
+            f"{count.tolist()} against the frames' "
+            f"{[int(r[2][1]) for r in refs]} (no direction mask here)")
+    streams = []
+    ones = torch.ones((vcap, 6), dtype=torch.int32, device=dev)
+    for i in range(2):
+        sl = torch.from_numpy(visible[i]).to(dev)
+        c6 = torch.where(torch.arange(vcap, device=dev)[:, None] < nvis[i],
+                         eng.pool.counts6_dev[sl.long()], 0)
+        streams.append(pipeline._expand_uploads_impl(
+            eng.pool.quads, sl, c6, ones, args[2][sl.long()], gather_cap))
+    fn, n = sr.make_sharded_render_dp(2, width=WIDTH, height=HEIGHT,
+                                      render_cap=caps["render_cap"],
+                                      tile_k_cap=caps["tile_k_cap"],
+                                      device=dev)
+    torch.cuda.synchronize()
+    reset_counters()
+    color, depth, stats = fn(*(torch.stack([s[k] for s in streams])
+                               for k in range(3)), vps, cps)
+    torch.cuda.synchronize()
+    launches["dp"] = counters()
+    if launches["dp"] != (2, 2, 0, 0) or not all(
+            same(i, color[i], depth[i]) for i in range(2)):
+        raise AssertionError(f"make_sharded_render_dp differs from phase 3's "
+                             f"frames (launches {launches['dp']})")
+    log(f"[13] make_sharded_render_dp over the 2 cameras: equal to phase 3's "
+        f"frames bit for bit; launches K1={launches['dp'][0]} "
+        f"K2={launches['dp'][1]}; stats {stats.tolist()}")
+
+    # K2 with y0_px, and each band's time, on the static pose's stream
+    quads, qw, total = streams[0]
+    step_kw = dict(eng.renderer._bucket_kw(gather_cap),
+                   render_cap=caps["render_cap"],
+                   tile_k_cap=caps["tile_k_cap"])
+    cam_f = eng.renderer._cam_dev(*serial["cams"][0])
+    rkw = dict(height=HEIGHT, width=WIDTH, tile_h=16, tile_w=128)
+    full = pipeline._step_camf(quads, qw, total, cam_f,
+                               debug_return_records=True, **step_kw)
+    from differential_projection_voxel_renderer_tpu_torch.benches import (
+        common,
+    )
+
+    def times(k2):
+        """(in runs of 20, from a CUDA graph) ms a call."""
+        return median_ms(k2, batch=20), common.graph_ms(k2)
+
+    band_ms = {"full frame": times(lambda: raster.rasterize_tiles(
+        *full, out_h=HEIGHT, **rkw))}
+    err = 0.0
+    for tp in (2, 3):
+        bh = HEIGHT // tp
+        out_h = -bh % 16 + bh
+        for b in range(tp):
+            rec = pipeline._step_camf(quads, qw, total, cam_f, band_y0=b * bh,
+                                      band_h=bh, debug_return_records=True,
+                                      **step_kw)
+            if b == tp - 1:
+                verdict, e, nmis, padded = k2_compare(
+                    torch, raster, parity, rec, HEIGHT, WIDTH, rows=bh,
+                    y0_px=b * bh)
+                err = max(err, e)
+                log(f"[13] K2 with y0_px={b * bh} on a {bh}-row band "
+                    f"({out_h}-row buffer, {int(rec[2].sum())} items): "
+                    f"{verdict} against its plain version ({nmis} colour "
+                    f"mismatches); pixels written in the padded rows: K2 "
+                    f"{padded[0]}, its plain version {padded[1]}")
+            band_ms[f"tp={tp} band {b}"] = times(
+                lambda rec=rec, y0=b * bh, out_h=out_h: raster.rasterize_tiles(
+                    *rec, out_h=out_h, y0_px=y0, **rkw))
+    log("[13] K2 on the static pose's stream, ms a call in runs of 20 / from "
+        "a CUDA graph: " + ", ".join(f"{k} {r:.4f} / {g:.4f}"
+                                     for k, (r, g) in band_ms.items())
+        + f"; {card}")
+    return launches, band_ms, err
+
+
 # ------------------------------------------------------------- K1 / K2
 
 
@@ -600,19 +1052,34 @@ def k1_compare(torch, geometry, args, kw):
     return int(got["valid"].sum()), err
 
 
-def k2_compare(torch, raster, parity, rec, h, w):
-    """K2 vs its twin on the same records: (parity verdict, max |depth
-    difference| over finite pixels, colour mismatch count)."""
+def k2_compare(torch, raster, parity, rec, h, w, rows=None, **extra):
+    """K2 vs its twin on the same records (``extra``: init_color,
+    init_depth, y0_px), over the ``rows`` rows the step keeps (by default
+    ``h``): the buffer is padded to the tile, and its padded rows, which
+    the step crops, are not compared (the twin, like the reference's
+    kernel, evaluates an item on its octet's rows, which may reach them;
+    K2 evaluates it on its own box, clamped to the frame or band, and
+    must leave them as they started, SKY/+inf with no init frame):
+    (parity verdict, max |depth difference| over finite pixels, colour
+    mismatch count, (K2's, the twin's) written padded pixels)."""
     import numpy as np
 
-    kw = dict(height=h, width=w, tile_h=16, tile_w=128, out_h=-h % 16 + h)
+    rows = rows or h
+    kw = dict(height=h, width=w, tile_h=16, tile_w=128,
+              out_h=-rows % 16 + rows, **extra)
     c1, d1 = raster.rasterize_tiles(*rec, **kw)
     c2, d2 = raster.rasterize_tiles_plain(*rec, **kw)
-    c1, d1, c2, d2 = (x.cpu().numpy() for x in (c1, d1, c2, d2))
+    padded = tuple(int(((c[rows:] != raster.SKY_I32)
+                        | (d[rows:] != float("inf"))).sum())
+                   for c, d in ((c1, d1), (c2, d2)))
+    if padded[0] and extra.get("init_color") is None:
+        raise AssertionError(f"K2 wrote {padded[0]} pixels of the buffer's "
+                             f"padded rows")
+    c1, d1, c2, d2 = (x[:rows].cpu().numpy() for x in (c1, d1, c2, d2))
     verdict = parity.frame_parity(c1, d1, c2, d2, rec[0].cpu().numpy())
     fin = np.isfinite(d1) & np.isfinite(d2)
     err = float(np.abs(d1[fin] - d2[fin]).max()) if fin.any() else 0.0
-    return verdict, err, int((c1 != c2).sum())
+    return verdict, err, int((c1 != c2).sum()), padded
 
 
 def nbytes(*tensors) -> int:
@@ -1149,6 +1616,7 @@ def main() -> int:
         )
         from differential_projection_voxel_renderer_tpu_torch.ops import (
             geometry,
+            hiz,
             raster,
             raster_packed,
         )
@@ -1229,7 +1697,7 @@ def main() -> int:
         gargs, gkw2 = parity.small_scene(name, "cuda")
         cargs, ckw = parity.small_scene(name, "cpu")
         rec = pipeline.render_step(*gargs, debug_return_records=True, **gkw2)
-        verdict, err, nmis = k2_compare(torch, raster, parity, rec,
+        verdict, err, nmis, _ = k2_compare(torch, raster, parity, rec,
                                         gkw2["height"], gkw2["width"])
         k2_err = max(k2_err, err)
         log(f"[5] K2 {name}: {verdict} ({nmis} colour mismatches)")
@@ -1247,7 +1715,7 @@ def main() -> int:
     step_kw = r._bucket_kw(int(quads.shape[0]))
     rec720 = pipeline._step_camf(quads, qw, total, static_cam,
                                  debug_return_records=True, **step_kw)
-    verdict, err, nmis = k2_compare(torch, raster, parity, rec720, HEIGHT,
+    verdict, err, nmis, _ = k2_compare(torch, raster, parity, rec720, HEIGHT,
                                     WIDTH)
     k2_err = max(k2_err, err)
     counts = rec720[2]
@@ -1358,7 +1826,6 @@ def main() -> int:
 
     # ---- 10. the packed raster path
     eng10, launches10, frame10, stats10 = packed_path(torch, serial)
-    del serial
     log(f"[10] packed static frame {frame10['static_ms']:.3f} ms (CUDA "
         f"events), {frame10['host_ms']:.3f} ms host clock (mean of "
         f"{N_TIMED_PIPELINED}); phase 3's serial static frame "
@@ -1479,6 +1946,38 @@ def main() -> int:
         f"{k2e['graph_ms'] / k2_graph:.2f} of its device time; {card}")
     m1, m2 = rows11["micro_fixed2", "a_base"], rows11["micro_fixed2",
                                                       "solo10_4x5"]
+
+    # ---- 12. exact occlusion: two-pass and temporal Hi-Z
+    launches12, times12, culled12, profiles12 = occlusion_path(
+        torch, eng, serial, card)
+    for mode, runs in times12.items():
+        log(f"[12] static frame, {mode}, blocks of {N_TIMED_PIPELINED}: "
+            + ", ".join(f"{ev:.3f} ms (CUDA events) / {host:.3f} ms (host)"
+                        for ev, host in runs) + f"; {card}")
+    for mode, prof in profiles12.items():
+        log_profile("12", f"{mode} static frame", prof, statistics.mean(
+            ev for ev, _ in times12[mode]), card)
+    log(f"[12] vd12 hiz_culled: two-pass static frames {culled12['two-pass']}"
+        f", temporal static frames {culled12['temporal']} (the first three "
+        f"frames, then each timed block's last)")
+    init_err, init_t, init_items = k2_init_checks(
+        torch, raster, parity, pipeline, hiz, static_cam, uploads, step_kw,
+        rec720, (c2, d2), card)
+    margins = margin_check(torch, pipeline, hiz, static_cam, uploads,
+                           step_kw, (c2, d2))
+    log(f"[12] the Hi-Z cull's margin on the vd12 static stream, (quads the "
+        f"step culled, pixels that differ from the single pass, quads culled "
+        f"at {pipeline.HIZ_MARGIN_ULPS} ulps / strictly as the reference, "
+        f"quads on which the two differ): "
+        + ", ".join(f"{mode} {v}" for mode, v in margins.items()))
+    for mode, (culled, px, at_margin, _, _) in margins.items():
+        if px or culled != at_margin:
+            raise AssertionError(f"the {mode} Hi-Z cull changed the frame or "
+                                 f"culled other quads than its own test")
+
+    # ---- 13. row bands and the camera batch
+    launches13, band_ms, band_err = band_path(torch, eng, serial, card)
+    del serial
     sites = {k: sorted({r["site"] for r in rows11.values()
                         if r["kernel"] == k}) for k in ("M1", "M2")}
 
@@ -1506,7 +2005,19 @@ def main() -> int:
              graph_ms=k2_graph, empty_ms=k2e["run_ms"],
              empty_graph_ms=k2e["graph_ms"],
              empty_bound_ms=k2e["bound_ms"],
-             empty_library_ms=k2e["library_ms"]),
+             empty_library_ms=k2e["library_ms"],
+             launches_two_pass=launches12["two-pass"][1],
+             launches_temporal=launches12["temporal"][1],
+             launches_bands={k: v[1] for k, v in launches13.items()},
+             init_max_abs_err=init_err, band_max_abs_err=band_err,
+             init_ms=init_t["far_init_run_ms"],
+             init_call_ms=init_t["far_init_ms"],
+             init_graph_ms=init_t["far_init_graph_ms"],
+             same_records_no_init_ms=init_t["far_no_init_run_ms"],
+             same_records_no_init_graph_ms=init_t["far_no_init_graph_ms"],
+             full_records_init_graph_ms=init_t["full_init_graph_ms"],
+             full_records_no_init_graph_ms=init_t["full_no_init_graph_ms"],
+             init_items=init_items, band_ms=band_ms),
         dict(name="K3 tile raster + next frame's stage A "
                   "(rasterize_tiles next_geom)", route="cuda",
              source=f"{PKG}/csrc/raster.cu",

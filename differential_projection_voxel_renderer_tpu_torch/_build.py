@@ -47,12 +47,14 @@ _SIGNATURES = {
     "dpvr_project_cull": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _P, _P, _P, _P, _P, _P),
     # (records[24, cap], cap, starts, counts, octet_zmin, tiles_y,
-    #  tiles_x, height, width, color, depth, then the next stream's stage
-    #  A -- null pointers and gq2 0 for K2 -- quads2, quad_world2[3, gq2],
-    #  view_proj2[16], cam_pos2[3], n_quads2, gq2, backface, valid, bbx,
-    #  bby, depth_near, subpixel, and the stream)
+    #  tiles_x, height, width, color, depth, init_color, init_depth (null
+    #  for none), y0_px, then the next stream's stage A -- null pointers
+    #  and gq2 0 for K2 -- quads2, quad_world2[3, gq2], view_proj2[16],
+    #  cam_pos2[3], n_quads2, gq2, backface, valid, bbx, bby, depth_near,
+    #  subpixel, and the stream)
     "dpvr_rasterize_tiles": (_P, _I, _P, _P, _P, _I, _I, _I, _I,
-                             _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                             _P, _P, _P, _P, _I,
+                             _P, _P, _P, _P, _P, _I, _I,
                              _P, _P, _P, _P, _P, _P),
     # (records[24, cap], cap, starts[T * 5], counts[T * 5], item_bby[cap],
     #  item_bbx[cap], octet_zmin, tiles_y, tiles_x, height, width, color,

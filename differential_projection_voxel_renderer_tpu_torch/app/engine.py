@@ -3,7 +3,8 @@ culling funnel and the per-frame render call.
 
 Counterpart of ``differential_projection_voxel_renderer_tpu/app/engine.py``
 on its serial path (``render_frame``, also with
-``RenderConfig.packed_raster``) and in frames-in-flight mode
+``RenderConfig.packed_raster``, ``two_pass_near_quads`` or
+``temporal_hiz``) and in frames-in-flight mode
 (``render_frame_pipelined`` / ``flush_pipeline``).  The host logic
 (streaming, remeshing, the culling funnel, draw-list build, the pool's
 host bookkeeping) is carried over as it is, on the port's own copies of
@@ -317,7 +318,7 @@ class FrameResult:
     color: torch.Tensor  # int32[H, W] ARGB bits, on the engine's device
     depth: torch.Tensor  # f32[H, W]
     stats: torch.Tensor  # i32[6]: gathered, rasterized, overflow,
-    #                      bin_overflow, subpixel_culled, 0
+    #                      bin_overflow, subpixel_culled, hiz_culled
     rendered_meshes: int
     visible_chunks: int
 
@@ -366,6 +367,10 @@ class Engine:
         self._seen_vp = None
         self._visible_cache = None
         self._upload_cache = None
+        # temporal_hiz: the last static frame's max pyramid and its
+        # (draw-list signature, view-projection bytes) identity
+        self._prev_hiz = None
+        self._prev_hiz_sig = None
         # streaming fast path: fold small remesh batches into the frame
         # (QuadPool.prepare_insert_payload + render_fused_insert)
         self.fused_insert = True
@@ -534,14 +539,18 @@ class Engine:
     def render_frame(self, dt: float = 0.016) -> FrameResult:
         """One serial frame: funnel, then one of the three device entry
         points -- render_fused_insert (a remesh batch rides the frame),
-        render_prepared (draw list unchanged) or render_fused."""
+        render_prepared (draw list unchanged) or render_fused.  With
+        ``RenderConfig.temporal_hiz`` a frame whose camera and draw list
+        are unchanged takes render_prepared_hiz: it culls against the
+        previous such frame's pyramid when that frame had the same draw
+        list and camera, else against an empty one."""
         if (self.renderer._pipe_carry is not None
                 or self.renderer._pipe_done is not None):
             raise RuntimeError(
                 "frames-in-flight pipeline is non-empty; call "
                 "flush_pipeline() before mixing in serial render_frame")
         frame_t0 = time.perf_counter()
-        vp, sig, n, n_visible_meshes, _cam_same = self._funnel(dt)
+        vp, sig, n, n_visible_meshes, cam_same = self._funnel(dt)
         cam = self.camera
         if self._pending_insert is not None:
             payload = self._pending_insert
@@ -570,8 +579,23 @@ class Engine:
                     self._last_counts_sel, self._last_positions_sel,
                     dir_mask=self._last_dir_mask)
                 self._upload_cache = (sig, uploads)
-            color, depth, stats = self.renderer.render_prepared(
-                uploads, vp, cam.position)
+            if self.config.temporal_hiz and cam_same:
+                # static frame: the previous frame's pyramid is exact for
+                # the same camera, world and draw list; the first static
+                # frame seeds with +inf (culls nothing)
+                tsig = (sig, vp.tobytes())
+                hiz1 = (self._prev_hiz
+                        if self._prev_hiz is not None
+                        and self._prev_hiz_sig == tsig
+                        else self.renderer.empty_hiz())
+                color, depth, stats, self._prev_hiz = (
+                    self.renderer.render_prepared_hiz(
+                        uploads, vp, cam.position, hiz1))
+                self._prev_hiz_sig = tsig
+            else:
+                self._prev_hiz = None
+                color, depth, stats = self.renderer.render_prepared(
+                    uploads, vp, cam.position)
         else:
             color, depth, stats, uploads = self.renderer.render_fused(
                 self.pool.quads, self._last_visible_slots,
@@ -593,6 +617,7 @@ class Engine:
         frame_t0 = time.perf_counter()
         vp, sig, n, n_visible_meshes, _cam_same = self._funnel(dt)
         cam = self.camera
+        self._prev_hiz = None
         if self._pending_insert is not None:
             # the fused insert+render path is serial-only: apply the batch
             # with the standalone scatter, in place, before the step; the

@@ -46,18 +46,25 @@
 
 namespace {
 
-// Tile t of the frame, by the whole block.
+// Tile t of the frame, by the whole block.  The tile's accumulators start
+// from the init frame when ``init_color`` is given (the two-pass far pass
+// blends onto the near pass's frame), and its rows' NDC from global pixel
+// row y0_px + ty * kTileH (a row band of a taller frame keeps global NDC;
+// the items' bby rows and the output stay band-local).
 __device__ __forceinline__ void raster_tile(
     int t, TileSmem& sm, const int* __restrict__ rec, int cap,
     const int* __restrict__ starts, const int* __restrict__ counts,
     const float* __restrict__ ozmin, int tiles_x, int height, int width,
-    float* ny, int* __restrict__ color_out, float* __restrict__ depth_out) {
+    float* ny, int* __restrict__ color_out, float* __restrict__ depth_out,
+    const int* __restrict__ init_color, const float* __restrict__ init_depth,
+    int y0_px) {
   const int ty = t / tiles_x, tx = t - ty * tiles_x;
   const int col = threadIdx.x & (kTileW - 1);
   const int g = threadIdx.x / kTileW;
   float D[kRowsPerThread];
   int C[kRowsPerThread];
-  init_pixels(ty, height, ny, D, C);
+  init_pixels(y0_px + ty * kTileH, height, ny, D, C, init_color, init_depth,
+              tiles_x, width);
   // record row 20 holds each item's screen rows (bby)
   walk_tile_segment(starts[t], starts[t] + counts[t], sm, rec, cap,
                     rec + (size_t)20 * cap, ozmin, ty * kTileH, g,
@@ -75,6 +82,8 @@ raster_kernel(const int* __restrict__ rec, int cap,
               const float* __restrict__ ozmin, int n_tiles, int tiles_x,
               int height, int width, int* __restrict__ color_out,
               float* __restrict__ depth_out,
+              const int* __restrict__ init_color,
+              const float* __restrict__ init_depth, int y0_px,
               const int* __restrict__ quads2,
               const float* __restrict__ wx2,
               const float* __restrict__ wy2,
@@ -96,21 +105,27 @@ raster_kernel(const int* __restrict__ rec, int cap,
     return;
   }
   raster_tile(blockIdx.x, sm, rec, cap, starts, counts, ozmin, tiles_x,
-              height, width, ny, color_out, depth_out);
+              height, width, ny, color_out, depth_out, init_color,
+              init_depth, y0_px);
 }
 
 }  // namespace
 
 // K2: the tile raster on records i32[24, cap] (rows 0-19 the blend
 // fields and words, row 20 each item's bby), starts/counts i32[tiles],
-// octet_zmin f32[cap / 8], with gq2 == 0 and the stage-A pointers null.  K3:
-// the same and, in the same launch, stage A of the next frame's stream
-// (quads2, quad_world2 f32[3, gq2], view_proj2 f32[16], cam_pos2 f32[3],
-// device scalar n_quads2) into valid/bbx/bby/dn/sub [gq2]
+// octet_zmin f32[cap / 8], into color/depth [tiles_y * 16, tiles_x * 128],
+// with gq2 == 0 and the stage-A pointers null.  init_color i32 and
+// init_depth f32, each [tiles_y * 16, tiles_x * 128] and neither the
+// output, are the frame the tiles start from (both null: SKY and +inf);
+// y0_px is the global pixel row of the output's first row.  K3: the same
+// and, in the same launch, stage A of the next frame's stream (quads2,
+// quad_world2 f32[3, gq2], view_proj2 f32[16], cam_pos2 f32[3], device
+// scalar n_quads2) into valid/bbx/bby/dn/sub [gq2]
 extern "C" int dpvr_rasterize_tiles(
     const void* records, int cap, const void* starts, const void* counts,
     const void* octet_zmin, int tiles_y, int tiles_x,
-    int height, int width, void* color, void* depth, const void* quads2,
+    int height, int width, void* color, void* depth, const void* init_color,
+    const void* init_depth, int y0_px, const void* quads2,
     const void* quad_world2, const void* view_proj2, const void* cam_pos2,
     const void* n_quads2, int gq2, int backface, void* valid, void* bbx,
     void* bby, void* dn, void* sub, void* stream) {
@@ -124,6 +139,8 @@ extern "C" int dpvr_rasterize_tiles(
         static_cast<const int*>(starts), static_cast<const int*>(counts),
         static_cast<const float*>(octet_zmin), n_tiles, tiles_x, height,
         width, static_cast<int*>(color), static_cast<float*>(depth),
+        static_cast<const int*>(init_color),
+        static_cast<const float*>(init_depth), y0_px,
         static_cast<const int*>(quads2), qw, qw + gq2, qw + 2 * (size_t)gq2,
         static_cast<const float*>(view_proj2),
         static_cast<const float*>(cam_pos2),

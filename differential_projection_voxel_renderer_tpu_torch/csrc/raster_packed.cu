@@ -312,7 +312,7 @@ raster_packed_kernel(const int* __restrict__ rec, int cap,
   const int g = threadIdx.x / kTileW;
   float D[kRowsPerThread];
   int C[kRowsPerThread];
-  init_pixels(ty, height, sm.ny, D, C);
+  init_pixels(ty * kTileH, height, sm.ny, D, C);
 
   const int w0 = starts[kBins * t];
   walk_tile_segment(w0, w0 + counts[kBins * t], sm.u.tile, rec, cap,

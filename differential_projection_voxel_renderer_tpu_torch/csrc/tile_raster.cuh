@@ -73,22 +73,6 @@ __device__ __forceinline__ float pixel_ny(int py, int height) {
   return 1.0f - (2.0f * ((float)py + 0.5f)) / (float)height;
 }
 
-// The NDC y of the tile's 16 rows into shared memory ``ny`` (threads
-// 0..15; the caller's next barrier publishes it), and this thread's
-// accumulators at (+inf, sky).  The rows' NDC stays in shared memory, read
-// as a broadcast per row, to keep 64 registers a thread.
-__device__ __forceinline__ void init_pixels(
-    int ty, int height, float* ny, float (&D)[kRowsPerThread],
-    int (&C)[kRowsPerThread]) {
-  if (threadIdx.x < kTileH)
-    ny[threadIdx.x] = pixel_ny(ty * kTileH + threadIdx.x, height);
-#pragma unroll
-  for (int j = 0; j < kRowsPerThread; ++j) {
-    D[j] = __int_as_float(0x7f800000);
-    C[j] = kSky;
-  }
-}
-
 // threadIdx.x and blockIdx.x read afresh: indices derived from them are
 // computed where they are used, not hoisted ahead of a walk and kept in
 // registers (or spilled) across it.
@@ -104,15 +88,56 @@ __device__ __forceinline__ int fresh_ctaid() {
   return v;
 }
 
+// This thread's first pixel of the block's tile in an [out_h, width]
+// frame; its other pixels lie 2, 4, .., 14 rows below.  A warp's 32
+// threads hold 32 adjacent columns of one row, so the loads and stores at
+// these offsets are coalesced.
+__device__ __forceinline__ size_t pixel_offset0(int tiles_x, int width) {
+  const int t = fresh_ctaid(), tid = fresh_tid();
+  const int ty = t / tiles_x, tx = t - ty * tiles_x;
+  return (size_t)(ty * kTileH + tid / kTileW) * width + tx * kTileW +
+         (tid & (kTileW - 1));
+}
+
+// The NDC y of the tile's 16 rows into shared memory ``ny`` (threads
+// 0..15; the caller's next barrier publishes it), and this thread's
+// accumulators.  ``py0`` is the global pixel row of the tile's first row:
+// the rows' NDC is computed from the integer row, as the reference's
+// y0_px + ty * tile_h + r.  The accumulators start from this thread's
+// pixels of the init frame (K2's init_color/init_depth, [out_h, width],
+// read at store_pixels' offsets) when one is given, else at (+inf, sky).
+// The rows' NDC stays in shared memory, read as a broadcast per row, and
+// the init pointers are read here only, to keep 64 registers a thread.
+__device__ __forceinline__ void init_pixels(
+    int py0, int height, float* ny, float (&D)[kRowsPerThread],
+    int (&C)[kRowsPerThread], const int* __restrict__ init_color = nullptr,
+    const float* __restrict__ init_depth = nullptr, int tiles_x = 0,
+    int width = 0) {
+  if (threadIdx.x < kTileH)
+    ny[threadIdx.x] = pixel_ny(py0 + (int)threadIdx.x, height);
+  if (init_color != nullptr) {
+    const size_t o0 = pixel_offset0(tiles_x, width);
+#pragma unroll
+    for (int j = 0; j < kRowsPerThread; ++j) {
+      const size_t o = o0 + (size_t)(2 * j) * width;
+      C[j] = init_color[o];
+      D[j] = init_depth[o];
+    }
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < kRowsPerThread; ++j) {
+    D[j] = __int_as_float(0x7f800000);
+    C[j] = kSky;
+  }
+}
+
 // This thread's pixels of the block's tile into the frame.
 __device__ __forceinline__ void store_pixels(
     int tiles_x, int width, const float (&D)[kRowsPerThread],
     const int (&C)[kRowsPerThread], int* __restrict__ color_out,
     float* __restrict__ depth_out) {
-  const int t = fresh_ctaid(), tid = fresh_tid();
-  const int ty = t / tiles_x, tx = t - ty * tiles_x;
-  const size_t o0 = (size_t)(ty * kTileH + tid / kTileW) * width +
-                    tx * kTileW + (tid & (kTileW - 1));
+  const size_t o0 = pixel_offset0(tiles_x, width);
 #pragma unroll
   for (int j = 0; j < kRowsPerThread; ++j) {
     const size_t o = o0 + (size_t)(2 * j) * width;

@@ -186,6 +186,12 @@ def project_and_cull(quads, quad_world, in_stream, view_proj, cam_pos, *,
                           backface_culling=backface_culling)
 
 
+def quad_world_from_slots(chunk_world, chunk_slot):
+    """Per-quad world origins gathered from per-chunk tables: three f32[C]
+    and the chunk index of each quad (parallel/sharded_render.py)."""
+    return tuple(chunk_world[a][chunk_slot] for a in range(3))
+
+
 def color_table_tensors(color_tables: dict, device) -> dict[str, torch.Tensor]:
     """Shading tables (ops/shading.build_quad_color_tables) as device
     lookup tables indexed by ``face * 4 + block`` (colors) and ``block``

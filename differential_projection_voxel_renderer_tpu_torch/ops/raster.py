@@ -10,10 +10,12 @@ Counterpart of ``differential_projection_voxel_renderer_tpu/ops/raster.py``:
 - ``rasterize_tiles`` launches K2 for CUDA tensors and runs its plain twin
   ``rasterize_tiles_plain`` for CPU tensors.  The twin loops over the item
   RANK within a tile, batched over all tiles, so it takes about
-  ``max(tile_counts)`` steps of [T, 16, 128] tensor ops.  Given the next
-  frame's stream (``next_geom``, frames in flight) it launches K3 instead,
-  the raster and the next frame's stage A in one kernel, whose plain
-  version is the twin followed by ``geometry.project_cull_plain``.
+  ``max(tile_counts)`` steps of [T, 16, 128] tensor ops.  Both take the
+  reference's init framebuffer (the two-pass far pass blends onto the near
+  pass's frame) and ``y0_px`` (a row band keeps global pixel NDC).  Given
+  the next frame's stream (``next_geom``, frames in flight) it launches K3
+  instead, the raster and the next frame's stage A in one kernel, whose
+  plain version is the twin followed by ``geometry.project_cull_plain``.
 """
 
 from __future__ import annotations
@@ -249,9 +251,25 @@ def kernel_inputs(name, records, starts, counts, rows, octet_zmin):
     return ins
 
 
+def _check_init(init_color, init_depth, *, out_h, width, device):
+    """The init frame: both or neither, i32 and f32 [out_h, width] on the
+    records' device.  Returns them contiguous, or (None, None)."""
+    if init_color is None and init_depth is None:
+        return None, None
+    if init_color is None or init_depth is None:
+        raise ValueError("init_color and init_depth go together")
+    for x, dt in ((init_color, torch.int32), (init_depth, torch.float32)):
+        if (x.dtype != dt or x.shape != (out_h, width)
+                or x.device != device):
+            raise ValueError(f"init frame must be {dt}[{out_h}, {width}] on "
+                             f"the records' device")
+    return init_color.contiguous(), init_depth.contiguous()
+
+
 def rasterize_tiles_plain(records, tile_starts, tile_counts, octet_rows,
                           octet_zmin, *, height: int, width: int,
-                          tile_h: int, tile_w: int, out_h: int):
+                          tile_h: int, tile_w: int, out_h: int,
+                          init_color=None, init_depth=None, y0_px: int = 0):
     """Plain PyTorch twin of K2: the same per-item, per-row blend, looping
     over the item rank within a tile, vectorised over all tiles.  No
     occlusion break (it only skips items that cannot win)."""
@@ -259,22 +277,35 @@ def rasterize_tiles_plain(records, tile_starts, tile_counts, octet_rows,
         records, tile_starts, tile_counts, octet_rows, octet_zmin,
         out_h=out_h, width=width, tile_h=tile_h, tile_w=tile_w)
     dev = records.device
+    init_color, init_depth = _check_init(init_color, init_depth,
+                                         out_h=out_h, width=width, device=dev)
     tiles_x = width // tile_w
+    tiles_y = out_h // tile_h
     fl = records[:16].contiguous().view(torch.float32)
     il = records[16:20]
     t = torch.arange(n_tiles, device=dev)
     ty = torch.div(t, tiles_x, rounding_mode="floor")
     tx = t % tiles_x
     px = (tx[:, None] * tile_w + torch.arange(tile_w, device=dev)).float()
-    py = (ty[:, None] * tile_h + torch.arange(tile_h, device=dev)).float()
+    # the global pixel row, in integers before the float conversion
+    py = (int(y0_px) + ty[:, None] * tile_h
+          + torch.arange(tile_h, device=dev)).float()
     nx, ny = pixel_ndc(height, width, py, px)
     nx = nx[:, None, :]            # [T, 1, W]
     ny = ny[:, :, None]            # [T, H, 1]
     ylocal = torch.arange(tile_h, device=dev)[None, :, None]
-    depth = torch.full((n_tiles, tile_h, tile_w), float("inf"),
-                       dtype=torch.float32, device=dev)
-    color = torch.full((n_tiles, tile_h, tile_w), SKY_I32,
-                       dtype=torch.int32, device=dev)
+
+    def tiles(x):
+        return (x.reshape(tiles_y, tile_h, tiles_x, tile_w)
+                .permute(0, 2, 1, 3).reshape(n_tiles, tile_h, tile_w))
+
+    if init_color is None:
+        depth = torch.full((n_tiles, tile_h, tile_w), float("inf"),
+                           dtype=torch.float32, device=dev)
+        color = torch.full((n_tiles, tile_h, tile_w), SKY_I32,
+                           dtype=torch.int32, device=dev)
+    else:
+        depth, color = tiles(init_depth), tiles(init_color)
     starts = tile_starts.long()
     counts = tile_counts.long()
     n_steps = int(counts.max()) if n_tiles else 0
@@ -289,7 +320,6 @@ def rasterize_tiles_plain(records, tile_starts, tile_counts, octet_rows,
         in_rows = active[:, None, None] & (ylocal >= r0) & (ylocal <= r1)
         covered, z, c = eval_row(ny, fro, iro, eval_bases(nx, fro))
         color, depth = blend(covered & in_rows, z, c, color, depth)
-    tiles_y = out_h // tile_h
 
     def frame(x):
         return (x.reshape(tiles_y, tiles_x, tile_h, tile_w)
@@ -300,7 +330,8 @@ def rasterize_tiles_plain(records, tile_starts, tile_counts, octet_rows,
 
 def rasterize_tiles(records, tile_starts, tile_counts, octet_rows,
                     octet_zmin, *, height: int, width: int, tile_h: int,
-                    tile_w: int, out_h: int, next_geom=None,
+                    tile_w: int, out_h: int, init_color=None,
+                    init_depth=None, y0_px: int = 0, next_geom=None,
                     backface_culling: bool = True):
     """Blend every tile's segment of the binned item stream.
 
@@ -314,18 +345,35 @@ def rasterize_tiles(records, tile_starts, tile_counts, octet_rows,
     range (r0 | r1 << 8) of each aligned group of 8 items; ``octet_zmin``
     f32[cap/8] the suffix-min of near depth from each group to the end of
     its tile's segment.  Returns (color i32, depth f32), each
-    [out_h, width]; NDC uses the true ``height``.
+    [out_h, width]; NDC uses the true ``height``.  The rows past the
+    frame's (or band's) own are padding that the step crops: K2 evaluates
+    each item on its own box, clamped to the frame (or band), and leaves
+    them as they started; the twin, like the reference's kernel, evaluates
+    an item on its octet's rows, and an octet that straddles the end of a
+    tile's segment takes the rows of the next tile's items (or of the
+    stream's padding entries), so it may write them.
+
+    ``init_color`` i32 / ``init_depth`` f32 [out_h, width] (both or
+    neither): the frame every tile starts from instead of SKY/+inf (the
+    reference's init framebuffer).  ``y0_px``: the global pixel row of the
+    output's first row (the reference's band offset); pixel NDC uses
+    ``y0_px + row`` while the records' rows and the output stay
+    buffer-local.
 
     ``next_geom`` (frames in flight) = (quads2 i32[GQ2], quad_world2
     f32[3, GQ2], n2, view_proj2 f32[4, 4], cam_pos2 f32[3]), the next
     frame's stream and camera: its stage A (at this frame's width and
     height, ``backface_culling``) runs in the same call -- kernel K3 on the
     card -- and a third output is ``geometry.project_cull``'s dict on it."""
+    if next_geom is not None and (init_color is not None or y0_px):
+        raise ValueError("next_geom runs with neither an init frame nor a "
+                         "band offset (frames in flight exclude both)")
     if records.device.type != "cuda":
         color, depth = rasterize_tiles_plain(
             records, tile_starts, tile_counts, octet_rows, octet_zmin,
             height=height, width=width, tile_h=tile_h, tile_w=tile_w,
-            out_h=out_h)
+            out_h=out_h, init_color=init_color, init_depth=init_depth,
+            y0_px=y0_px)
         if next_geom is None:
             return color, depth
         return color, depth, geom_ops.project_cull_plain(
@@ -340,6 +388,10 @@ def rasterize_tiles(records, tile_starts, tile_counts, octet_rows,
     dev = records.device
     ins = kernel_inputs("rasterize_tiles", records, tile_starts, tile_counts,
                         octet_rows, octet_zmin)
+    init_color, init_depth = _check_init(init_color, init_depth,
+                                         out_h=out_h, width=width, device=dev)
+    # fresh outputs: the kernel's pointers are __restrict__, so the init
+    # frame is never the output
     color = torch.empty((out_h, width), dtype=torch.int32, device=dev)
     depth = torch.empty((out_h, width), dtype=torch.float32, device=dev)
     # the kernel reads each item's own rows (record row 20, bby) instead of
@@ -347,7 +399,9 @@ def rasterize_tiles(records, tile_starts, tile_counts, octet_rows,
     raster_args = (
         ins[0].data_ptr(), records.shape[1], ins[1].data_ptr(),
         ins[2].data_ptr(), ins[4].data_ptr(), out_h // tile_h,
-        width // tile_w, height, width, color.data_ptr(), depth.data_ptr())
+        width // tile_w, height, width, color.data_ptr(), depth.data_ptr(),
+        None if init_color is None else init_color.data_ptr(),
+        None if init_depth is None else init_depth.data_ptr(), int(y0_px))
     stream = torch.cuda.current_stream(dev).cuda_stream
     if next_geom is None:
         err = _build.lib().dpvr_rasterize_tiles(

@@ -122,6 +122,42 @@ SMALL_SCENES = {
 }
 
 
+def wall_scene(device, gather_cap: int = 16384):
+    """The occluder wall of tests/test_macrotile.py at 128x128: a solid
+    chunk fills the view and a dense chunk sits fully behind it, each
+    meshed alone.  (render_step positional args on ``device``, its keyword
+    args)."""
+    rng = np.random.default_rng(7)
+    hx = np.sin(np.arange(32) / 32 * 12) * 6
+    hz = np.cos(np.arange(32) / 32 * 12) * 6
+    y = np.arange(32)[None, :, None]
+    solid = y < (hx[None, :] + hz[:, None] + 16)[:, None, :]
+    types = rng.integers(1, 4, (32, 32, 32)).astype(np.uint8)
+    chunks = [Chunk.generate_test_solid((0, 0, 0)),
+              Chunk.varied((1, 0, 0), np.where(solid, types, 0)
+                           .astype(np.uint8))]
+    stream = np.zeros(gather_cap, np.uint32)
+    quad_world = np.zeros((3, gather_cap), np.float32)
+    total = 0
+    for c in chunks:
+        q = mesh_chunk(c)
+        stream[total:total + len(q)] = q
+        quad_world[:, total:total + len(q)] = (
+            np.asarray(c.position, np.float32)[:, None] * 32.0)
+        total += len(q)
+    cam = Camera(np.array([-20.0, 16.0, 16.0], np.float32), 1.0)
+    cam.look_at(np.array([32.0, 16.0, 16.0], np.float32))
+    args = (projection.as_quad_words(stream), torch.from_numpy(quad_world),
+            torch.tensor(total, dtype=torch.int32),
+            torch.from_numpy(cam.view_projection_matrix().astype(np.float32)),
+            torch.from_numpy(cam.position.astype(np.float32)))
+    tables = build_quad_color_tables(TextureAtlas().kernel_tables())
+    kw = dict(color_tables=projection.color_table_tensors(tables, device),
+              width=128, height=128, tile_h=16, tile_w=128,
+              render_cap=gather_cap, tile_k_cap=2 * gather_cap)
+    return tuple(a.to(device) for a in args), kw
+
+
 def small_scene(name, device):
     """(render_step positional args on ``device``, its keyword args)."""
     w, h, gc, cam_pos, cam_tgt = SMALL_SCENES[name]

@@ -22,6 +22,16 @@ N-1 from its carried stage-A result (``pre_geom``) and computes frame N's
 stage A in the same raster launch (``next_geom``, kernel K3); the frames
 equal the serial step's bit for bit, one frame later.
 
+Exact occlusion (``RenderConfig.two_pass_near_quads``, ``_two_pass_step``):
+stage A once, the nearest ``near_quads`` of the front-to-back stream
+rendered, a max-depth pyramid of that frame (ops/hiz.py), and the far
+quads that provably lose culled before the far pass, which K2 blends onto
+the near frame.  ``RenderConfig.temporal_hiz`` (``_step_camf_hiz``) culls
+a static frame against the previous frame's pyramid instead.  Both frames
+equal the single pass's bit for bit.  A row band (``band_y0``/``band_h``,
+parallel/sharded_render.py) restricts the step to the quads that touch
+the band and rasterizes a band-sized buffer at global pixel NDC.
+
 The packed raster (``RenderConfig.packed_raster``, ``_packed_tail``)
 always compacts, keyed by 4 bits of log-quantized near depth so the
 stream comes out front to back, then bins into five bins per tile (the
@@ -43,6 +53,7 @@ import numpy as np
 import torch
 
 from ..ops import geometry as geom_ops
+from ..ops import hiz as hiz_ops
 from ..ops import projection as proj_ops
 from ..ops import raster as raster_ops
 from ..ops import raster_packed as packed_ops
@@ -82,16 +93,29 @@ def render_step(quads, quad_world, n_quads, view_proj, cam_pos, *,
                 tile_w: int, render_cap: int,
                 backface_culling: bool = True, tile_k_cap: int = 8192,
                 packed_raster: bool = False,
-                debug_return_records: bool | str = False, pre_geom=None,
+                debug_return_records: bool | str = False, skip_quads=0,
+                hiz_level1=None, init_color=None, init_depth=None,
+                band_y0: int = 0, band_h: int | None = None, pre_geom=None,
                 next_geom=None):
     """One frame from the gathered stream: ``quads`` i32[GQ] words,
     ``quad_world`` f32[3, GQ], ``n_quads`` i32 scalar, ``view_proj``
     f32[4, 4], ``cam_pos`` f32[3] (all on one device); ``color_tables``
     from ops/projection.color_table_tensors.  Returns (color i32[H, W],
     depth f32[H, W], stats i32[6] = [gathered, rasterized, overflow,
-    bin_overflow, subpixel_culled, 0]).  ``debug_return_records`` returns
-    the raster's inputs (records, tile_starts, tile_counts, octet_rows,
-    octet_zmin) instead.
+    bin_overflow, subpixel_culled, hiz_culled]).  ``debug_return_records``
+    returns the raster's inputs (records, tile_starts, tile_counts,
+    octet_rows, octet_zmin) instead.
+
+    Exact occlusion (``_two_pass_step``, ``_step_camf_hiz``):
+    ``skip_quads`` (int or device scalar) leaves stream[:skip_quads] out;
+    ``hiz_level1`` (ops/hiz.build_max_pyramid of a rendered frame) culls
+    the quads that provably lose against it, counted in stats[5];
+    ``init_color`` i32 / ``init_depth`` f32 [H, W] is the frame the raster
+    starts from.  Row band: ``band_h`` rows from ``band_y0`` (ints) -- the
+    quads that touch the band, their rows rebased to it, rasterized into a
+    [band_h, W] frame at global pixel NDC (K2's ``y0_px``); stacking the
+    bands gives the full frame.  A band excludes an init frame, the cull
+    and the packed path; the packed path excludes an init frame.
 
     ``packed_raster``: the packed raster path (``_packed_tail``, kernel
     K4); its ``debug_return_records`` adds K4's item_bby and item_bbx as
@@ -104,9 +128,21 @@ def render_step(quads, quad_world, n_quads, view_proj, cam_pos, *,
     quad_world2, n2, view_proj2, cam_pos2) computes the next frame's stage
     A in the raster call (K3) and returns its pre_geom tuple as a fourth
     output."""
-    if next_geom is not None and (debug_return_records or packed_raster):
-        raise ValueError("next_geom runs with the tile raster and cannot "
-                         "return the raster's inputs")
+    if next_geom is not None and (debug_return_records or packed_raster
+                                  or band_h is not None):
+        raise ValueError("next_geom runs with the full-frame tile raster "
+                         "and cannot return the raster's inputs")
+    if band_h is not None and (init_color is not None
+                               or hiz_level1 is not None or packed_raster):
+        raise ValueError("a row band runs with neither an init frame, the "
+                         "Hi-Z cull nor the packed raster")
+    if packed_raster and init_color is not None:
+        # the packed kernel has no init-framebuffer path: dropping the
+        # near pass's frame would render a wrong frame
+        raise ValueError(
+            "packed_raster cannot run as a two-pass far pass (no init "
+            "framebuffer support); disable two_pass_near_quads or "
+            "packed_raster")
     dev = quads.device
     gq = quads.shape[0]
     i32 = torch.int32
@@ -115,14 +151,39 @@ def render_step(quads, quad_world, n_quads, view_proj, cam_pos, *,
     if pre_geom is None:
         valid_a, bbx_a, bby_a, dn_a, subpix_total = _geom_stage(
             quads, quad_world, n_quads, view_proj, cam_pos, width=width,
-            height=height, backface_culling=backface_culling)
+            height=height, backface_culling=backface_culling,
+            skip_quads=skip_quads)
     else:
+        # a shared stage A over the whole stream: this pass's quad range
+        # folds in as a mask
         valid_a, bbx_a, bby_a, dn_a, subpix_total = pre_geom
-        valid_a = valid_a & (torch.arange(gq, dtype=i32, device=dev)
-                             < n_quads)
+        idx = torch.arange(gq, dtype=i32, device=dev)
+        valid_a = valid_a & (idx < n_quads)
+        if not (isinstance(skip_quads, int) and skip_quads == 0):
+            valid_a = valid_a & (idx >= geom_ops.device_i32(skip_quads, dev))
+    hiz_culled = torch.zeros((), dtype=i32, device=dev)
+    if hiz_level1 is not None:
+        # exact occlusion against a rendered frame's max pyramid: a culled
+        # quad provably loses every blend, so the frame is unchanged
+        occ = hiz_ops.quads_occluded_exact(
+            hiz_level1, bbx_a, bby_a,
+            _ulps_below(dn_a, HIZ_MARGIN_ULPS), height=height,
+            width=width) & valid_a
+        valid_a = valid_a & ~occ
+        hiz_culled = occ.sum(dtype=i32)
+    bh = height
+    if band_h is not None:
+        # the band's quads, their rows rebased to the band (stage A stays
+        # global; K2 gets y0_px, so NDC stays global too)
+        bh = band_h
+        y0q, y1q = bby_a & 0xFFFF, bby_a >> 16
+        valid_a = (valid_a & (y1q >= band_y0)
+                   & (y0q <= band_y0 + band_h - 1))
+        bby_a = (torch.clamp(y0q - band_y0, 0, band_h - 1)
+                 | (torch.clamp(y1q - band_y0, 0, band_h - 1) << 16))
     count = valid_a.sum(dtype=i32)
 
-    out_h = -height % tile_h + height  # pad to a tile multiple
+    out_h = -bh % tile_h + bh  # pad to a tile multiple
     tiles_y, tiles_x = out_h // tile_h, width // tile_w
     rc = min(gq, render_cap)
     if gq <= rc and not packed_raster:
@@ -157,8 +218,7 @@ def render_step(quads, quad_world, n_quads, view_proj, cam_pos, *,
 
     def stats_of(bin_overflow):
         return torch.stack([n_quads, count, overflow, bin_overflow,
-                            subpix_total, torch.zeros((), dtype=i32,
-                                                      device=dev)])
+                            subpix_total, hiz_culled])
 
     if packed_raster:
         f_full = torch.stack([coeffs[k] for k in raster_ops.F_FIELDS])
@@ -223,15 +283,35 @@ def render_step(quads, quad_world, n_quads, view_proj, cam_pos, *,
                                           device=dev)])
     if debug_return_records:
         return records, tile_starts, tile_counts, octet_rows, octet_zmin
+    if init_color is not None and out_h != bh:
+        # the init frame padded to the tile multiple; the padded rows are
+        # cropped again below
+        init_color = torch.cat([init_color, torch.full(
+            (out_h - bh, width), raster_ops.SKY_I32, dtype=i32, device=dev)])
+        init_depth = torch.cat([init_depth, torch.full(
+            (out_h - bh, width), float("inf"), dtype=torch.float32,
+            device=dev)])
 
     out = raster_ops.rasterize_tiles(
         records, tile_starts, tile_counts, octet_rows, octet_zmin,
         height=height, width=width, tile_h=tile_h, tile_w=tile_w,
-        out_h=out_h, next_geom=next_geom, backface_culling=backface_culling)
-    color, depth = out[0][:height], out[1][:height]
+        out_h=out_h, init_color=init_color, init_depth=init_depth,
+        y0_px=band_y0, next_geom=next_geom,
+        backface_culling=backface_culling)
+    color, depth = out[0][:bh], out[1][:bh]
     if next_geom is not None:
         return color, depth, stats_of(bin_overflow), _pre_geom_of(out[2])
     return color, depth, stats_of(bin_overflow)
+
+
+HIZ_MARGIN_ULPS = 4
+
+
+def _ulps_below(x: torch.Tensor, k: int) -> torch.Tensor:
+    """``x`` moved ``k`` float32 ulps toward zero where it is positive
+    (never below +0); other entries unchanged."""
+    low = torch.clamp(x.view(torch.int32) - k, min=0).view(torch.float32)
+    return torch.where(x > 0, low, x)
 
 
 def _depth_class(dn) -> torch.Tensor:
@@ -476,10 +556,57 @@ def _split_frame_u(frame_u, vcap: int):
     return meta_i, cam_f, frame_u[n_meta + 19:]
 
 
-def _step_camf(quads, quad_world, n_quads, cam_f, **step_kw):
+def _two_pass_step(quads, quad_world, n_quads, view_proj, cam_pos, *,
+                   near_quads: int, **step_kw):
+    """Exact two-pass occlusion (the reference's ``_two_pass_step``): stage
+    A once over the whole stream, the nearest ``near_quads`` of the
+    front-to-back stream rendered, a max-depth pyramid of that frame, then
+    the far pass: the rest of the stream with the quads that provably lose
+    against the pyramid culled, blended by K2 onto the near frame.  The
+    blend is commutative, so the frame equals the single pass's bit for
+    bit.  Stats: the far pass's gathered count and Hi-Z cull, the passes'
+    sums of rasterized, overflow and bin overflow, and the shared stage
+    A's subpixel count once."""
+    pre_geom = _geom_stage(
+        quads, quad_world, n_quads, view_proj, cam_pos,
+        width=step_kw["width"], height=step_kw["height"],
+        backface_culling=step_kw.get("backface_culling", True))
+    n_quads = geom_ops.device_i32(n_quads, quads.device)
+    n1 = torch.clamp(n_quads, max=near_quads)
+    color1, depth1, s1 = render_step(quads, quad_world, n1, view_proj,
+                                     cam_pos, pre_geom=pre_geom, **step_kw)
+    hiz1 = hiz_ops.build_max_pyramid(depth1)
+    color, depth, s2 = render_step(
+        quads, quad_world, n_quads, view_proj, cam_pos,
+        skip_quads=near_quads, hiz_level1=hiz1, init_color=color1,
+        init_depth=depth1, pre_geom=pre_geom, **step_kw)
+    stats = torch.stack([s2[0], s1[1] + s2[1], s1[2] + s2[2],
+                         s1[3] + s2[3], s2[4], s2[5]])
+    return color, depth, stats
+
+
+def _step_camf(quads, quad_world, n_quads, cam_f, *, near_quads: int = 0,
+               **step_kw):
     view_proj, cam_pos = _unpack_cam(cam_f)
+    if near_quads:
+        return _two_pass_step(quads, quad_world, n_quads, view_proj,
+                              cam_pos, near_quads=near_quads, **step_kw)
     return render_step(quads, quad_world, n_quads, view_proj, cam_pos,
                        **step_kw)
+
+
+def _step_camf_hiz(quads, quad_world, n_quads, cam_f, hiz1, *,
+                   near_quads: int = 0, **step_kw):
+    """Temporal occlusion (``RenderConfig.temporal_hiz``): one pass with
+    ``hiz1``, the previous frame's max pyramid (or +inf on the first
+    static frame), culling the quads that provably lose; returns (color,
+    depth, stats, the new pyramid).  Exact while camera, world and draw
+    list are those of the pyramid's frame, which the engine ensures."""
+    del near_quads  # excluded with temporal_hiz (Renderer.__init__)
+    view_proj, cam_pos = _unpack_cam(cam_f)
+    color, depth, stats = render_step(quads, quad_world, n_quads, view_proj,
+                                      cam_pos, hiz_level1=hiz1, **step_kw)
+    return color, depth, stats, hiz_ops.build_max_pyramid(depth)
 
 
 def _fused_frame(quad_pool, meta_i, cam_f, *, vcap: int, gather_cap: int,
@@ -523,12 +650,15 @@ def _fused_frame_insert(quad_pool, counts6_pool, frame_u, *, vcap: int,
 
 
 def _geom_stage(quads, quad_world, n_quads, view_proj, cam_pos, *,
-                width: int, height: int, backface_culling: bool):
+                width: int, height: int, backface_culling: bool,
+                skip_quads=0):
     """Stage A alone -> the pre_geom tuple; seeds the frames-in-flight
-    pipeline (a steady step gets it from K3)."""
+    pipeline (a steady step gets it from K3) and is shared by the two
+    passes of ``_two_pass_step``."""
     return _pre_geom_of(geom_ops.project_cull(
         quads, quad_world, n_quads, view_proj, cam_pos, width=width,
-        height=height, backface_culling=backface_culling))
+        height=height, backface_culling=backface_culling,
+        skip_quads=skip_quads))
 
 
 def _geom_camf(quads, quad_world, n_quads, cam_f, **geom_kw):
@@ -538,11 +668,12 @@ def _geom_camf(quads, quad_world, n_quads, cam_f, **geom_kw):
 
 
 def _pipe_step_camf(quads_p, qw_p, n_p, cam_p, pre_p, quads_c, qw_c, n_c,
-                    cam_c, **step_kw):
+                    cam_c, *, near_quads: int = 0, **step_kw):
     """Frames-in-flight step: render frame N-1 (its stream, camera and
     carried ``pre_p``) and compute frame N's stage A in the same raster
     launch (K3).  Returns (color, depth, stats) of frame N-1 and frame N's
     pre_geom."""
+    del near_quads  # refused in flight (Renderer._check_pipelined)
     vp_p, cp_p = _unpack_cam(cam_p)
     vp_c, cp_c = _unpack_cam(cam_c)
     return render_step(quads_p, qw_p, n_p, vp_p, cp_p, pre_geom=pre_p,
@@ -578,7 +709,10 @@ def _geom_fused5(quad_pool, counts6_pool, meta_i, cam_f, *, vcap: int,
 
 class Renderer:
     """The render step's configuration, capacity buckets and colour tables
-    on one device (reference ``Renderer``, production path only)."""
+    on one device (reference ``Renderer``, production path only).  With
+    ``RenderConfig.two_pass_near_quads`` every serial step is the two-pass
+    step; with ``RenderConfig.temporal_hiz`` the engine's static frames go
+    through ``render_prepared_hiz``."""
 
     INSERT_KP = 16
     INSERT_MC = 512
@@ -594,10 +728,14 @@ class Renderer:
                 "packed_raster and two_pass_near_quads are mutually "
                 "exclusive: the packed kernel cannot blend onto the near "
                 "pass's framebuffer")
-        for flag in ("span_mode", "two_pass_near_quads", "temporal_hiz"):
-            if getattr(cfg, flag):
-                raise NotImplementedError(
-                    f"RenderConfig.{flag} is not ported yet")
+        if cfg.temporal_hiz and cfg.two_pass_near_quads:
+            raise ValueError(
+                "temporal_hiz and two_pass_near_quads are mutually "
+                "exclusive (both are forms of the same exact pyramid "
+                "cull; the temporal one has no near pass to seed)")
+        if cfg.span_mode:
+            raise NotImplementedError("RenderConfig.span_mode is not ported "
+                                      "yet")
         tile_h, tile_w = cfg.tile_h, cfg.tile_w
         if cfg.height % tile_h or cfg.width % tile_w:
             tile_h, tile_w = raster_ops.pick_tile(cfg.height, cfg.width)
@@ -609,7 +747,8 @@ class Renderer:
                                                       self.device),
             width=cfg.width, height=cfg.height, tile_h=tile_h,
             tile_w=tile_w, backface_culling=cfg.backface_culling,
-            packed_raster=cfg.packed_raster)
+            packed_raster=cfg.packed_raster,
+            near_quads=cfg.two_pass_near_quads)
         # capacity buckets: the mid-stage tensors scale with the gather
         # and render caps, so small scenes take a small bucket; the
         # quads_cap-sized bucket runs without compaction
@@ -730,6 +869,24 @@ class Renderer:
         return _step_camf(quads, quad_world, total,
                           self._cam_dev(view_proj, cam_pos),
                           **self._bucket_kw(int(quads.shape[0])))
+
+    def empty_hiz(self) -> torch.Tensor:
+        """+inf seed pyramid f32[ceil(H/8), ceil(W/8)]: culls nothing (the
+        first static frame's input)."""
+        h, w = self.config.height, self.config.width
+        return torch.full(((h + 7) // 8, (w + 7) // 8), float("inf"),
+                          dtype=torch.float32, device=self.device)
+
+    def render_prepared_hiz(self, uploads, view_proj, cam_pos, hiz1):
+        """Static-camera temporal step (``RenderConfig.temporal_hiz``): the
+        step on a cached stream with the previous frame's max pyramid
+        ``hiz1`` culling quads.  Returns (color, depth, stats, the new
+        pyramid).  The caller passes a pyramid rendered from the same
+        camera, draw list and world, else ``empty_hiz()``."""
+        quads, quad_world, total = uploads
+        return _step_camf_hiz(quads, quad_world, total,
+                              self._cam_dev(view_proj, cam_pos), hiz1,
+                              **self._bucket_kw(int(quads.shape[0])))
 
     def render_fused_insert(self, quad_pool, counts6_dev, visible_slots,
                             counts_sel, positions_sel, view_proj, cam_pos,

@@ -26,6 +26,7 @@ from differential_projection_voxel_renderer_tpu_torch.models.camera import (
     Camera,
 )
 from differential_projection_voxel_renderer_tpu_torch.ops import geometry
+from differential_projection_voxel_renderer_tpu_torch.ops import hiz
 from differential_projection_voxel_renderer_tpu_torch.ops import micro
 from differential_projection_voxel_renderer_tpu_torch.ops import projection
 from differential_projection_voxel_renderer_tpu_torch.ops import raster
@@ -253,6 +254,83 @@ def test_raster_kernel_breaks_at_octet_base(cuda_device):
     assert _same_bits(got, twin(brk))
     assert not _same_bits(got, twin(brk - 8))
     assert not _same_bits(got, twin(start + int(args[2][1])))
+
+
+def _init_frame(shape, seed, device):
+    """Random colours; depths in [0.95, 1) with a fifth +inf."""
+    g = torch.Generator().manual_seed(seed)
+    color = torch.randint(-2**31, 2**31 - 1, shape, generator=g,
+                          dtype=torch.int32)
+    depth = 0.95 + 0.05 * torch.rand(shape, generator=g)
+    depth[torch.rand(shape, generator=g) < 0.2] = float("inf")
+    return color.to(device), depth.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["wall near pass", "random init",
+                                  "band", "band with init"])
+def test_raster_kernel_init_and_band_match_twin(cuda_device, case):
+    """K2 with an init frame (the two-pass far pass on the wall scene's
+    near frame, or a random frame) and with y0_px on a row band (72 rows
+    in an 80-row buffer) equals its plain version bit for bit on the rows
+    the step keeps."""
+    if case == "wall near pass":
+        args, kw = parity.wall_scene(cuda_device)
+        n_near = 16
+        c1, d1, _ = pipeline.render_step(*args[:2], n_near, *args[3:], **kw)
+        hiz1 = hiz.build_max_pyramid(d1)
+        rec = pipeline.render_step(*args, skip_quads=n_near, hiz_level1=hiz1,
+                                   debug_return_records=True, **kw)
+        y0, bh, init = 0, 128, (c1, d1)
+    else:
+        args, kw = parity.small_scene("terrain 640x128", cuda_device)
+        band = "band" in case
+        y0, bh = (48, 72) if band else (0, 128)
+        rec = pipeline.render_step(
+            *args, debug_return_records=True,
+            **dict(kw, **(dict(band_y0=y0, band_h=bh) if band else {})))
+        init = (_init_frame((80 if band else 128, kw["width"]), 5,
+                            cuda_device) if "init" in case else (None, None))
+    out_h = -bh % 16 + bh
+    rkw = dict(height=kw["height"], width=kw["width"], tile_h=16,
+               tile_w=128, out_h=out_h, init_color=init[0],
+               init_depth=init[1], y0_px=y0)
+    before = raster.launches
+    got = raster.rasterize_tiles(*rec, **rkw)
+    assert raster.launches == before + 1
+    want = raster.rasterize_tiles_plain(*rec, **rkw)
+    # the rows the step keeps: in the padded rows of a band the twin (like
+    # the reference's kernel) evaluates an item on its octet's rows, K2 on
+    # its own box clamped to the band, and the step crops them.  K2 leaves
+    # the padded rows as they started.
+    if out_h > bh:
+        start = (init if init[0] is not None else (
+            torch.full_like(got[0], raster.SKY_I32),
+            torch.full_like(got[1], float("inf"))))
+        assert _same_bits(tuple(x[bh:] for x in got),
+                          tuple(x[bh:] for x in start))
+    got, want = (tuple(x[:bh] for x in f) for f in (got, want))
+    assert _same_bits(got, want)
+    plain = raster.rasterize_tiles(*rec, **dict(rkw, init_color=None,
+                                                init_depth=None, y0_px=0))
+    assert not _same_bits(got, tuple(x[:bh] for x in plain))
+    if case == "wall near pass":
+        full = pipeline.render_step(*args, **kw)
+        assert _same_bits(got, full[:2])
+
+
+@pytest.mark.cuda
+def test_raster_kernel_keeps_its_budget(cuda_device):
+    """After the init frame and y0_px: K2/K3 still builds without spills
+    in at most 64 registers, four resident blocks an SM."""
+    _, log = _build.build(force=True, verbose=True)
+    reps = [r for name, r in _build.ptxas_report(log).items()
+            if "13raster_kernel" in name]
+    assert len(reps) == 1, reps
+    rep = reps[0]
+    assert rep["spill_stores"] == 0 and rep["spill_loads"] == 0, rep
+    assert rep["registers"] <= 64, rep
+    assert _build.lib().dpvr_rasterize_tiles_blocks_per_sm() >= 4
 
 
 @pytest.mark.cuda

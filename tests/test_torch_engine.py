@@ -168,18 +168,23 @@ def test_pool_round_trip_from_numpy(runs):
 @pytest.mark.parametrize("flag", ["span_mode", "packed_raster",
                                   "two_pass_near_quads", "temporal_hiz"])
 def test_unported_render_modes_raise(flag):
-    """Unported modes raise NotImplementedError.  The packed raster is
-    ported: its Renderer builds, and only its combination with the two-pass
-    mode is refused, with the JAX Renderer's ValueError."""
+    """Unported modes (span mode) raise NotImplementedError.  The packed
+    raster, two-pass and temporal Hi-Z modes are ported: their Renderer
+    builds, and only their combinations that the JAX Renderer refuses
+    (packed or temporal with two-pass) raise its ValueError."""
     cfg = TE.RenderConfig(width=256, height=128)
     setattr(cfg, flag, 1 if flag == "two_pass_near_quads" else True)
-    if flag == "packed_raster":
-        assert TPL.Renderer(cfg, device="cpu")._base_step_kw["packed_raster"]
-        cfg.two_pass_near_quads = 1
-        with pytest.raises(ValueError, match="mutually exclusive"):
+    if flag == "span_mode":
+        with pytest.raises(NotImplementedError):
             TPL.Renderer(cfg, device="cpu")
         return
-    with pytest.raises(NotImplementedError):
+    r = TPL.Renderer(cfg, device="cpu")
+    assert r._base_step_kw["packed_raster"] == (flag == "packed_raster")
+    assert r._base_step_kw["near_quads"] == cfg.two_pass_near_quads
+    if flag == "two_pass_near_quads":
+        return
+    cfg.two_pass_near_quads = 1
+    with pytest.raises(ValueError, match="mutually exclusive"):
         TPL.Renderer(cfg, device="cpu")
 
 
