@@ -17,7 +17,9 @@ and times kernels and frames.  Phases:
 2. kernel build, the count of floating-point multiply-adds in each
    source's PTX (the rounding contract wants none), and ptxas's registers,
    spills and shared memory of each kernel with the resident blocks an SM
-   holds of K2/K3 and K4 (no spills and at least 4 blocks, or it fails);
+   holds of K2/K3 and K4 (no spills and at least 4 blocks, or it fails),
+   and of K1's three instances (one, two and four quads a thread; no
+   spills, or it fails);
 3. the serial path: world streamed until settled, prime(), 3 static frames
    (render_fused, then render_prepared), 50 timed static frames, then 10
    moving frames that stream chunks (render_fused_insert where the remesh
@@ -25,13 +27,19 @@ and times kernels and frames.  Phases:
    counters are zeroed before it and read after it; K1 and K2 must grow on
    every frame, and the stats must show no overflow.  The static and
    moving frames are kept for phase 8;
-4. K1 (stage A) vs its twin, bit-exact on all five outputs: a fuzzed
-   131072-quad stream and the real vd12 stream;
+4. K1 (stage A) vs its twin, bit-exact on all five outputs and both
+   counts (subpix_total, valid_count): a fuzzed 131072-quad stream (n
+   120000), the real vd12 stream at its bucket, the same with
+   ``skip_quads`` (a device scalar) and with ``subpixel_culling=False``,
+   and a fuzzed stream of 131069 quads, not a multiple of 4 (the
+   kernel's four-quad groups: the quads go one by one);
 5. K2 (tile raster) vs its twin on the port's own records at 128x128,
    640x128 and 1280x720: full-frame equality, or the boundary-verified
    gate with its mismatch count; and the 128x128 frame on the card vs the
    same step on the CPU (the twins);
 6. kernel and twin times at the vd12 shapes, median of 20 runs each;
+   K1 at 131072 quads and at the vd12 bucket a call, in runs of 20 and
+   from a CUDA graph, with its bound at each;
 7. the static frame's device time under torch.profiler: the card's busy
    time per frame, its idle share and the largest device activities;
 8. frames in flight: a second Engine, settled and primed like the first,
@@ -1018,29 +1026,15 @@ def band_path(torch, eng, serial, card):
 # ------------------------------------------------------------- K1 / K2
 
 
-def fuzz_stream(torch, n, seed=0):
-    """Random valid quad words over all faces and field ranges, chunk
-    origins within the view distance."""
-    g = torch.Generator().manual_seed(seed)
-    f = [torch.randint(0, hi, (n,), generator=g)
-         for hi in (32, 32, 64, 64, 4, 32, 6)]
-    u, v, w, h, blk, sl, face = f
-    words = (u | (v << 5) | (w << 10) | (h << 16) | (blk << 22)
-             | (sl << 24) | (face << 29))
-    words = torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
-    qw = (torch.randint(-VIEW_DISTANCE, VIEW_DISTANCE + 1, (3, n),
-                        generator=g) * 32).float()
-    qw[1] = (torch.randint(-2, 2, (n,), generator=g) * 32).float()
-    return words.cuda(), qw.cuda()
-
-
 def k1_compare(torch, geometry, args, kw):
-    """K1 vs its twin on the same inputs: (valid count, max |depth_near
-    difference|); raises unless all five outputs are bit-exact."""
+    """K1 vs its twin on the same inputs: (valid count, subpixel count,
+    max |depth_near difference|); raises unless all five outputs and both
+    counts are bit-exact."""
     got = geometry.project_cull(*args, **kw)
     ref = geometry.project_cull_plain(*args, **kw)
-    for k in ("valid", "bbx", "bby", "subpixel"):
-        if not torch.equal(got[k], ref[k]):
+    for k in ("valid", "bbx", "bby", "subpixel", "subpix_total",
+              "valid_count"):
+        if got[k].dtype != ref[k].dtype or not torch.equal(got[k], ref[k]):
             raise AssertionError(f"K1 {k} differs from its twin")
     a, b = got["depth_near"], ref["depth_near"]
     fin = torch.isfinite(a) & torch.isfinite(b)
@@ -1049,7 +1043,7 @@ def k1_compare(torch, geometry, args, kw):
         torch.isnan(a) & torch.isnan(b))
     if not bool(same.all()):
         raise AssertionError(f"K1 depth_near differs, max abs {err}")
-    return int(got["valid"].sum()), err
+    return int(got["valid_count"]), int(got["subpix_total"]), err
 
 
 def k2_compare(torch, raster, parity, rec, h, w, rows=None, **extra):
@@ -1543,12 +1537,12 @@ def probe_path(torch, card, k1_call):
     # entry points called with prepared pointers), all in turns
     lib = _build.lib()
     args, kw = k1_call
-    ins = geometry.kernel_inputs(*args)
-    gout = geometry.kernel_outputs(ins[0].shape[0], ins[0].device)
+    gq = args[0].shape[0]
+    gout = geometry.kernel_outputs(gq, args[0].device)
     stream = torch.cuda.current_stream().cuda_stream
-    k1_ptrs = (*(x.data_ptr() for x in ins), None, ins[0].shape[0],
-               kw["width"], kw["height"], 1,
-               *(x.data_ptr() for x in gout.values()), stream)
+    k1_ptrs = (*geometry.kernel_args(*args), None, gq, kw["width"],
+               kw["height"], geometry.BACKFACE | geometry.SUBPIXEL,
+               *geometry.output_ptrs(gout), stream)
     cin = [torch.zeros((1024, 128), dtype=torch.int32, device="cuda")
            for _ in range(9)]
     xs = torch.zeros(1, dtype=torch.int32, device="cuda")
@@ -1578,7 +1572,8 @@ def probe_path(torch, card, k1_call):
         + ", ".join(f"{k} {us:.1f}" for k, us in sweep.items())
         + f"; least squares {icept:.1f} + {slope:.2f} an operand; {card}")
     log(f"[11] host us a call: K1's wrapper {host['K1 wrapper']:.1f}, K1's "
-        f"C entry alone (ctypes and launch, 16 arguments) "
+        f"C entry alone (ctypes, the counts' memset and the launch, 17 "
+        f"arguments) "
         f"{host['K1 C entry']:.1f}; M2's wrapper at 4x5 {sweep['4x5']:.1f}, "
         f"its C entry alone (19 arguments) {host['M2 C entry']:.1f}; the "
         f"binding is {host['K1 C entry'] / host['K1 wrapper']:.2f} of K1's "
@@ -1613,6 +1608,7 @@ def main() -> int:
         from differential_projection_voxel_renderer_tpu_torch import _build
         from differential_projection_voxel_renderer_tpu_torch.benches import (
             common,
+            k1_call,
         )
         from differential_projection_voxel_renderer_tpu_torch.ops import (
             geometry,
@@ -1649,7 +1645,11 @@ def main() -> int:
                        "raster_packed_kernel", "fill_tiles_kernel",
                        "blocked_copy_kernel"):
             if f"{len(kernel)}{kernel}" in entry:
-                ptxas[kernel] = rep
+                # K1's instances: one quad a thread (the port's) and the
+                # two- and four-quad ones of benches/k1_call.py --variants
+                vec = entry.partition(f"{kernel}ILi")[2][:1]
+                ptxas[f"{kernel}<{vec}>" if vec not in ("", "1")
+                      else kernel] = rep
     blocks = dict(raster_kernel=lib.dpvr_rasterize_tiles_blocks_per_sm(),
                   raster_packed_kernel=(
                       lib.dpvr_rasterize_packed_blocks_per_sm()))
@@ -1663,8 +1663,12 @@ def main() -> int:
             + (f", {blocks[kernel]} resident blocks an SM "
                f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)"
                if kernel in blocks else ""))
-    if len(ptxas) != 5:
+    if len(ptxas) != 7:
         raise AssertionError(f"ptxas reported {sorted(ptxas)}")
+    for kernel in ("project_cull_kernel", "project_cull_kernel<2>",
+                   "project_cull_kernel<4>"):
+        if ptxas[kernel]["spill_stores"] or ptxas[kernel]["spill_loads"]:
+            raise AssertionError(f"{kernel} spills: {ptxas[kernel]}")
     for kernel, n in blocks.items():
         rep = ptxas[kernel]
         if rep["spill_stores"] or rep["spill_loads"] or n < 4:
@@ -1679,17 +1683,28 @@ def main() -> int:
     static_cam = r._cam_dev(vp0, cp0)
     vp, cp = pipeline._unpack_cam(static_cam)
     gkw = dict(width=WIDTH, height=HEIGHT)
-    words, fqw = fuzz_stream(torch, 131072)
-    k1_args = (words, fqw, torch.tensor(120000, dtype=torch.int32,
-                                        device="cuda"), vp, cp)
-    n_valid, k1_err = k1_compare(torch, geometry, k1_args, gkw)
-    log(f"[4] K1 fuzz 131072: bit-exact, {n_valid} valid")
+    words, fqw = k1_call.fuzz_stream(torch, 131072)
+    n120k = torch.tensor(120000, dtype=torch.int32, device="cuda")
+    fk1 = (words, fqw, n120k, vp, cp)
     quads, qw, total = uploads
-    n_valid, err = k1_compare(torch, geometry, (quads, qw, total, vp, cp),
-                              gkw)
-    k1_err = max(k1_err, err)
-    log(f"[4] K1 vd12 stream ({quads.shape[0]} bucket, {int(total)} quads): "
-        f"bit-exact, {n_valid} valid")
+    vd12 = (quads, qw, total, vp, cp)
+    odd = 131069
+    k1_err = 0.0
+    for label, a, kw in (
+            ("fuzz 131072 (n 120000)", fk1, gkw),
+            (f"vd12 stream ({quads.shape[0]} bucket, {int(total)} quads)",
+             vd12, gkw),
+            (f"vd12 stream, skip_quads {NEAR_QUADS} (device scalar)", vd12,
+             dict(gkw, skip_quads=torch.tensor(
+                 NEAR_QUADS, dtype=torch.int32, device="cuda"))),
+            ("vd12 stream, subpixel_culling=False", vd12,
+             dict(gkw, subpixel_culling=False)),
+            (f"fuzz {odd}, not a multiple of 4 (n 120000)",
+             (words[:odd], fqw[:, :odd].contiguous(), n120k, vp, cp), gkw)):
+        n_valid, n_sub, err = k1_compare(torch, geometry, a, kw)
+        k1_err = max(k1_err, err)
+        log(f"[4] K1 {label}: all five outputs and both counts bit-exact "
+            f"against its twin; {n_valid} valid, {n_sub} sub-pixel")
 
     # ---- 5. K2 vs twin, and the card vs the CPU on a small input
     k2_err = 0.0
@@ -1723,14 +1738,28 @@ def main() -> int:
         f"{int(counts.sum())} items, max {int(counts.max())} per tile")
 
     # ---- 6. kernel and twin times at the vd12 shapes
-    fk1 = (words, fqw, k1_args[2], vp, cp)
-    k1_ms = median_ms(lambda: geometry.project_cull(*fk1, **gkw))
+    k1_t = {}
+    for label, a in (("131072", fk1), ("vd12", vd12)):
+        def fn(a=a):
+            return geometry.project_cull(*a, **gkw)
+        k1_t[label] = dict(call_ms=median_ms(fn),
+                           run_ms=median_ms(fn, batch=20),
+                           graph_ms=common.graph_ms(fn))
+        k1_t[label]["bound_ms"], k1_t[label]["bound_by"] = bound(
+            *k1_work(a, fn()))
+        t = k1_t[label]
+        log(f"[6] K1 {label} ({a[0].shape[0]} quads): {t['call_ms']:.4f} "
+            f"ms a call, {t['run_ms']:.4f} in runs of 20, "
+            f"{t['graph_ms']:.4f} from a CUDA graph (medians of 20, 20 and "
+            f"10 replays of 30); bound {t['bound_ms']:.5f} ms "
+            f"({t['bound_by']}); {card}")
+    k1_ms = k1_t["131072"]["call_ms"]
     k1_plain = median_ms(lambda: geometry.project_cull_plain(*fk1, **gkw))
     rkw = dict(height=HEIGHT, width=WIDTH, tile_h=16, tile_w=128,
                out_h=HEIGHT)
     k2_ms = median_ms(lambda: raster.rasterize_tiles(*rec720, **rkw))
     k2_plain = median_ms(lambda: raster.rasterize_tiles_plain(*rec720, **rkw))
-    k1_run = median_ms(lambda: geometry.project_cull(*fk1, **gkw), batch=20)
+    k1_run = k1_t["131072"]["run_ms"]
     k2_run = median_ms(lambda: raster.rasterize_tiles(*rec720, **rkw),
                        batch=20)
     log(f"[6] K1 131072 quads: kernel {k1_ms:.4f} ms, twin {k1_plain:.4f} ms"
@@ -1764,14 +1793,14 @@ def main() -> int:
     if not (torch.equal(c2, cp2) and torch.equal(d2, dp2)):
         raise AssertionError("K2 differs from its plain version at vd12")
     k3_err = 0.0
-    vd12 = (quads, qw, total, vp, cp)
     for label, nxt in (("fuzzed 131072-quad", fk1), ("vd12", vd12)):
         c3, d3, g3 = raster.rasterize_tiles(*rec720, next_geom=nxt, **rkw)
         if not (torch.equal(c3, c2) and torch.equal(d3, d2)):
             raise AssertionError(f"K3's frame differs from K2's ({label})")
         for ref in (geometry.project_cull(*nxt, **gkw),
                     geometry.project_cull_plain(*nxt, **gkw)):
-            for k in ("valid", "bbx", "bby", "subpixel"):
+            for k in ("valid", "bbx", "bby", "subpixel", "subpix_total",
+                      "valid_count"):
                 if not torch.equal(g3[k], ref[k]):
                     raise AssertionError(f"K3 {k} differs from K1 ({label})")
             a, b = g3["depth_near"], ref["depth_near"]
@@ -1785,7 +1814,8 @@ def main() -> int:
         k3_err = max(k3_err, float((d3 - d2).abs()[fin].max()))
         log(f"[9] K3, {label} next stream: frame equal to K2's and its "
             f"plain version's, geometry equal to K1's and its plain "
-            f"version's, bit for bit ({int(g3['valid'].sum())} valid)")
+            f"version's, bit for bit, counts included "
+            f"({int(g3['valid_count'])} valid)")
     def k3():
         return raster.rasterize_tiles(*rec720, next_geom=fk1, **rkw)
 
@@ -1992,7 +2022,17 @@ def main() -> int:
              replaces=f"{REF}/ops/geometry_pallas.py:73",
              launches=launches[0], max_abs_err=k1_err, ms=k1_run,
              plain_ms=k1_plain, bound_ms=k1_bound, bound_by=k1_by,
-             library_ms=None),
+             library_ms=None, call_ms=k1_ms,
+             graph_ms=k1_t["131072"]["graph_ms"],
+             vd12_bucket=int(quads.shape[0]),
+             vd12_call_ms=k1_t["vd12"]["call_ms"],
+             vd12_run_ms=k1_t["vd12"]["run_ms"],
+             vd12_graph_ms=k1_t["vd12"]["graph_ms"],
+             vd12_bound_ms=k1_t["vd12"]["bound_ms"],
+             host_us=probes["binding"]["k1_host_us"],
+             c_entry_us=probes["binding"]["k1_bare_us"],
+             registers=ptxas["project_cull_kernel"]["registers"],
+             spill_bytes=ptxas["project_cull_kernel"]["spill_stores"]),
         dict(name="K2 tile raster (rasterize_tiles)", route="cuda",
              source=f"{PKG}/csrc/raster.cu",
              replaces=f"{REF}/ops/raster.py:1131",

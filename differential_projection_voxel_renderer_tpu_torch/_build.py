@@ -42,20 +42,20 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # (quads, quad_world[3, gq], view_proj[16], cam_pos[3], n_quads, skip,
-    #  gq, width, height, backface, valid, bbx, bby, depth_near, subpixel,
-    #  stream)
+    #  gq, width, height, flags, valid, bbx, bby, depth_near, subpixel,
+    #  counts[2], stream)
     "dpvr_project_cull": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _P, _P, _P, _P, _P, _P),
+                          _P, _P, _P, _P, _P, _P, _P),
     # (records[24, cap], cap, starts, counts, octet_zmin, tiles_y,
     #  tiles_x, height, width, color, depth, init_color, init_depth (null
     #  for none), y0_px, then the next stream's stage A -- null pointers
     #  and gq2 0 for K2 -- quads2, quad_world2[3, gq2], view_proj2[16],
     #  cam_pos2[3], n_quads2, gq2, backface, valid, bbx, bby, depth_near,
-    #  subpixel, and the stream)
+    #  subpixel, counts[2], and the stream)
     "dpvr_rasterize_tiles": (_P, _I, _P, _P, _P, _I, _I, _I, _I,
                              _P, _P, _P, _P, _I,
                              _P, _P, _P, _P, _P, _I, _I,
-                             _P, _P, _P, _P, _P, _P),
+                             _P, _P, _P, _P, _P, _P, _P),
     # (records[24, cap], cap, starts[T * 5], counts[T * 5], item_bby[cap],
     #  item_bbx[cap], octet_zmin, tiles_y, tiles_x, height, width, color,
     #  depth, stream)
@@ -153,8 +153,12 @@ def ptx_fma_counts() -> dict[str, int]:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built first if needed)."""
+    """The loaded kernel library (built first if needed); once loaded it
+    is returned without taking the lock."""
     global _LIB
+    so = _LIB
+    if so is not None:
+        return so
     with _LOCK:
         if _LIB is None:
             build()

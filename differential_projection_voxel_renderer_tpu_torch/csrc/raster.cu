@@ -34,12 +34,13 @@
 // serial walk, and most SMs idle while that tile finishes.  So the grid
 // is heterogeneous: blocks [0, n_tiles) run the tile raster (raster_tile),
 // and the blocks after them (none for K2) run stage A, one quad per
-// thread, with the same stage_a_quad as K1 (stage_a.cuh), so K3's
-// geometry equals K1's bit for bit.  Blocks are dispatched in index
-// order, so the tile blocks start first and the stage-A blocks fill the
-// SMs the tiles leave free.  What bounds it: K2's busiest tile plus K1's
-// bytes.  Stage-A blocks use no shared memory beyond the kernel's static
-// tile buffers and return before the tile code's barriers.
+// thread, with the same stage_a_math as K1 (stage_a.cuh), so K3's
+// geometry and its two counts equal K1's bit for bit.  Blocks are
+// dispatched in index order, so the tile blocks start first and the
+// stage-A blocks fill the SMs the tiles leave free.  What bounds it: K2's
+// busiest tile plus K1's bytes.  Stage-A blocks stage the camera in the
+// kernel's static tile buffers (which they use for nothing else), sync
+// only among themselves and return before the tile code's barriers.
 
 #include "stage_a.cuh"
 #include "tile_raster.cuh"
@@ -74,7 +75,7 @@ __device__ __forceinline__ void raster_tile(
 
 // K2 and K3: blocks [0, n_tiles) are the tile blocks; with gq2 > 0 (K3)
 // the blocks past them run stage A of the next frame's stream, one quad
-// per thread.
+// per thread, into o2.
 __global__ void __launch_bounds__(kThreads, 4)
 raster_kernel(const int* __restrict__ rec, int cap,
               const int* __restrict__ starts,
@@ -90,18 +91,21 @@ raster_kernel(const int* __restrict__ rec, int cap,
               const float* __restrict__ wz2,
               const float* __restrict__ view_proj2,
               const float* __restrict__ cam_pos2,
-              const int* __restrict__ n_quads2, int gq2, int backface,
-              unsigned char* __restrict__ valid_out,
-              int* __restrict__ bbx_out, int* __restrict__ bby_out,
-              float* __restrict__ dn_out, int* __restrict__ sub_out) {
+              const int* __restrict__ n_quads2, int gq2, int flags,
+              StageAOut o2) {
   __shared__ TileSmem sm;
   __shared__ float ny[kTileH];
   if ((int)blockIdx.x >= n_tiles) {
+    StageACam* c = reinterpret_cast<StageACam*>(&sm);
+    stage_camera(c, view_proj2, cam_pos2, n_quads2, nullptr);
     const int i = ((int)blockIdx.x - n_tiles) * kThreads + threadIdx.x;
-    if (i < gq2)
-      stage_a_quad(i, quads2, wx2, wy2, wz2, view_proj2, cam_pos2, n_quads2,
-                   nullptr, width, height, backface, valid_out, bbx_out,
-                   bby_out, dn_out, sub_out);
+    StageAResult r = {};
+    if (i < gq2) {
+      r = stage_a_math(i, quads2[i], wx2[i], wy2[i], wz2[i], *c, width,
+                       height, flags);
+      store_stage_a(o2, i, r);
+    }
+    count_warp(o2.counts, r.subpixel, r.valid);
     return;
   }
   raster_tile(blockIdx.x, sm, rec, cap, starts, counts, ozmin, tiles_x,
@@ -120,21 +124,32 @@ raster_kernel(const int* __restrict__ rec, int cap,
 // y0_px is the global pixel row of the output's first row.  K3: the same
 // and, in the same launch, stage A of the next frame's stream (quads2,
 // quad_world2 f32[3, gq2], view_proj2 f32[16], cam_pos2 f32[3], device
-// scalar n_quads2) into valid/bbx/bby/dn/sub [gq2]
+// scalar n_quads2), with sub-pixel culling, as the reference's fused pass,
+// into valid2 (bool), bbx2, bby2, sub2 (i32) and dn2 (f32), each [gq2],
+// and counts2 i32[2] (subpix_total, valid_count), which it zeroes first on
+// the same stream
 extern "C" int dpvr_rasterize_tiles(
     const void* records, int cap, const void* starts, const void* counts,
     const void* octet_zmin, int tiles_y, int tiles_x,
     int height, int width, void* color, void* depth, const void* init_color,
     const void* init_depth, int y0_px, const void* quads2,
     const void* quad_world2, const void* view_proj2, const void* cam_pos2,
-    const void* n_quads2, int gq2, int backface, void* valid, void* bbx,
-    void* bby, void* dn, void* sub, void* stream) {
+    const void* n_quads2, int gq2, int backface, void* valid2, void* bbx2,
+    void* bby2, void* dn2, void* sub2, void* counts2, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_tiles = tiles_y * tiles_x;
   const int geom_blocks = (gq2 + kThreads - 1) / kThreads;
   const float* qw = static_cast<const float*>(quad_world2);
+  const StageAOut o2 = {static_cast<unsigned char*>(valid2),
+                        static_cast<int*>(bbx2), static_cast<int*>(bby2),
+                        static_cast<float*>(dn2), static_cast<int*>(sub2),
+                        static_cast<int*>(counts2)};
+  if (counts2) {
+    const cudaError_t err = cudaMemsetAsync(counts2, 0, 2 * sizeof(int), s);
+    if (err != cudaSuccess) return (int)err;
+  }
   if (n_tiles + geom_blocks > 0) {
-    raster_kernel<<<n_tiles + geom_blocks, kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
+    raster_kernel<<<n_tiles + geom_blocks, kThreads, 0, s>>>(
         static_cast<const int*>(records), cap,
         static_cast<const int*>(starts), static_cast<const int*>(counts),
         static_cast<const float*>(octet_zmin), n_tiles, tiles_x, height,
@@ -144,10 +159,8 @@ extern "C" int dpvr_rasterize_tiles(
         static_cast<const int*>(quads2), qw, qw + gq2, qw + 2 * (size_t)gq2,
         static_cast<const float*>(view_proj2),
         static_cast<const float*>(cam_pos2),
-        static_cast<const int*>(n_quads2), gq2, backface,
-        static_cast<unsigned char*>(valid), static_cast<int*>(bbx),
-        static_cast<int*>(bby), static_cast<float*>(dn),
-        static_cast<int*>(sub));
+        static_cast<const int*>(n_quads2), gq2,
+        (backface ? kBackface : 0) | kSubpixelCulling, o2);
   }
   return (int)cudaGetLastError();
 }

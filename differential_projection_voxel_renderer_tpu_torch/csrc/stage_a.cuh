@@ -2,13 +2,14 @@
 // The one definition of the per-quad math that kernel K1
 // (geometry.cu, the whole stream) and kernel K3 (raster.cu, the next
 // frame's stream beside the tile raster) both run, so their outputs agree
-// bit for bit.
+// bit for bit; also the camera staging and the two counts they share.
 //
 // The math is projection.stage_a_fields of the reference package (the
 // body of its `geom_block_compute`).  Per quad: decode the 32-bit word,
 // project the 4 corners through the differential basis, exact plane-side
-// backface test, NDC frustum test, 0.05 px^2 fan-split sub-pixel test,
-// integer screen bbox (full screen if any corner has w <= 0.001).
+// backface test, NDC frustum test, 0.05 px^2 fan-split sub-pixel test
+// (when enabled), integer screen bbox (full screen if any corner has
+// w <= 0.001).
 //
 // Rounding contract: every file that includes this header is compiled
 // with -fmad=false (no multiply-add contraction), IEEE division
@@ -27,11 +28,57 @@ namespace {
 constexpr float kNearWEps = 0.001f;       // utils/config.py NEAR_W_EPS
 constexpr float kMinTriangleArea = 0.1f;  // utils/config.py MIN_TRIANGLE_AREA
 
-// Per-face axes of u, v and the normal; faces 6/7 (unused codes of the
-// 3-bit field) take face 5's entry, like the reference's select chains.
-__constant__ int kTAxis[8] = {1, 1, 0, 0, 0, 0, 0, 0};
-__constant__ int kBAxis[8] = {2, 2, 2, 2, 1, 1, 1, 1};
-__constant__ int kNAxis[8] = {0, 0, 1, 1, 2, 2, 2, 2};
+// flag bits of a launch (ops/geometry.py BACKFACE, SUBPIXEL)
+constexpr int kBackface = 1;
+constexpr int kSubpixelCulling = 2;
+
+// The camera and the stream range of a launch: view_proj row-major,
+// cam_pos, and the range [skip, n_quads) of stream indices.
+struct StageACam {
+  float vp[16];
+  float cam[3];
+  int n_quads;
+  int skip;
+};
+
+// Stages the camera and the range in the block's shared copy c: threads
+// 0-20 (the first warp) load one word each, then the block waits once
+// (skip may be null: no quads skipped).  Every thread of the block calls
+// it.
+__device__ __forceinline__ void stage_camera(
+    StageACam* c, const float* __restrict__ view_proj,
+    const float* __restrict__ cam_pos, const int* __restrict__ n_quads,
+    const int* __restrict__ skip) {
+  const int t = threadIdx.x;
+  if (t < 16)
+    c->vp[t] = view_proj[t];
+  else if (t < 19)
+    c->cam[t - 16] = cam_pos[t - 16];
+  else if (t == 19)
+    c->n_quads = *n_quads;
+  else if (t == 20)
+    c->skip = skip ? *skip : 0;
+  __syncthreads();
+}
+
+// The outputs of a launch: valid bool, bbx, bby, subpixel i32 and
+// depth_near f32, each [gq], and counts i32[2] (subpix_total,
+// valid_count), zeroed before the launch.  The wrapper
+// (ops/geometry.py kernel_outputs) lays them out in one buffer.
+struct StageAOut {
+  unsigned char* valid;
+  int* bbx;
+  int* bby;
+  float* dn;
+  int* sub;
+  int* counts;
+};
+
+struct StageAResult {
+  int bbx, bby;
+  float depth_near;
+  bool valid, subpixel;
+};
 
 __device__ __forceinline__ float jmin(float a, float b) {
   if (a != a) return a;
@@ -56,30 +103,13 @@ __device__ __forceinline__ int clip_to_int(float x, int hi) {
   return __float2int_rz(c);
 }
 
-// Stage A of quad i (0 <= i < gq) of the stream: reads quads[i], the
-// chunk origin (wx, wy, wz)[i], the camera and the stream range
-// [*skip_in, *n_quads_in) (skip_in may be null: no quads skipped), and
-// writes element i of the five outputs.
-__device__ __forceinline__ void stage_a_quad(
-    int i, const int* __restrict__ quads, const float* __restrict__ wx_in,
-    const float* __restrict__ wy_in, const float* __restrict__ wz_in,
-    const float* __restrict__ view_proj, const float* __restrict__ cam_pos,
-    const int* __restrict__ n_quads_in, const int* __restrict__ skip_in,
-    int width, int height, int backface,
-    unsigned char* __restrict__ valid_out, int* __restrict__ bbx_out,
-    int* __restrict__ bby_out, float* __restrict__ dn_out,
-    int* __restrict__ sub_out) {
-  const int n_quads = *n_quads_in;
-  const int skip = skip_in ? *skip_in : 0;
-  float vp[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) vp[r][c] = view_proj[4 * r + c];
-  const float cam[3] = {cam_pos[0], cam_pos[1], cam_pos[2]};
-
+// Stage A of stream entry i: its word q and chunk origin (wx, wy, wz), the
+// camera and range c, the frame size and the flags (kBackface,
+// kSubpixelCulling).
+__device__ __forceinline__ StageAResult stage_a_math(
+    int i, int q, float wx, float wy, float wz, const StageACam& c,
+    int width, int height, int flags) {
   // decode (ops/projection.decode_quads)
-  const int q = quads[i];
   const float u = (float)(q & 0x1F);
   const float v = (float)((q >> 5) & 0x1F);
   const float w = (float)(((q >> 10) & 0x3F) + 1);
@@ -89,19 +119,26 @@ __device__ __forceinline__ void stage_a_quad(
   const bool is_pos = (face & 1) == 0;
   const float ap = (float)(is_pos ? slice_idx + 1 : slice_idx);
   const float u0 = u, v0 = v, u1 = u + w, v1 = v + h;
-  const float wx = wx_in[i], wy = wy_in[i], wz = wz_in[i];
+
+  // face axes (FACE_T/B/N_AXIS; faces 6/7, unused codes of the 3-bit
+  // field, take face 5's, like the reference's select chains): u runs
+  // along y on the x faces and along x otherwise, v along z except on the
+  // z faces (y), the normal along face / 2
+  const int f2 = face >> 1;
+  const bool t_is_y = f2 == 0;
+  const bool b_is_y = f2 >= 2;
+  const int na = f2 < 2 ? f2 : 2;
 
   // differential basis (_Basis): o = vp @ (world + ap * n, 1) in the
   // reference's summation order
-  const int ta = kTAxis[face], ba = kBAxis[face], na = kNAxis[face];
   float ot[4], tt[4], bt[4];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
-    tt[r] = sel3(ta, vp[r][0], vp[r][1], vp[r][2]);
-    bt[r] = sel3(ba, vp[r][0], vp[r][1], vp[r][2]);
-    const float nr = sel3(na, vp[r][0], vp[r][1], vp[r][2]);
-    ot[r] = (((vp[r][0] * wx + vp[r][1] * wy) + vp[r][2] * wz) + vp[r][3])
-            + ap * nr;
+    const float* row = c.vp + 4 * r;
+    tt[r] = t_is_y ? row[1] : row[0];
+    bt[r] = b_is_y ? row[1] : row[2];
+    const float nr = sel3(na, row[0], row[1], row[2]);
+    ot[r] = (((row[0] * wx + row[1] * wy) + row[2] * wz) + row[3]) + ap * nr;
   }
   const float cu[4] = {u0, u1, u0, u1};
   const float cv[4] = {v0, v0, v1, v1};
@@ -136,38 +173,42 @@ __device__ __forceinline__ void stage_a_quad(
     nz_min = jmin(nz_min, oks[k] ? nz : inf);
   }
 #undef CORNER
-  const float depth_near = any_behind ? 0.0f : nz_min;
+  StageAResult res;
+  res.depth_near = any_behind ? 0.0f : nz_min;
 
   bool in_frustum = (nx_max >= -1.0f) && (nx_min <= 1.0f) &&
                     (ny_max >= -1.0f) && (ny_min <= 1.0f) &&
-                    (depth_near >= 0.0f) && (depth_near <= 1.0f);
+                    (res.depth_near >= 0.0f) && (res.depth_near <= 1.0f);
   in_frustum = (in_frustum || any_behind) && !all_behind;
 
   bool front = true;
-  if (backface) {
+  if (flags & kBackface) {
     const float plane = sel3(na, wx, wy, wz) + ap;
-    const float d = sel3(na, cam[0], cam[1], cam[2]) - plane;
+    const float d = sel3(na, c.cam[0], c.cam[1], c.cam[2]) - plane;
     front = is_pos ? (d > 0.0f) : (d < 0.0f);
   }
-  const bool in_stream = (i < n_quads) && (i >= skip);
-  bool valid = in_stream && front && in_frustum;
+  const bool in_stream = (i < c.n_quads) && (i >= c.skip);
+  res.valid = in_stream && front && in_frustum;
 
   const float wf = (float)width, hf = (float)height;
-  float sxs[4], sys[4];
+  res.subpixel = false;
+  if (flags & kSubpixelCulling) {
+    float sxs[4], sys[4];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    sxs[k] = ((nxs[k] + 1.0f) * 0.5f) * wf;
-    sys[k] = ((1.0f - nys[k]) * 0.5f) * hf;
+    for (int k = 0; k < 4; ++k) {
+      sxs[k] = ((nxs[k] + 1.0f) * 0.5f) * wf;
+      sys[k] = ((1.0f - nys[k]) * 0.5f) * hf;
+    }
+    // doubled triangle areas of the fan split (0,1,3), (0,3,2)
+    const float a013 = (sxs[3] - sxs[0]) * (sys[1] - sys[0]) -
+                       (sys[3] - sys[0]) * (sxs[1] - sxs[0]);
+    const float a032 = (sxs[2] - sxs[0]) * (sys[3] - sys[0]) -
+                       (sys[2] - sys[0]) * (sxs[3] - sxs[0]);
+    const bool tiny = (fabsf(a013) < kMinTriangleArea) &&
+                      (fabsf(a032) < kMinTriangleArea) && !any_behind;
+    res.subpixel = res.valid && tiny;
+    res.valid = res.valid && !tiny;
   }
-  // doubled triangle areas of the fan split (0,1,3), (0,3,2)
-  const float a013 = (sxs[3] - sxs[0]) * (sys[1] - sys[0]) -
-                     (sys[3] - sys[0]) * (sxs[1] - sxs[0]);
-  const float a032 = (sxs[2] - sxs[0]) * (sys[3] - sys[0]) -
-                     (sys[2] - sys[0]) * (sxs[3] - sxs[0]);
-  const bool tiny = (fabsf(a013) < kMinTriangleArea) &&
-                    (fabsf(a032) < kMinTriangleArea) && !any_behind;
-  const bool subpixel = valid && tiny;
-  valid = valid && !tiny;
 
   int bx0, bx1, by0, by1;
   if (any_behind) {
@@ -181,11 +222,33 @@ __device__ __forceinline__ void stage_a_quad(
     by0 = clip_to_int(floorf(((1.0f - ny_max) * 0.5f) * hf), height - 1);
     by1 = clip_to_int(ceilf(((1.0f - ny_min) * 0.5f) * hf), height - 1);
   }
-  valid_out[i] = valid ? 1 : 0;
-  bbx_out[i] = bx0 | (bx1 << 16);
-  bby_out[i] = by0 | (by1 << 16);
-  dn_out[i] = depth_near;
-  sub_out[i] = subpixel ? 1 : 0;
+  res.bbx = bx0 | (bx1 << 16);
+  res.bby = by0 | (by1 << 16);
+  return res;
+}
+
+// Element i of the five outputs.
+__device__ __forceinline__ void store_stage_a(const StageAOut& o, int i,
+                                              const StageAResult& r) {
+  o.valid[i] = r.valid ? 1 : 0;
+  o.bbx[i] = r.bbx;
+  o.bby[i] = r.bby;
+  o.dn[i] = r.depth_near;
+  o.sub[i] = r.subpixel ? 1 : 0;
+}
+
+// Adds the warp's subpixel and valid counts (each thread's n_sub and
+// n_valid) to counts[0] and counts[1]: a warp reduction, then one atomic
+// each from lane 0.  Integers, so the sums are exact in any order.  Every
+// thread of the warp calls it.
+__device__ __forceinline__ void count_warp(int* counts, int n_sub,
+                                           int n_valid) {
+  n_sub = __reduce_add_sync(0xffffffffu, n_sub);
+  n_valid = __reduce_add_sync(0xffffffffu, n_valid);
+  if ((threadIdx.x & 31) == 0) {
+    if (n_sub) atomicAdd(counts, n_sub);
+    if (n_valid) atomicAdd(counts + 1, n_valid);
+  }
 }
 
 }  // namespace

@@ -5,58 +5,98 @@ geometry_pallas.py``.  ``project_cull`` launches the CUDA kernel for CUDA
 tensors and runs its plain PyTorch twin (``project_cull_plain``, the same
 ``stage_a_fields`` math) for CPU tensors; on a CUDA tensor it never falls
 back to the twin.
+
+A launch costs the host more than the card, so the wrapper keeps its
+own work small: the checks read attributes only, and the five outputs and
+the two counts are views of one fresh buffer (``kernel_outputs``, the one
+place that lays it out: the C entry point takes a pointer to each).
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import _build
 from . import projection as proj_ops
 
 # launches of the CUDA kernel (not of the twin)
 launches = 0
 
+# the kernel's flag bits (csrc/stage_a.cuh kBackface, kSubpixelCulling)
+BACKFACE = 1
+SUBPIXEL = 2
+
+# consecutive quads a thread of K1 takes: 1, 2 or 4 (flag bits 2-3, their
+# log2; csrc/geometry.cu).  One is the fastest at the port's stream sizes;
+# benches/k1_call.py --variants times each.
+QUADS_PER_THREAD = 1
+
 
 def device_i32(x, device) -> torch.Tensor:
-    """An int32 scalar on ``device``: a no-op for a device tensor, a fill
-    (not a host-to-device copy) for a Python int."""
+    """An int32 scalar on ``device``: the tensor itself when it is one, a
+    fill (not a host-to-device copy) for a Python int."""
     if isinstance(x, torch.Tensor):
+        if x.dtype == torch.int32 and x.dim() == 0 and x.device == device:
+            return x
         return x.to(device, torch.int32).reshape(())
     return torch.full((), int(x), dtype=torch.int32, device=device)
 
 
-def kernel_inputs(quads, quad_world, n_quads, view_proj, cam_pos):
-    """Checked stage-A inputs for a kernel launch (K1, or K3's next
-    stream): (quads, quad_world, view_proj, cam_pos, n_quads), contiguous
-    device tensors of the kernel's types on the quads' device."""
-    gq = quads.shape[0]
-    dev = quads.device
-    if quads.dtype != torch.int32 or not quads.is_contiguous():
-        raise ValueError("quads must be a contiguous int32 tensor")
-    qw = quad_world
-    if (not isinstance(qw, torch.Tensor) or qw.shape != (3, gq)
-            or qw.dtype != torch.float32 or qw.device != dev):
-        raise ValueError("quad_world must be f32[3, GQ] on the quads' device")
-    vp = view_proj.to(dev, torch.float32).contiguous()
-    cam = cam_pos.to(dev, torch.float32).contiguous()
-    if vp.numel() != 16 or cam.numel() != 3:
-        raise ValueError("view_proj must hold 16 floats and cam_pos 3")
-    return quads, qw.contiguous(), vp, cam, device_i32(n_quads, dev)
+def _check(x, name: str, dtype, dev: int, numel: int) -> None:
+    if (not isinstance(x, torch.Tensor) or x.dtype != dtype
+            or x.get_device() != dev or x.numel() != numel
+            or not x.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous {dtype} tensor of "
+                         f"{numel} elements on the quads' device")
+
+
+def kernel_args(quads, quad_world, n_quads, view_proj, cam_pos) -> tuple:
+    """Checked stage-A inputs of a launch (K1, or K3's next stream) as the
+    C entry point takes them: the pointers of quads, quad_world, view_proj,
+    cam_pos and n_quads (a device scalar).  Device, dtype, shape and
+    contiguity are read from attributes, nothing is converted."""
+    if (quads.dtype != torch.int32 or quads.dim() != 1
+            or not quads.is_contiguous()):
+        raise ValueError("quads must be a contiguous int32[GQ] tensor")
+    gq, dev = quads.shape[0], quads.get_device()
+    _check(quad_world, "quad_world", torch.float32, dev, 3 * gq)
+    if quad_world.shape != (3, gq):
+        raise ValueError("quad_world must be f32[3, GQ]")
+    _check(view_proj, "view_proj", torch.float32, dev, 16)
+    _check(cam_pos, "cam_pos", torch.float32, dev, 3)
+    _check(n_quads, "n_quads", torch.int32, dev, 1)
+    return (quads.data_ptr(), quad_world.data_ptr(), view_proj.data_ptr(),
+            cam_pos.data_ptr(), n_quads.data_ptr())
 
 
 def kernel_outputs(gq: int, device) -> dict[str, torch.Tensor]:
-    """Stage-A output tensors for a kernel launch, in its argument order."""
-    return dict(
-        valid=torch.empty(gq, dtype=torch.bool, device=device),
-        bbx=torch.empty(gq, dtype=torch.int32, device=device),
-        bby=torch.empty(gq, dtype=torch.int32, device=device),
-        depth_near=torch.empty(gq, dtype=torch.float32, device=device),
-        subpixel=torch.empty(gq, dtype=torch.int32, device=device))
+    """The output dict of one launch over ``gq`` quads: views of one fresh
+    i32 buffer holding bbx, bby, subpixel i32 and depth_near f32 (gq words
+    each, so 16-byte aligned rows when gq is a multiple of 4), valid as gq
+    bytes in (gq + 3) // 4 words, then ``subpix_total`` and
+    ``valid_count`` (adjacent i32 scalars).  Never cached: a carried or
+    shared stage A is still read while the next one is written."""
+    nv = (gq + 3) // 4
+    buf = torch.empty(4 * gq + nv + 2, dtype=torch.int32, device=device)
+    bbx, bby, sub, dn, valid, counts = buf.split((gq, gq, gq, gq, nv, 2))
+    valid = valid.view(torch.bool)
+    subpix_total, valid_count = counts.unbind()
+    return dict(valid=valid if gq % 4 == 0 else valid[:gq], bbx=bbx,
+                bby=bby, depth_near=dn.view(torch.float32), subpixel=sub,
+                subpix_total=subpix_total, valid_count=valid_count)
+
+
+def output_ptrs(out: dict) -> tuple:
+    """The pointers the C entry points take for ``kernel_outputs``' dict:
+    valid, bbx, bby, depth_near, subpixel and the two counts."""
+    return (out["valid"].data_ptr(), out["bbx"].data_ptr(),
+            out["bby"].data_ptr(), out["depth_near"].data_ptr(),
+            out["subpixel"].data_ptr(), out["subpix_total"].data_ptr())
 
 
 def project_cull_plain(quads, quad_world, n_quads, view_proj, cam_pos, *,
                        width: int, height: int, backface_culling: bool = True,
-                       skip_quads=0):
+                       subpixel_culling: bool = True, skip_quads=0):
     """Plain PyTorch twin of K1 with its signature and outputs."""
     dev = quads.device
     idx = torch.arange(quads.shape[0], dtype=torch.int32, device=dev)
@@ -67,42 +107,54 @@ def project_cull_plain(quads, quad_world, n_quads, view_proj, cam_pos, *,
         proj_ops.decode_quads(quads), qw, in_stream,
         view_proj.to(dev, torch.float32).reshape(4, 4),
         cam_pos.to(dev, torch.float32).reshape(3), width=width,
-        height=height, backface_culling=backface_culling)
+        height=height, backface_culling=backface_culling,
+        subpixel_culling=subpixel_culling)
+    sub = pr["subpixel"].to(torch.int32)
     return dict(valid=pr["valid"],
                 bbx=pr["bb_x0"] | (pr["bb_x1"] << 16),
                 bby=pr["bb_y0"] | (pr["bb_y1"] << 16),
-                depth_near=pr["depth_near"],
-                subpixel=pr["subpixel"].to(torch.int32))
+                depth_near=pr["depth_near"], subpixel=sub,
+                subpix_total=sub.sum(dtype=torch.int32),
+                valid_count=pr["valid"].sum(dtype=torch.int32))
 
 
 def project_cull(quads, quad_world, n_quads, view_proj, cam_pos, *,
                  width: int, height: int, backface_culling: bool = True,
-                 skip_quads=0):
+                 subpixel_culling: bool = True, skip_quads=0):
     """Stage A over the gather stream (exact mode).
 
     ``quads`` int32[GQ] words, ``quad_world`` f32[3, GQ] chunk origins,
     ``n_quads`` the stream length (a device scalar: no host sync),
-    ``view_proj`` f32[4, 4], ``cam_pos`` f32[3].  Returns the dict of the
-    reference's ``project_cull_pallas``: ``valid`` bool, ``bbx``/``bby``
-    (x0|x1<<16 / y0|y1<<16) i32, ``depth_near`` f32, ``subpixel`` i32, each
-    [GQ]."""
+    ``view_proj`` f32[4, 4], ``cam_pos`` f32[3]; on the card all of them
+    contiguous on the quads' device.  Returns the dict of the reference's
+    ``project_cull_pallas``: ``valid`` bool, ``bbx``/``bby`` (x0|x1<<16 /
+    y0|y1<<16) i32, ``depth_near`` f32, ``subpixel`` i32, each [GQ]; and
+    the sums ``subpix_total`` and ``valid_count`` (i32 scalars).  Without
+    ``subpixel_culling`` no quad is sub-pixel and tiny quads stay
+    valid."""
     if quads.device.type != "cuda":
         return project_cull_plain(
             quads, quad_world, n_quads, view_proj, cam_pos, width=width,
             height=height, backface_culling=backface_culling,
-            skip_quads=skip_quads)
+            subpixel_culling=subpixel_culling, skip_quads=skip_quads)
     global launches
-    from .. import _build
-
-    ins = kernel_inputs(quads, quad_world, n_quads, view_proj, cam_pos)
+    dev = quads.device
+    # a Python int becomes a device scalar here, so that it outlives the
+    # launch's enqueueing (not the step's case: it passes device scalars)
+    n_quads = device_i32(n_quads, dev)
+    args = kernel_args(quads, quad_world, n_quads, view_proj, cam_pos)
     skip = (None if isinstance(skip_quads, int) and skip_quads == 0
-            else device_i32(skip_quads, quads.device))
-    out = kernel_outputs(quads.shape[0], quads.device)
+            else device_i32(skip_quads, dev))
+    gq = quads.shape[0]
+    out = kernel_outputs(gq, dev)
+    # the raw handle of the current stream: torch.cuda.current_stream()
+    # builds a Stream object on every call
     err = _build.lib().dpvr_project_cull(
-        *(x.data_ptr() for x in ins),
-        None if skip is None else skip.data_ptr(), quads.shape[0], width,
-        height, int(backface_culling), *(x.data_ptr() for x in out.values()),
-        torch.cuda.current_stream(quads.device).cuda_stream)
+        *args, None if skip is None else skip.data_ptr(), gq, width, height,
+        (BACKFACE if backface_culling else 0)
+        | (SUBPIXEL if subpixel_culling else 0)
+        | (QUADS_PER_THREAD.bit_length() - 1) << 2, *output_ptrs(out),
+        torch._C._cuda_getCurrentRawStream(dev.index))
     _build.check(err, "project_cull")
     launches += 1
     return out

@@ -89,10 +89,12 @@ class _Basis:
 
 
 def stage_a_fields(dec, quad_world, in_stream, vp, cam, *, width: int,
-                   height: int, backface_culling: bool = True):
+                   height: int, backface_culling: bool = True,
+                   subpixel_culling: bool = True):
     """Stage A on decoded quads: project the 4 corners, backface + frustum +
     sub-pixel cull, integer screen bbox.  The plain twin of kernel K1
-    (csrc/geometry.cu); see the reference's ``stage_a_fields``."""
+    (csrc/geometry.cu); see the reference's ``stage_a_fields``.  Without
+    ``subpixel_culling`` no quad is sub-pixel and tiny quads stay valid."""
     face = dec["face"]
     dev = face.device
     vp = vp.to(torch.float32)
@@ -144,20 +146,22 @@ def stage_a_fields(dec, quad_world, in_stream, vp, cam, *, width: int,
     valid = in_stream & front & in_frustum
     wf, hf = float(width), float(height)
 
-    # sub-pixel cull: fan split (0,1,3),(0,3,2) of the corner order
-    # c00, c10, c01, c11; both doubled areas below MIN_TRIANGLE_AREA
-    sxs = [(n + 1.0) * 0.5 * wf for n in nxs]
-    sys_ = [(1.0 - n) * 0.5 * hf for n in nys]
+    subpixel = torch.zeros_like(valid)
+    if subpixel_culling:
+        # fan split (0,1,3),(0,3,2) of the corner order c00, c10, c01,
+        # c11; both doubled areas below MIN_TRIANGLE_AREA
+        sxs = [(n + 1.0) * 0.5 * wf for n in nxs]
+        sys_ = [(1.0 - n) * 0.5 * hf for n in nys]
 
-    def area2(i, j, k):
-        return ((sxs[k] - sxs[i]) * (sys_[j] - sys_[i])
-                - (sys_[k] - sys_[i]) * (sxs[j] - sxs[i]))
+        def area2(i, j, k):
+            return ((sxs[k] - sxs[i]) * (sys_[j] - sys_[i])
+                    - (sys_[k] - sys_[i]) * (sxs[j] - sxs[i]))
 
-    thr = np.float32(MIN_TRIANGLE_AREA).item()
-    tiny = ((area2(0, 1, 3).abs() < thr) & (area2(0, 3, 2).abs() < thr)
-            & ~any_behind)
-    subpixel = valid & tiny
-    valid = valid & ~tiny
+        thr = np.float32(MIN_TRIANGLE_AREA).item()
+        tiny = ((area2(0, 1, 3).abs() < thr) & (area2(0, 3, 2).abs() < thr)
+                & ~any_behind)
+        subpixel = valid & tiny
+        valid = valid & ~tiny
 
     sx0 = (nx_min + 1.0) * 0.5 * wf
     sx1 = (nx_max + 1.0) * 0.5 * wf

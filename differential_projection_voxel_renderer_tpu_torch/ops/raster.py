@@ -406,18 +406,19 @@ def rasterize_tiles(records, tile_starts, tile_counts, octet_rows,
     if next_geom is None:
         err = _build.lib().dpvr_rasterize_tiles(
             *raster_args, *(None,) * 5, 0, int(backface_culling),
-            *(None,) * 5, stream)
+            *(None,) * 6, stream)
         _build.check(err, "rasterize_tiles")
         launches += 1
         return color, depth
-    gin = geom_ops.kernel_inputs(*next_geom)
-    if gin[0].device != dev:
+    quads2, qw2, n2, vp2, cp2 = next_geom
+    if quads2.device != dev:
         raise ValueError("rasterize_tiles: next_geom on another device")
-    geom = geom_ops.kernel_outputs(gin[0].shape[0], dev)
+    n2 = geom_ops.device_i32(n2, dev)
+    gin = geom_ops.kernel_args(quads2, qw2, n2, vp2, cp2)
+    geom = geom_ops.kernel_outputs(quads2.shape[0], dev)
     err = _build.lib().dpvr_rasterize_tiles(
-        *raster_args, *(x.data_ptr() for x in gin), gin[0].shape[0],
-        int(backface_culling), *(x.data_ptr() for x in geom.values()),
-        stream)
+        *raster_args, *gin, quads2.shape[0], int(backface_culling),
+        *geom_ops.output_ptrs(geom), stream)
     _build.check(err, "rasterize_tiles (K3)")
     launches_geom += 1
     return color, depth, geom

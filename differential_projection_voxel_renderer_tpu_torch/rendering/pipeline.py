@@ -85,7 +85,7 @@ def _pre_geom_of(ga):
     """K1/K3 output dict -> the pre_geom tuple (valid, bbx, bby,
     depth_near, subpix_total)."""
     return (ga["valid"], ga["bbx"], ga["bby"], ga["depth_near"],
-            ga["subpixel"].sum(dtype=torch.int32))
+            ga["subpix_total"])
 
 
 def render_step(quads, quad_world, n_quads, view_proj, cam_pos, *,
@@ -148,11 +148,16 @@ def render_step(quads, quad_world, n_quads, view_proj, cam_pos, *,
     i32 = torch.int32
     n_quads = geom_ops.device_i32(n_quads, dev)
 
+    # stage A's own valid count stands for ``count`` while nothing masks
+    # ``valid`` after it (no carried stage A, Hi-Z cull or band)
+    valid_count = None
     if pre_geom is None:
-        valid_a, bbx_a, bby_a, dn_a, subpix_total = _geom_stage(
+        ga = geom_ops.project_cull(
             quads, quad_world, n_quads, view_proj, cam_pos, width=width,
             height=height, backface_culling=backface_culling,
             skip_quads=skip_quads)
+        valid_a, bbx_a, bby_a, dn_a, subpix_total = _pre_geom_of(ga)
+        valid_count = ga["valid_count"]
     else:
         # a shared stage A over the whole stream: this pass's quad range
         # folds in as a mask
@@ -171,6 +176,7 @@ def render_step(quads, quad_world, n_quads, view_proj, cam_pos, *,
             width=width) & valid_a
         valid_a = valid_a & ~occ
         hiz_culled = occ.sum(dtype=i32)
+        valid_count = None
     bh = height
     if band_h is not None:
         # the band's quads, their rows rebased to the band (stage A stays
@@ -181,7 +187,8 @@ def render_step(quads, quad_world, n_quads, view_proj, cam_pos, *,
                    & (y0q <= band_y0 + band_h - 1))
         bby_a = (torch.clamp(y0q - band_y0, 0, band_h - 1)
                  | (torch.clamp(y1q - band_y0, 0, band_h - 1) << 16))
-    count = valid_a.sum(dtype=i32)
+        valid_count = None
+    count = valid_a.sum(dtype=i32) if valid_count is None else valid_count
 
     out_h = -bh % tile_h + bh  # pad to a tile multiple
     tiles_y, tiles_x = out_h // tile_h, width // tile_w
@@ -650,15 +657,13 @@ def _fused_frame_insert(quad_pool, counts6_pool, frame_u, *, vcap: int,
 
 
 def _geom_stage(quads, quad_world, n_quads, view_proj, cam_pos, *,
-                width: int, height: int, backface_culling: bool,
-                skip_quads=0):
+                width: int, height: int, backface_culling: bool):
     """Stage A alone -> the pre_geom tuple; seeds the frames-in-flight
     pipeline (a steady step gets it from K3) and is shared by the two
     passes of ``_two_pass_step``."""
     return _pre_geom_of(geom_ops.project_cull(
         quads, quad_world, n_quads, view_proj, cam_pos, width=width,
-        height=height, backface_culling=backface_culling,
-        skip_quads=skip_quads))
+        height=height, backface_culling=backface_culling))
 
 
 def _geom_camf(quads, quad_world, n_quads, cam_f, **geom_kw):

@@ -48,14 +48,34 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _fuzz_stream(n, seed=1234):
+def _fuzz_stream(n, seed=1234, max_size=64):
+    """Random quad words (sizes 1..max_size) and chunk origins."""
     rng = np.random.default_rng(seed)
     u, v, w, h, blk, sl, face = (rng.integers(0, hi, n) for hi in
-                                 (32, 32, 64, 64, 4, 32, 6))
+                                 (32, 32, max_size, max_size, 4, 32, 6))
     words = (u | (v << 5) | (w << 10) | (h << 16) | (blk << 22) | (sl << 24)
              | (face << 29)).astype(np.uint32)
     qw = (rng.integers(-2, 2, (3, n)) * 32).astype(np.float32)
     return projection.as_quad_words(words), torch.from_numpy(qw)
+
+
+def _same_geometry(got, want):
+    """Stage A's five outputs bit for bit and its two counts."""
+    for k in ("valid", "bbx", "bby", "subpixel", "subpix_total",
+              "valid_count"):
+        assert got[k].dtype == want[k].dtype, k
+        assert torch.equal(got[k], want[k]), k
+    a, b = got["depth_near"], want["depth_near"]
+    assert bool(((a.view(torch.int32) == b.view(torch.int32))
+                 | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _camera_args(name, device, aspect=2.0):
+    pos, tgt = CAMERAS[name]
+    c = Camera(np.asarray(pos, np.float32), aspect)
+    c.look_at(np.asarray(tgt, np.float32))
+    return (torch.from_numpy(c.view_projection_matrix()).to(device),
+            torch.from_numpy(c.position.copy()).to(device))
 
 
 @pytest.mark.cuda
@@ -73,12 +93,7 @@ def test_project_cull_kernel_matches_twin(cuda_device, cam):
     got = geometry.project_cull(*args, width=256, height=128)
     assert geometry.launches == before + 1
     ref = geometry.project_cull_plain(*args, width=256, height=128)
-    for k in ("valid", "bbx", "bby", "subpixel"):
-        assert torch.equal(got[k], ref[k]), k
-    a, b = got["depth_near"], ref["depth_near"]
-    same = (a.view(torch.int32) == b.view(torch.int32)) | (
-        torch.isnan(a) & torch.isnan(b))
-    assert bool(same.all())
+    _same_geometry(got, ref)
 
 
 @pytest.mark.cuda
@@ -96,14 +111,93 @@ def test_project_cull_kernel_skip_matches_twin(cuda_device):
                                     device=cuda_device)):
         got = geometry.project_cull(*args, skip_quads=skip, **kw)
         ref = geometry.project_cull_plain(*args, skip_quads=skip, **kw)
-        for k in ("valid", "bbx", "bby", "subpixel"):
-            assert torch.equal(got[k], ref[k]), k
-        a, b = got["depth_near"], ref["depth_near"]
-        assert bool(((a.view(torch.int32) == b.view(torch.int32))
-                     | (torch.isnan(a) & torch.isnan(b))).all())
+        _same_geometry(got, ref)
         assert not bool(got["valid"][:3000].any())
         assert torch.equal(got["valid"][3000:], full[3000:])
     assert bool(full[:3000].any())
+
+
+@pytest.mark.cuda
+def test_project_cull_kernel_without_subpixel_culling(cuda_device):
+    """``subpixel_culling=False`` on a stream of 1x1 quads seen from afar:
+    the kernel equals its twin, counts included, and keeps as valid the
+    quads that the default culls as sub-pixel."""
+    words, qw = _fuzz_stream(8192, seed=7, max_size=1)
+    args = (words.to(cuda_device), qw.to(cuda_device),
+            torch.tensor(7000, dtype=torch.int32, device=cuda_device),
+            *_camera_args("far", cuda_device))
+    kw = dict(width=256, height=128)
+    culled = geometry.project_cull(*args, **kw)
+    assert int(culled["subpix_total"]) > 0
+    got = geometry.project_cull(*args, subpixel_culling=False, **kw)
+    _same_geometry(got, geometry.project_cull_plain(
+        *args, subpixel_culling=False, **kw))
+    assert int(got["subpix_total"]) == 0
+    assert torch.equal(got["valid"],
+                       culled["valid"] | (culled["subpixel"] != 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qpt", [1, 2, 4])
+@pytest.mark.parametrize("gq,offset", [(8192, 0), (8190, 0), (8193, 0),
+                                       (8192, 1)])
+def test_project_cull_kernel_any_length(cuda_device, monkeypatch, qpt, gq,
+                                        offset):
+    """K1 at one, two and four quads a thread, on lengths that are not a
+    multiple of a block, nor of 2 or 4 (the kernel's groups), and on a
+    stream of words that starts off a 16-byte boundary (the quads then go
+    one by one): equal to the twin, counts included; every call returns a
+    fresh buffer."""
+    monkeypatch.setattr(geometry, "QUADS_PER_THREAD", qpt)
+    words, qw = _fuzz_stream(gq + offset, seed=gq)
+    quads = words.to(cuda_device)[offset:]
+    assert quads.data_ptr() % 16 == 4 * offset
+    args = (quads, qw[:, offset:].contiguous().to(cuda_device),
+            torch.tensor(gq - 5, dtype=torch.int32, device=cuda_device),
+            *_camera_args("above", cuda_device))
+    kw = dict(width=256, height=128)
+    got = geometry.project_cull(*args, **kw)
+    _same_geometry(got, geometry.project_cull_plain(*args, **kw))
+    again = geometry.project_cull(*args, **kw)
+    assert again["bbx"].data_ptr() != got["bbx"].data_ptr()
+    _same_geometry(again, got)
+
+
+@pytest.mark.cuda
+def test_project_cull_kernel_counts_on_two_streams(cuda_device):
+    """Launches on two streams at once: each launch's counts are its own
+    (each zeroes its own slots and adds to them alone)."""
+    kw = dict(width=256, height=128)
+    calls = []
+    for seed, cam in ((1, "above"), (2, "far")):
+        words, qw = _fuzz_stream(65536, seed=seed)
+        calls.append((words.to(cuda_device), qw.to(cuda_device),
+                      torch.tensor(60000, dtype=torch.int32,
+                                   device=cuda_device),
+                      *_camera_args(cam, cuda_device)))
+    refs = [geometry.project_cull_plain(*a, **kw) for a in calls]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(8):
+        for j, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[j].append(geometry.project_cull(*calls[j], **kw))
+    torch.cuda.synchronize()
+    for j in range(2):
+        for got in outs[j]:
+            _same_geometry(got, refs[j])
+
+
+@pytest.mark.cuda
+def test_project_cull_kernel_keeps_its_budget(cuda_device):
+    """K1 builds without spills at one, two and four quads a thread."""
+    _, log = _build.build(force=True, verbose=True)
+    reps = [r for name, r in _build.ptxas_report(log).items()
+            if "19project_cull_kernel" in name]
+    assert len(reps) == 3, reps
+    for rep in reps:
+        assert rep["spill_stores"] == 0 and rep["spill_loads"] == 0, rep
 
 
 @pytest.mark.cuda
@@ -132,14 +226,6 @@ def test_render_step_on_card_matches_cpu(cuda_device, name):
     rec = pipeline.render_step(*cargs, debug_return_records=True, **ckw)
     parity.frame_parity(c1.cpu().numpy(), d1.cpu().numpy(), c2.numpy(),
                         d2.numpy(), rec[0].numpy())
-
-
-def _same_geometry(got, want):
-    for k in ("valid", "bbx", "bby", "subpixel"):
-        assert torch.equal(got[k], want[k]), k
-    a, b = got["depth_near"], want["depth_near"]
-    assert bool(((a.view(torch.int32) == b.view(torch.int32))
-                 | (torch.isnan(a) & torch.isnan(b))).all())
 
 
 @pytest.mark.cuda

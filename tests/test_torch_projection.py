@@ -110,18 +110,17 @@ def test_stage_a_matches_jax_bit_exact(stream, cam):
         assert not got["valid"].numpy()[behind].all()  # some fully behind
 
 
-@pytest.mark.parametrize("cam", sorted(CAMERAS))
-def test_project_cull_twin_matches_geometry_kernel(cam):
-    """K1's twin vs the Pallas geometry kernel in interpret mode (see the
-    module note for the two contracted fields)."""
-    words, qw = STREAMS["fuzz"]
+def _assert_twin_matches_geometry_kernel(stream, cam, subpixel_culling):
+    words, qw = STREAMS[stream]
     vp, cp = _camera(cam)
     ref = G.project_cull_pallas(
         jnp.asarray(words), _jax_world(qw), N_QUADS, jnp.asarray(vp),
-        jnp.asarray(cp), width=W, height=H, interpret=True)
+        jnp.asarray(cp), width=W, height=H, interpret=True,
+        subpixel_culling=subpixel_culling)
     got = TG.project_cull(
         TP.as_quad_words(words), torch.from_numpy(qw), N_QUADS,
-        torch.from_numpy(vp), torch.from_numpy(cp), width=W, height=H)
+        torch.from_numpy(vp), torch.from_numpy(cp), width=W, height=H,
+        subpixel_culling=subpixel_culling)
     ref = {k: np.asarray(v) for k, v in ref.items()}
     got = {k: v.numpy() for k, v in got.items()}
     for k in ("valid", "bby", "subpixel"):
@@ -136,7 +135,8 @@ def test_project_cull_twin_matches_geometry_kernel(cam):
     # ... while the twin is bit-exact against the XLA form of the same math
     xla = JP.project_and_cull(
         jnp.asarray(words), _jax_world(qw), jnp.arange(N) < N_QUADS,
-        JP.view_tables(jnp.asarray(vp), jnp.asarray(cp)), width=W, height=H)
+        JP.view_tables(jnp.asarray(vp), jnp.asarray(cp)), width=W, height=H,
+        subpixel_culling=subpixel_culling)
     xla = {k: np.asarray(v) for k, v in xla.items()}
     np.testing.assert_array_equal(xla["valid"], got["valid"])
     np.testing.assert_array_equal(xla["bb_x0"] | (xla["bb_x1"] << 16),
@@ -145,6 +145,31 @@ def test_project_cull_twin_matches_geometry_kernel(cam):
                                   got["bby"])
     np.testing.assert_array_equal(xla["depth_near"], got["depth_near"])
     np.testing.assert_array_equal(xla["subpixel"], got["subpixel"])
+    return ref, got
+
+
+@pytest.mark.parametrize("cam", sorted(CAMERAS))
+def test_project_cull_twin_matches_geometry_kernel(cam):
+    """K1's twin vs the Pallas geometry kernel in interpret mode (see the
+    module note for the two contracted fields)."""
+    _assert_twin_matches_geometry_kernel("fuzz", cam, True)
+
+
+@pytest.mark.parametrize("cam", sorted(CAMERAS))
+def test_project_cull_twin_without_subpixel_culling(cam):
+    """``subpixel_culling=False``: no quad is sub-pixel and the tiny quads
+    stay valid, in the twin as in the Pallas kernel, on the fuzz chunk's
+    mesh (the far camera sees 867 of its quads as sub-pixel)."""
+    _, got = _assert_twin_matches_geometry_kernel("fuzz_chunk", cam, False)
+    assert not got["subpixel"].any()
+    culling = TG.project_cull(
+        TP.as_quad_words(STREAMS["fuzz_chunk"][0]),
+        torch.from_numpy(STREAMS["fuzz_chunk"][1]), N_QUADS,
+        *(torch.from_numpy(x) for x in _camera(cam)), width=W, height=H)
+    # the quads the default culls as sub-pixel are exactly the ones added
+    np.testing.assert_array_equal(
+        got["valid"], culling["valid"].numpy()
+        | culling["subpixel"].numpy().astype(bool))
 
 
 @pytest.mark.parametrize("skip", [1024, 2500])
@@ -201,3 +226,63 @@ def test_pack_tilebox_matches_jax():
                             ("bb_x0", "bb_x1", "bb_y0", "bb_y1")),
                           tile_h=16, tile_w=128)
     np.testing.assert_array_equal(np.asarray(ref), got.numpy())
+
+
+@pytest.mark.parametrize("gq", [4096, 4093])
+def test_kernel_outputs_are_disjoint_views_of_one_buffer(gq):
+    """K1's outputs: the reference's dtypes and shapes, the two counts as
+    adjacent i32 scalars, every view in one storage and none overlapping
+    another, the pointers the C entry takes in its order; each call a
+    fresh buffer."""
+    out = TG.kernel_outputs(gq, "cpu")
+    want = dict(valid=torch.bool, bbx=torch.int32, bby=torch.int32,
+                depth_near=torch.float32, subpixel=torch.int32,
+                subpix_total=torch.int32, valid_count=torch.int32)
+    assert list(out) == list(want)
+    storage = out["bbx"].untyped_storage()
+    base = storage.data_ptr()
+    spans = []
+    for k, dtype in want.items():
+        v = out[k]
+        assert v.dtype == dtype and v.is_contiguous(), k
+        assert v.shape == (() if k in ("subpix_total", "valid_count")
+                           else (gq,)), k
+        assert v.untyped_storage().data_ptr() == base, k
+        lo = v.data_ptr()
+        spans.append((lo, lo + v.numel() * v.element_size()))
+    spans.sort()
+    assert spans[0][0] >= base and spans[-1][1] <= base + storage.nbytes()
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert TG.output_ptrs(out) == tuple(
+        out[k].data_ptr() for k in ("valid", "bbx", "bby", "depth_near",
+                                    "subpixel", "subpix_total"))
+    assert out["valid_count"].data_ptr() == out["subpix_total"].data_ptr() + 4
+    if gq % 4 == 0:  # the kernel's 16-byte accesses
+        assert all(p % 16 == 0 for p in TG.output_ptrs(out)[:5])
+    again = TG.kernel_outputs(gq, "cpu")
+    assert again["bbx"].untyped_storage().data_ptr() != base
+
+
+@pytest.mark.parametrize("subpixel_culling", [True, False])
+@pytest.mark.parametrize("stream", sorted(STREAMS))
+def test_project_cull_counts_match_sums(stream, subpixel_culling):
+    """The twin's two counts are the sums of its outputs and of the Pallas
+    kernel's (interpret mode) on the same stream, under the far camera."""
+    words, qw = STREAMS[stream]
+    vp, cp = _camera("far")
+    got = TG.project_cull_plain(
+        TP.as_quad_words(words), torch.from_numpy(qw), N_QUADS,
+        torch.from_numpy(vp), torch.from_numpy(cp), width=W, height=H,
+        subpixel_culling=subpixel_culling)
+    assert got["subpix_total"].dtype == got["valid_count"].dtype == (
+        torch.int32)
+    assert int(got["subpix_total"]) == int(got["subpixel"].sum())
+    assert int(got["valid_count"]) == int(got["valid"].sum())
+    ref = G.project_cull_pallas(
+        jnp.asarray(words), _jax_world(qw), N_QUADS, jnp.asarray(vp),
+        jnp.asarray(cp), width=W, height=H, interpret=True,
+        subpixel_culling=subpixel_culling)
+    assert int(got["subpix_total"]) == int(jnp.sum(ref["subpixel"]))
+    assert int(got["valid_count"]) == int(jnp.sum(ref["valid"]))
+    assert int(got["subpix_total"]) == (
+        867 if subpixel_culling and stream == "fuzz_chunk" else 0)
