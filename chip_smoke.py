@@ -6,8 +6,10 @@
 Builds the port's CUDA kernels from ``csrc/`` (nvcc, sm_90a), drives the
 serial frame path of ``Engine.render_frame`` (also in the two-pass and
 temporal Hi-Z modes), the frames-in-flight path of
-``Engine.render_frame_pipelined``, the packed raster path and the row
-bands and camera batch of ``parallel/sharded_render.py`` at the
+``Engine.render_frame_pipelined``, the packed raster path, the row
+bands and camera batch of ``parallel/sharded_render.py`` and the
+application surface (warm-ups, flythrough, stale pool, shading toggle,
+production parity, graft entry points, demo) at the
 headline scene (1280x720, view distance 12, textures and shading on, from
 the reference start pose) and the cost-probe path at the probes' 736x1280
 frame, holds each kernel against its plain PyTorch version on the card,
@@ -114,7 +116,29 @@ and times kernels and frames.  Phases:
    too.  K2 with ``y0_px`` against its plain version on the last band of
    each split (K2 must leave a padded buffer's padded rows as they
    started; the pixels each writes there are printed), and each band's K2
-   time beside the full frame's.
+   time beside the full frame's;
+14. the application surface, each part with the counters zeroed before
+   and read after it: a fresh engine of phase 3's configuration primed
+   with ``prime_all``; ``warm_buckets()``, a frame at the start pose (equal
+   to phase 3's static frame bit for bit) and ``warm_streaming()`` (the
+   pool unchanged); ``app/flythrough.run_flythrough`` over
+   ``default_path(24)`` (frames a second by CUDA events and the host
+   clock; K1 and K2 once a frame); the same keys on a second engine in
+   the one-frame-stale pool mode (warmed with
+   ``warm_buckets(pipelined=True)``, which launches K3), the frames that
+   differ from the serial ones and the chunks meshed late counted, then
+   with the camera held at the last key its second frame equal to the
+   serial engine's bit for bit and the pools equal chunk by chunk; the
+   same for a serial and a stale engine primed with ``prime()`` only,
+   whose flight streams visible chunks (some frames must differ);
+   ``toggle_shading()`` twice on the
+   phase-3 engine (coverage and depth kept, colours changed, the frame
+   after toggling back equal bit for bit);
+   ``rendering/parity.run_production_parity`` on phase 3's vd12 static
+   stream (its verdict, the PARITY line); ``graft_entry.entry()`` and
+   ``dryrun_multichip(4)`` and ``(8)``; the demo's ``main`` into a
+   temporary PPM at 1280x720, view distance 6 (its size checked).  The
+   seconds of each part are printed.
 
 The script imports the port package and nothing else of the repo; before
 it prints its result it checks that neither jax nor any module of the JAX
@@ -125,7 +149,9 @@ card's float32 rate).  Its last three lines are the JSON object with one
 entry per kernel (K1-K4, and M1 at ``a_base`` and M2 at ``make9``'s 4x5
 form with every probe site each replaces; K2's entry also gives its empty
 floor, its launches on the paths of phases 12-13, its time with an init
-frame and each band's), the card's name and power limit as nvidia-smi gives
+frame and each band's, its wrapper's host us and the production parity
+verdict; K1-K3 give their launches on each part of phase 14, K3 and K4
+their device time from a CUDA graph), the card's name and power limit as nvidia-smi gives
 them, and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, when there is no CUDA device or the package is not beside this
 script.
@@ -146,6 +172,11 @@ REF = "differential_projection_voxel_renderer_tpu"
 WIDTH, HEIGHT, VIEW_DISTANCE = 1280, 720, 12
 START_POS, START_TARGET = (0.0, 10.0, 20.0), (0.0, 0.0, -60.0)
 N_TIMED, N_TIMED_PIPELINED, N_MOVING = 50, 20, 10
+# phase 14's flythrough: default_path's keys; its pools, primed with
+# prime_all: the world settled at the start pose and at the last key holds
+# about as many chunks as the JAX benches' 8192 slots (phase 14 prints it)
+FLY_KEYS = 24
+APP_POOL_SLOTS = 16384
 # exact occlusion: the two-pass mode's near pass (MacrotileRenderConfig's
 # default), and the wall scene's (tests/test_macrotile.py)
 NEAR_QUADS, WALL_NEAR = 8192, 16
@@ -240,10 +271,11 @@ def reset_counters() -> None:
 # ------------------------------------------------------------- main path
 
 
-def new_engine(torch, config=None):
+def new_engine(torch, config=None, prime_all=False, pool_slots=4096):
     """An Engine on the card at the headline scene (``config``, by default
     RenderConfig(WIDTH, HEIGHT)), its world settled and primed at the start
-    pose: (engine, world seconds, prime seconds)."""
+    pose (every loaded chunk meshed with ``prime_all``): (engine, world
+    seconds, prime seconds)."""
     import numpy as np
 
     from differential_projection_voxel_renderer_tpu_torch.app.engine import (
@@ -254,13 +286,17 @@ def new_engine(torch, config=None):
 
     t0 = time.perf_counter()
     eng = Engine(config or RenderConfig(WIDTH, HEIGHT),
-                 WorldConfig(view_distance=VIEW_DISTANCE))
+                 WorldConfig(view_distance=VIEW_DISTANCE),
+                 pool_slots=pool_slots)
     eng.camera.position = np.array(START_POS, np.float32)
     eng.camera.look_at(np.array(START_TARGET, np.float32))
     while eng.world.update(eng.camera.position):
         pass
     t1 = time.perf_counter()
-    eng.prime()
+    if prime_all:
+        eng.prime_all()
+    else:
+        eng.prime()
     return eng, t1 - t0, time.perf_counter() - t1
 
 
@@ -1021,6 +1057,311 @@ def band_path(torch, eng, serial, card):
                                      for k, (r, g) in band_ms.items())
         + f"; {card}")
     return launches, band_ms, err
+
+
+def pool_snapshot(torch, pool):
+    """Everything of a QuadPool that a later frame or slot choice reads:
+    device rows and counts mirror (copies), host tables, free list, used
+    mask."""
+    return dict(quads=pool.quads.clone(), c6=pool.counts6_dev.clone(),
+                counts=pool.counts.copy(), counts6=pool.counts6.copy(),
+                positions=pool.positions.copy(), by_pos=dict(pool.by_pos),
+                free=list(pool._free), used=pool._used.copy(),
+                drops=pool.overflow_drops)
+
+
+def same_pool_snapshot(torch, a, b) -> bool:
+    import numpy as np
+
+    return all(torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor)
+               else np.array_equal(a[k], b[k])
+               if isinstance(a[k], np.ndarray) else a[k] == b[k]
+               for k in a)
+
+
+def same_pool_content(torch, pa, pb) -> bool:
+    """The two pools hold the same chunks with the same rows (up to each
+    chunk's count), host counts and device counts mirror; slot numbers may
+    differ."""
+    import numpy as np
+
+    if set(pa.by_pos) != set(pb.by_pos):
+        return False
+    keys = sorted(pa.by_pos)
+    sa = np.array([pa.by_pos[k] for k in keys], np.int64)
+    sb = np.array([pb.by_pos[k] for k in keys], np.int64)
+    if not (np.array_equal(pa.counts6[sa], pb.counts6[sb])
+            and np.array_equal(pa.counts[sa], pb.counts[sb])):
+        return False
+    dev = pa.quads.device
+    ia, ib = torch.from_numpy(sa).to(dev), torch.from_numpy(sb).to(dev)
+    n = torch.from_numpy(pa.counts[sa].astype(np.int64)).to(dev)
+    live = torch.arange(pa.qcap, device=dev)[None, :] < n[:, None]
+    return bool(torch.equal(pa.counts6_dev[ia], pb.counts6_dev[ib])
+                and torch.equal(torch.where(live, pa.quads[ia], 0),
+                                torch.where(live, pb.quads[ib], 0)))
+
+
+def app_path(torch, eng3, serial, static, card):
+    """Phase 14: the application surface on the card.  The launch counters
+    are zeroed before each part and read after it.
+
+    - a fresh engine of phase 3's configuration, settled and primed with
+      prime_all: warm_buckets(), one frame at the start pose (equal to
+      phase 3's static frame bit for bit: colour, depth, stats), then
+      warm_streaming() (the pool unchanged, rows and mirror included);
+    - run_flythrough over default_path(FLY_KEYS) on it, frames a second by
+      CUDA events and by the host clock; K1 and K2 once a frame;
+    - the same keys on a second engine with stale_streaming (warmed with
+      warm_buckets(pipelined=True): K3 launches), its frames against the
+      serial ones (how many differ, how many chunks were meshed late),
+      then, the worlds settled at the last key, two frames with the camera
+      held on each: the second pair equal bit for bit and the pools equal
+      chunk by chunk; the same for a serial and a stale engine primed with
+      prime() only, whose flight streams visible chunks (some frame must
+      differ);
+    - toggle_shading() twice on the phase-3 engine: the unshaded frame has
+      the shaded one's coverage and depth and differs at covered pixels,
+      the frame after toggling back equals the shaded one bit for bit;
+    - run_production_parity on phase 3's vd12 static uploads at 1280x720;
+    - graft_entry.entry() once (shapes, stats, non-sky pixels) and
+      dryrun_multichip(4) and (8): (dp, tp) = (2, 2) and (2, 4);
+    - the demo's main into a temporary PPM at 1280x720, view distance 6:
+      the file is the header and 3 W H bytes.
+
+    Returns (launches {part: (K1, K2, K3, K4)}, {part: seconds},
+    flythrough frames a second {"events", "host", "prime host"}, {"prime_all",
+    "prime": (stale frames that differ, chunks meshed late)}, the parity
+    verdict)."""
+    import tempfile
+
+    import numpy as np
+
+    from differential_projection_voxel_renderer_tpu_torch import graft_entry
+    from differential_projection_voxel_renderer_tpu_torch.app import (
+        flythrough,
+    )
+    from differential_projection_voxel_renderer_tpu_torch.examples import (
+        render_demo,
+    )
+    from differential_projection_voxel_renderer_tpu_torch.rendering import (
+        parity,
+    )
+
+    launches, secs = {}, {}
+
+    def timed(part, fn):
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[part] = time.perf_counter() - t0
+        launches[part] = counters()
+        return out
+
+    def need(part, *want):
+        """Each of K1, K2, K3 launched exactly ``want[i]`` times, or at
+        least once where ``want[i]`` is "+"."""
+        got = launches[part]
+        for n, w in zip(got, want):
+            if not (n > 0 if w == "+" else n == w):
+                raise AssertionError(f"[14] {part}: launches {got}, "
+                                     f"wanted {want}")
+
+    # warm-ups, in benches/flythrough_bench.py's order
+    eng, t_world, t_prime = timed("settle + prime_all", lambda: new_engine(
+        torch, prime_all=True, pool_slots=APP_POOL_SLOTS))
+    timed("warm_buckets", eng.warm_buckets)
+    need("warm_buckets", "+", "+", 0)
+    res = timed("frame", lambda: eng.render_frame(dt=0.0))
+    need("frame", 1, 1, 0)
+    ref = serial["static"]
+    if not (torch.equal(res.color, ref[0]) and torch.equal(
+            res.depth.view(torch.int32), ref[1].view(torch.int32))
+            and torch.equal(res.stats, ref[2])):
+        raise AssertionError("[14] the frame after warm_buckets differs from "
+                             "phase 3's static frame")
+    before = pool_snapshot(torch, eng.pool)
+    timed("warm_streaming", eng.warm_streaming)
+    need("warm_streaming", "+", "+", 0)
+    if not same_pool_snapshot(torch, before, pool_snapshot(torch, eng.pool)):
+        raise AssertionError("[14] warm_streaming changed the pool")
+    del before
+    log(f"[14] fresh engine: world settled in {t_world:.2f} s, prime_all "
+        f"{len(eng.pool.by_pos)} meshes in {t_prime:.2f} s; warm_buckets "
+        f"{secs['warm_buckets']:.3f} s ({len(eng.renderer.gather_buckets)} "
+        f"buckets, launches {launches['warm_buckets']}), the frame "
+        f"{secs['frame']:.3f} s and equal to phase 3's static frame bit for "
+        f"bit, warm_streaming {secs['warm_streaming']:.3f} s (launches "
+        f"{launches['warm_streaming']}), the pool unchanged; {card}")
+
+    # the flythrough
+    path = flythrough.default_path(FLY_KEYS)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def fly(e):
+        ev[0].record()
+        out = [(r.color.clone(), r.depth.clone(), r.stats.clone())
+               for r in flythrough.run_flythrough(e, path)]
+        ev[1].record()
+        return out
+
+    frames = timed("flythrough", lambda: fly(eng))
+    need("flythrough", FLY_KEYS, FLY_KEYS, 0)
+    fps = dict(events=FLY_KEYS / (ev[0].elapsed_time(ev[1]) / 1e3),
+               host=FLY_KEYS / secs["flythrough"])
+    log(f"[14] run_flythrough over default_path({FLY_KEYS}): "
+        f"{fps['events']:.2f} frames/s between CUDA events, "
+        f"{fps['host']:.2f} frames/s by the host clock; launches "
+        f"{launches['flythrough']}; {len(eng.pool.by_pos)} meshes after; "
+        f"stats of the last frame {frames[-1][2].tolist()}; {card}")
+
+    # the stale pool: against the primed engine, and on a pair primed with
+    # prime() only, whose flight streams visible chunks
+    def stale_pair(label, ser, ser_frames, prime_all):
+        st, _, _ = new_engine(torch, prime_all=prime_all,
+                              pool_slots=APP_POOL_SLOTS)
+        st.stale_streaming = True
+        late = []
+        apply = st._apply_stale_stash
+
+        def counted():
+            late.append(len(st._stale_stash))
+            apply()
+
+        st._apply_stale_stash = counted
+        part = f"warm_buckets(pipelined), {label}"
+        timed(part, lambda: st.warm_buckets(pipelined=True))
+        need(part, "+", "+", "+")
+        st.render_frame(dt=0.0)
+        part = f"stale flythrough, {label}"
+        sframes = timed(part, lambda: fly(st))
+        need(part, FLY_KEYS, FLY_KEYS, 0)
+        differ = sum(1 for a, b in zip(ser_frames, sframes)
+                     if not (torch.equal(a[0], b[0])
+                             and torch.equal(a[1], b[1])))
+        n_late = sum(late[-FLY_KEYS:])
+        held = []
+        for e in (ser, st):
+            while e.world.update(e.camera.position):
+                pass
+            held.append([e.render_frame(dt=0.0) for _ in range(2)])
+        if st._stale_stash:
+            raise AssertionError(f"[14] {label}: the stale stash did not "
+                                 f"drain")
+        a, b = held[0][1], held[1][1]
+        if not (torch.equal(a.color, b.color) and torch.equal(
+                a.depth.view(torch.int32), b.depth.view(torch.int32))
+                and torch.equal(a.stats, b.stats)):
+            raise AssertionError(f"[14] {label}: the stale engine's settle "
+                                 f"frame differs from the serial engine's")
+        if not same_pool_content(torch, ser.pool, st.pool):
+            raise AssertionError(f"[14] {label}: the stale and serial pools "
+                                 f"differ")
+        log(f"[14] stale pool ({label}) over the same {FLY_KEYS} keys: "
+            f"{n_late} chunks meshed one frame late, {differ} frames differ "
+            f"from the serial engine's; "
+            f"{FLY_KEYS / secs[part]:.2f} stale frames/s by the host clock; "
+            f"warm_buckets(pipelined=True) launches "
+            f"{launches[f'warm_buckets(pipelined), {label}']}; held at the "
+            f"last key, the second frame equal to the serial engine's bit "
+            f"for bit, the pools equal chunk by chunk "
+            f"({len(st.pool.by_pos)} entries; {st.world.chunk_count()} "
+            f"chunks loaded); {card}")
+        return differ, n_late
+
+    stale = {"prime_all": stale_pair("prime_all", eng, frames, True)}
+    del frames
+    ser, _, _ = new_engine(torch, pool_slots=APP_POOL_SLOTS)
+    ser.render_frame(dt=0.0)
+    frames = timed("flythrough, prime", lambda: fly(ser))
+    need("flythrough, prime", FLY_KEYS, FLY_KEYS, 0)
+    fps["prime host"] = FLY_KEYS / secs["flythrough, prime"]
+    log(f"[14] run_flythrough over default_path({FLY_KEYS}) after prime() "
+        f"only (visible chunks stream in): {fps['prime host']:.2f} frames/s "
+        f"by the host clock; {len(ser.pool.by_pos)} meshes after; {card}")
+    stale["prime"] = stale_pair("prime", ser, frames, False)
+    if not stale["prime"][0]:
+        raise AssertionError("[14] no stale frame differed: the flight "
+                             "streamed no visible chunk")
+    del eng, ser, frames
+
+    # the shading toggle on the phase-3 engine
+    def shading():
+        base = keep(eng3.render_frame(dt=0.0))
+        off = eng3.toggle_shading()
+        flat = keep(eng3.render_frame(dt=0.0))
+        on = eng3.toggle_shading()
+        back = keep(eng3.render_frame(dt=0.0))
+        return base, flat, back, (off, on)
+
+    base, flat, back, toggles = timed("shading toggle", shading)
+    need("shading toggle", 3, 3, 0)
+    from differential_projection_voxel_renderer_tpu_torch.ops.raster import (
+        SKY_I32,
+    )
+    cover = base[0] != SKY_I32
+    if not (toggles == (False, True)
+            and torch.equal(cover, flat[0] != SKY_I32)
+            and torch.equal(base[1].view(torch.int32),
+                            flat[1].view(torch.int32))
+            and bool((base[0] != flat[0])[cover].any())
+            and all(torch.equal(x, y) for x, y in zip(base, back))):
+        raise AssertionError(f"[14] the shading round trip failed "
+                             f"({toggles})")
+    log(f"[14] toggle_shading twice on the phase-3 engine: the unshaded frame "
+        f"has the shaded frame's coverage and depth, "
+        f"{int((base[0] != flat[0]).sum())} of {int(cover.sum())} covered "
+        f"pixels change colour; the frame after toggling back equals the "
+        f"shaded one bit for bit")
+    del base, flat, back
+
+    # production parity
+    uploads, vp0, cp0 = static
+    verdict = timed("production parity", lambda: parity.run_production_parity(
+        eng3.renderer, uploads, vp0, cp0))
+    need("production parity", 2, 1, 0)
+    if not verdict.startswith(("exact", "boundary-ok")):
+        raise AssertionError(f"[14] production parity: {verdict}")
+    log(f"[14] PARITY {verdict} ({secs['production parity']:.2f} s)")
+
+    # the graft entry points
+    def entry():
+        fn, args = graft_entry.entry()
+        return fn(*args), int(args[2])
+
+    (color, depth, st), total = timed("entry", entry)
+    need("entry", 1, 1, 0)
+    st = st.tolist()
+    if not (color.shape == depth.shape == (HEIGHT, WIDTH)
+            and st[0] == total and 0 < st[1] <= total and st[2] == 0
+            and nonsky(color) > 0):
+        raise AssertionError(f"[14] graft_entry.entry(): stats {st}")
+    log(f"[14] graft_entry.entry(): {tuple(color.shape)} frame, stats {st}, "
+        f"{nonsky(color)} non-sky pixels, {secs['entry']:.2f} s")
+    for n in (4, 8):
+        part = f"dryrun_multichip({n})"
+        timed(part, lambda n=n: graft_entry.dryrun_multichip(n))
+        need(part, "+", "+", 0)
+        log(f"[14] {part}: (dp, tp) = {graft_entry.make_mesh(n)}, every check "
+            f"passed (the stacked bands equal the single render_step frame "
+            f"bit for bit), launches {launches[part]}, {secs[part]:.2f} s")
+
+    # the demo
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "frame.ppm")
+        fb = timed("demo", lambda: render_demo.main(
+            [out, "--vd", "6", "--width", str(WIDTH), "--height",
+             str(HEIGHT)]))
+        size = os.path.getsize(out)
+    need("demo", 1, 1, 0)
+    header = len(f"P6\n{WIDTH} {HEIGHT}\n255\n")
+    if size != header + 3 * WIDTH * HEIGHT or fb.width != WIDTH:
+        raise AssertionError(f"[14] the demo wrote {size} bytes")
+    log(f"[14] demo: {size} bytes ({header} of header + 3 x {WIDTH} x "
+        f"{HEIGHT}), {secs['demo']:.2f} s with its world and meshing")
+    return launches, secs, fps, stale, verdict
 
 
 # ------------------------------------------------------------- K1 / K2
@@ -1825,13 +2166,15 @@ def main() -> int:
 
     k3_ms, k21_ms = median_ms(k3), median_ms(k2_k1)
     k3_run, k21_run = median_ms(k3, batch=20), median_ms(k2_k1, batch=20)
+    k3_graph = common.graph_ms(k3)
     k3_plain = median_ms(lambda: (
         raster.rasterize_tiles_plain(*rec720, **rkw),
         geometry.project_cull_plain(*fk1, **gkw)), reps=5)
     log(f"[9] K3 (vd12 records, 131072-quad next stream): {k3_ms:.4f} ms a "
         f"call, {k3_run:.4f} ms in runs of 20; K2 + K1 launches "
         f"{k21_ms:.4f} ms a call, {k21_run:.4f} ms in runs of 20 (medians "
-        f"of 20); plain version {k3_plain:.4f} ms (median of 5); {card}")
+        f"of 20); plain version {k3_plain:.4f} ms (median of 5); "
+        f"{k3_graph:.4f} ms from a CUDA graph; {card}")
 
     # ---- bounds, from this run's inputs
     k1_bytes, k1_ops = k1_work(fk1, geometry.project_cull(*fk1, **gkw))
@@ -1919,6 +2262,8 @@ def main() -> int:
     k4_ms = median_ms(lambda: raster_packed.rasterize_packed(*recp, **pkw))
     k4_run = median_ms(lambda: raster_packed.rasterize_packed(*recp, **pkw),
                        batch=20)
+    k4_graph = common.graph_ms(lambda: raster_packed.rasterize_packed(
+        *recp, **pkw))
     k2_run10 = median_ms(lambda: raster.rasterize_tiles(*rec720, **rkw),
                          batch=20)
     k4_plain = median_ms(lambda: raster_packed.rasterize_packed_plain(
@@ -1943,7 +2288,8 @@ def main() -> int:
             lambda part=part: raster_packed.rasterize_packed(*part, **pkw),
             batch=20)
     log(f"[10] K4 (vd12 packed records): {k4_ms:.4f} ms a call, "
-        f"{k4_run:.4f} ms in runs of 20 (medians of 20); K2 on the default "
+        f"{k4_run:.4f} ms in runs of 20 (medians of 20), {k4_graph:.4f} ms "
+        f"from a CUDA graph; K2 on the default "
         f"records of the same pose {k2_run10:.4f} ms in runs of 20; plain "
         f"version {k4_plain:.4f} ms (median of 5); K4 on "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in k4_phase_ms.items())
@@ -1968,12 +2314,14 @@ def main() -> int:
     k2e = rows11["micro_fixed3", "3"]
     k2_graph = common.graph_ms(lambda: raster.rasterize_tiles(*rec720,
                                                               **rkw))
+    k2_host = common.host_us(lambda: raster.rasterize_tiles(*rec720, **rkw))
     log(f"[11] K2's floor: on the empty stream {k2e['run_ms']:.4f} ms in "
         f"runs of 20 ({k2e['call_ms']:.4f} a call, {k2e['graph_ms']:.4f} "
         f"from a CUDA graph), at vd12 {k2_run:.4f} ms in runs ({k2_ms:.4f} "
         f"a call, phase 6; {k2_graph:.4f} from a CUDA graph): the empty "
         f"floor is {k2e['run_ms'] / k2_run:.2f} of it in runs, "
-        f"{k2e['graph_ms'] / k2_graph:.2f} of its device time; {card}")
+        f"{k2e['graph_ms'] / k2_graph:.2f} of its device time; K2's wrapper "
+        f"at vd12 {k2_host:.1f} us of host a call; {card}")
     m1, m2 = rows11["micro_fixed2", "a_base"], rows11["micro_fixed2",
                                                       "solo10_4x5"]
 
@@ -2007,6 +2355,14 @@ def main() -> int:
 
     # ---- 13. row bands and the camera batch
     launches13, band_ms, band_err = band_path(torch, eng, serial, card)
+
+    # ---- 14. the application surface
+    launches14, secs14, fps14, stale14, verdict14 = app_path(
+        torch, eng, serial, (uploads, vp0, cp0), card)
+    log("[14] seconds: " + ", ".join(f"{k} {v:.3f}"
+                                     for k, v in secs14.items()))
+    log(f"[14] flythrough frames/s {fps14}; stale (frames that differ, "
+        f"chunks meshed late) {stale14}; {card}")
     del serial
     sites = {k: sorted({r["site"] for r in rows11.values()
                         if r["kernel"] == k}) for k in ("M1", "M2")}
@@ -2031,6 +2387,7 @@ def main() -> int:
              vd12_bound_ms=k1_t["vd12"]["bound_ms"],
              host_us=probes["binding"]["k1_host_us"],
              c_entry_us=probes["binding"]["k1_bare_us"],
+             launches_app={k: v[0] for k, v in launches14.items()},
              registers=ptxas["project_cull_kernel"]["registers"],
              spill_bytes=ptxas["project_cull_kernel"]["spill_stores"]),
         dict(name="K2 tile raster (rasterize_tiles)", route="cuda",
@@ -2057,7 +2414,9 @@ def main() -> int:
              same_records_no_init_graph_ms=init_t["far_no_init_graph_ms"],
              full_records_init_graph_ms=init_t["full_init_graph_ms"],
              full_records_no_init_graph_ms=init_t["full_no_init_graph_ms"],
-             init_items=init_items, band_ms=band_ms),
+             init_items=init_items, band_ms=band_ms, host_us=k2_host,
+             launches_app={k: v[1] for k, v in launches14.items()},
+             production_parity=verdict14),
         dict(name="K3 tile raster + next frame's stage A "
                   "(rasterize_tiles next_geom)", route="cuda",
              source=f"{PKG}/csrc/raster.cu",
@@ -2065,14 +2424,15 @@ def main() -> int:
              launches=launches8[2], max_abs_err=k3_err, ms=k3_run,
              plain_ms=k3_plain, bound_ms=k3_bound, bound_by=k3_by,
              library_ms=None, tile_bound_ms=k3_tile_ms,
-             k2_plus_k1_ms=k21_run),
+             k2_plus_k1_ms=k21_run, graph_ms=k3_graph,
+             launches_app={k: v[2] for k, v in launches14.items()}),
         dict(name="K4 packed tile raster (rasterize_packed)", route="cuda",
              source=f"{PKG}/csrc/raster_packed.cu",
              replaces=f"{REF}/ops/raster_packed.py:205",
              launches=launches10[3], max_abs_err=k4_err, ms=k4_run,
              plain_ms=k4_plain, bound_ms=k4_bound, bound_by=k4_by,
              library_ms=None, tile_bound_ms=k4_tile_ms,
-             k2_same_frame_ms=k2_run10,
+             k2_same_frame_ms=k2_run10, graph_ms=k4_graph,
              registers=ptxas["raster_packed_kernel"]["registers"],
              spill_bytes=ptxas["raster_packed_kernel"]["spill_stores"],
              blocks_per_sm=blocks["raster_packed_kernel"],

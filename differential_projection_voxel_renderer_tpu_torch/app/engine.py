@@ -4,21 +4,23 @@ culling funnel and the per-frame render call.
 Counterpart of ``differential_projection_voxel_renderer_tpu/app/engine.py``
 on its serial path (``render_frame``, also with
 ``RenderConfig.packed_raster``, ``two_pass_near_quads`` or
-``temporal_hiz``) and in frames-in-flight mode
-(``render_frame_pipelined`` / ``flush_pipeline``).  The host logic
-(streaming, remeshing, the culling funnel, draw-list build, the pool's
-host bookkeeping) is carried over as it is, on the port's own copies of
-the host layers (``models``, ``meshing``, ``ops/culling.py``,
-``ops/occlusion.py``, ``utils``); only the device calls change.  Every
-device tensor lives on the ``device`` the engine was built with, the card
-unless the caller asks for the CPU.  Not ported yet (they raise
-NotImplementedError): the resident superset stream and device meshing;
-the one-frame-stale pool mode is left out with them.
+``temporal_hiz``), in frames-in-flight mode (``render_frame_pipelined`` /
+``flush_pipeline``) and in the one-frame-stale pool mode
+(``stale_streaming``, ``DPVR_STALE_POOL=1``), with the runtime toggles,
+``prime_all`` and the warm-ups.  The host logic (streaming, remeshing, the
+culling funnel, draw-list build, the pool's host bookkeeping) is carried
+over as it is, on the port's own copies of the host layers (``models``,
+``meshing``, ``ops/culling.py``, ``ops/occlusion.py``, ``utils``); only
+the device calls change.  Every device tensor lives on the ``device`` the
+engine was built with, the card unless the caller asks for the CPU.  Not
+ported yet (they raise NotImplementedError): the resident superset stream
+(and its ``warm_resident``) and device meshing.
 """
 
 from __future__ import annotations
 
 import collections
+import os
 import time
 from dataclasses import dataclass
 
@@ -93,6 +95,22 @@ class QuadPool:
         self.overflow_drops = 0
         self._used = np.zeros(slots, bool)
         self._lookup_cache: tuple | None = None
+        self._dev_cache: torch.Tensor | None = None  # positions on device
+
+    def device_tables(self) -> torch.Tensor:
+        """The slot positions i32[S, 3] on the pool's device, copied again
+        only after a mutation (the counts stay on the host: the gather
+        indices are host-built)."""
+        if self._dev_cache is None:
+            self._dev_cache = torch.from_numpy(self.positions.copy()).to(
+                self.device)
+        return self._dev_cache
+
+    def __contains__(self, pos) -> bool:
+        return tuple(int(c) for c in pos) in self.by_pos
+
+    def slot_of(self, pos) -> int | None:
+        return self.by_pos.get(tuple(int(c) for c in pos))
 
     @classmethod
     def from_numpy(cls, quads, counts6, positions, by_pos, *,
@@ -145,6 +163,7 @@ class QuadPool:
         self.counts[slot] = n
         self.counts6[slot] = _dir_counts(row[:n])
         self.positions[slot] = key
+        self._dev_cache = None
         self._lookup_cache = None
 
     def insert_many(self, items) -> None:
@@ -203,6 +222,7 @@ class QuadPool:
         if total:
             packed[3 * kp:3 * kp + total] = np.concatenate(parts)
         self.dispatch_insert_payload(packed, kp=kp, mc=mc)
+        self._dev_cache = None
         self._lookup_cache = None
 
     def prepare_insert_payload(self, items, kp: int | None = None,
@@ -253,6 +273,7 @@ class QuadPool:
         packed[2 * kp:3 * kp] = counts.astype(np.uint32)
         if total:
             packed[3 * kp:3 * kp + total] = np.concatenate(parts)
+        self._dev_cache = None
         self._lookup_cache = None
         return packed
 
@@ -278,6 +299,7 @@ class QuadPool:
             self.counts6[slot] = 0
             self._used[slot] = False
             self._free.append(slot)
+            self._dev_cache = None
         self._lookup_cache = None
 
     def retain(self, predicate) -> None:
@@ -378,6 +400,13 @@ class Engine:
         # (rendered meshes, visible chunks) of each entered but not yet
         # emitted frame (render_frame_pipelined)
         self._pipe_meta: collections.deque = collections.deque()
+        # one-frame-stale pool mode: a frame's remesh batch is meshed and
+        # inserted after its render call, so a newly streamed chunk shows
+        # one frame later than in the serial mode and a remeshed neighbour
+        # keeps its previous mesh for that frame; nothing else differs
+        self.stale_streaming = bool(
+            int(os.environ.get("DPVR_STALE_POOL", "0") or "0"))
+        self._stale_stash: list = []
 
     # ------------------------------------------------------------- meshing
     def _remesh(self, visible_chunks) -> int:
@@ -435,12 +464,105 @@ class Engine:
         self.pool.insert_many(batch)
         return len(to_mesh)
 
+    # ------------------------------------------------------- runtime toggles
+    def toggle_shading(self) -> bool:
+        """The reference's F key: the renderer rebuilds its colour tables
+        (``Renderer.set_shading``, on the config the engine shares)."""
+        self.renderer.set_shading(not self.config.enable_shading)
+        return self.config.enable_shading
+
+    def toggle_occlusion_culling(self) -> bool:
+        """The reference's O key."""
+        self.enable_occlusion_culling = not self.enable_occlusion_culling
+        return self.enable_occlusion_culling
+
+    def set_view_distance(self, vd: int) -> None:
+        """The reference's 1/2/3 keys."""
+        self.world.set_view_distance(vd)
+
     def prime(self) -> None:
         """Generate + mesh everything currently visible."""
         frustum = self.camera.extract_frustum()
         visible = self.world.get_visible_chunks_frustum(
             self.camera.position, frustum)
         self._remesh(visible)
+
+    def prime_all(self) -> None:
+        """Mesh every loaded chunk (the warm-cache steady state: a moving
+        camera then hits the mesh cache)."""
+        self._remesh(list(self.world.chunks.values()))
+
+    def warm_buckets(self, pipelined: bool = False) -> None:
+        """Build the kernels and run one frame of every capacity bucket
+        (``Renderer.warm_buckets``), so that a camera whose quad total
+        crosses into another bucket finds its buffers in the caching
+        allocator.  The reference pre-traces jit programs here; the port
+        has none.  ``pipelined`` adds the frames-in-flight steps.  The
+        pool, the caches and every later frame are as without the call."""
+        self.renderer.warm_buckets(self.pool.quads, self.pool.counts6_dev,
+                                   pipelined=pipelined)
+
+    def warm_streaming(self) -> None:
+        """Run the streaming path's device calls once ahead of the frame
+        loop, on a throwaway pool entry: the batched scatter at each batch
+        size and width of ``QuadPool.insert_many``'s ladder, then (with
+        ``fused_insert``) one fused insert+render frame of the current
+        draw list's capacity bucket and its neighbours (every bucket before
+        a first frame).  The reference compiles these shapes here; the
+        port builds the kernels and lets the caching allocator take the
+        buffers.  Afterwards the throwaway slot's device row and counts
+        mirror, its host tables, the free list, the used mask and the
+        lookup caches are restored exactly, so later slot choices, the
+        upload cache and every later frame are as without the call."""
+        pool = self.pool
+        fake = (10**6, 10**6, 10**6)
+        if fake in pool.by_pos or not pool._free:
+            raise RuntimeError("warm_streaming needs a free pool slot and "
+                               "no entry at the throwaway position")
+        slot = pool._free[-1]   # the slot the throwaway entry takes
+        saved = (pool.quads[slot].clone(), pool.counts6_dev[slot].clone(),
+                 int(pool.counts[slot]), pool.counts6[slot].copy(),
+                 pool.positions[slot].copy(), list(pool._free),
+                 pool._lookup_cache, pool._dev_cache, pool.overflow_drops)
+        for bs, width in ((1, 450), (5, 450), (10, 450), (17, 1), (17, 200),
+                          (17, 450), (30, 450), (64, 450), (1, 513),
+                          (4, 513)):
+            pool.insert_many([(fake, np.zeros(width, np.uint32))] * bs)
+        if self.fused_insert:
+            payload = pool.prepare_insert_payload(
+                [(fake, np.zeros(4, np.uint32))])
+            assert payload is not None and pool.by_pos[fake] == slot
+            vcap = self.config.visible_chunks_cap
+            vs = np.zeros(vcap, np.int32)
+            vs[0] = slot
+            ps = np.zeros((vcap, 3), np.int32)
+            vp = np.eye(4, dtype=np.float32)
+            campos = np.zeros(3, np.float32)
+            buckets = list(self.renderer.gather_buckets)
+            if self._upload_cache is not None:
+                total = int((self._last_counts_sel
+                             * self._last_dir_mask).sum())
+                cur = self.renderer.bucket_for(total)
+                i = buckets.index(cur) if cur in buckets else 0
+                buckets = buckets[max(0, i - 1):i + 2]
+            for cap in buckets:
+                cs = np.zeros((vcap, 6), np.int32)
+                # the host count only picks the bucket: META5 reads the
+                # device mirror
+                cs[0, 0] = cap - 1
+                out = self.renderer.render_fused_insert(
+                    pool.quads, pool.counts6_dev, vs, cs, ps, vp, campos,
+                    payload)
+                assert out is not None
+                pool.adopt_device_arrays(out[0], out[1])
+        pool.remove(fake)
+        (row, c6_dev, pool.counts[slot], pool.counts6[slot],
+         pool.positions[slot], pool._free, pool._lookup_cache,
+         pool._dev_cache, pool.overflow_drops) = saved
+        pool.quads[slot] = row
+        pool.counts6_dev[slot] = c6_dev
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _dir_keep_mask(self, positions, cam_pos) -> np.ndarray:
         """Per-chunk face-direction keep mask [n, 6]: 0 where every quad of
@@ -477,7 +599,13 @@ class Engine:
             vis_pos = self.world.get_visible_positions(cam.position, frustum)
             self._visible_cache = vis_pos
             if not (cam_same and world_v == self._seen_world_version):
-                self._remesh_positions(vis_pos)
+                if self.stale_streaming:
+                    # stale-pool mode: collect the batch now, mesh and
+                    # insert it after the render call (_apply_stale_stash);
+                    # this frame's draw list comes from the pool as it is
+                    self._stale_stash += self._missing_remesh_list(vis_pos)
+                else:
+                    self._remesh_positions(vis_pos)
                 if self.world.unload_version != self._seen_unload_version:
                     self.pool.retain(self.world.chunks)
                     self._seen_unload_version = self.world.unload_version
@@ -536,6 +664,16 @@ class Engine:
                counts_sel[:n].tobytes(), mask_sel[:n].tobytes())
         return vp, sig, n, n_visible_meshes, cam_same
 
+    def _apply_stale_stash(self) -> None:
+        """Stale-pool mode: mesh and insert the batch this frame's funnel
+        collected, after the frame's render call went out (the host
+        meshing overlaps the device render).  The batch takes the
+        standalone scatter, never the fused insert: the frame that would
+        carry it has been issued."""
+        if self._stale_stash:
+            stash, self._stale_stash = self._stale_stash, []
+            self._mesh_list(stash, defer=False)
+
     def render_frame(self, dt: float = 0.016) -> FrameResult:
         """One serial frame: funnel, then one of the three device entry
         points -- render_fused_insert (a remesh batch rides the frame),
@@ -564,6 +702,7 @@ class Engine:
                 pool2, c6b, color, depth, stats = out
                 self.pool.adopt_device_arrays(pool2, c6b)
                 self._upload_cache = (sig, None)
+                self._apply_stale_stash()
                 self._frame_bookkeeping(stats, n, frame_t0)
                 return FrameResult(color, depth, stats, n, n_visible_meshes)
             # fallback layout (truncated draw list): standalone scatter, then
@@ -603,6 +742,7 @@ class Engine:
                 vp, cam.position, dir_mask=self._last_dir_mask,
                 counts6_dev=self.pool.counts6_dev)
             self._upload_cache = (sig, uploads)
+        self._apply_stale_stash()
         self._frame_bookkeeping(stats, n, frame_t0)
         return FrameResult(color, depth, stats, n, n_visible_meshes)
 
@@ -637,6 +777,7 @@ class Engine:
                 vp, cam.position, dir_mask=self._last_dir_mask,
                 counts6_dev=self.pool.counts6_dev)
             self._upload_cache = (sig, uploads)
+        self._apply_stale_stash()
         self._pipe_meta.append((n, n_visible_meshes))
         if out is None:
             return None

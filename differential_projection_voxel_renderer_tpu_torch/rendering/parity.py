@@ -1,11 +1,15 @@
-"""Frame parity gates and small scenes, for runs without JAX (the card's
-machine: chip_smoke.py, tests/test_torch_cuda.py).
+"""Frame parity gates, the self-tests built on them, and small scenes,
+for runs without JAX (the card's machine: chip_smoke.py,
+tests/test_torch_cuda.py).
 
 The gates are those of ``differential_projection_voxel_renderer_tpu/
 rendering/parity.py``: full-frame equality, or equality up to mismatches
 that are proven (in float64) to be coverage-edge or near-depth-tie
-ambiguity.  The scenes are the reference fuzz chunk at 128x128 and a 3x3
-patch of terrain chunks at 640x128, flattened into a gather stream.
+ambiguity.  ``run_hardware_selftest``/``run_selftests`` (the fuzz chunk)
+and ``run_production_parity`` (a real frame's stream) render one frame
+through the kernels and through their plain twins on the same device and
+apply the gates.  The scenes are the reference fuzz chunk at 128x128 and a
+3x3 patch of terrain chunks at 640x128, flattened into a gather stream.
 """
 
 from __future__ import annotations
@@ -16,9 +20,10 @@ import torch
 from ..meshing.greedy import mesh_chunk
 from ..models.camera import Camera
 from ..models.chunk import Chunk
-from ..ops import projection
+from ..ops import geometry, projection, raster, raster_packed
 from ..ops.shading import build_quad_color_tables
 from ..ops.texture import TextureAtlas
+from ..utils.config import SKY_COLOR, RenderConfig
 
 
 def assert_kernel_parity(c1, d1, c2, d2):
@@ -188,3 +193,124 @@ def small_scene(name, device):
               width=w, height=h, tile_h=16, tile_w=128, render_cap=gc,
               tile_k_cap=2 * gc)
     return tuple(a.to(device) for a in args), kw
+
+
+# ------------------------------------------------------------- self-tests
+
+
+def _kernel_and_plain(args, kw):
+    """One frame of the step's inputs ``args`` and keywords ``kw`` through
+    the kernels (K1 and K2, or K4 with ``packed_raster``) and through their
+    plain twins, called by name, on the inputs' own device (on the CPU the
+    wrappers run the twins too).  Returns ((color u32, depth, (gathered,
+    rasterized)) of the twins, the same of the kernels, the kernels'
+    raster records)."""
+    from .pipeline import _pre_geom_of, render_step
+
+    h, w, th = kw["height"], kw["width"], kw["tile_h"]
+    out_h = -h % th + h
+    ga = geometry.project_cull_plain(
+        *args, width=w, height=h,
+        backface_culling=kw.get("backface_culling", True))
+    rec = render_step(*args, pre_geom=_pre_geom_of(ga),
+                      debug_return_records=True, **kw)
+    if kw.get("packed_raster"):
+        c1, d1 = raster_packed.rasterize_packed_plain(
+            *rec[:5], height=h, width=w, tile_h=th, out_h=out_h)
+    else:
+        c1, d1 = raster.rasterize_tiles_plain(
+            *rec, height=h, width=w, tile_h=th, tile_w=kw["tile_w"],
+            out_h=out_h)
+    c2, d2, s2 = render_step(*args, **kw)
+    records = render_step(*args, debug_return_records=True, **kw)[0]
+
+    def host(c, d, s):
+        return (c[:h].cpu().numpy().view(np.uint32), d[:h].cpu().numpy(),
+                tuple(int(x) for x in s))
+
+    return (host(c1, d1, (args[2], ga["valid_count"])),
+            host(c2, d2, s2[:2]), records.cpu().numpy())
+
+
+def run_hardware_selftest(*, device="cuda", size=128, seed=42, width=None):
+    """Render the fuzz scene through the kernels and through their plain
+    twins on ``device`` and apply the parity gates (the reference's
+    ``run_hardware_selftest``, its Mosaic kernel against its jnp twin).
+    ``width`` defaults to ``size``.  Returns "exact" when the frames are
+    bit-identical, "boundary-ok (N px)" when every mismatch is a proven
+    coverage-edge flip; raises AssertionError on a real divergence."""
+    from .pipeline import Renderer, build_gather_indices
+
+    width = width or size
+    quads = mesh_chunk(fuzz_chunk(seed))
+    cam = Camera(np.array([16.0, 48.0, 16.0], np.float32), width / size)
+    cam.look_at(np.array([16.0, 8.0, 16.0], np.float32))
+    renderer = Renderer(RenderConfig(width=width, height=size),
+                        device=device)
+    cfg = renderer.config
+    pool = np.zeros((4, 4096), np.uint32)
+    pool[0, :len(quads)] = quads
+    counts_sel = np.zeros(cfg.visible_chunks_cap, np.int32)
+    counts_sel[0] = len(quads)
+    visible = np.zeros(cfg.visible_chunks_cap, np.int32)
+    positions_sel = np.zeros((cfg.visible_chunks_cap, 3), np.int32)
+    slot_of, within, quad_world, total = build_gather_indices(
+        counts_sel, visible, positions_sel, cfg.gather_cap)
+    args = tuple(a.to(renderer.device) for a in (
+        projection.as_quad_words(pool[slot_of, within]),
+        torch.from_numpy(quad_world), torch.tensor(total, dtype=torch.int32),
+        torch.from_numpy(cam.view_projection_matrix().astype(np.float32)),
+        torch.from_numpy(cam.position.astype(np.float32))))
+    kw = dict(color_tables=renderer._base_step_kw["color_tables"],
+              width=width, height=size, tile_h=16, tile_w=128,
+              render_cap=cfg.quads_cap,
+              backface_culling=cfg.backface_culling,
+              tile_k_cap=cfg.quads_cap)
+    (c1, d1, s1), (c2, d2, s2), records = _kernel_and_plain(args, kw)
+    assert s1 == s2, f"stats differ: twins {s1}, kernels {s2}"
+    nonsky = int((c1 != np.uint32(SKY_COLOR)).sum())
+    assert nonsky > size * size // 4, "fuzz scene rendered (almost) empty"
+    return frame_parity(c1, d1, c2, d2, records)
+
+
+def run_selftests(*, device="cuda", seed=42):
+    """The fuzz scene's parity gate at 128x128 (one tile column) and at
+    640x128 (five), each named: e.g. "fuzz@128x128: exact | fuzz@640x128:
+    exact".  The reference's frames-in-flight, fused-insert and
+    resident-append self-tests are not ported; chip_smoke.py checks those
+    paths' frames inline."""
+    v1 = run_hardware_selftest(device=device, seed=seed)
+    v2 = run_hardware_selftest(device=device, seed=seed, width=640)
+    return f"fuzz@128x128: {v1} | fuzz@640x128: {v2}"
+
+
+def run_production_parity(renderer, uploads, view_proj, cam_pos):
+    """Full-production-frame parity: a real scene's prepared stream
+    (``uploads`` = (quads, quad_world, total), e.g. a vd12 frame's) at the
+    renderer's resolution and bucket through the kernels (K1 and K2, or K4
+    with ``packed_raster``) against their plain twins, on the renderer's
+    device.  A two-pass configuration is compared as its single pass.
+    Returns "exact (...)" or "boundary-ok (N px; ...)"; raises on a real
+    divergence.  The twins loop over the items of the frame: seconds at
+    720p, so this runs once, after the measurements."""
+    quads, quad_world, total = uploads
+    kw = renderer._bucket_kw(int(quads.shape[0]))
+    kw.pop("near_quads", None)
+    dev = quads.device
+
+    def f32(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(dev, torch.float32)
+        return torch.from_numpy(np.array(x, np.float32)).to(dev)
+
+    args = (quads, quad_world, total, f32(view_proj), f32(cam_pos))
+    (c1, d1, s1), (c2, d2, s2), records = _kernel_and_plain(args, kw)
+    assert s1 == s2, f"stats differ: twins {s1}, kernels {s2}"
+    h, w = d1.shape
+    k = "K4" if kw.get("packed_raster") else "K2"
+    tag = (f"{w}x{h}, {s1[1]} quads rasterized, kernels K1+{k} vs plain "
+           f"twins on {dev.type}")
+    verdict = frame_parity(c1, d1, c2, d2, records)
+    if verdict == "exact":
+        return f"exact ({tag})"
+    return f"{verdict[:-1]}; {tag})"

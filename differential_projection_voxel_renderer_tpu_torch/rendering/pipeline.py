@@ -412,6 +412,33 @@ def _packed_tail(f_full, i_full, bbx_c, bby_c, count_c, *, height: int,
 # ----------------------------------------------------------- draw lists
 
 
+def build_gather_indices(counts_sel, slots_sel, positions_sel,
+                         gather_cap: int):
+    """Host-side ragged flatten (reference ``build_gather_indices``):
+    per-visible-chunk quad counts + pool slots + chunk positions ->
+    (pool_slot_of i32[GQ], within i32[GQ], quad_world f32[3, GQ], total
+    int); a stream past ``gather_cap`` loses its tail."""
+    counts_sel = np.asarray(counts_sel, np.int64)
+    slots_sel = np.asarray(slots_sel, np.int32)
+    positions_sel = np.asarray(positions_sel, np.float32) * 32.0
+    total = int(counts_sel.sum())
+    if total > gather_cap:
+        cum = np.cumsum(counts_sel)
+        counts_sel = np.where(cum <= gather_cap, counts_sel,
+                              np.maximum(gather_cap - (cum - counts_sel), 0))
+        total = int(counts_sel.sum())
+    pool_slot_of = np.zeros(gather_cap, np.int32)
+    within = np.zeros(gather_cap, np.int32)
+    quad_world = np.zeros((3, gather_cap), np.float32)
+    if total:
+        pool_slot_of[:total] = np.repeat(slots_sel, counts_sel)
+        starts = np.repeat(np.cumsum(counts_sel) - counts_sel, counts_sel)
+        within[:total] = np.arange(total, dtype=np.int64) - starts
+        for a in range(3):
+            quad_world[a, :total] = np.repeat(positions_sel[:, a], counts_sel)
+    return pool_slot_of, within, quad_world, total
+
+
 def _expand_uploads_impl(quad_pool, slots_sel, counts6_sel, mask6_sel,
                          positions_sel, gather_cap: int):
     """Draw list -> the flat quad stream + per-quad world origins.
@@ -444,6 +471,17 @@ def _expand_uploads_impl(quad_pool, slots_sel, counts6_sel, mask6_sel,
     wq = torch.stack([(positions_sel[:, a].float() * 32.0)[ci]
                       for a in range(3)])
     return quads, wq, lens.sum().to(torch.int32)
+
+
+def _normalize_counts6(counts_sel):
+    """Legacy [vcap] totals become one dir-0 unit a chunk (the expansion
+    then gathers row[0:count]); [vcap, 6] per-direction counts pass."""
+    counts_sel = np.asarray(counts_sel, np.int64)
+    if counts_sel.ndim == 1:
+        c6 = np.zeros((counts_sel.shape[0], 6), np.int64)
+        c6[:, 0] = counts_sel
+        return c6
+    return counts_sel
 
 
 def _truncate_units(counts6, mask6, cap):
@@ -744,16 +782,12 @@ class Renderer:
         tile_h, tile_w = cfg.tile_h, cfg.tile_w
         if cfg.height % tile_h or cfg.width % tile_w:
             tile_h, tile_w = raster_ops.pick_tile(cfg.height, cfg.width)
-        self._tables_np = build_quad_color_tables(
-            self.atlas.kernel_tables(), enable_shading=cfg.enable_shading,
-            enable_textures=cfg.enable_textures)
         self._base_step_kw = dict(
-            color_tables=proj_ops.color_table_tensors(self._tables_np,
-                                                      self.device),
             width=cfg.width, height=cfg.height, tile_h=tile_h,
             tile_w=tile_w, backface_culling=cfg.backface_culling,
             packed_raster=cfg.packed_raster,
             near_quads=cfg.two_pass_near_quads)
+        self._rebuild_tables()
         # capacity buckets: the mid-stage tensors scale with the gather
         # and render caps, so small scenes take a small bucket; the
         # quads_cap-sized bucket runs without compaction
@@ -765,6 +799,30 @@ class Renderer:
         self._pipe_carry: tuple | None = None  # (cap, uploads, cam_f, pre)
         self._pipe_done: tuple | None = None   # serially rendered result
         #                                        awaiting emission
+
+    def _rebuild_tables(self) -> None:
+        """The colour tables of ``config``'s shading and texture flags, on
+        the host and as the step's device tables."""
+        self._tables_np = build_quad_color_tables(
+            self.atlas.kernel_tables(),
+            enable_shading=self.config.enable_shading,
+            enable_textures=self.config.enable_textures)
+        self._base_step_kw["color_tables"] = proj_ops.color_table_tensors(
+            self._tables_np, self.device)
+
+    def set_shading(self, enable: bool) -> None:
+        """Runtime toggle, the reference's F key: sets
+        ``config.enable_shading`` (the config object the engine shares)
+        and rebuilds the colour tables the step reads.  Everything else
+        stays: the capacity buckets, the camera cache, the device buffers.
+        A frame in flight would be rastered with the new tables, so the
+        toggle raises while one is (flush the pipeline first)."""
+        if self._pipe_carry is not None or self._pipe_done is not None:
+            raise RuntimeError(
+                "set_shading with a frame in flight; call pipeline_flush() "
+                "first")
+        self.config.enable_shading = enable
+        self._rebuild_tables()
 
     def _bucket_kw(self, gather_cap: int) -> dict:
         cfg = self.config
@@ -778,6 +836,71 @@ class Renderer:
                 return c
         return self.gather_buckets[-1]
 
+    def warm_buckets(self, quad_pool, counts6_pool=None,
+                     pipelined: bool = False) -> None:
+        """Run every capacity bucket's entry points once on a one-chunk
+        draw list (pool slot 0, all six directions, an identity camera),
+        the results dropped.  The reference's version pre-traces each
+        bucket's jit programs; the port has none to trace.  Here, on the
+        card, the kernels are built and loaded first (``_build.lib``), and
+        the caching allocator then holds each bucket's buffers, so the
+        first frame of a bucket pays for neither.  With ``counts6_pool``
+        (the pool's device mirror) the META5 path runs, and the 11-short
+        fallback at the largest bucket; else the 11-short path.
+        ``pipelined`` also runs the frames-in-flight steps (kernel K3).
+        Nothing is written: the pool, the camera cache and the
+        frames-in-flight state are as they were, so every later frame is
+        what it would be without the call."""
+        if pipelined:
+            self._check_pipelined()
+        if self.device.type == "cuda":
+            from .. import _build
+
+            _build.lib()
+        vcap = self.config.visible_chunks_cap
+        cam_np = _pack_cam(np.eye(4, dtype=np.float32),
+                           np.zeros(3, np.float32))
+        cam = self._upload(cam_np)
+        meta11 = np.zeros(META_SHORTS * vcap, np.int16)
+        meta11[vcap] = 1           # one quad from pool slot 0, dir 0
+        meta11[7 * vcap] = 0x3F    # all six dirs kept
+        meta5 = np.zeros(META5_SHORTS * vcap, np.int16)
+        meta5[vcap] = 0x3F         # all six dirs kept (slot 0's counts)
+        meta5_t = self._upload(meta5)
+        frame_u = self._upload(np.concatenate([meta5.view(np.int32),
+                                               cam_np.view(np.int32)]))
+        for cap in self.gather_buckets:
+            kw = self._bucket_kw(cap)
+            if counts6_pool is not None:
+                _fused_frame5(quad_pool, counts6_pool, frame_u, vcap=vcap,
+                              gather_cap=cap, **kw)
+                slots, mask6, pos = _unpack_meta5(meta5_t, vcap)
+                up = _expand_uploads_impl(
+                    quad_pool, slots, counts6_pool[slots.long()], mask6,
+                    pos, cap)
+                if cap == self.gather_buckets[-1]:
+                    # the 11-short fallback of a truncated draw list, which
+                    # only the largest bucket takes
+                    _fused_frame(quad_pool, self._upload(meta11), cam,
+                                 vcap=vcap, gather_cap=cap, **kw)
+            else:
+                up = _fused_frame(quad_pool, self._upload(meta11), cam,
+                                  vcap=vcap, gather_cap=cap, **kw)[3:]
+            _step_camf(*up, cam, **kw)
+            if self.config.temporal_hiz:
+                _step_camf_hiz(*up, cam, self.empty_hiz(), **kw)
+            if pipelined and counts6_pool is not None:
+                pre, q2, qw2, t2 = _geom_fused5(
+                    quad_pool, counts6_pool, meta5_t, cam, vcap=vcap,
+                    gather_cap=cap, **self._geom_kw())
+                _geom_camf(q2, qw2, t2, cam, **self._geom_kw())
+                _pipe_step_camf(q2, qw2, t2, cam, pre, q2, qw2, t2, cam,
+                                **kw)
+                _pipe_fused5(quad_pool, counts6_pool, meta5_t, cam, q2, qw2,
+                             t2, cam, pre, vcap=vcap, gather_cap=cap, **kw)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         """Host array -> device tensor.  On CUDA the copy goes through
         pinned memory and does not block the host (a pageable copy would
@@ -790,12 +913,10 @@ class Renderer:
     def _prep_meta(self, visible_slots, counts_sel, positions_sel,
                    dir_mask):
         """Draw-list normalization shared by every entry point (reference
-        ``Renderer._prep_meta``): returns (slots, counts6, mask6,
+        ``Renderer._prep_meta``): ``counts_sel`` is [vcap, 6] per-direction
+        counts or legacy [vcap] totals.  Returns (slots, counts6, mask6,
         positions, cap, truncated)."""
-        counts6 = np.asarray(counts_sel, np.int64)
-        if counts6.ndim != 2 or counts6.shape[1] != 6:
-            raise ValueError("counts_sel must be [vcap, 6] per-direction "
-                             "counts")
+        counts6 = _normalize_counts6(counts_sel)
         mask6 = (np.ones_like(counts6) if dir_mask is None
                  else np.asarray(dir_mask, np.int64))
         # padding rows (all-zero host counts) get a zero mask: META5 reads
@@ -839,13 +960,16 @@ class Renderer:
                      counts6_dev=None):
         """Draw-list expansion + step (the draw-list-changed frame).
         Returns (color, depth, stats, uploads); ``uploads`` is None on the
-        META5 path (``counts6_dev`` given, not truncated), else the
-        expanded stream for render_prepared."""
+        META5 path (``counts6_dev`` given, per-direction counts, not
+        truncated), else the expanded stream for render_prepared.  Legacy
+        [vcap] totals take the 11-short layout: their dir-0 units are not
+        the device mirror's per-direction counts."""
         slots_a, counts6, mask6, pos_a, cap, truncated = self._prep_meta(
             visible_slots, counts_sel, positions_sel, dir_mask)
         vcap = self.config.visible_chunks_cap
         kw = self._bucket_kw(cap)
-        if counts6_dev is not None and not truncated:
+        legacy_counts = np.asarray(counts_sel).ndim == 1
+        if counts6_dev is not None and not truncated and not legacy_counts:
             color, depth, stats = _fused_frame5(
                 quad_pool, counts6_dev,
                 self._frame_u(vcap, slots_a, mask6, pos_a, view_proj,
@@ -900,12 +1024,13 @@ class Renderer:
         (QuadPool.prepare_insert_payload gives ``insert_payload``).  Returns
         (pool, counts6, color, depth, stats) -- the pool tensors are
         updated in place -- or None when the frame needs a fallback layout
-        (a truncated draw list), in which case nothing ran."""
+        (a truncated draw list or legacy [vcap] totals), in which case
+        nothing ran."""
         if insert_payload.shape != (3 * self.INSERT_KP + self.INSERT_FP,):
             raise ValueError(f"insert payload of shape {insert_payload.shape}")
         slots_a, counts6, mask6, pos_a, cap, truncated = self._prep_meta(
             visible_slots, counts_sel, positions_sel, dir_mask)
-        if truncated:
+        if truncated or np.asarray(counts_sel).ndim == 1:
             return None
         vcap = self.config.visible_chunks_cap
         return _fused_frame_insert(
@@ -914,6 +1039,18 @@ class Renderer:
                           insert_payload),
             vcap=vcap, gather_cap=cap, kp=self.INSERT_KP, mc=self.INSERT_MC,
             **self._bucket_kw(cap))
+
+    def render(self, quad_pool, visible_slots, counts_sel, positions_sel,
+               view_proj, cam_pos):
+        """Returns (color int32[H, W] as ARGB bits, depth f32[H, W],
+        stats): ``prepare_uploads`` then ``render_prepared``.
+        ``visible_slots``/``counts_sel``/``positions_sel`` are the host
+        per-visible-chunk pool slots, quad counts ([vcap] totals or [vcap,
+        6] per direction) and chunk grid positions, front to back and
+        zero-padded."""
+        uploads = self.prepare_uploads(quad_pool, visible_slots, counts_sel,
+                                       positions_sel)
+        return self.render_prepared(uploads, view_proj, cam_pos)
 
     # ------------------------------------------- frames-in-flight pipeline
     def _check_pipelined(self) -> None:
@@ -961,13 +1098,14 @@ class Renderer:
         the same step (the moving/streaming path; META5).  Returns
         (result_or_None, uploads): ``result`` is the OLDEST pending frame's
         (color, depth, stats) and ``uploads`` frame N's expanded stream.  A
-        truncated draw list or a missing counts6 mirror renders serially
-        (render_fused) after draining the pipeline; a done-queue keeps the
-        emission order."""
+        truncated draw list, legacy [vcap] totals or a missing counts6
+        mirror renders serially (render_fused) after draining the pipeline;
+        a done-queue keeps the emission order."""
         self._check_pipelined()
         slots_a, _, mask6, pos_a, cap, truncated = self._prep_meta(
             visible_slots, counts_sel, positions_sel, dir_mask)
-        if counts6_dev is None or truncated:
+        if (counts6_dev is None or truncated
+                or np.asarray(counts_sel).ndim == 1):
             out = self.pipeline_flush()
             color, depth, stats, uploads = self.render_fused(
                 quad_pool, visible_slots, counts_sel, positions_sel,

@@ -1,8 +1,9 @@
-"""Perf / observability: timers, stage stats and function counters.
+"""Perf / observability: timers, stage stats, function counters, and
+torch.profiler integration.
 
 The port's copy of ``differential_projection_voxel_renderer_tpu/utils/
-profiling.py``, as it is but for ``trace``, a ``jax.profiler`` scope; on
-the card, ``torch.profiler`` takes its place (chip_smoke.py phase 7).
+profiling.py``, as it is but for ``trace``, there a ``jax.profiler`` scope
+and here a ``torch.profiler`` one.
 
 Reference: src/perf/ — three tiers (SURVEY.md section 5 "Tracing"):
 1. RAII wall-clock PerfTimer / perf_scope! printing on drop
@@ -19,7 +20,10 @@ Reference: src/perf/ — three tiers (SURVEY.md section 5 "Tracing"):
                                            counters via a ctypes
                                            perf_event_open wrapper (host-
                                            side code: meshing, culling,
-                                           binning prep)
+                                           binning prep); trace(): a
+                                           torch.profiler trace is the
+                                           device-side equivalent (view in
+                                           TensorBoard or Perfetto)
 """
 
 from __future__ import annotations
@@ -141,6 +145,29 @@ class FunctionCounters:
 
 
 FUNCTION_COUNTERS = FunctionCounters()
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | None = None):
+    """torch.profiler trace scope, the port's form of the reference's
+    ``jax.profiler`` scope: host ops and, when a card is present, its
+    kernels.  On exit one Chrome-format ``*.pt.trace.json`` lands in
+    ``log_dir`` (by default ``dpvr_trace`` under the temporary directory);
+    open it in TensorBoard's profiler plugin or in Perfetto for per-kernel
+    timing."""
+    import tempfile
+
+    import torch
+
+    log_dir = log_dir or os.path.join(tempfile.gettempdir(), "dpvr_trace")
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+            activities=acts,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                log_dir)):
+        yield log_dir
 
 
 # ---------------------------------------------------------------------------

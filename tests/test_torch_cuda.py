@@ -525,3 +525,14 @@ def test_copy_kernel_matches_plain(cuda_device):
     buf = ins[0].clone()
     out = micro.blocked_copy([buf], x, pairs[:2], out=(buf, None))
     assert out[0] is buf and bench_common.same_bits(out, ref[:2])
+
+
+@pytest.mark.cuda
+def test_hardware_selftest_is_exact(cuda_device):
+    """The fuzz scene through K1 and K2 against their plain twins on the
+    card, at one and five tile columns: bit for bit, and the kernels
+    launched."""
+    k1, k2 = geometry.launches, raster.launches
+    assert parity.run_hardware_selftest(device="cuda") == "exact"
+    assert parity.run_hardware_selftest(device="cuda", width=640) == "exact"
+    assert geometry.launches > k1 and raster.launches > k2

@@ -213,3 +213,182 @@ def test_native_build_is_atomic(tmp_path):
     assert outs == ["True"] * 4
     assert os.listdir(tmp_path / "build" / "native") == [
         os.path.basename(native_bridge.LIB_PATH)]
+
+
+# ------------------------------------------- chunk_mesh, face_packets,
+# ------------------------------------------- framebuffer, oracle
+
+
+def _fuzz_mesh(seed=42):
+    return JG.mesh_chunk(JPAR.fuzz_chunk(seed))
+
+
+def test_chunk_mesh_matches_jax():
+    from differential_projection_voxel_renderer_tpu.meshing import (
+        chunk_mesh as JM,
+    )
+    from differential_projection_voxel_renderer_tpu_torch.meshing import (
+        chunk_mesh as TM,
+    )
+
+    quads = _fuzz_mesh()
+    ref, got = (M.ChunkMesh.from_quads((2, -1, 3), quads) for M in (JM, TM))
+    assert got.quad_count() == ref.quad_count() == len(quads)
+    np.testing.assert_array_equal(ref.packed(), got.packed())
+    for face in (None, *range(6)):
+        for r, g in zip(ref.local_aabb(face), got.local_aabb(face)):
+            np.testing.assert_array_equal(r, g)
+        np.testing.assert_array_equal(ref.corners_world(face),
+                                      got.corners_world(face))
+    for f in range(6):
+        for r, g in zip(ref.faces[f].slices, got.faces[f].slices):
+            np.testing.assert_array_equal(r, g)
+        np.testing.assert_array_equal(JM.corner_winding(f),
+                                      TM.corner_winding(f))
+        corners = got.corners_world(f)[:3]
+        for c in corners:
+            np.testing.assert_array_equal(JM.winding_normal(c, f),
+                                          TM.winding_normal(c, f))
+    for m in (ref, got):
+        m.add_quad(3, 1, 2, 3, 4, 2, 17)
+        m.add_quad(2, 0, 0, 1, 1, 1, 32)
+    np.testing.assert_array_equal(ref.packed(), got.packed())
+    assert TM.ChunkMesh.from_quads((0, 0, 0), None).is_empty()
+
+
+def test_face_packets_match_jax():
+    from differential_projection_voxel_renderer_tpu.meshing import (
+        face_packets as JFP,
+    )
+    from differential_projection_voxel_renderer_tpu_torch.meshing import (
+        face_packets as TFP,
+    )
+
+    quads = _fuzz_mesh(7)
+    ref = JFP.ChunkFacePackets.from_packed_quads(quads)
+    got = TFP.ChunkFacePackets.from_packed_quads(quads)
+    assert got.packet_count() == ref.packet_count() > 6
+    assert got.quad_count() == ref.quad_count() == len(quads)
+    for rf, gf in zip(ref.faces, got.faces):
+        for r, g in zip(rf, gf):
+            assert dataclasses.asdict(r).keys() == dataclasses.asdict(g).keys()
+            for k, v in dataclasses.asdict(r).items():
+                np.testing.assert_array_equal(v, dataclasses.asdict(g)[k])
+            assert (r.is_empty, r.is_full) == (g.is_empty, g.is_full)
+            np.testing.assert_array_equal(r.slice_idx_uniform(),
+                                          g.slice_idx_uniform())
+
+
+def test_framebuffer_matches_jax(tmp_path):
+    """set_pixel, the stripe and tile views, to_rgb8 and the PPM bytes; and
+    from_device on torch tensors (the only change of the copy)."""
+    import torch
+
+    from differential_projection_voxel_renderer_tpu.rendering import (
+        framebuffer as JFB,
+    )
+    from differential_projection_voxel_renderer_tpu_torch.rendering import (
+        framebuffer as TFB,
+    )
+
+    rng = np.random.default_rng(3)
+    w, h = 200, 90
+    writes = [(int(x), int(y), int(c), float(d)) for x, y, c, d in zip(
+        rng.integers(-5, w + 5, 400), rng.integers(-5, h + 5, 400),
+        rng.integers(0, 2**32, 400), rng.uniform(0, 1, 400))]
+    fbs = []
+    for FB in (JFB, TFB):
+        fb = FB.Framebuffer(w, h)
+        oks = [fb.set_pixel(*wr) for wr in writes]
+        stripes = fb.split_into_stripes(7)
+        tiles = fb.split_into_tiles(64)
+        for i, wr in enumerate(writes):
+            oks.append(stripes[i % len(stripes)].test_depth_and_write(*wr))
+            oks.append(tiles[i % len(tiles)].test_depth_and_write(*wr))
+        ct = FB.CountingTarget(fb)
+        oks += [ct.test_depth_and_write(x, y, c, d / 2) for x, y, c, d
+                in writes[:50]]
+        path = tmp_path / f"{FB.__name__}.ppm"
+        fb.save_ppm(str(path))
+        fbs.append((oks, [s.rect() for s in stripes],
+                    [t.rect() for t in tiles], (ct.attempts, ct.writes),
+                    fb.to_rgb8(), fb.color_buffer_slice(), fb.depth,
+                    path.read_bytes(), FB.rgb_to_u32(300, 20, 7),
+                    [FB.apply_ao([200, 64, 9], ao) for ao in range(5)]))
+    for r, g in zip(*fbs):
+        if isinstance(r, np.ndarray):
+            np.testing.assert_array_equal(r, g)
+        else:
+            assert r == g
+    color = rng.integers(-2**31, 2**31, (h, w)).astype(np.int32)
+    depth = rng.uniform(0, 1, (h, w)).astype(np.float32)
+    ref = JFB.Framebuffer.from_device(color, depth)
+    for c, d in ((color, depth), (torch.from_numpy(color),
+                                  torch.from_numpy(depth))):
+        got = TFB.Framebuffer.from_device(c, d)
+        np.testing.assert_array_equal(ref.color, got.color)
+        np.testing.assert_array_equal(ref.depth, got.depth)
+        assert got.color.dtype == np.uint32
+
+
+def test_oracle_matches_jax():
+    """render_exact (textured and flat), render_triangles, render_span and
+    pixel_candidates on the fuzz chunk at 64x64, bit for bit."""
+    from differential_projection_voxel_renderer_tpu.rendering import (
+        oracle as JOR,
+    )
+    from differential_projection_voxel_renderer_tpu_torch.rendering import (
+        oracle as TOR,
+    )
+
+    w, h = 64, 64
+    quads = _fuzz_mesh()
+    cam = JC.Camera(np.array([16.0, 48.0, 16.0], np.float32), w / h)
+    cam.look_at(np.array([16.0, 8.0, 16.0], np.float32))
+    vp, cp = cam.view_projection_matrix(), cam.position
+    origin = np.zeros(3)
+    tables = JS.build_quad_color_tables(JT.TextureAtlas().kernel_tables())
+    outs = []
+    for OR in (JOR, TOR):
+        ex = OR.render_exact(quads, origin, vp, cp, w, h,
+                             color_tables=tables)
+        flat = OR.render_exact(quads, origin, vp, cp, w, h, subpixel=False)
+        tri = OR.render_triangles(quads, origin, vp, w, h, cam_pos=cp)
+        span = OR.render_span(quads, origin, vp, cp, w, h)
+        cands = OR.pixel_candidates(quads, origin, vp, cp, w, h,
+                                    [(h // 2, w // 2), (3, 5), (h - 1, 0)],
+                                    color_tables=tables)
+        outs.append((ex, flat, tri, span, cands))
+    (ex, flat, tri, span, cands), got = outs
+    assert (ex[0] != np.uint32(JCFG.SKY_COLOR)).sum() > w * h // 4
+    for r, g in zip((ex, flat, tri, span), got[:4]):
+        for a, b in zip(r, g):
+            np.testing.assert_array_equal(a, b)
+    assert cands == got[4]
+
+
+def test_trace_writes_a_chrome_trace(tmp_path):
+    """``utils/profiling.trace``, the port's ``torch.profiler`` form of the
+    reference's ``jax.profiler`` scope: the same signature, one
+    Chrome-format trace in the directory, holding the ops it saw."""
+    import inspect
+    import json
+
+    import torch
+
+    from differential_projection_voxel_renderer_tpu.utils import (
+        profiling as JPR,
+    )
+    from differential_projection_voxel_renderer_tpu_torch.utils import (
+        profiling as TPR,
+    )
+
+    assert (list(inspect.signature(JPR.trace).parameters)
+            == list(inspect.signature(TPR.trace).parameters) == ["log_dir"])
+    with TPR.trace(str(tmp_path)) as d:
+        assert d == str(tmp_path)
+        torch.ones(64).cumsum(0)
+    files = list(tmp_path.glob("*.pt.trace.json"))
+    assert len(files) == 1
+    events = json.loads(files[0].read_text())["traceEvents"]
+    assert any("cumsum" in e.get("name", "") for e in events)
