@@ -7,9 +7,10 @@ Builds the port's CUDA kernels from ``csrc/`` (nvcc, sm_90a), drives the
 serial frame path of ``Engine.render_frame`` (also in the two-pass and
 temporal Hi-Z modes), the frames-in-flight path of
 ``Engine.render_frame_pipelined``, the packed raster path, the row
-bands and camera batch of ``parallel/sharded_render.py`` and the
+bands and camera batch of ``parallel/sharded_render.py``, the
 application surface (warm-ups, flythrough, stale pool, shading toggle,
-production parity, graft entry points, demo) at the
+production parity, graft entry points, demo) and the resident superset
+stream (``Engine(resident_stream=True)``) at the
 headline scene (1280x720, view distance 12, textures and shading on, from
 the reference start pose) and the cost-probe path at the probes' 736x1280
 frame, holds each kernel against its plain PyTorch version on the card,
@@ -138,7 +139,26 @@ and times kernels and frames.  Phases:
    stream (its verdict, the PARITY line); ``graft_entry.entry()`` and
    ``dryrun_multichip(4)`` and ``(8)``; the demo's ``main`` into a
    temporary PPM at 1280x720, view distance 6 (its size checked).  The
-   seconds of each part are printed.
+   seconds of each part are printed;
+15. the resident superset stream (RenderConfig's defaults widened by the
+   mode: gather cap 262144, item cap 131072, 1024 draw-list slots), each
+   part with the counters zeroed before and read after it: an engine
+   primed with ``prime_all``, ``warm_resident()`` (the pool unchanged),
+   the start pose's frame (equal to phase 3's static frame bit for bit)
+   and ``default_path(24)`` (every frame equal to phase 14's primed serial
+   flight bit for bit in colour and depth, no fallback, at least one
+   rebuild, K1 and K2 once a frame); an engine primed with ``prime()``
+   only over the same keys (its frames against phase 14's stale engine's),
+   then held at the last key until its stash drains (appends and fused
+   inserts must have run), ``invalidate_resident()`` and a frame equal to
+   phase 14's serial engine's bit for bit, whose pool's chunks must all be
+   in the resident pool; K1 and K2 against their plain versions bit for
+   bit on a resident stream at the 262144-quad shape (compaction on, item
+   cap 131072), with their device time from a CUDA graph and their bound;
+   the resident-append, fused-insert and pipelined self-tests on the card
+   ("exact"); resident against serial flights, primed and streaming, in
+   alternating turns on fresh engines (frames a second by CUDA events and
+   the host clock); 10 profiled resident moving frames.
 
 The script imports the port package and nothing else of the repo; before
 it prints its result it checks that neither jax nor any module of the JAX
@@ -150,9 +170,11 @@ entry per kernel (K1-K4, and M1 at ``a_base`` and M2 at ``make9``'s 4x5
 form with every probe site each replaces; K2's entry also gives its empty
 floor, its launches on the paths of phases 12-13, its time with an init
 frame and each band's, its wrapper's host us and the production parity
-verdict; K1-K3 give their launches on each part of phase 14, K3 and K4
-their device time from a CUDA graph), the card's name and power limit as nvidia-smi gives
-them, and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
+verdict; K1-K3 give their launches on each part of phase 14, K1-K4 on
+each part of phase 15, K1 and K2 their time, plain time and bound at the
+resident shapes, K3 and K4 their device time from a CUDA graph), the
+card's name and power limit as nvidia-smi gives them, and ``{"ok": true,
+"device": {...}}``.  Exits non-zero, printing no
 result, when there is no CUDA device or the package is not beside this
 script.
 """
@@ -177,6 +199,10 @@ N_TIMED, N_TIMED_PIPELINED, N_MOVING = 50, 20, 10
 # about as many chunks as the JAX benches' 8192 slots (phase 14 prints it)
 FLY_KEYS = 24
 APP_POOL_SLOTS = 16384
+# phase 15: the frames a stash may take to drain with the camera held, and
+# the turns of each mode in the frames-a-second comparison
+SETTLE_FRAMES = 2000
+FLY_TURNS = 3
 # exact occlusion: the two-pass mode's near pass (MacrotileRenderConfig's
 # default), and the wall scene's (tests/test_macrotile.py)
 NEAR_QUADS, WALL_NEAR = 8192, 16
@@ -271,11 +297,13 @@ def reset_counters() -> None:
 # ------------------------------------------------------------- main path
 
 
-def new_engine(torch, config=None, prime_all=False, pool_slots=4096):
+def new_engine(torch, config=None, prime_all=False, pool_slots=4096,
+               resident=False):
     """An Engine on the card at the headline scene (``config``, by default
-    RenderConfig(WIDTH, HEIGHT)), its world settled and primed at the start
-    pose (every loaded chunk meshed with ``prime_all``): (engine, world
-    seconds, prime seconds)."""
+    RenderConfig(WIDTH, HEIGHT); in the resident superset stream mode with
+    ``resident``), its world settled and primed at the start pose (every
+    loaded chunk meshed with ``prime_all``): (engine, world seconds, prime
+    seconds)."""
     import numpy as np
 
     from differential_projection_voxel_renderer_tpu_torch.app.engine import (
@@ -287,7 +315,7 @@ def new_engine(torch, config=None, prime_all=False, pool_slots=4096):
     t0 = time.perf_counter()
     eng = Engine(config or RenderConfig(WIDTH, HEIGHT),
                  WorldConfig(view_distance=VIEW_DISTANCE),
-                 pool_slots=pool_slots)
+                 pool_slots=pool_slots, resident_stream=resident)
     eng.camera.position = np.array(START_POS, np.float32)
     eng.camera.look_at(np.array(START_TARGET, np.float32))
     while eng.world.update(eng.camera.position):
@@ -1059,6 +1087,51 @@ def band_path(torch, eng, serial, card):
     return launches, band_ms, err
 
 
+def fly_path(eng, path, ev, keep_frames=True):
+    """app/flythrough.run_flythrough over ``path`` between the CUDA events
+    ``ev``; each frame's (colour, depth, stats) as device copies, or None
+    without ``keep_frames``."""
+    from differential_projection_voxel_renderer_tpu_torch.app import (
+        flythrough,
+    )
+
+    ev[0].record()
+    out = [keep(r) if keep_frames else None
+           for r in flythrough.run_flythrough(eng, path)]
+    ev[1].record()
+    return out
+
+
+class Parts:
+    """The parts of a phase: each runs with the launch counters zeroed
+    before it and read after it (``launches[part]`` = (K1, K2, K3, K4)),
+    timed by the host clock around work that ends in a synchronise
+    (``secs[part]``)."""
+
+    def __init__(self, torch, phase: str):
+        self.torch, self.phase = torch, phase
+        self.launches, self.secs = {}, {}
+
+    def run(self, part, fn):
+        self.torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        out = fn()
+        self.torch.cuda.synchronize()
+        self.secs[part] = time.perf_counter() - t0
+        self.launches[part] = counters()
+        return out
+
+    def need(self, part, *want):
+        """Each of K1, K2, K3 launched exactly ``want[i]`` times, or at
+        least once where ``want[i]`` is "+"."""
+        got = self.launches[part]
+        for n, w in zip(got, want):
+            if not (n > 0 if w == "+" else n == w):
+                raise AssertionError(f"[{self.phase}] {part}: launches "
+                                     f"{got}, wanted {want}")
+
+
 def pool_snapshot(torch, pool):
     """Everything of a QuadPool that a later frame or slot choice reads:
     device rows and counts mirror (copies), host tables, free list, used
@@ -1079,27 +1152,33 @@ def same_pool_snapshot(torch, a, b) -> bool:
                for k in a)
 
 
-def same_pool_content(torch, pa, pb) -> bool:
-    """The two pools hold the same chunks with the same rows (up to each
-    chunk's count), host counts and device counts mirror; slot numbers may
-    differ."""
+def shared_chunks_equal(torch, pa, pb) -> tuple[int, int]:
+    """(chunks in both pools, of them those with the same rows up to their
+    count, host counts and device counts mirror)."""
     import numpy as np
 
-    if set(pa.by_pos) != set(pb.by_pos):
-        return False
-    keys = sorted(pa.by_pos)
+    keys = sorted(set(pa.by_pos) & set(pb.by_pos))
     sa = np.array([pa.by_pos[k] for k in keys], np.int64)
     sb = np.array([pb.by_pos[k] for k in keys], np.int64)
-    if not (np.array_equal(pa.counts6[sa], pb.counts6[sb])
-            and np.array_equal(pa.counts[sa], pb.counts[sb])):
-        return False
     dev = pa.quads.device
     ia, ib = torch.from_numpy(sa).to(dev), torch.from_numpy(sb).to(dev)
     n = torch.from_numpy(pa.counts[sa].astype(np.int64)).to(dev)
     live = torch.arange(pa.qcap, device=dev)[None, :] < n[:, None]
-    return bool(torch.equal(pa.counts6_dev[ia], pb.counts6_dev[ib])
-                and torch.equal(torch.where(live, pa.quads[ia], 0),
-                                torch.where(live, pb.quads[ib], 0)))
+    rows = (torch.where(live, pa.quads[ia], 0)
+            == torch.where(live, pb.quads[ib], 0)).all(1)
+    mirror = (pa.counts6_dev[ia] == pb.counts6_dev[ib]).all(1)
+    host = torch.from_numpy((pa.counts6[sa] == pb.counts6[sb]).all(1)).to(dev)
+    return len(keys), int((rows & mirror & host).sum())
+
+
+def same_pool_content(torch, pa, pb) -> bool:
+    """The two pools hold the same chunks with the same rows (up to each
+    chunk's count), host counts and device counts mirror; slot numbers may
+    differ."""
+    if set(pa.by_pos) != set(pb.by_pos):
+        return False
+    shared, equal = shared_chunks_equal(torch, pa, pb)
+    return equal == shared
 
 
 def app_path(torch, eng3, serial, static, card):
@@ -1132,7 +1211,9 @@ def app_path(torch, eng3, serial, static, card):
     Returns (launches {part: (K1, K2, K3, K4)}, {part: seconds},
     flythrough frames a second {"events", "host", "prime host"}, {"prime_all",
     "prime": (stale frames that differ, chunks meshed late)}, the parity
-    verdict)."""
+    verdict, the flights phase 15 compares with: {"primed": the primed
+    serial flight's frames, "serial": (the prime()-only serial engine, held
+    at the last key), "stale": the prime()-only stale flight's frames})."""
     import tempfile
 
     import numpy as np
@@ -1148,26 +1229,9 @@ def app_path(torch, eng3, serial, static, card):
         parity,
     )
 
-    launches, secs = {}, {}
-
-    def timed(part, fn):
-        torch.cuda.synchronize()
-        reset_counters()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        secs[part] = time.perf_counter() - t0
-        launches[part] = counters()
-        return out
-
-    def need(part, *want):
-        """Each of K1, K2, K3 launched exactly ``want[i]`` times, or at
-        least once where ``want[i]`` is "+"."""
-        got = launches[part]
-        for n, w in zip(got, want):
-            if not (n > 0 if w == "+" else n == w):
-                raise AssertionError(f"[14] {part}: launches {got}, "
-                                     f"wanted {want}")
+    parts = Parts(torch, "14")
+    launches, secs, timed, need = (parts.launches, parts.secs, parts.run,
+                                   parts.need)
 
     # warm-ups, in benches/flythrough_bench.py's order
     eng, t_world, t_prime = timed("settle + prime_all", lambda: new_engine(
@@ -1201,11 +1265,7 @@ def app_path(torch, eng3, serial, static, card):
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
 
     def fly(e):
-        ev[0].record()
-        out = [(r.color.clone(), r.depth.clone(), r.stats.clone())
-               for r in flythrough.run_flythrough(e, path)]
-        ev[1].record()
-        return out
+        return fly_path(e, path, ev)
 
     frames = timed("flythrough", lambda: fly(eng))
     need("flythrough", FLY_KEYS, FLY_KEYS, 0)
@@ -1238,6 +1298,7 @@ def app_path(torch, eng3, serial, static, card):
         part = f"stale flythrough, {label}"
         sframes = timed(part, lambda: fly(st))
         need(part, FLY_KEYS, FLY_KEYS, 0)
+        flights[f"stale {label}"] = sframes
         differ = sum(1 for a, b in zip(ser_frames, sframes)
                      if not (torch.equal(a[0], b[0])
                              and torch.equal(a[1], b[1])))
@@ -1271,8 +1332,8 @@ def app_path(torch, eng3, serial, static, card):
             f"chunks loaded); {card}")
         return differ, n_late
 
+    flights = {"primed": frames}
     stale = {"prime_all": stale_pair("prime_all", eng, frames, True)}
-    del frames
     ser, _, _ = new_engine(torch, pool_slots=APP_POOL_SLOTS)
     ser.render_frame(dt=0.0)
     frames = timed("flythrough, prime", lambda: fly(ser))
@@ -1285,7 +1346,9 @@ def app_path(torch, eng3, serial, static, card):
     if not stale["prime"][0]:
         raise AssertionError("[14] no stale frame differed: the flight "
                              "streamed no visible chunk")
-    del eng, ser, frames
+    flights = dict(primed=flights["primed"], serial=ser,
+                   stale=flights["stale prime"])
+    del eng, frames
 
     # the shading toggle on the phase-3 engine
     def shading():
@@ -1361,7 +1424,372 @@ def app_path(torch, eng3, serial, static, card):
         raise AssertionError(f"[14] the demo wrote {size} bytes")
     log(f"[14] demo: {size} bytes ({header} of header + 3 x {WIDTH} x "
         f"{HEIGHT}), {secs['demo']:.2f} s with its world and meshing")
-    return launches, secs, fps, stale, verdict
+    return launches, secs, fps, stale, verdict, flights
+
+
+# ------------------------------------------------------------- resident
+
+
+def same_frame_bits(torch, a, b) -> bool:
+    """Colour and depth of two frames ((colour, depth, ...) tuples) equal
+    bit for bit."""
+    return torch.equal(a[0], b[0]) and torch.equal(a[1].view(torch.int32),
+                                                   b[1].view(torch.int32))
+
+
+def resident_path(torch, serial, flights, card):
+    """Phase 15: the resident superset stream (Engine(resident_stream=True))
+    at the headline scene, RenderConfig's defaults widened by the mode, with
+    16384-slot pools.  The launch counters are zeroed before each part and
+    read after it.
+
+    - A resident engine primed with prime_all: warm_resident (the pool
+      unchanged, rows and mirror included), the start pose's frame (equal
+      to phase 3's static frame bit for bit), then default_path(FLY_KEYS):
+      every frame equal to phase 14's primed serial flight bit for bit
+      (colour and depth; the stats count the superset stream), no
+      fallback, at least one rebuild (a cell crossing), K1 and K2 once a
+      frame.
+    - A resident engine primed with prime() only over the same keys: the
+      frames that differ from phase 14's stale engine's (primed the same),
+      appends and fused inserts (each at least one); then, the camera held
+      at the last key and the world settled, frames until the stash
+      drains, invalidate_resident() and one frame: equal to phase 14's
+      serial engine's bit for bit, every chunk of its pool in the resident
+      pool (the chunks of both with equal rows counted).
+    - K1 and K2 on the primed engine's last stream at the resident shapes
+      (the 262144-quad bucket, compaction on, item cap 131072) against
+      their plain versions bit for bit, their device time from a CUDA graph
+      and their bound.
+    - run_resident_append_selftest, run_fused_insert_selftest and
+      run_pipelined_selftest on the card: each "exact".
+    - Frames a second, resident against serial, primed and streaming, in
+      alternating turns on fresh engines (FLY_TURNS turns each), by CUDA
+      events and the host clock; 10 profiled resident moving frames.
+
+    Returns (launches {part: (K1, K2, K3, K4)}, {part: seconds}, the
+    kernels' numbers at the resident shapes)."""
+    import numpy as np
+
+    from differential_projection_voxel_renderer_tpu_torch.app import (
+        flythrough,
+    )
+    from differential_projection_voxel_renderer_tpu_torch.benches import (
+        common,
+    )
+    from differential_projection_voxel_renderer_tpu_torch.ops import (
+        geometry,
+        raster,
+    )
+    from differential_projection_voxel_renderer_tpu_torch.rendering import (
+        parity,
+        pipeline,
+    )
+
+    parts = Parts(torch, "15")
+    timed, need = parts.run, parts.need
+    path = flythrough.default_path(FLY_KEYS)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def fly(e, keep_frames=True):
+        return fly_path(e, path, ev, keep_frames)
+
+    def count_rebuilds(e):
+        """Wrap the engine's stream rebuild: each build appends (cell,
+        chunks, quads)."""
+        builds = []
+        build = e._rebuild_resident
+
+        def counted(cell):
+            ok = build(cell)
+            builds.append((cell, e._res_n, e._res_total) if ok else None)
+            return ok
+        e._rebuild_resident = counted
+        return builds
+
+    # the primed flight
+    eng, t_world, t_prime = timed("settle + prime_all", lambda: new_engine(
+        torch, prime_all=True, pool_slots=APP_POOL_SLOTS, resident=True))
+    cfg = eng.config
+    if not (eng.resident_stream and cfg.tile_k_cap >= 131072
+            and cfg.visible_chunks_cap >= 1024):
+        raise AssertionError(f"[15] the resident configuration: {cfg}")
+    before = pool_snapshot(torch, eng.pool)
+    builds = count_rebuilds(eng)
+    timed("warm_resident", eng.warm_resident)
+    need("warm_resident", 3, 3, 0)
+    if not same_pool_snapshot(torch, before, pool_snapshot(torch, eng.pool)):
+        raise AssertionError("[15] warm_resident changed the pool")
+    del before
+    res = timed("frame", lambda: eng.render_frame(dt=0.0))
+    need("frame", 1, 1, 0)
+    if not same_frame_bits(torch, (res.color, res.depth), serial["static"]):
+        raise AssertionError("[15] the resident start-pose frame differs "
+                             "from phase 3's static frame")
+    log(f"[15] primed resident engine: world settled in {t_world:.2f} s, "
+        f"prime_all {len(eng.pool.by_pos)} meshes in {t_prime:.2f} s; "
+        f"gather cap {cfg.gather_cap}, buckets "
+        f"{eng.renderer.gather_buckets}, item cap {cfg.tile_k_cap}, "
+        f"{cfg.visible_chunks_cap} draw-list slots; warm_resident "
+        f"{parts.secs['warm_resident']:.3f} s, launches "
+        f"{parts.launches['warm_resident']}, the pool unchanged; the stream "
+        f"built at cell {builds[0][0]}: {builds[0][1]} chunks, "
+        f"{builds[0][2]} quads; the start-pose frame "
+        f"{parts.secs['frame']:.3f} s and equal to phase 3's static frame "
+        f"bit for bit (stats {res.stats.tolist()} against "
+        f"{serial['static'][2].tolist()}); {card}")
+    n_built = len(builds)
+    frames = timed("primed flight", lambda: fly(eng))
+    need("primed flight", FLY_KEYS, FLY_KEYS, 0)
+    primed_ms = ev[0].elapsed_time(ev[1]) / FLY_KEYS
+    rebuilds = builds[n_built:]
+    if None in rebuilds or not eng.resident_stream:
+        raise AssertionError("[15] the primed resident flight fell back")
+    differ = [(i, a[2].tolist(), b[2].tolist(),
+               int(((a[0] != b[0]) | (a[1] != b[1])).sum()))
+              for i, (a, b) in enumerate(zip(frames, flights["primed"]))
+              if not same_frame_bits(torch, a, b)]
+    if differ:
+        raise AssertionError(f"[15] primed resident frames differ from "
+                             f"phase 14's primed serial flight: (frame, "
+                             f"resident stats, serial stats, pixels) "
+                             f"{differ}")
+    if not rebuilds:
+        raise AssertionError("[15] the primed flight crossed no chunk cell")
+    more = [int(a[2][1]) - int(b[2][1])
+            for a, b in zip(frames, flights["primed"])]
+    dropped = ([int(f[2][3]) for f in frames],
+               [int(f[2][3]) for f in flights["primed"]])
+    log(f"[15] primed resident flight over default_path({FLY_KEYS}): every "
+        f"frame equal to phase 14's primed serial flight bit for bit "
+        f"(colour and depth); {len(rebuilds)} rebuilds (cell, chunks, "
+        f"quads) {rebuilds}; {eng._res_appends} appends, "
+        f"{eng._res_fused_inserts} fused inserts; the superset rasterizes "
+        f"{min(more)}..{max(more)} more quads a frame than the serial path; "
+        f"bin_overflow (quads the binning drops) {min(dropped[0])}.."
+        f"{max(dropped[0])} a frame, the serial flight's {min(dropped[1])}.."
+        f"{max(dropped[1])}; "
+        f"launches {parts.launches['primed flight']} "
+        f"({parts.launches['primed flight'][0] / FLY_KEYS:.2f} K1 and "
+        f"{parts.launches['primed flight'][1] / FLY_KEYS:.2f} K2 a frame); "
+        f"{1e3 / primed_ms:.2f} frames/s between CUDA events, "
+        f"{FLY_KEYS / parts.secs['primed flight']:.2f} by the host clock; "
+        f"{card}")
+    del frames
+
+    # the streaming flight
+    st, _, _ = timed("settle + prime", lambda: new_engine(
+        torch, pool_slots=APP_POOL_SLOTS, resident=True))
+    st_builds = count_rebuilds(st)
+    st.render_frame(dt=0.0)
+    frames = timed("streaming flight", lambda: fly(st))
+    need("streaming flight", FLY_KEYS, FLY_KEYS, 0)
+    if None in st_builds or not st.resident_stream:
+        raise AssertionError("[15] the streaming resident flight fell back")
+    flight_riders = (st._res_appends, st._res_fused_inserts)
+    differ = sum(1 for a, b in zip(frames, flights["stale"])
+                 if not same_frame_bits(torch, a, b))
+    log(f"[15] streaming resident flight (prime() only) over the same keys: "
+        f"{differ} of {FLY_KEYS} frames differ from phase 14's stale "
+        f"engine's; {flight_riders[0]} appends, {flight_riders[1]} fused "
+        f"inserts (a batch rides the next frame only when that frame stays "
+        f"in the cell), {len(st_builds) - 1} rebuilds after the first; "
+        f"{len(st._stale_stash)} chunks left in the stash; "
+        f"{FLY_KEYS / parts.secs['streaming flight']:.2f} frames/s by the "
+        f"host clock; {card}")
+    del frames
+
+    def settle():
+        while st.world.update(st.camera.position):
+            pass
+        # the first frame takes the settled world's chunks into the stash
+        n = 1
+        st.render_frame(dt=0.0)
+        while st._stale_stash and n < SETTLE_FRAMES:
+            st.render_frame(dt=0.0)
+            n += 1
+        st.render_frame(dt=0.0)
+        st.invalidate_resident()
+        return n, st.render_frame(dt=0.0)
+
+    n_settle, held = timed("settle", settle)
+    if st._stale_stash:
+        raise AssertionError(f"[15] the stash did not drain in "
+                             f"{SETTLE_FRAMES} frames")
+    if not (st._res_appends and st._res_fused_inserts
+            and st.resident_stream):
+        raise AssertionError(f"[15] the streaming engine made "
+                             f"{st._res_appends} appends and "
+                             f"{st._res_fused_inserts} fused inserts")
+    ser = flights["serial"]
+    ref = ser.render_frame(dt=0.0)
+    if not same_frame_bits(torch, (held.color, held.depth),
+                           (ref.color, ref.depth)):
+        raise AssertionError("[15] the settled resident frame differs from "
+                             "the serial engine's")
+    if not set(ser.pool.by_pos) <= set(st.pool.by_pos):
+        raise AssertionError("[15] a chunk of the serial pool is missing "
+                             "from the resident pool")
+    shared, equal = shared_chunks_equal(torch, ser.pool, st.pool)
+    log(f"[15] held at the last key: the stash drained in {n_settle} frames "
+        f"({parts.secs['settle']:.2f} s; {st._res_appends} appends and "
+        f"{st._res_fused_inserts} fused inserts since the start, launches "
+        f"{parts.launches['settle']}), then invalidate_resident() and "
+        f"the rebuilt frame equal to the serial engine's bit for bit (stats "
+        f"{held.stats.tolist()} against {ref.stats.tolist()}); every chunk "
+        f"of the serial pool ({len(ser.pool.by_pos)}) in the resident pool "
+        f"({len(st.pool.by_pos)}); {equal} of the {shared} shared chunks "
+        f"with equal rows, host counts and counts mirror")
+    del st, ser, flights, held, ref
+
+    # K1 and K2 at the resident shapes, on the primed engine's last stream
+    r = eng.renderer
+    q, w = eng._res_uploads
+    bucket = int(q.shape[0])
+    big = r.gather_buckets[-1]
+    if bucket < big:
+        # the stream's own bucket is smaller: the kernels are held at the
+        # largest bucket's shapes with the stream padded
+        q = torch.cat([q, q.new_zeros(big - bucket)])
+        w = torch.cat([w, w.new_zeros((3, big - bucket))], 1)
+    total = eng._res_total - (eng._res_pending[2] if eng._res_pending
+                              else 0)
+    total_t = torch.tensor(total, dtype=torch.int32, device=eng.device)
+    cam = r._cam_dev(eng.camera.view_projection_matrix(),
+                     eng.camera.position)
+    vp, cp = pipeline._unpack_cam(cam)
+    gkw = dict(width=WIDTH, height=HEIGHT)
+    a1 = (q, w, total_t, vp, cp)
+    n_valid, n_sub, k1_err = k1_compare(torch, geometry, a1, gkw)
+    step_kw = r._bucket_kw(big)
+    rec = pipeline._step_camf(q, w, total_t, cam, debug_return_records=True,
+                              **step_kw)
+    rkw = dict(height=HEIGHT, width=WIDTH, tile_h=16, tile_w=128,
+               out_h=HEIGHT)
+    c1, d1 = raster.rasterize_tiles(*rec, **rkw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    c2, d2 = raster.rasterize_tiles_plain(*rec, **rkw)
+    torch.cuda.synchronize()
+    k2_plain = (time.perf_counter() - t0) * 1e3
+    if not (torch.equal(c1, c2) and torch.equal(d1, d2)):
+        raise AssertionError("[15] K2 differs from its plain version at the "
+                             "resident shapes")
+    fin = torch.isfinite(d1) & torch.isfinite(d2)
+    k2_err = float((d1 - d2).abs()[fin].max()) if bool(fin.any()) else 0.0
+    counts = rec[2]
+
+    def k1():
+        return geometry.project_cull(*a1, **gkw)
+
+    def k2():
+        return raster.rasterize_tiles(*rec, **rkw)
+
+    kern = dict(bucket=bucket, shape=big, quads=total, valid=n_valid,
+                render_cap=step_kw["render_cap"],
+                tile_k_cap=step_kw["tile_k_cap"],
+                items=int(counts.sum()), k1_err=k1_err, k2_err=k2_err,
+                k1_graph_ms=common.graph_ms(k1),
+                k2_graph_ms=common.graph_ms(k2),
+                k1_plain_ms=median_ms(lambda: geometry.project_cull_plain(
+                    *a1, **gkw), reps=5), k2_plain_ms=k2_plain)
+    kern["k1_bound_ms"], kern["k1_bound_by"] = bound(*k1_work(a1, k1()))
+    boxes = item_boxes(torch, pipeline, (q, w, total_t, cam), step_kw, rec)
+    k2_bytes, k2_ops, _, _, _, k2_walk = k2_work(torch, raster, rec, boxes,
+                                                 HEIGHT, WIDTH)
+    kern["k2_bound_ms"], kern["k2_bound_by"] = bound(k2_bytes, k2_ops)
+    # K2 on the serial path's records at the same camera, for comparison:
+    # a fresh primed serial engine's frustum draw list there
+    ser, _, _ = new_engine(torch, prime_all=True, pool_slots=APP_POOL_SLOTS)
+    ser.camera.position = eng.camera.position.copy()
+    ser.camera.look_at(path[-1].target)
+    ser.render_frame(dt=0.0)
+    sq, sw, st_ = ser.renderer.prepare_uploads(
+        ser.pool.quads, ser._last_visible_slots, ser._last_counts_sel,
+        ser._last_positions_sel, dir_mask=ser._last_dir_mask)
+    srec = pipeline._step_camf(sq, sw, st_, cam, debug_return_records=True,
+                               **ser.renderer._bucket_kw(int(sq.shape[0])))
+    kern["k2_serial_graph_ms"] = common.graph_ms(
+        lambda: raster.rasterize_tiles(*srec, **rkw))
+    kern["serial_items"] = int(srec[2].sum())
+    serial_quads = int(st_)
+    del ser, sq, sw, st_, srec
+    log(f"[15] K1 and K2 at the resident shapes (the primed engine's last "
+        f"stream: {total} quads in the {bucket} bucket"
+        + (f", padded to {big}" if bucket < big else "")
+        + f"; compaction to {step_kw['render_cap']}, item cap "
+        f"{step_kw['tile_k_cap']}): K1 equal to its plain version on all "
+        f"five outputs and both counts ({n_valid} valid, {n_sub} sub-pixel), "
+        f"K2 equal to its plain version bit for bit on {kern['items']} items "
+        f"(at most {int(counts.max())} in a tile, the longest walk "
+        f"{k2_walk}); from a CUDA graph K1 {kern['k1_graph_ms']:.4f} ms "
+        f"(bound {kern['k1_bound_ms']:.5f}, {kern['k1_bound_by']}), K2 "
+        f"{kern['k2_graph_ms']:.4f} ms (bound {kern['k2_bound_ms']:.5f}, "
+        f"{kern['k2_bound_by']}: {k2_bytes} bytes, {k2_ops} ops), K2 on the "
+        f"serial path's records at the same camera "
+        f"{kern['k2_serial_graph_ms']:.4f} ms ({kern['serial_items']} "
+        f"items, {serial_quads} quads); plain "
+        f"versions K1 {kern['k1_plain_ms']:.4f} ms (median of 5), K2 "
+        f"{k2_plain:.1f} ms (one call); {card}")
+    del rec, c1, d1, c2, d2, boxes
+
+    # the three self-tests on the card
+    def selftests():
+        return {name: getattr(parity, f"run_{name}_selftest")(
+                    device=eng.device)
+                for name in ("resident_append", "fused_insert", "pipelined")}
+
+    verdicts = timed("self-tests", selftests)
+    need("self-tests", "+", "+", "+")
+    if set(verdicts.values()) != {"exact"}:
+        raise AssertionError(f"[15] self-tests: {verdicts}")
+    log(f"[15] self-tests on the card: {verdicts} "
+        f"({parts.secs['self-tests']:.2f} s, launches "
+        f"{parts.launches['self-tests']})")
+
+    # frames a second, resident against serial, in alternating turns
+    fps = {}
+    for mode, primed in (("primed", True), ("streaming", False)):
+        fps[mode] = {"resident": [], "serial": []}
+        for turn in range(FLY_TURNS):
+            for kind in ("resident", "serial"):
+                e, _, _ = new_engine(torch, prime_all=primed,
+                                     pool_slots=APP_POOL_SLOTS,
+                                     resident=kind == "resident")
+                if primed and kind == "resident":
+                    e.warm_resident()
+                elif primed:
+                    e.warm_buckets()
+                    e.render_frame(dt=0.0)
+                    e.warm_streaming()
+                e.render_frame(dt=0.0)
+                part = f"{mode} {kind} turn {turn}"
+                timed(part, lambda e=e: fly(e, keep_frames=False))
+                need(part, FLY_KEYS, FLY_KEYS, 0)
+                if kind == "resident" and not e.resident_stream:
+                    raise AssertionError(f"[15] {part} fell back")
+                fps[mode][kind].append(
+                    (FLY_KEYS / (ev[0].elapsed_time(ev[1]) / 1e3),
+                     FLY_KEYS / parts.secs[part]))
+                del e
+        log(f"[15] {mode} flight over default_path({FLY_KEYS}), frames/s "
+            f"(CUDA events / host clock) in alternating turns on fresh "
+            f"engines: " + "; ".join(
+                f"{kind} " + ", ".join(f"{a:.2f} / {b:.2f}" for a, b in runs)
+                for kind, runs in fps[mode].items()) + f"; {card}")
+
+    # where a resident moving frame's device time goes
+    keys = iter(flythrough.default_path(11))
+
+    def moving_frame():
+        key = next(keys)
+        eng.camera.position = np.asarray(key.position, np.float32)
+        eng.camera.look_at(key.target)
+        return eng.render_frame(dt=0.0)
+
+    log_profile("15", "resident moving frame (default_path(11) keys 1-10)",
+                profile_frames(torch, moving_frame), primed_ms, card)
+    return parts.launches, parts.secs, kern
 
 
 # ------------------------------------------------------------- K1 / K2
@@ -2357,13 +2785,19 @@ def main() -> int:
     launches13, band_ms, band_err = band_path(torch, eng, serial, card)
 
     # ---- 14. the application surface
-    launches14, secs14, fps14, stale14, verdict14 = app_path(
+    launches14, secs14, fps14, stale14, verdict14, flights14 = app_path(
         torch, eng, serial, (uploads, vp0, cp0), card)
     log("[14] seconds: " + ", ".join(f"{k} {v:.3f}"
                                      for k, v in secs14.items()))
     log(f"[14] flythrough frames/s {fps14}; stale (frames that differ, "
         f"chunks meshed late) {stale14}; {card}")
-    del serial
+
+    # ---- 15. the resident superset stream
+    launches15, secs15, kern15 = resident_path(
+        torch, serial, flights14, card)
+    del serial, flights14
+    log("[15] seconds: " + ", ".join(f"{k} {v:.3f}"
+                                     for k, v in secs15.items()))
     sites = {k: sorted({r["site"] for r in rows11.values()
                         if r["kernel"] == k}) for k in ("M1", "M2")}
 
@@ -2388,6 +2822,14 @@ def main() -> int:
              host_us=probes["binding"]["k1_host_us"],
              c_entry_us=probes["binding"]["k1_bare_us"],
              launches_app={k: v[0] for k, v in launches14.items()},
+             launches_resident={k: v[0] for k, v in launches15.items()},
+             resident_stream_quads=kern15["shape"],
+             resident_bucket=kern15["bucket"],
+             resident_max_abs_err=kern15["k1_err"],
+             resident_graph_ms=kern15["k1_graph_ms"],
+             resident_plain_ms=kern15["k1_plain_ms"],
+             resident_bound_ms=kern15["k1_bound_ms"],
+             resident_bound_by=kern15["k1_bound_by"],
              registers=ptxas["project_cull_kernel"]["registers"],
              spill_bytes=ptxas["project_cull_kernel"]["spill_stores"]),
         dict(name="K2 tile raster (rasterize_tiles)", route="cuda",
@@ -2416,7 +2858,17 @@ def main() -> int:
              full_records_no_init_graph_ms=init_t["full_no_init_graph_ms"],
              init_items=init_items, band_ms=band_ms, host_us=k2_host,
              launches_app={k: v[1] for k, v in launches14.items()},
-             production_parity=verdict14),
+             production_parity=verdict14,
+             launches_resident={k: v[1] for k, v in launches15.items()},
+             resident_items=kern15["items"],
+             resident_tile_k_cap=kern15["tile_k_cap"],
+             resident_render_cap=kern15["render_cap"],
+             resident_max_abs_err=kern15["k2_err"],
+             resident_graph_ms=kern15["k2_graph_ms"],
+             resident_plain_ms=kern15["k2_plain_ms"],
+             resident_bound_ms=kern15["k2_bound_ms"],
+             resident_bound_by=kern15["k2_bound_by"],
+             resident_serial_graph_ms=kern15["k2_serial_graph_ms"]),
         dict(name="K3 tile raster + next frame's stage A "
                   "(rasterize_tiles next_geom)", route="cuda",
              source=f"{PKG}/csrc/raster.cu",
@@ -2425,7 +2877,8 @@ def main() -> int:
              plain_ms=k3_plain, bound_ms=k3_bound, bound_by=k3_by,
              library_ms=None, tile_bound_ms=k3_tile_ms,
              k2_plus_k1_ms=k21_run, graph_ms=k3_graph,
-             launches_app={k: v[2] for k, v in launches14.items()}),
+             launches_app={k: v[2] for k, v in launches14.items()},
+             launches_resident={k: v[2] for k, v in launches15.items()}),
         dict(name="K4 packed tile raster (rasterize_packed)", route="cuda",
              source=f"{PKG}/csrc/raster_packed.cu",
              replaces=f"{REF}/ops/raster_packed.py:205",
@@ -2436,7 +2889,8 @@ def main() -> int:
              registers=ptxas["raster_packed_kernel"]["registers"],
              spill_bytes=ptxas["raster_packed_kernel"]["spill_stores"],
              blocks_per_sm=blocks["raster_packed_kernel"],
-             split_ms=k4_phase_ms),
+             split_ms=k4_phase_ms,
+             launches_resident={k: v[3] for k, v in launches15.items()}),
         dict(name="M1 constant tile fill (fill_tiles), at a_base",
              route="cuda", source=f"{PKG}/csrc/micro.cu",
              replaces="benches/micro_fixed2.py:65",

@@ -5,31 +5,33 @@ Counterpart of ``differential_projection_voxel_renderer_tpu/app/engine.py``
 on its serial path (``render_frame``, also with
 ``RenderConfig.packed_raster``, ``two_pass_near_quads`` or
 ``temporal_hiz``), in frames-in-flight mode (``render_frame_pipelined`` /
-``flush_pipeline``) and in the one-frame-stale pool mode
-(``stale_streaming``, ``DPVR_STALE_POOL=1``), with the runtime toggles,
-``prime_all`` and the warm-ups.  The host logic (streaming, remeshing, the
-culling funnel, draw-list build, the pool's host bookkeeping) is carried
+``flush_pipeline``), in the one-frame-stale pool mode
+(``stale_streaming``, ``DPVR_STALE_POOL=1``) and in the resident superset
+stream mode (``resident_stream``, ``DPVR_RESIDENT=1``), with the runtime
+toggles, ``prime_all`` and the warm-ups.  The host logic (streaming,
+remeshing, the culling funnel, draw-list build, the pool's host
+bookkeeping) is carried
 over as it is, on the port's own copies of the host layers (``models``,
 ``meshing``, ``ops/culling.py``, ``ops/occlusion.py``, ``utils``); only
 the device calls change.  Every device tensor lives on the ``device`` the
 engine was built with, the card unless the caller asks for the CPU.  Not
-ported yet (they raise NotImplementedError): the resident superset stream
-(and its ``warm_resident``) and device meshing.
+ported yet (it raises NotImplementedError): device meshing.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import os
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace as dc_replace
 
 import numpy as np
 import torch
 
 from ..meshing.greedy import mesh_chunk
 from ..models.camera import Camera, CameraController
-from ..models.world import World, WorldConfig
+from ..models.world import World, WorldConfig, world_to_chunk_pos
 from ..ops.culling import (
     HorizonCullingConfig,
     horizon_cull_mask,
@@ -37,13 +39,36 @@ from ..ops.culling import (
 )
 from ..ops.occlusion import occlusion_pass, project_chunk_rects
 from ..rendering.pipeline import (
+    RESIDENT_APPEND_VCAP,
+    RESIDENT_INSERT_FP,
+    RESIDENT_INSERT_KP,
+    RESIDENT_INSERT_MC,
     Renderer,
     _c6_of,
     apply_insert_payload,
+    pack_append_meta,
+    resident_append_cap,
     resolve_device,
 )
 from ..utils.config import CHUNK_SIZE, QUADS_PER_CHUNK_CAP, RenderConfig
 from ..utils.profiling import FUNCTION_COUNTERS
+
+
+def _resident_budget() -> int:
+    """``DPVR_RES_BUDGET``, the resident mode's chunks meshed a frame: at
+    least 1, and RESIDENT_INSERT_KP when unset or not an integer.  A
+    deliberate divergence: the reference takes ``int()`` of it as given, so
+    0 or less never drains the stash and a non-integer raises at
+    construction."""
+    try:
+        return max(1, int(os.environ.get("DPVR_RES_BUDGET",
+                                         RESIDENT_INSERT_KP)))
+    except ValueError:
+        return RESIDENT_INSERT_KP
+
+
+# the warm-ups' throwaway pool entry: a chunk position no world reaches
+_THROWAWAY = (10**6, 10**6, 10**6)
 
 # RenderConfig and WorldConfig are re-exported: a caller of the port builds
 # an Engine naming this package only
@@ -302,15 +327,44 @@ class QuadPool:
             self._dev_cache = None
         self._lookup_cache = None
 
-    def retain(self, predicate) -> None:
+    def retain(self, predicate) -> list[int]:
         """Drop entries whose position fails the predicate (a dict/set is
-        the fast path: direct membership)."""
+        the fast path: direct membership).  Returns the freed slots."""
         if isinstance(predicate, (dict, set, frozenset)):
             keys = [k for k in self.by_pos if k not in predicate]
         else:
             keys = [k for k in self.by_pos if not predicate(k)]
+        freed = [self.by_pos[k] for k in keys]
         for key in keys:
             self.remove(key)
+        return freed
+
+    @contextlib.contextmanager
+    def throwaway_entry(self, pos):
+        """A warm-up's throwaway entry: inside the block ``pos`` may be
+        inserted, scattered and removed; the block yields the slot it takes
+        (the next free one).  Afterwards the entry is gone and that slot's
+        device row and counts mirror, the host tables, the free list, the
+        used mask, the lookup caches and the overflow count are as before,
+        so later slot choices and frames are as without the block."""
+        key = tuple(int(c) for c in pos)
+        if key in self.by_pos or not self._free:
+            raise RuntimeError("a throwaway pool entry needs a free slot and "
+                               "no entry at its position")
+        slot = self._free[-1]
+        saved = (self.quads[slot].clone(), self.counts6_dev[slot].clone(),
+                 int(self.counts[slot]), self.counts6[slot].copy(),
+                 self.positions[slot].copy(), list(self._free),
+                 self._lookup_cache, self._dev_cache, self.overflow_drops)
+        try:
+            yield slot
+        finally:
+            self.remove(key)
+            (row, c6_dev, self.counts[slot], self.counts6[slot],
+             self.positions[slot], self._free, self._lookup_cache,
+             self._dev_cache, self.overflow_drops) = saved
+            self.quads[slot] = row
+            self.counts6_dev[slot] = c6_dev
 
     @staticmethod
     def _pack_keys(pos: np.ndarray) -> np.ndarray:
@@ -360,14 +414,46 @@ class Engine:
                  horizon_config: HorizonCullingConfig | None = None,
                  device_meshing: bool = False,
                  resident_stream: bool | None = None, *, device="cuda"):
-        if resident_stream:
-            raise NotImplementedError("resident_stream is not ported yet")
         if device_meshing:
             raise NotImplementedError("device_meshing is not ported yet")
+        self.device_meshing = device_meshing
         self.device = resolve_device(device)
         self.config = render_config or RenderConfig()
+        # resident superset stream mode (DPVR_RESIDENT=1): the stream holds
+        # every pooled mesh within view distance of the camera's chunk cell
+        # (the world's own sphere test at the cell) with a direction mask
+        # widened over the cell, so it stays valid for any rotation and any
+        # position in the cell; the device's exact culls drop the extra
+        # quads and frames equal the serial path's.  It rebuilds on cell
+        # crossings, unloads and invalidate_resident(); newly streamed
+        # chunks append one frame late.  Costs: twice the gather cap (the
+        # compaction runs), sphere-sized draw lists, and item headroom
+        self.resident_stream = (
+            bool(int(os.environ.get("DPVR_RESIDENT", "0") or "0"))
+            if resident_stream is None else resident_stream)
+        if self.resident_stream:
+            self.config = dc_replace(
+                self.config, gather_cap=2 * self.config.gather_cap,
+                visible_chunks_cap=max(self.config.visible_chunks_cap, 1024),
+                tile_k_cap=max(self.config.tile_k_cap, 131072))
+        self._res_uploads = None      # (quads, quad_world) of the stream
+        self._res_total = 0           # its length, tracked on the host
+        self._res_cell = None         # the camera's chunk cell at build
+        self._res_pos: set = set()    # chunk positions in the stream
+        self._res_n = 0               # chunks in the stream
+        self._res_dirty = False       # rebuild on the next frame
+        self._res_appends = 0         # frames that took the append rider
+        self._res_pending = None      # batch appended by the next frame
+        self._res_insert = None       # its scatter payload, same frame
+        self._res_fused_inserts = 0   # frames that took the fused scatter
+        # chunks meshed a resident frame, nearest first (the rest carry
+        # over), sized to the resident insert payload
+        self.resident_mesh_budget = _resident_budget()
+        self._stale_set: set = set()  # the resident stash's members
         self.world = World(world_config or WorldConfig(
             view_distance=12, frustum_culling=True, max_chunks_per_frame=16))
+        if self.resident_stream:
+            self.world.track_added = True
         self.renderer = Renderer(self.config, device=self.device)
         self.pool = QuadPool(slots=pool_slots, device=self.device)
         aspect = self.config.width / self.config.height
@@ -404,8 +490,9 @@ class Engine:
         # inserted after its render call, so a newly streamed chunk shows
         # one frame later than in the serial mode and a remeshed neighbour
         # keeps its previous mesh for that frame; nothing else differs
-        self.stale_streaming = bool(
-            int(os.environ.get("DPVR_STALE_POOL", "0") or "0"))
+        self.stale_streaming = (
+            bool(int(os.environ.get("DPVR_STALE_POOL", "0") or "0"))
+            or self.resident_stream)  # resident appends land one frame late
         self._stale_stash: list = []
 
     # ------------------------------------------------------------- meshing
@@ -464,6 +551,50 @@ class Engine:
         self.pool.insert_many(batch)
         return len(to_mesh)
 
+    def _mesh_list_resident(self, to_mesh) -> None:
+        """Resident streaming tail: mesh the batch and queue its pool
+        scatter as a payload riding the next frame's step
+        (``render_prepared_append_insert``), the frame where the batch
+        first renders.  The host pool tables update now, so this frame's
+        append metadata sees the new meshes.  Meshes over the payload's
+        per-mesh cap, and batches that do not fit its shape, scatter now
+        (``insert_many``)."""
+        if self.device_meshing and len(to_mesh) >= 4:
+            raise NotImplementedError("device_meshing is not ported yet")
+        batch = []
+        for pos in sorted(set(to_mesh)):
+            chunk = self.world.chunks.get(pos)
+            if chunk is None:
+                continue
+            batch.append((pos, mesh_chunk(chunk, self.world.chunks)))
+        if not batch:
+            return
+        big = [(p, q) for p, q in batch
+               if q is not None and len(q) > RESIDENT_INSERT_MC]
+        if big:
+            self.pool.insert_many(big)
+            bigset = {p for p, _ in big}
+            batch = [(p, q) for p, q in batch if p not in bigset]
+        if batch and self._res_insert is None:
+            payload = self.pool.prepare_insert_payload(
+                batch, kp=RESIDENT_INSERT_KP, mc=RESIDENT_INSERT_MC,
+                fp=RESIDENT_INSERT_FP)
+            if payload is not None:
+                self._res_insert = payload
+                return
+        if batch:
+            self.pool.insert_many(batch)
+
+    def _flush_res_insert(self) -> None:
+        """Scatter a queued resident payload on its own, before anything
+        outside the fused step reads the device pool (rebuilds, unloads,
+        frames without an append)."""
+        if self._res_insert is not None:
+            self.pool.dispatch_insert_payload(
+                self._res_insert, kp=RESIDENT_INSERT_KP,
+                mc=RESIDENT_INSERT_MC)
+            self._res_insert = None
+
     # ------------------------------------------------------- runtime toggles
     def toggle_shading(self) -> bool:
         """The reference's F key: the renderer rebuilds its colour tables
@@ -513,56 +644,101 @@ class Engine:
         buffers.  Afterwards the throwaway slot's device row and counts
         mirror, its host tables, the free list, the used mask and the
         lookup caches are restored exactly, so later slot choices, the
-        upload cache and every later frame are as without the call."""
-        pool = self.pool
-        fake = (10**6, 10**6, 10**6)
-        if fake in pool.by_pos or not pool._free:
-            raise RuntimeError("warm_streaming needs a free pool slot and "
-                               "no entry at the throwaway position")
-        slot = pool._free[-1]   # the slot the throwaway entry takes
-        saved = (pool.quads[slot].clone(), pool.counts6_dev[slot].clone(),
-                 int(pool.counts[slot]), pool.counts6[slot].copy(),
-                 pool.positions[slot].copy(), list(pool._free),
-                 pool._lookup_cache, pool._dev_cache, pool.overflow_drops)
+        upload cache and every later frame are as without the call
+        (``QuadPool.throwaway_entry``)."""
+        with self.pool.throwaway_entry(_THROWAWAY) as slot:
+            self._warm_scatter_ladder()
+            if self.fused_insert:
+                self._warm_fused_insert(slot)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def warm_resident(self) -> None:
+        """Run the resident mode's device calls once ahead of the frame
+        loop, which in this mode replaces warm_buckets and warm_streaming:
+        the scatter ladder (on a throwaway entry), the stream's rebuild at
+        the camera's cell and its step, the append rider (a zero-count
+        batch: nothing blends), the fused scatter + append step and the
+        standalone resident-shape scatter (the throwaway entry again).  The
+        reference compiles these programs here; the port builds the
+        kernels and lets the caching allocator take the buffers.  The
+        stream stays as built, and the pool is left as without the call
+        (``QuadPool.throwaway_entry``): slots, rows, counts and their
+        device mirror, free list and lookup caches."""
+        if not self.resident_stream:
+            raise RuntimeError("warm_resident needs resident_stream")
+        if self.device.type == "cuda":
+            from .. import _build
+
+            _build.lib()
+        with self.pool.throwaway_entry(_THROWAWAY):
+            self._warm_scatter_ladder()
+        cell = world_to_chunk_pos(self.camera.position)
+        if self._rebuild_resident(cell):
+            vp = self.camera.view_projection_matrix()
+            uploads = (*self._res_uploads, np.int32(self._res_total))
+            self.renderer.render_prepared(uploads, vp, self.camera.position)
+            zmeta = pack_append_meta(np.zeros(1, np.int32),
+                                     np.zeros((1, 6), np.int32),
+                                     np.zeros((1, 3), np.int32))
+            self.renderer.render_prepared_append(
+                uploads, vp, self.camera.position, self.pool.quads, zmeta, 0)
+            with self.pool.throwaway_entry(_THROWAWAY):
+                item = [(_THROWAWAY, np.zeros(4, np.uint32))]
+                payload = self.pool.prepare_insert_payload(
+                    item, kp=RESIDENT_INSERT_KP, mc=RESIDENT_INSERT_MC,
+                    fp=RESIDENT_INSERT_FP)
+                *_, pool2, c6b = self.renderer.render_prepared_append_insert(
+                    uploads, vp, self.camera.position, self.pool.quads,
+                    self.pool.counts6_dev, zmeta, 0, payload)
+                self.pool.adopt_device_arrays(pool2, c6b)
+                self.pool.dispatch_insert_payload(
+                    self.pool.prepare_insert_payload(
+                        item, kp=RESIDENT_INSERT_KP, mc=RESIDENT_INSERT_MC,
+                        fp=RESIDENT_INSERT_FP),
+                    kp=RESIDENT_INSERT_KP, mc=RESIDENT_INSERT_MC)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _warm_scatter_ladder(self) -> None:
+        """The batched scatter at each batch size and width of
+        ``QuadPool.insert_many``'s ladder, on the throwaway entry."""
         for bs, width in ((1, 450), (5, 450), (10, 450), (17, 1), (17, 200),
                           (17, 450), (30, 450), (64, 450), (1, 513),
                           (4, 513)):
-            pool.insert_many([(fake, np.zeros(width, np.uint32))] * bs)
-        if self.fused_insert:
-            payload = pool.prepare_insert_payload(
-                [(fake, np.zeros(4, np.uint32))])
-            assert payload is not None and pool.by_pos[fake] == slot
-            vcap = self.config.visible_chunks_cap
-            vs = np.zeros(vcap, np.int32)
-            vs[0] = slot
-            ps = np.zeros((vcap, 3), np.int32)
-            vp = np.eye(4, dtype=np.float32)
-            campos = np.zeros(3, np.float32)
-            buckets = list(self.renderer.gather_buckets)
-            if self._upload_cache is not None:
-                total = int((self._last_counts_sel
-                             * self._last_dir_mask).sum())
-                cur = self.renderer.bucket_for(total)
-                i = buckets.index(cur) if cur in buckets else 0
-                buckets = buckets[max(0, i - 1):i + 2]
-            for cap in buckets:
-                cs = np.zeros((vcap, 6), np.int32)
-                # the host count only picks the bucket: META5 reads the
-                # device mirror
-                cs[0, 0] = cap - 1
-                out = self.renderer.render_fused_insert(
-                    pool.quads, pool.counts6_dev, vs, cs, ps, vp, campos,
-                    payload)
-                assert out is not None
-                pool.adopt_device_arrays(out[0], out[1])
-        pool.remove(fake)
-        (row, c6_dev, pool.counts[slot], pool.counts6[slot],
-         pool.positions[slot], pool._free, pool._lookup_cache,
-         pool._dev_cache, pool.overflow_drops) = saved
-        pool.quads[slot] = row
-        pool.counts6_dev[slot] = c6_dev
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            self.pool.insert_many([(_THROWAWAY, np.zeros(width, np.uint32))]
+                                  * bs)
+
+    def _warm_fused_insert(self, slot: int) -> None:
+        """One fused insert+render frame a bucket (the current draw list's
+        and its neighbours, or all before a first frame), its payload the
+        throwaway entry at ``slot``."""
+        pool = self.pool
+        payload = pool.prepare_insert_payload(
+            [(_THROWAWAY, np.zeros(4, np.uint32))])
+        assert payload is not None and pool.by_pos[_THROWAWAY] == slot
+        vcap = self.config.visible_chunks_cap
+        vs = np.zeros(vcap, np.int32)
+        vs[0] = slot
+        ps = np.zeros((vcap, 3), np.int32)
+        vp = np.eye(4, dtype=np.float32)
+        campos = np.zeros(3, np.float32)
+        buckets = list(self.renderer.gather_buckets)
+        if self._upload_cache is not None:
+            total = int((self._last_counts_sel * self._last_dir_mask).sum())
+            cur = self.renderer.bucket_for(total)
+            i = buckets.index(cur) if cur in buckets else 0
+            buckets = buckets[max(0, i - 1):i + 2]
+        for cap in buckets:
+            cs = np.zeros((vcap, 6), np.int32)
+            # the host count only picks the bucket: META5 reads the device
+            # mirror
+            cs[0, 0] = cap - 1
+            out = self.renderer.render_fused_insert(
+                pool.quads, pool.counts6_dev, vs, cs, ps, vp, campos,
+                payload)
+            assert out is not None
+            pool.adopt_device_arrays(out[0], out[1])
 
     def _dir_keep_mask(self, positions, cam_pos) -> np.ndarray:
         """Per-chunk face-direction keep mask [n, 6]: 0 where every quad of
@@ -674,6 +850,196 @@ class Engine:
             stash, self._stale_stash = self._stale_stash, []
             self._mesh_list(stash, defer=False)
 
+    # ----------------------------------------- resident superset stream
+    def invalidate_resident(self) -> None:
+        """Rebuild the resident stream on the next frame.  Call after a
+        pool or world change made outside the engine (block edits, manual
+        remeshes); the engine's own streaming and unloads do it
+        themselves."""
+        self._res_dirty = True
+
+    def _rebuild_resident(self, cell) -> bool:
+        """Build the resident stream: every pooled mesh within the world's
+        sphere test of ``cell`` (so the frustum draw list of any camera in
+        the cell is a subset), the direction mask widened to the union of
+        the exact masks over the cell (exact f32 integer arithmetic).
+        Returns False when the chunks exceed the draw-list cap or the quads
+        the largest bucket; the caller then falls back to the frustum
+        path."""
+        pool = self.pool
+        live = np.flatnonzero(pool.counts > 0)
+        vcap = self.config.visible_chunks_cap
+        if len(live) == 0:
+            return False
+        p = pool.positions[live].astype(np.float32)
+        d = p - np.float32(np.asarray(cell, np.float32))
+        keep = np.einsum("ij,ij->i", d, d) <= np.float32(
+            self.world.config.view_distance ** 2)
+        sl = live[keep]
+        n = len(sl)
+        if n == 0 or n > vcap:
+            return False
+        vs = np.zeros(vcap, np.int32)
+        cs = np.zeros((vcap, 6), np.int32)
+        ps = np.zeros((vcap, 3), np.int32)
+        vs[:n] = sl
+        cs[:n] = pool.counts6[sl]
+        ps[:n] = pool.positions[sl]
+        mk = np.ones((vcap, 6), np.int32)
+        m = ps[:n].astype(np.float32) * np.float32(CHUNK_SIZE)
+        lo = np.asarray(cell, np.float32) * np.float32(CHUNK_SIZE)
+        hi = lo + np.float32(CHUNK_SIZE)
+        for axis in range(3):
+            # any camera below hi passes the widened +axis test, any above
+            # lo the widened -axis test (_dir_keep_mask's tests)
+            mk[:n, 2 * axis] = hi[axis] > m[:, axis] + np.float32(1.0)
+            mk[:n, 2 * axis + 1] = lo[axis] < m[:, axis] + np.float32(31.0)
+        total = int((pool.counts6[sl] * mk[:n]).sum())
+        if total > self.renderer.gather_buckets[-1]:
+            return False
+        q, w, _t = self.renderer.prepare_uploads(
+            pool.quads, vs, cs, ps, dir_mask=mk)
+        self._res_uploads = (q, w)
+        self._res_total = total
+        self._res_cell = tuple(int(c) for c in cell)
+        self._res_pos = {tuple(int(x) for x in row)
+                         for row in pool.positions[sl]}
+        self._res_n = n
+        self._res_dirty = False
+        # a queued batch is in the pool already, so the new stream holds it
+        self._res_pending = None
+        return True
+
+    def _queue_append(self, new_positions) -> None:
+        """Queue newly inserted meshes for the next frame's step (the
+        append rider, every direction kept: a superset, exact).  Batches
+        over the rider's caps, or a stream with no room left, flag a
+        rebuild instead."""
+        pool = self.pool
+        cell = np.asarray(self._res_cell, np.float32)
+        vd2 = np.float32(self.world.config.view_distance ** 2)
+        slots = []
+        for pos in new_positions:
+            s = pool.by_pos.get(pos)
+            if s is None:
+                continue
+            d = np.asarray(pos, np.float32) - cell
+            if float((d * d).sum()) > vd2:
+                continue  # outside the build sphere: the next rebuild's
+            self._res_pos.add(pos)
+            if pool.counts[s] > 0:
+                slots.append(s)
+        if not slots:
+            return
+        slots = np.asarray(slots, np.int32)
+        c6 = pool.counts6[slots]
+        batch = int(c6.sum())
+        stream_len = int(self._res_uploads[0].shape[0])
+        cap = resident_append_cap(stream_len)
+        if (len(slots) > RESIDENT_APPEND_VCAP or batch > cap
+                or self._res_total + cap > stream_len):
+            self._res_dirty = True
+            return
+        ameta = pack_append_meta(slots, c6, pool.positions[slots])
+        self._res_pending = (ameta, self._res_total, batch, len(slots))
+        self._res_total += batch  # the stream copy lands next frame
+        self._res_n += len(slots)
+
+    def _render_frame_resident(self, dt: float) -> FrameResult | None:
+        """A resident frame: no frustum draw list and no expansion, one
+        step on the resident stream (with the previous frame's batch
+        appended, and scattered, when one is queued), then the frame's
+        meshing and the append queued for the next frame.  Returns None
+        when the scene exceeds the resident caps."""
+        frame_t0 = time.perf_counter()
+        cam = self.camera
+        self.controller.update_camera(cam, dt)
+        self.world.update(cam.position)
+        if self.world.version != self._seen_world_version:
+            # the chunks streamed in since the last frame (the world's add
+            # log) and their meshed neighbours
+            added = self.world.drain_added()
+            if added:
+                for p in self._missing_remesh_list(
+                        np.asarray(added, np.int64)):
+                    if p not in self._stale_set:
+                        self._stale_set.add(p)
+                        self._stale_stash.append(p)
+            self._seen_world_version = self.world.version
+        if self.world.unload_version != self._seen_unload_version:
+            # deliberate divergence: the queued payload scatters before
+            # retain frees slots, and the freed slots' counts mirror rows
+            # are zeroed, so the mirror always equals the host counts (the
+            # reference retains first and leaves freed slots' rows)
+            self._flush_res_insert()
+            freed = self.pool.retain(self.world.chunks)
+            if freed:
+                self.pool.counts6_dev[self.renderer._upload(
+                    np.asarray(freed, np.int64))] = 0
+            self._seen_unload_version = self.world.unload_version
+            self._res_dirty = True
+        cell = world_to_chunk_pos(cam.position)
+        if (self._res_uploads is None or self._res_dirty
+                or cell != self._res_cell):
+            # the rebuild expands from the device pool: a queued payload
+            # lands first
+            self._flush_res_insert()
+            # the full sphere scan meshes stragglers the add log missed
+            vis = self.world.get_visible_positions(cam.position, None)
+            for p in self._missing_remesh_list(vis):
+                if p not in self._stale_set:
+                    self._stale_set.add(p)
+                    self._stale_stash.append(p)
+            if not self._rebuild_resident(cell):
+                return None
+        vp = cam.view_projection_matrix()
+        uploads = (*self._res_uploads, np.int32(self._res_total))
+        if self._res_pending is not None:
+            # the previous frame's batch rides this step: pool scatter
+            # (when its payload fit the resident shape), append, render
+            ameta, offset, _batch, _nc = self._res_pending
+            self._res_pending = None
+            if self._res_insert is not None:
+                payload = self._res_insert
+                self._res_insert = None
+                color, depth, stats, new_up, pool2, c6b = (
+                    self.renderer.render_prepared_append_insert(
+                        uploads, vp, cam.position, self.pool.quads,
+                        self.pool.counts6_dev, ameta, offset, payload))
+                self.pool.adopt_device_arrays(pool2, c6b)
+                self._res_fused_inserts += 1
+            else:
+                color, depth, stats, new_up = (
+                    self.renderer.render_prepared_append(
+                        uploads, vp, cam.position, self.pool.quads, ameta,
+                        offset))
+            self._res_uploads = new_up
+            self._res_appends += 1
+        else:
+            # a remesh-only batch still scatters before the stream's pool
+            # rows are read again
+            self._flush_res_insert()
+            color, depth, stats = self.renderer.render_prepared(
+                uploads, vp, cam.position)
+        if self._stale_stash:
+            # nearest first (they turn visible soonest); the rest carry
+            # over under the budget
+            if len(self._stale_stash) > self.resident_mesh_budget:
+                c = cam.position / np.float32(CHUNK_SIZE)
+                arr = np.asarray(self._stale_stash, np.float32)
+                d2 = ((arr - c[None, :]) ** 2).sum(1)
+                order = np.argsort(d2, kind="stable")
+                self._stale_stash = [self._stale_stash[i] for i in order]
+            batch = self._stale_stash[:self.resident_mesh_budget]
+            self._stale_stash = self._stale_stash[self.resident_mesh_budget:]
+            self._stale_set.difference_update(batch)
+            self._mesh_list_resident(batch)
+            newpos = [pos for pos in batch if pos not in self._res_pos]
+            if newpos:
+                self._queue_append(newpos)
+        self._frame_bookkeeping(stats, self._res_n, frame_t0)
+        return FrameResult(color, depth, stats, self._res_n, self._res_n)
+
     def render_frame(self, dt: float = 0.016) -> FrameResult:
         """One serial frame: funnel, then one of the three device entry
         points -- render_fused_insert (a remesh batch rides the frame),
@@ -681,7 +1047,16 @@ class Engine:
         ``RenderConfig.temporal_hiz`` a frame whose camera and draw list
         are unchanged takes render_prepared_hiz: it culls against the
         previous such frame's pyramid when that frame had the same draw
-        list and camera, else against an empty one."""
+        list and camera, else against an empty one.  In resident mode the
+        frame is ``_render_frame_resident``'s; when the scene exceeds the
+        resident caps the engine leaves resident mode for good and the
+        frame goes on as a serial one with the camera already moved."""
+        if self.resident_stream:
+            out = self._render_frame_resident(dt)
+            if out is not None:
+                return out
+            self.resident_stream = False
+            dt = 0.0
         if (self.renderer._pipe_carry is not None
                 or self.renderer._pipe_done is not None):
             raise RuntimeError(

@@ -108,6 +108,18 @@ def _u32(x):
     return x.to(torch.int64) & U32_MASK
 
 
+# quads over more than 2x2 tiles binned a frame: the first BIG_CAP of
+# those over at most 64 tiles, the first HUGE_CAP of those over more, in
+# stream order; the rest are dropped and count in bin_overflow.  A
+# deliberate divergence: the reference's BIG_CAP is 512, which drops
+# visible quads on the 1280x720 view-distance-12 flythrough, serial and
+# resident, so that their frames differ (benches/big_quad_cap.py prints
+# the drops and the pixels they change); at 1024 and 2048 the serial
+# flight drops none and the two agree.  At the step's shapes 2048 pads
+# the key sort to the same power of two as 1024 does
+BIG_CAP, HUGE_CAP = 2048, 64
+
+
 def build_tile_lists(tilebox, count, order6, order6_dy1, *, tiles_y: int,
                      tiles_x: int, item_cap: int, valid=None):
     """Bin quads to tiles as one flat item stream ordered by (tile, order6,
@@ -122,7 +134,7 @@ def build_tile_lists(tilebox, count, order6, order6_dy1, *, tiles_y: int,
     n_tiles = tiles_y * tiles_x
     shift_t = shift + 6
     assert n_tiles << shift_t < 2**32, "tile/quad key would overflow u32"
-    big_cap, max_tiles_big, huge_cap = 512, 64, 64
+    big_cap, max_tiles_big, huge_cap = BIG_CAP, 64, HUGE_CAP
     maxkey = U32_MASK
 
     def tid_of(ty, tx):

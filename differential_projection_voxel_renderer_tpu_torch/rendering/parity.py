@@ -5,11 +5,15 @@ tests/test_torch_cuda.py).
 The gates are those of ``differential_projection_voxel_renderer_tpu/
 rendering/parity.py``: full-frame equality, or equality up to mismatches
 that are proven (in float64) to be coverage-edge or near-depth-tie
-ambiguity.  ``run_hardware_selftest``/``run_selftests`` (the fuzz chunk)
-and ``run_production_parity`` (a real frame's stream) render one frame
+ambiguity.  ``run_hardware_selftest`` (the fuzz chunk) and
+``run_production_parity`` (a real frame's stream) render one frame
 through the kernels and through their plain twins on the same device and
-apply the gates.  The scenes are the reference fuzz chunk at 128x128 and a
-3x3 patch of terrain chunks at 640x128, flattened into a gather stream.
+apply the gates; ``run_pipelined_selftest`` holds the frames-in-flight
+step (kernel K3) to the serial one, ``run_fused_insert_selftest`` and
+``run_resident_append_selftest`` the one-call streaming frames to the
+separate calls; ``run_selftests`` runs them all.  The scenes are the
+reference fuzz chunk at 128x128 and a 3x3 patch of terrain chunks at
+640x128, flattened into a gather stream.
 """
 
 from __future__ import annotations
@@ -117,6 +121,21 @@ def fuzz_chunk(seed=42) -> Chunk:
     types = rng.integers(1, 4, size=(32, 32, 32)).astype(np.uint8)
     return Chunk.varied((0, 0, 0), np.where(y < height[:, None, :], types,
                                             0).astype(np.uint8))
+
+
+def fuzz_chunk_mono(seed=43) -> Chunk:
+    """A single-block-type heightfield in 4-block terraces: greedy merging
+    keeps it under the fused-insert payload's per-mesh cap
+    (Renderer.INSERT_MC = 512 quads)."""
+    rng = np.random.default_rng(seed)
+    x = np.arange(32)
+    hx = np.sin(x / 32 * 8 + rng.uniform(0, 3)) * 3
+    hz = np.cos(np.arange(32) / 32 * 6 + rng.uniform(0, 3)) * 3
+    height = ((hx[None, :] + hz[:, None] + 10) // 4) * 4  # [z, x]
+    y = np.arange(32)[None, :, None]
+    solid = y < height[:, None, :]
+    blocks = np.where(solid, np.uint8(1), np.uint8(0)).astype(np.uint8)
+    return Chunk.varied((0, 0, 0), blocks)
 
 
 # name -> (width, height, gather cap, camera position, camera target)
@@ -239,9 +258,43 @@ def run_hardware_selftest(*, device="cuda", size=128, seed=42, width=None):
     ``width`` defaults to ``size``.  Returns "exact" when the frames are
     bit-identical, "boundary-ok (N px)" when every mismatch is a proven
     coverage-edge flip; raises AssertionError on a real divergence."""
+    width = width or size
+    args, kw = _fuzz_step(device, seed, size, width)
+    (c1, d1, s1), (c2, d2, s2), records = _kernel_and_plain(args, kw)
+    assert s1 == s2, f"stats differ: twins {s1}, kernels {s2}"
+    nonsky = int((c1 != np.uint32(SKY_COLOR)).sum())
+    assert nonsky > size * size // 4, "fuzz scene rendered (almost) empty"
+    return frame_parity(c1, d1, c2, d2, records)
+
+
+def run_pipelined_selftest(*, device="cuda", seed=42, size=128, width=640):
+    """Frames-in-flight gate (the reference's ``run_pipelined_selftest``):
+    the fuzz scene rendered with its stage A from K1 handed in as
+    ``pre_geom`` and the next frame's stage A computed in the raster call
+    (K3) must equal the serial step's frame bit for bit, and K3's stage A
+    K1's.  Returns "exact"; raises AssertionError otherwise."""
+    from .pipeline import _pre_geom_of, render_step
+
+    args, kw = _fuzz_step(device, seed, size, width)
+    c1, d1, s1 = render_step(*args, **kw)
+    ga0 = geometry.project_cull(*args, width=width, height=size,
+                                backface_culling=kw["backface_culling"])
+    c2, d2, s2, pre_next = render_step(*args, pre_geom=_pre_geom_of(ga0),
+                                       next_geom=args, **kw)
+    assert_kernel_parity(*_host_frame(c1, d1), *_host_frame(c2, d2))
+    assert torch.equal(s1[:2], s2[:2]), (s1, s2)
+    for got, want in zip(pre_next, _pre_geom_of(ga0)):
+        if got.is_floating_point():   # depth_near: its bits, NaNs included
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        assert torch.equal(got, want)
+    return "exact"
+
+
+def _fuzz_step(device, seed, size, width):
+    """The fuzz scene's render_step inputs on ``device``: (positional args,
+    keyword args)."""
     from .pipeline import Renderer, build_gather_indices
 
-    width = width or size
     quads = mesh_chunk(fuzz_chunk(seed))
     cam = Camera(np.array([16.0, 48.0, 16.0], np.float32), width / size)
     cam.look_at(np.array([16.0, 8.0, 16.0], np.float32))
@@ -266,22 +319,152 @@ def run_hardware_selftest(*, device="cuda", size=128, seed=42, width=None):
               render_cap=cfg.quads_cap,
               backface_culling=cfg.backface_culling,
               tile_k_cap=cfg.quads_cap)
-    (c1, d1, s1), (c2, d2, s2), records = _kernel_and_plain(args, kw)
-    assert s1 == s2, f"stats differ: twins {s1}, kernels {s2}"
-    nonsky = int((c1 != np.uint32(SKY_COLOR)).sum())
-    assert nonsky > size * size // 4, "fuzz scene rendered (almost) empty"
-    return frame_parity(c1, d1, c2, d2, records)
+    return args, kw
+
+
+def _host_frame(color, depth):
+    return color.cpu().numpy().view(np.uint32), depth.cpu().numpy()
+
+
+def _two_chunk_gate(device, seed, size, width):
+    """The streaming gates' scene: fuzz chunk A in the pool, the mono fuzz
+    chunk B arriving; the separate-call frame (both inserted, expanded,
+    rendered).  Returns (renderer, camera, meshes, positions, draw_list,
+    (colour, depth, stats) of the separate-call frame, its pool)."""
+    from ..app.engine import QuadPool
+    from .pipeline import Renderer
+
+    quads_a = mesh_chunk(fuzz_chunk(seed))
+    quads_b = mesh_chunk(fuzz_chunk_mono(seed + 1))
+    pos_a, pos_b = (0, 0, 0), (1, 0, 0)
+    cfg = RenderConfig(width=width, height=size, gather_cap=16384,
+                       quads_cap=8192, tile_k_cap=2048)
+    renderer = Renderer(cfg, device=device)
+    cam = Camera(np.array([32.0, 44.0, 56.0], np.float32), width / size)
+    cam.look_at(np.array([32.0, 8.0, 16.0], np.float32))
+    vcap = cfg.visible_chunks_cap
+
+    def draw_list(pool, poss):
+        slots = np.array([pool.by_pos[p] for p in poss], np.int32)
+        visible = np.zeros(vcap, np.int32)
+        counts_sel = np.zeros((vcap, 6), np.int32)
+        positions_sel = np.zeros((vcap, 3), np.int32)
+        visible[:len(slots)] = slots
+        counts_sel[:len(slots)] = pool.counts6[slots]
+        positions_sel[:len(slots)] = pool.positions[slots]
+        return visible, counts_sel, positions_sel
+
+    pool_s = QuadPool(slots=64, qcap=4096, device=device)
+    pool_s.insert_many([(pos_a, quads_a), (pos_b, quads_b)])
+    uploads = renderer.prepare_uploads(pool_s.quads,
+                                       *draw_list(pool_s, (pos_a, pos_b)))
+    ref = renderer.render_prepared(uploads, cam.view_projection_matrix(),
+                                   cam.position)
+    return (renderer, cam, (quads_a, quads_b), (pos_a, pos_b), draw_list,
+            ref, pool_s)
+
+
+def _check_streaming_gate(size, ref, out, pool_s, pool_f, poss):
+    """The one-call frame ``out`` and pool ``pool_f`` against the
+    separate-call frame ``ref`` and pool ``pool_s``, bit for bit."""
+    c1, d1 = _host_frame(*ref[:2])
+    c2, d2 = _host_frame(*out[:2])
+    assert int((c1 != np.uint32(SKY_COLOR)).sum()) > size * size // 4, (
+        "gate scene rendered (almost) empty")
+    assert torch.equal(ref[2][:2].cpu(), out[2][:2].cpu()), (ref[2], out[2])
+    assert_kernel_parity(c1, d1, c2, d2)
+    for pos in poss:
+        ss, sf = pool_s.by_pos[pos], pool_f.by_pos[pos]
+        assert torch.equal(pool_s.quads[ss], pool_f.quads[sf]), pos
+        assert torch.equal(pool_s.counts6_dev[ss], pool_f.counts6_dev[sf]), pos
+
+
+def run_fused_insert_selftest(*, device="cuda", seed=42, size=128,
+                              width=640):
+    """Streaming fused insert+render gate (the reference's
+    ``run_fused_insert_selftest``): a frame whose remesh batch rides the
+    render call (``Renderer.render_fused_insert``: pool scatter, draw-list
+    expansion, render) must give the frame and device pool state of the
+    separate calls (``QuadPool.insert_many``, ``prepare_uploads``,
+    ``render_prepared``) bit for bit.  Chunk A is in the pool, the mono
+    fuzz chunk B arrives in the payload.  Returns "exact"."""
+    from ..app.engine import QuadPool
+
+    renderer, cam, (quads_a, quads_b), (pos_a, pos_b), draw_list, ref, \
+        pool_s = _two_chunk_gate(device, seed, size, width)
+    assert 0 < len(quads_b) <= renderer.INSERT_MC, len(quads_b)
+    pool_f = QuadPool(slots=64, qcap=4096, device=device)
+    pool_f.insert_many([(pos_a, quads_a)])
+    payload = pool_f.prepare_insert_payload([(pos_b, quads_b)])
+    assert payload is not None
+    out = renderer.render_fused_insert(
+        pool_f.quads, pool_f.counts6_dev, *draw_list(pool_f, (pos_a, pos_b)),
+        cam.view_projection_matrix(), cam.position, payload)
+    assert out is not None, "fused-insert frame fell back"
+    pool2, c6b, *frame = out
+    pool_f.adopt_device_arrays(pool2, c6b)
+    _check_streaming_gate(size, ref, frame, pool_s, pool_f, (pos_a, pos_b))
+    return "exact"
+
+
+def run_resident_append_selftest(*, device="cuda", seed=42, size=128,
+                                 width=640):
+    """Resident streaming-frame gate (the reference's
+    ``run_resident_append_selftest``): a frame whose batch rides the step
+    as pool scatter + stream append
+    (``Renderer.render_prepared_append_insert``) must give the frame and
+    device pool state of the separate calls bit for bit: the appended
+    batch lands at the stream's tail exactly where the full expansion puts
+    it (the same draw-list order).  The stream holds chunk A; the mono
+    fuzz chunk B scatters, appends and renders in one step.  Returns
+    "exact"."""
+    from ..app.engine import QuadPool
+    from .pipeline import (RESIDENT_INSERT_FP, RESIDENT_INSERT_KP,
+                           RESIDENT_INSERT_MC, pack_append_meta)
+
+    renderer, cam, (quads_a, quads_b), (pos_a, pos_b), draw_list, ref, \
+        pool_s = _two_chunk_gate(device, seed, size, width)
+    assert 0 < len(quads_b) <= RESIDENT_INSERT_MC, len(quads_b)
+    pool_f = QuadPool(slots=64, qcap=4096, device=device)
+    pool_f.insert_many([(pos_a, quads_a)])
+    q_a, w_a, total_a = renderer.prepare_uploads(
+        pool_f.quads, *draw_list(pool_f, (pos_a,)))
+    payload = pool_f.prepare_insert_payload(
+        [(pos_b, quads_b)], kp=RESIDENT_INSERT_KP, mc=RESIDENT_INSERT_MC,
+        fp=RESIDENT_INSERT_FP)
+    assert payload is not None
+    slot_b = pool_f.by_pos[pos_b]
+    ameta = pack_append_meta(np.array([slot_b], np.int32),
+                             pool_f.counts6[[slot_b]],
+                             pool_f.positions[[slot_b]])
+    offset = int(total_a)
+    *frame, _up, pool2, c6b = renderer.render_prepared_append_insert(
+        (q_a, w_a, np.int32(offset + len(quads_b))),
+        cam.view_projection_matrix(), cam.position, pool_f.quads,
+        pool_f.counts6_dev, ameta, offset, payload)
+    pool_f.adopt_device_arrays(pool2, c6b)
+    _check_streaming_gate(size, ref, frame, pool_s, pool_f, (pos_a, pos_b))
+    return "exact"
 
 
 def run_selftests(*, device="cuda", seed=42):
-    """The fuzz scene's parity gate at 128x128 (one tile column) and at
-    640x128 (five), each named: e.g. "fuzz@128x128: exact | fuzz@640x128:
-    exact".  The reference's frames-in-flight, fused-insert and
-    resident-append self-tests are not ported; chip_smoke.py checks those
-    paths' frames inline."""
-    v1 = run_hardware_selftest(device=device, seed=seed)
-    v2 = run_hardware_selftest(device=device, seed=seed, width=640)
-    return f"fuzz@128x128: {v1} | fuzz@640x128: {v2}"
+    """Every parity gate, each named, as the reference's ``run_selftests``
+    on hardware: the fuzz scene at 128x128 (one tile column) and 640x128
+    (five), frames in flight, the fused insert and the resident append,
+    e.g. "fuzz@128x128: exact | fuzz@640x128: exact | pipelined@640x128:
+    exact | fused-insert@640x128: exact | resident-append@640x128:
+    exact"."""
+    parts = [
+        f"fuzz@128x128: {run_hardware_selftest(device=device, seed=seed)}",
+        f"fuzz@640x128: "
+        f"{run_hardware_selftest(device=device, seed=seed, width=640)}",
+        f"pipelined@640x128: "
+        f"{run_pipelined_selftest(device=device, seed=seed)}",
+        f"fused-insert@640x128: "
+        f"{run_fused_insert_selftest(device=device, seed=seed)}",
+        f"resident-append@640x128: "
+        f"{run_resident_append_selftest(device=device, seed=seed)}"]
+    return " | ".join(parts)
 
 
 def run_production_parity(renderer, uploads, view_proj, cam_pos):

@@ -40,6 +40,14 @@ takes a per-bin suffix-min of near depth, and rasterizes with kernel K4
 (ops/raster_packed.rasterize_packed).  Its frame equals the default
 path's; it does not run frames in flight.
 
+The resident superset stream (``Engine(resident_stream=True)``): the
+engine keeps one stream built from every pooled mesh within view distance
+of the camera's chunk cell and renders it with ``render_prepared`` while
+the camera stays in the cell.  A streaming frame's batch rides the next
+frame's step (``_step_camf_append``: the batch expanded from the pool and
+blended into a copy of the stream; ``_step_camf_append_insert`` also
+scatters the batch into the pool first).
+
 PyTorch runs eagerly, so there is no jit and no trace-time knob: the
 capacity buckets only size the tensors.  Capacities are static, so a step
 makes no host sync; ``n_quads``, the counts and the totals stay on the
@@ -48,6 +56,8 @@ quad pool in place (``apply_insert_payload``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -694,6 +704,97 @@ def _fused_frame_insert(quad_pool, counts6_pool, frame_u, *, vcap: int,
     return quad_pool, counts6_pool, color, depth, stats
 
 
+# resident-stream append batch limits (Engine resident mode): chunks per
+# append and quads per append.  A streaming frame inserts <=
+# max_chunks_per_frame (16) new chunks plus remeshed neighbours; batches
+# beyond these caps force a full stream rebuild.
+RESIDENT_APPEND_VCAP = 64
+RESIDENT_APPEND_CAP = 16384
+
+
+def resident_append_cap(stream_len: int) -> int:
+    """Append window size for a resident stream of ``stream_len``: the
+    fixed cap, shrunk so the window always fits inside the stream (small
+    configurations would otherwise never append)."""
+    return min(RESIDENT_APPEND_CAP, max(256, stream_len // 8))
+
+
+def pack_append_meta(slots, counts6, positions) -> np.ndarray:
+    """The append rider's batch draw list as one i32 upload: slots |
+    counts6 | positions over RESIDENT_APPEND_VCAP rows."""
+    vc = RESIDENT_APPEND_VCAP
+    nv = len(slots)
+    assert nv <= vc
+    meta = np.zeros(10 * vc, np.int32)
+    meta[:nv] = slots
+    c = np.zeros((vc, 6), np.int32)
+    c[:nv] = counts6
+    meta[vc:7 * vc] = c.reshape(-1)
+    p = np.zeros((vc, 3), np.int32)
+    p[:nv] = positions
+    meta[7 * vc:] = p.reshape(-1)
+    return meta
+
+
+RESIDENT_INSERT_KP = 32    # resident fused-insert payload shape: chunks
+RESIDENT_INSERT_MC = 1024  # a call / quads a mesh / flat quad cap
+RESIDENT_INSERT_FP = 8192
+
+
+def _step_camf_append(quads, quad_world, n_quads, cam_f, quad_pool,
+                      ameta_i, offset, *, append_cap: int, **step_kw):
+    """Resident-stream streaming frame (the reference's
+    ``_step_camf_append``): the batch draw list ``ameta_i``
+    (``pack_append_meta``) is expanded from the pool, every direction
+    kept, and blended into copies of the stream at ``offset`` (int or
+    device scalar), and the frame renders from the appended stream, so the
+    batch shows exactly one frame late.  The first ``nk`` window entries
+    take the batch, ``nk`` its untruncated quad count; the expansion pads
+    past ``nk`` with a dummy unit, which the blend never reads.  As
+    ``jax.lax.dynamic_slice`` and ``dynamic_update_slice``, the window
+    start is clamped to [0, len - append_cap].  ``n_quads`` is the total
+    after the append.  The input stream is left as it was.  Returns
+    (color, depth, stats, quads2, quad_world2); the caller keeps the new
+    stream."""
+    vc = RESIDENT_APPEND_VCAP
+    dev = quads.device
+    counts6 = ameta_i[vc:7 * vc].reshape(vc, 6)
+    new_q, new_w, nk = _expand_uploads_impl(
+        quad_pool, ameta_i[:vc], counts6, torch.ones_like(counts6),
+        ameta_i[7 * vc:10 * vc].reshape(vc, 3), append_cap)
+    idx = torch.arange(append_cap, device=dev)
+    take = idx < nk
+    start = torch.clamp(geom_ops.device_i32(offset, dev).long(), 0,
+                        quads.shape[0] - append_cap)
+    pos = start + idx
+    quads2, qw2 = quads.clone(), quad_world.clone()
+    quads2[pos] = torch.where(take, new_q, quads[pos])
+    qw2[:, pos] = torch.where(take[None, :], new_w, quad_world[:, pos])
+    view_proj, cam_pos = _unpack_cam(cam_f)
+    color, depth, stats = render_step(quads2, qw2, n_quads, view_proj,
+                                      cam_pos, **step_kw)
+    return color, depth, stats, quads2, qw2
+
+
+def _step_camf_append_insert(quads, quad_world, n_quads, frame_i,
+                             quad_pool, c6pool, *, append_cap: int, kp: int,
+                             mc: int, **step_kw):
+    """Resident-stream streaming frame with the batch's pool scatter (the
+    reference's ``_step_camf_append_insert``): ``frame_i`` i32[10 VC + 20 +
+    3 kp + fp] = ameta (``pack_append_meta``) | camera (19 f32 bits) |
+    offset | insert payload (``QuadPool.prepare_insert_payload``, u32
+    bits).  The payload scatters into the pool and its counts mirror in
+    place (``apply_insert_payload``), then the batch is appended from the
+    scattered pool and the frame renders as ``_step_camf_append``.
+    Returns (color, depth, stats, quads2, quad_world2, pool, c6pool)."""
+    na = 10 * RESIDENT_APPEND_VCAP
+    apply_insert_payload(quad_pool, c6pool, frame_i[na + 20:], k=kp, mc=mc)
+    return _step_camf_append(
+        quads, quad_world, n_quads, frame_i[na:na + 19].view(torch.float32),
+        quad_pool, frame_i[:na], frame_i[na + 19], append_cap=append_cap,
+        **step_kw) + (quad_pool, c6pool)
+
+
 def _geom_stage(quads, quad_world, n_quads, view_proj, cam_pos, *,
                 width: int, height: int, backface_culling: bool):
     """Stage A alone -> the pre_geom tuple; seeds the frames-in-flight
@@ -787,6 +888,10 @@ class Renderer:
             tile_w=tile_w, backface_culling=cfg.backface_culling,
             packed_raster=cfg.packed_raster,
             near_quads=cfg.two_pass_near_quads)
+        # the resident append steps of each gather cap: plain functions
+        # with their keywords bound, dropped when the colour tables change
+        self._append_steps: dict[int, object] = {}
+        self._append_ins_steps: dict[int, object] = {}
         self._rebuild_tables()
         # capacity buckets: the mid-stage tensors scale with the gather
         # and render caps, so small scenes take a small bucket; the
@@ -809,6 +914,8 @@ class Renderer:
             enable_textures=self.config.enable_textures)
         self._base_step_kw["color_tables"] = proj_ops.color_table_tensors(
             self._tables_np, self.device)
+        self._append_steps.clear()
+        self._append_ins_steps.clear()
 
     def set_shading(self, enable: bool) -> None:
         """Runtime toggle, the reference's F key: sets
@@ -1039,6 +1146,66 @@ class Renderer:
                           insert_payload),
             vcap=vcap, gather_cap=cap, kp=self.INSERT_KP, mc=self.INSERT_MC,
             **self._bucket_kw(cap))
+
+    def _resident_kw(self, gather_cap: int) -> dict:
+        kw = self._bucket_kw(gather_cap)
+        if kw.pop("near_quads", 0):
+            raise ValueError(
+                "resident mode does not compose with two_pass_near_quads "
+                "(the near/far split would need the per-frame draw list)")
+        return dict(kw, append_cap=resident_append_cap(gather_cap))
+
+    def _append_step_for(self, gather_cap: int):
+        got = self._append_steps.get(gather_cap)
+        if got is None:
+            got = functools.partial(_step_camf_append,
+                                    **self._resident_kw(gather_cap))
+            self._append_steps[gather_cap] = got
+        return got
+
+    def render_prepared_append(self, uploads, view_proj, cam_pos, quad_pool,
+                               ameta: np.ndarray, offset: int):
+        """Resident-stream streaming frame: the pending batch (``ameta``
+        from pack_append_meta) appended at ``offset`` and the frame
+        rendered from the appended stream (``_step_camf_append``).  Returns
+        (color, depth, stats, (quads2, quad_world2)); the caller tracks the
+        new total (offset + batch)."""
+        quads, qw, total = uploads
+        step = self._append_step_for(int(quads.shape[0]))
+        color, depth, stats, q2, w2 = step(
+            quads, qw, total, self._cam_dev(view_proj, cam_pos), quad_pool,
+            self._upload(np.asarray(ameta, np.int32)), int(offset))
+        return color, depth, stats, (q2, w2)
+
+    def _append_ins_step_for(self, gather_cap: int):
+        got = self._append_ins_steps.get(gather_cap)
+        if got is None:
+            got = functools.partial(
+                _step_camf_append_insert, kp=RESIDENT_INSERT_KP,
+                mc=RESIDENT_INSERT_MC, **self._resident_kw(gather_cap))
+            self._append_ins_steps[gather_cap] = got
+        return got
+
+    def render_prepared_append_insert(self, uploads, view_proj, cam_pos,
+                                      quad_pool, counts6_dev,
+                                      ameta: np.ndarray, offset: int,
+                                      payload: np.ndarray):
+        """Resident-stream streaming frame with the batch's pool scatter,
+        one upload (``_step_camf_append_insert``); ``payload`` from
+        QuadPool.prepare_insert_payload at the resident shape
+        (RESIDENT_INSERT_KP/_MC/_FP).  Returns (color, depth, stats,
+        (quads2, quad_world2), pool, counts6): the pool tensors are updated
+        in place and returned for ``QuadPool.adopt_device_arrays``."""
+        quads, qw, total = uploads
+        step = self._append_ins_step_for(int(quads.shape[0]))
+        frame_i = np.concatenate([
+            np.asarray(ameta, np.int32),
+            _pack_cam(view_proj, cam_pos).view(np.int32),
+            np.asarray([offset], np.int32),
+            np.asarray(payload, np.uint32).view(np.int32)])
+        color, depth, stats, q2, w2, pool2, c6b = step(
+            quads, qw, total, self._upload(frame_i), quad_pool, counts6_dev)
+        return color, depth, stats, (q2, w2), pool2, c6b
 
     def render(self, quad_pool, visible_slots, counts_sel, positions_sel,
                view_proj, cam_pos):

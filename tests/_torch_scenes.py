@@ -205,3 +205,44 @@ def assert_same_pool_tables(a, b):
     assert a[0] == b[0]
     for x, y in zip(a[1:], b[1:]):
         np.testing.assert_array_equal(x, y)
+
+
+def resident_state(eng):
+    """The resident stream (u32 words, origins) and its bookkeeping, numpy
+    and ints (either package)."""
+    q, w = eng._res_uploads
+    if isinstance(q, torch.Tensor):
+        q, w = q.numpy().view(np.uint32), w.numpy()
+    return dict(quads=np.array(q), qw=np.array(w), total=eng._res_total,
+                cell=eng._res_cell, n=eng._res_n, appends=eng._res_appends,
+                fused=eng._res_fused_inserts, dirty=eng._res_dirty,
+                pending=None if eng._res_pending is None
+                else (np.array(eng._res_pending[0]), *eng._res_pending[1:]))
+
+
+def resident_records(eng):
+    """The port engine's raster input for the resident frame just rendered:
+    the stream as it rendered (the next frame's queued batch is already in
+    ``_res_total``)."""
+    r = eng.renderer
+    total = eng._res_total - (eng._res_pending[2] if eng._res_pending
+                              else 0)
+    q, w = eng._res_uploads
+    cam = r._cam_dev(eng.camera.view_projection_matrix(),
+                     eng.camera.position)
+    return TPL._step_camf(q, w, np.int32(total), cam,
+                          debug_return_records=True,
+                          **r._bucket_kw(int(q.shape[0])))[0].numpy()
+
+
+def assert_same_resident_state(a, b):
+    """Two ``resident_state`` records equal: streams bit for bit, the
+    bookkeeping and the queued batch exact."""
+    for k in ("total", "cell", "n", "appends", "fused", "dirty"):
+        assert a[k] == b[k], k
+    np.testing.assert_array_equal(a["quads"], b["quads"])
+    np.testing.assert_array_equal(a["qw"], b["qw"])
+    assert (a["pending"] is None) == (b["pending"] is None)
+    if a["pending"] is not None:
+        np.testing.assert_array_equal(a["pending"][0], b["pending"][0])
+        assert a["pending"][1:] == b["pending"][1:]

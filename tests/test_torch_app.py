@@ -23,7 +23,9 @@ for bit, tests/test_torch_pipeline.py) by up to 24 ulps at depths near
 below 0.011 there, so it is the coefficients).  Every colour mismatch must
 still be proven by the boundary gate.  The warm-ups are held exactly:
 each leaves the pool state as it was, and the first streaming frame after
-them equals that of a port engine that never warmed, bit for bit.
+them equals that of a port engine that never warmed, bit for bit.  The
+reference's frames-in-flight, fused-insert and resident-append self-tests
+return "exact" on the port's plain versions.
 """
 
 import numpy as np
@@ -34,10 +36,16 @@ import _torch_scenes as S
 from differential_projection_voxel_renderer_tpu.app import engine as JE
 from differential_projection_voxel_renderer_tpu.app import flythrough as JF
 from differential_projection_voxel_renderer_tpu.models import world as JW
+from differential_projection_voxel_renderer_tpu.rendering import (
+    parity as JPAR,
+)
 from differential_projection_voxel_renderer_tpu.utils import config as JCFG
 from differential_projection_voxel_renderer_tpu_torch.app import engine as TE
 from differential_projection_voxel_renderer_tpu_torch.app import (
     flythrough as TF,
+)
+from differential_projection_voxel_renderer_tpu_torch.rendering import (
+    parity as TPAR,
 )
 from differential_projection_voxel_renderer_tpu_torch.rendering import (
     pipeline as TPL,
@@ -337,3 +345,31 @@ def test_slot_of_and_device_tables_match_jax():
     for pool in (jp, tp):
         with pytest.raises(RuntimeError):
             pool.insert((5, 0, 0), np.arange(4, dtype=np.uint32))
+
+
+@pytest.mark.parametrize("name", ["pipelined", "fused_insert",
+                                  "resident_append"])
+def test_streaming_selftests_on_the_cpu(name):
+    """The reference's last three parity self-tests on the port's plain
+    versions: frames in flight against the serial step, the fused insert
+    and the resident append + scatter against the separate calls, each
+    frame and pool bit for bit.  The JAX package's resident gate passes on
+    its jnp path too (its other two compile Mosaic or interpret Pallas
+    kernels here)."""
+    assert getattr(TPAR, f"run_{name}_selftest")(device="cpu") == "exact"
+    if name == "resident_append":
+        assert JPAR.run_resident_append_selftest(use_pallas=False) == "exact"
+
+
+def test_append_steps_follow_the_shading_toggle():
+    """The renderer's cached resident steps bind the colour tables, so
+    set_shading drops them: the append step after the toggle renders the
+    unshaded tables, as the plain step does."""
+    r = TPL.Renderer(TE.RenderConfig(width=128, height=128), device="cpu")
+    shaded = r._append_step_for(16384)
+    assert r._append_step_for(16384) is shaded
+    r.set_shading(False)
+    flat = r._append_step_for(16384)
+    assert flat is not shaded
+    assert (flat.keywords["color_tables"]
+            is r._bucket_kw(16384)["color_tables"])

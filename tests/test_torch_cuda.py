@@ -228,6 +228,63 @@ def test_render_step_on_card_matches_cpu(cuda_device, name):
                         d2.numpy(), rec[0].numpy())
 
 
+def _resident_append_frame(device):
+    """A resident streaming frame on ``device``: the fuzz chunk's stream,
+    the mono fuzz chunk scattered, appended and rendered in one step
+    (Renderer.render_prepared_append_insert) at 640x128.  Returns the
+    frame, the appended stream and the pool, on the CPU."""
+    from differential_projection_voxel_renderer_tpu_torch.app.engine import (
+        QuadPool,
+    )
+    from differential_projection_voxel_renderer_tpu_torch.meshing.greedy \
+        import mesh_chunk
+
+    r = pipeline.Renderer(pipeline.RenderConfig(
+        width=640, height=128, gather_cap=16384, quads_cap=8192,
+        tile_k_cap=2048), device=device)
+    pool = QuadPool(slots=64, qcap=4096, device=device)
+    pool.insert_many([((0, 0, 0), mesh_chunk(parity.fuzz_chunk()))])
+    vcap = r.config.visible_chunks_cap
+    vs, cs = np.zeros(vcap, np.int32), np.zeros((vcap, 6), np.int32)
+    cs[0] = pool.counts6[0]
+    stream = r.prepare_uploads(pool.quads, vs, cs,
+                               np.zeros((vcap, 3), np.int32))
+    quads_b = mesh_chunk(parity.fuzz_chunk_mono(43))
+    payload = pool.prepare_insert_payload(
+        [((1, 0, 0), quads_b)], kp=pipeline.RESIDENT_INSERT_KP,
+        mc=pipeline.RESIDENT_INSERT_MC, fp=pipeline.RESIDENT_INSERT_FP)
+    slot = pool.by_pos[(1, 0, 0)]
+    ameta = pipeline.pack_append_meta(np.array([slot], np.int32),
+                                      pool.counts6[[slot]],
+                                      pool.positions[[slot]])
+    offset = int(stream[2])
+    cam = Camera(np.array([32.0, 44.0, 56.0], np.float32), 5.0)
+    cam.look_at(np.array([32.0, 8.0, 16.0], np.float32))
+    color, depth, stats, (q2, w2), p2, c6 = r.render_prepared_append_insert(
+        (stream[0], stream[1], np.int32(offset + len(quads_b))),
+        cam.view_projection_matrix(), cam.position, pool.quads,
+        pool.counts6_dev, ameta, offset, payload)
+    return [t.cpu() for t in (color, depth, stats, q2, w2, p2, c6)]
+
+
+@pytest.mark.cuda
+def test_resident_append_frame_matches_plain(cuda_device):
+    """A resident append frame with its fused scatter through K1 and K2 on
+    the card against the same step on the CPU (their plain versions): the
+    appended stream, the pool and its counts mirror bit for bit, stats
+    equal, the frame exact; and the resident self-test on the card."""
+    before = (geometry.launches, raster.launches)
+    got = _resident_append_frame(cuda_device)
+    assert (geometry.launches, raster.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    ref = _resident_append_frame(torch.device("cpu"))
+    for a, b in zip(got[2:], ref[2:]):
+        assert torch.equal(a, b)
+    assert torch.equal(got[0], ref[0])
+    assert torch.equal(got[1].view(torch.int32), ref[1].view(torch.int32))
+    assert parity.run_resident_append_selftest(device="cuda") == "exact"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(parity.SMALL_SCENES))
 def test_raster_geom_kernel_matches_plain(cuda_device, name):

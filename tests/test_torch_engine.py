@@ -22,6 +22,14 @@ truncation to a texel goes either way (measured: one pixel, 8u =
 the default so that the port's binned path drops no tile (the jnp path
 never bins), and chunks stream 4 per frame so that the remesh batches fit
 the fused insert.
+
+The resident superset stream flies tests/test_engine.py
+test_resident_frames_bit_identical_primed's path (4 moving frames, one
+chunk-cell crossing after the first build): the port's resident frames
+equal its serial frames bit for bit, and its resident streams, their
+bookkeeping and the stats equal the JAX resident engine's, the frames
+under the gates above with the jnp path's depth tolerance
+(tests/_torch_scenes.py ``JNP_DEPTH_ULPS``).
 """
 
 import ast
@@ -186,6 +194,88 @@ def test_unported_render_modes_raise(flag):
     cfg.two_pass_near_quads = 1
     with pytest.raises(ValueError, match="mutually exclusive"):
         TPL.Renderer(cfg, device="cpu")
+
+
+N_PRIMED = 4   # moving frames of the primed resident flight
+
+
+@pytest.fixture(scope="module")
+def primed_resident():
+    """tests/test_engine.py test_resident_frames_bit_identical_primed's
+    flight (tests/test_engine.py _small_engine with the default item cap,
+    prime_all over a region that holds every chunk the flight reaches),
+    moving and turning across a chunk-cell boundary, on a port resident,
+    a port serial and a JAX resident engine: {name: (engine, [(frame,
+    resident state, port raster records)])}."""
+    out = {}
+    for name, resident in (("port", True), ("serial", False),
+                           ("jax", True)):
+        port = name != "jax"
+        rc, wc = ((TE.RenderConfig, TE.WorldConfig) if port
+                  else (JCFG.RenderConfig, JW.WorldConfig))
+        kw = dict(render_config=rc(width=256, height=128, gather_cap=16384,
+                                   quads_cap=8192),
+                  world_config=wc(view_distance=3, frustum_culling=True,
+                                  max_chunks_per_frame=64),
+                  pool_slots=512, resident_stream=resident)
+        eng = TE.Engine(**kw, device="cpu") if port else JE.Engine(**kw)
+        _pose(eng, POSE0)
+        eng.world.generate_region((-5, -1, -5), (5, 1, 5))
+        eng.prime_all()
+        base = eng.camera.position.copy()
+        frames = []
+        for i in range(1, N_PRIMED + 1):
+            eng.camera.position = base + np.array([8.0 * i, 0.0, -8.0 * i],
+                                                  np.float32)
+            eng.camera.yaw += 0.04
+            res = S.frame_tuple(eng.render_frame(dt=0.0))
+            frames.append((res, S.resident_state(eng) if resident else None,
+                           S.resident_records(eng) if name == "port"
+                           else None))
+        out[name] = (eng, frames)
+    return out
+
+
+def test_resident_engine_renders_the_serial_frames(primed_resident):
+    """The resident superset stream builds and renders on the CPU: every
+    primed resident frame equals the serial engine's bit for bit (colour
+    and depth; the stats count the superset stream, so the resident engine
+    gathers and rasterizes at least as many quads), neither overflows, the
+    mode never falls back, and the flight crosses a chunk cell after the
+    first build (tests/test_torch_resident.py holds the mode to the JAX
+    package's)."""
+    eng, frames = primed_resident["port"]
+    serial = [f[0] for f in primed_resident["serial"][1]]
+    frames = [f[0] for f in frames]
+    cells = [f[1]["cell"] for f in primed_resident["port"][1]]
+    assert eng.resident_stream and eng.config.gather_cap == 2 * 16384
+    assert len(set(cells)) >= 2, cells
+    for i, (t, s) in enumerate(zip(frames, serial)):
+        np.testing.assert_array_equal(t[0], s[0], err_msg=f"frame {i}")
+        np.testing.assert_array_equal(t[1], s[1], err_msg=f"frame {i}")
+        assert t[2][2] == t[2][3] == s[2][2] == s[2][3] == 0
+        assert t[2][1] >= s[2][1] and t[2][0] >= s[2][0]
+        assert (t[0] != np.uint32(JCFG.SKY_COLOR)).sum() > 1000
+
+
+@pytest.mark.parametrize("frame", range(N_PRIMED))
+def test_primed_resident_frame_matches_jax(primed_resident, frame):
+    """The same flight on the JAX package's resident engine: the resident
+    stream bit for bit, its total, cell, chunk count and queued batch
+    exact, the stats exact, the frame under the gates of this file (with
+    the JAX jnp path's depth tolerance, as tests/test_torch_app.py)."""
+    jeng, jf = primed_resident["jax"]
+    assert jeng.resident_stream
+    ref, got = jf[frame], primed_resident["port"][1][frame]
+    S.assert_same_resident_state(ref[1], got[1])
+    S.assert_engine_frame_gates(ref[0], got[0], got[2],
+                                depth_ulps=S.JNP_DEPTH_ULPS)
+
+
+def test_device_meshing_still_raises():
+    with pytest.raises(NotImplementedError, match="device_meshing"):
+        TE.Engine(TE.RenderConfig(width=128, height=128), pool_slots=16,
+                  device_meshing=True, device="cpu")
 
 
 @pytest.mark.parametrize("blocked", ["jax", REF])

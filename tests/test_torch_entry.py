@@ -121,7 +121,9 @@ def test_entry_points_default_to_the_card():
 
 def test_selftests_on_the_cpu():
     assert TPAR.run_selftests(device="cpu") == (
-        "fuzz@128x128: exact | fuzz@640x128: exact")
+        "fuzz@128x128: exact | fuzz@640x128: exact | pipelined@640x128: "
+        "exact | fused-insert@640x128: exact | resident-append@640x128: "
+        "exact")
 
 
 def test_production_parity_on_the_cpu():

@@ -2,8 +2,10 @@
 package, on the CPU.
 
 - ``build_tile_lists`` must match exactly (items, item tiles, starts,
-  counts, overflow), including the item-cap, big-quad (512) and huge-quad
-  (64) overflow cases.
+  counts, overflow), including the item-cap, big-quad and huge-quad (64)
+  overflow cases; the big-quad case at the reference's cap of 512.  At the
+  port's own cap (``BIG_CAP``, 2048: a deliberate divergence) the lists
+  are the reference's with the big quads it drops binned too.
 - K2's twin is fed the JAX package's own records (its
   ``debug_return_records`` hook) and compared with ``rasterize_pallas`` in
   interpret mode on the same records: at 128x128 (the solo kernel) and
@@ -55,8 +57,9 @@ BIN_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(BIN_CASES))
-def test_build_tile_lists_matches_jax(case):
+def _bin_both(case):
+    """The case's inputs binned by the JAX package and by the port: (ref,
+    got, tilebox)."""
     m, n_big, n_huge, count, item_cap, masked = BIN_CASES[case]
     rng = np.random.default_rng(sorted(BIN_CASES).index(case))
     tilebox = _tileboxes(rng, m, n_big, n_huge)
@@ -72,12 +75,43 @@ def test_build_tile_lists_matches_jax(case):
         torch.from_numpy(tilebox), count or m, torch.from_numpy(order6),
         torch.from_numpy(order6_dy1),
         valid=None if valid is None else torch.from_numpy(valid), **kw)
+    return ref, got, tilebox
+
+
+@pytest.mark.parametrize("case", sorted(BIN_CASES))
+def test_build_tile_lists_matches_jax(monkeypatch, case):
+    """At the reference's big-quad cap (512)."""
+    monkeypatch.setattr(TR, "BIG_CAP", 512)
+    ref, got, _ = _bin_both(case)
     for name, r, g in zip(("items", "t_of_item", "starts", "counts",
                            "overflow"), ref, got):
         np.testing.assert_array_equal(np.asarray(r), g.numpy(),
                                       err_msg=name)
     overflow = int(got[4])
     assert (overflow > 0) == case.endswith("overflow"), overflow
+
+
+def test_build_tile_lists_bins_the_big_quads_the_reference_drops():
+    """The big-quad case at the port's own cap: no overflow, and each
+    tile's items are the reference's with the big quads past its 512 (by
+    stream index) that cover the tile."""
+    ref, got, tilebox = _bin_both("big_overflow")
+    assert int(ref[4]) > 0 and int(got[4]) == 0
+    tx0, tx1 = tilebox & 0xFF, (tilebox >> 8) & 0xFF
+    ty0, ty1 = (tilebox >> 16) & 0xFF, (tilebox >> 24) & 0xFF
+    span = (tx1 - tx0 + 1) * (ty1 - ty0 + 1)
+    big = np.flatnonzero((tx0 <= tx1) & (ty0 <= ty1)
+                         & ((tx1 - tx0 > 1) | (ty1 - ty0 > 1)) & (span <= 64))
+    dropped = big[512:]
+    assert len(dropped) == int(ref[4])
+    items_r, items_g = np.asarray(ref[0]), got[0].numpy()
+    for t in range(TILES_Y * TILES_X):
+        ty, tx = divmod(t, TILES_X)
+        r = items_r[int(ref[2][t]):int(ref[2][t]) + int(ref[3][t])]
+        g = items_g[int(got[2][t]):int(got[2][t]) + int(got[3][t])]
+        extra = dropped[(tx0[dropped] <= tx) & (tx <= tx1[dropped])
+                        & (ty0[dropped] <= ty) & (ty <= ty1[dropped])]
+        assert sorted(g.tolist()) == sorted(r.tolist() + extra.tolist()), t
 
 
 def test_pixel_math_matches_jax():
