@@ -5,7 +5,8 @@
 
 Builds the port's CUDA kernels from ``csrc/`` (nvcc, sm_90a), drives the
 serial frame path of ``Engine.render_frame`` (also in the two-pass and
-temporal Hi-Z modes), the frames-in-flight path of
+temporal Hi-Z modes, in span mode and with device meshing), the legacy
+vertex renderer, the frames-in-flight path of
 ``Engine.render_frame_pipelined``, the packed raster path, the row
 bands and camera batch of ``parallel/sharded_render.py``, the
 application surface (warm-ups, flythrough, stale pool, shading toggle,
@@ -158,7 +159,22 @@ and times kernels and frames.  Phases:
    the resident-append, fused-insert and pipelined self-tests on the card
    ("exact"); resident against serial flights, primed and streaming, in
    alternating turns on fresh engines (frames a second by CUDA events and
-   the host clock); 10 profiled resident moving frames.
+   the host clock); 10 profiled resident moving frames;
+16. the last three paths, each part with the counters zeroed before and
+   read after it: (a) span mode, an Engine(RenderConfig(span_mode=True))
+   settled and primed over phase 3's camera sequence with the plain
+   versions of K1 and K2 made to raise (K1's span instance and K2 once a
+   frame, K3 and K4 never), K1-span and K2 on the span records against
+   their plain versions bit for bit, the two-pass, temporal and tp = 2
+   band span frames equal to the serial span frame, the fuzz scene's span
+   frame against oracle.render_span (0.1% of pixels, depth 1e-4), and
+   K1-span's time (a call, in runs, from a CUDA graph) and bound; (b)
+   device meshing, a host-meshed and a device-meshed prime_all engine
+   (the seconds of each meshing the settle batch), their pools equal
+   chunk by chunk and every frame at phase 3's poses equal between them
+   and to phase 3's; (c) the legacy vertex renderer on a terrain chunk's
+   mesh at 1280x720 on the card (seconds, non-sky pixels) and at 320x180
+   equal to the CPU's frame bit for bit.
 
 The script imports the port package and nothing else of the repo; before
 it prints its result it checks that neither jax nor any module of the JAX
@@ -172,7 +188,9 @@ floor, its launches on the paths of phases 12-13, its time with an init
 frame and each band's, its wrapper's host us and the production parity
 verdict; K1-K3 give their launches on each part of phase 14, K1-K4 on
 each part of phase 15, K1 and K2 their time, plain time and bound at the
-resident shapes, K3 and K4 their device time from a CUDA graph), the
+resident shapes, K3 and K4 their device time from a CUDA graph, K1 its
+span instance's launches, error, times, bound, registers and spills and
+K2 its launches on phase 16's span frames), the
 card's name and power limit as nvidia-smi gives them, and ``{"ok": true,
 "device": {...}}``.  Exits non-zero, printing no
 result, when there is no CUDA device or the package is not beside this
@@ -287,6 +305,7 @@ def reset_counters() -> None:
     )
 
     geometry.launches = 0
+    geometry.launches_span = 0
     raster.launches = 0
     raster.launches_geom = 0
     raster_packed.launches = 0
@@ -298,12 +317,13 @@ def reset_counters() -> None:
 
 
 def new_engine(torch, config=None, prime_all=False, pool_slots=4096,
-               resident=False):
+               resident=False, device_meshing=False):
     """An Engine on the card at the headline scene (``config``, by default
     RenderConfig(WIDTH, HEIGHT); in the resident superset stream mode with
-    ``resident``), its world settled and primed at the start pose (every
-    loaded chunk meshed with ``prime_all``): (engine, world seconds, prime
-    seconds)."""
+    ``resident``, meshing on the card with ``device_meshing``), its world
+    settled and primed at the start pose (every loaded chunk meshed with
+    ``prime_all``): (engine, world seconds, prime seconds, the card
+    synchronised)."""
     import numpy as np
 
     from differential_projection_voxel_renderer_tpu_torch.app.engine import (
@@ -315,7 +335,8 @@ def new_engine(torch, config=None, prime_all=False, pool_slots=4096,
     t0 = time.perf_counter()
     eng = Engine(config or RenderConfig(WIDTH, HEIGHT),
                  WorldConfig(view_distance=VIEW_DISTANCE),
-                 pool_slots=pool_slots, resident_stream=resident)
+                 pool_slots=pool_slots, resident_stream=resident,
+                 device_meshing=device_meshing)
     eng.camera.position = np.array(START_POS, np.float32)
     eng.camera.look_at(np.array(START_TARGET, np.float32))
     while eng.world.update(eng.camera.position):
@@ -325,6 +346,7 @@ def new_engine(torch, config=None, prime_all=False, pool_slots=4096,
         eng.prime_all()
     else:
         eng.prime()
+    torch.cuda.synchronize()
     return eng, t1 - t0, time.perf_counter() - t1
 
 
@@ -1792,6 +1814,324 @@ def resident_path(torch, serial, flights, card):
     return parts.launches, parts.secs, kern
 
 
+# ---------------------------------------------- span, device meshing, legacy
+
+
+def static_and_moving(eng):
+    """Phase 3's camera sequence on ``eng``: 3 static frames at the start
+    pose, then the N_MOVING moving poses; each frame's (colour, depth,
+    stats) as device copies, and the static draw list's (uploads, camera
+    on the device)."""
+    import numpy as np
+
+    eng.camera.position = np.array(START_POS, np.float32)
+    eng.camera.look_at(np.array(START_TARGET, np.float32))
+    frames = [keep(eng.render_frame(dt=0.0)) for _ in range(3)]
+    static = (eng._upload_cache[1], eng.renderer._cam_dev(
+        eng.camera.view_projection_matrix(), eng.camera.position))
+    for pos, target in moving_poses():
+        eng.camera.position = pos
+        eng.camera.look_at(target)
+        frames.append(keep(eng.render_frame(dt=0.0)))
+    return frames, static
+
+
+def span_path(torch, card):
+    """Phase 16 (a): span mode at the headline scene.  An
+    Engine(RenderConfig(span_mode=True)) settled and primed drives phase
+    3's camera sequence with the plain versions of K1 and K2 made to raise
+    (K1's span instance and K2 once a frame, K3 and K4 never); K1's span
+    instance and K2 on the span records against their plain versions bit
+    for bit on the static stream; the two-pass, temporal and tp = 2 band
+    span frames against the serial span frame; the span frame of the
+    128x128 fuzz scene against oracle.render_span; K1-span's time and
+    bound.  Returns a dict for the kernels line."""
+    import numpy as np
+
+    from differential_projection_voxel_renderer_tpu_torch.app.engine import (
+        RenderConfig,
+    )
+    from differential_projection_voxel_renderer_tpu_torch.benches import (
+        common,
+    )
+    from differential_projection_voxel_renderer_tpu_torch.ops import (
+        geometry,
+        hiz,
+        raster,
+    )
+    from differential_projection_voxel_renderer_tpu_torch.rendering import (
+        oracle,
+        parity,
+        pipeline,
+    )
+
+    parts = Parts(torch, "16")
+    eng, t_world, t_prime = parts.run("span settle + prime", lambda: new_engine(
+        torch, RenderConfig(WIDTH, HEIGHT, span_mode=True)))
+
+    def stop(name):
+        def plain(*a, **k):
+            raise AssertionError(f"[16] the span path ran {name}")
+        return plain
+
+    saved = geometry.project_cull_plain, raster.rasterize_tiles_plain
+    geometry.project_cull_plain = stop("project_cull_plain")
+    raster.rasterize_tiles_plain = stop("rasterize_tiles_plain")
+    try:
+        frames, (uploads, cam_f) = parts.run(
+            "span frames", lambda: static_and_moving(eng))
+        span_launches = geometry.launches_span
+    finally:
+        geometry.project_cull_plain, raster.rasterize_tiles_plain = saved
+    n_frames = 3 + N_MOVING
+    parts.need("span frames", n_frames, n_frames, 0)
+    if span_launches != n_frames or parts.launches["span frames"][3]:
+        raise AssertionError(f"[16] span frames: K1-span {span_launches}, "
+                             f"launches {parts.launches['span frames']}")
+    for f in frames[1:3]:
+        if not all(torch.equal(a, b) for a, b in zip(f, frames[0])):
+            raise AssertionError("[16] the static span frames differ")
+    stats = [f[2].tolist() for f in frames]
+    if any(st[2] or st[3] or st[4] for st in stats):
+        raise AssertionError(f"[16] span stats {stats}")
+    n_px = [nonsky(f[0]) for f in frames]
+    if not all(WIDTH * HEIGHT // 4 < n < WIDTH * HEIGHT for n in n_px):
+        raise AssertionError(f"[16] implausible span non-sky counts {n_px}")
+    log(f"[16] span engine: world {t_world:.2f} s, prime {t_prime:.2f} s; "
+        f"{n_frames} frames (3 static, {N_MOVING} moving) launch K1's span "
+        f"instance {span_launches} times and K2 "
+        f"{parts.launches['span frames'][1]}, K3 and K4 never, the plain "
+        f"versions never; static stats {stats[0]} non-sky {n_px[0]}, last "
+        f"moving stats {stats[-1]}")
+
+    # K1-span and K2 on the span records against their plain versions
+    quads, qw, total = uploads
+    vp, cp = pipeline._unpack_cam(cam_f)
+    args = (quads, qw, total, vp, cp)
+    kw = dict(width=WIDTH, height=HEIGHT, span_mode=True)
+    n_valid, _, k1_err = k1_compare(torch, geometry, args, kw)
+    got = geometry.project_cull(*args, **kw)
+    ref = geometry.project_cull_plain(*args, **kw)
+    if not torch.equal(got["ndc"].view(torch.int32),
+                       ref["ndc"].view(torch.int32)):
+        raise AssertionError("[16] K1-span's NDC box differs from its twin")
+    cap = int(quads.shape[0])
+    step_kw = eng.renderer._bucket_kw(cap)
+    step_kw.pop("near_quads")
+    rec = pipeline.render_step(*args, debug_return_records=True, **step_kw)
+    verdict, k2_err, nmis, _ = k2_compare(torch, raster, parity, rec,
+                                          HEIGHT, WIDTH)
+    if verdict != "exact":
+        raise AssertionError(f"[16] K2 on span records: {verdict}")
+    log(f"[16] K1-span on the span static stream ({cap} bucket, "
+        f"{int(total)} quads, {n_valid} valid): five outputs, both counts "
+        f"and the NDC box bit-exact against its plain version; K2 on its "
+        f"{int(rec[2].sum())} span records: {verdict} against its plain "
+        f"version")
+
+    # the occlusion modes and the bands against the serial span frame
+    serial = pipeline.render_step(*args, **step_kw)
+    if not all(torch.equal(a, b) for a, b in zip(serial, frames[0])):
+        raise AssertionError("[16] the span step differs from the engine's "
+                             "static frame")
+
+    def same(out):
+        return (torch.equal(out[0], serial[0])
+                and torch.equal(out[1].view(torch.int32),
+                                serial[1].view(torch.int32))
+                and int(out[2][1]) + int(out[2][5]) == int(serial[2][1]))
+
+    two = parts.run("span two-pass", lambda: pipeline._two_pass_step(
+        *args, near_quads=NEAR_QUADS, **step_kw))
+    parts.need("span two-pass", 2, 2, 0)
+    temporal = parts.run("span temporal", lambda: pipeline.render_step(
+        *args, hiz_level1=hiz.build_max_pyramid(serial[1]), **step_kw))
+    parts.need("span temporal", 1, 1, 0)
+    band_h = HEIGHT // 2
+    bands = parts.run("span bands", lambda: [pipeline.render_step(
+        *args, band_y0=y0, band_h=band_h, **step_kw)
+        for y0 in (0, band_h)])
+    parts.need("span bands", 2, 2, 0)
+    stacked = (torch.cat([b[0] for b in bands]),
+               torch.cat([b[1] for b in bands]), serial[2])
+    for label, out in (("two-pass", two), ("temporal", temporal),
+                       ("tp = 2 bands", stacked)):
+        if not same(out):
+            raise AssertionError(f"[16] the {label} span frame differs from "
+                                 f"the serial span frame")
+    log(f"[16] span two-pass (near {NEAR_QUADS}; hiz_culled "
+        f"{int(two[2][5])}), temporal on the frame's own pyramid "
+        f"(hiz_culled {int(temporal[2][5])}) and tp = 2 bands ({band_h} "
+        f"rows): each equal to the serial span frame bit for bit")
+
+    # against the float64 span walker on the fuzz scene
+    gargs, gkw = parity.small_scene("fuzz 128x128", "cuda")
+    w, h = gkw["width"], gkw["height"]
+    c, d, _ = pipeline.render_step(*gargs, span_mode=True, **gkw)
+    c = c.cpu().numpy().view(np.uint32)
+    d = d.cpu().numpy()
+    stream = gargs[0].cpu().numpy().view(np.uint32)[:int(gargs[2])]
+    oc, od = oracle.render_span(stream, np.zeros(3), gargs[3].cpu().numpy(),
+                                gargs[4].cpu().numpy(), w, h)
+    o_mis = int((oc != c).sum())
+    both = np.isfinite(od) & np.isfinite(d)
+    o_err = float(np.abs(od[both] - d[both]).max())
+    if o_mis > w * h * 0.001 or o_err >= 1e-4:
+        raise AssertionError(f"[16] span frame vs oracle: {o_mis} px, depth "
+                             f"{o_err}")
+    log(f"[16] span frame of the fuzz scene ({w}x{h}) against "
+        f"oracle.render_span: {o_mis} pixels differ (bound "
+        f"{w * h * 0.001:.1f}), depth within {o_err:.3g} (bound 1e-4)")
+
+    # K1-span's time and bound on the static stream
+    def k1s():
+        return geometry.project_cull(*args, **kw)
+
+    out = dict(launches=span_launches, max_abs_err=k1_err,
+               call_ms=median_ms(k1s), ms=median_ms(k1s, batch=20),
+               graph_ms=common.graph_ms(k1s),
+               exact_graph_ms=common.graph_ms(lambda: geometry.project_cull(
+                   *args, width=WIDTH, height=HEIGHT)),
+               plain_ms=median_ms(lambda: geometry.project_cull_plain(
+                   *args, **kw), reps=5), bucket=cap,
+               k2_max_abs_err=k2_err, k2_launches=parts.launches[
+                   "span frames"][1])
+    out["bound_ms"], out["bound_by"] = bound(*k1_work(args, k1s()))
+    log(f"[16] K1-span ({cap} quads): {out['call_ms']:.4f} ms a call, "
+        f"{out['ms']:.4f} in runs of 20, {out['graph_ms']:.4f} from a CUDA "
+        f"graph (K1's exact instance on the same stream "
+        f"{out['exact_graph_ms']:.4f}); plain version "
+        f"{out['plain_ms']:.4f} ms; bound {out['bound_ms']:.5f} ms "
+        f"({out['bound_by']}); {card}")
+    return out
+
+
+def meshing_path(torch, serial, card):
+    """Phase 16 (b): device meshing at the headline configuration.  Two
+    engines settled and primed with prime_all, one meshing on the host and
+    one with device_meshing=True (the settle batch meshed on the card; the
+    seconds of each are printed); their pools hold the same chunks with the
+    same rows, counts, counts6 and counts6_dev; both drive phase 3's
+    camera sequence, and every frame of the device-meshed engine must
+    equal the host-meshed engine's bit for bit (colour, depth, stats) and
+    phase 3's (colour, depth, stats[:2]).  Returns the seconds."""
+    parts = Parts(torch, "16")
+    host, hw, hp = parts.run("host settle + prime_all", lambda: new_engine(
+        torch, prime_all=True, pool_slots=APP_POOL_SLOTS))
+    dev, dw, dp = parts.run("device settle + prime_all", lambda: new_engine(
+        torch, prime_all=True, pool_slots=APP_POOL_SLOTS,
+        device_meshing=True))
+    shared, equal = shared_chunks_equal(torch, host.pool, dev.pool)
+    if set(host.pool.by_pos) != set(dev.pool.by_pos) or equal != shared:
+        raise AssertionError(f"[16] device-meshed pool: {equal} of {shared} "
+                             f"chunks equal the host-meshed pool's")
+    log(f"[16] prime_all of the settled world ({len(dev.pool.by_pos)} "
+        f"chunks): host mesher {hp:.3f} s, device meshing {dp:.3f} s (worlds "
+        f"settled in {hw:.2f} / {dw:.2f} s); the pools hold the same "
+        f"chunks with equal rows, counts, counts6 and counts6_dev; "
+        f"overflow_drops host {host.pool.overflow_drops}, device "
+        f"{dev.pool.overflow_drops}; {card}")
+    batches = []
+    real = dev._remesh_device
+
+    def spy(to_mesh):
+        batches.append(len(to_mesh))
+        return real(to_mesh)
+
+    dev._remesh_device = spy
+    fh, _ = parts.run("host frames", lambda: static_and_moving(host))
+    fd, _ = parts.run("device frames", lambda: static_and_moving(dev))
+    refs = [serial["static"]] * 3 + serial["moving"]
+    for i, (a, b, r) in enumerate(zip(fd, fh, refs)):
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"[16] device-meshed frame {i} differs from "
+                                 f"the host-meshed engine's")
+        if not (torch.equal(a[0], r[0]) and torch.equal(
+                a[1].view(torch.int32), r[1].view(torch.int32))
+                and torch.equal(a[2][:2], r[2][:2])):
+            raise AssertionError(f"[16] device-meshed frame {i} differs from "
+                                 f"phase 3's")
+    parts.need("device frames", len(fd), len(fd), 0)
+    log(f"[16] device meshing: {len(fd)} frames at phase 3's poses equal the "
+        f"host-meshed engine's (colour, depth, stats) and phase 3's bit for "
+        f"bit; device remesh batches during them {batches}; overflow_drops "
+        f"{dev.pool.overflow_drops}")
+    return dict(host_s=hp, device_s=dp, chunks=len(dev.pool.by_pos),
+                overflow=dev.pool.overflow_drops, batches=batches)
+
+
+def legacy_path(torch, card):
+    """Phase 16 (c): the legacy vertex renderer.  One terrain chunk's quads
+    become packed vertices (quad_corners_local, pack_vertices) and
+    two-triangle fans; render_vertex_mesh draws them on the card at
+    1280x720 (seconds, non-sky pixels) and at 320x180, where the card's
+    frame must equal the same call's on the CPU bit for bit."""
+    import numpy as np
+
+    from differential_projection_voxel_renderer_tpu_torch.meshing.greedy import (
+        mesh_chunk,
+    )
+    from differential_projection_voxel_renderer_tpu_torch.meshing.quad_format import (
+        quad_corners_local,
+        unpack_quads,
+    )
+    from differential_projection_voxel_renderer_tpu_torch.models import (
+        vertex,
+    )
+    from differential_projection_voxel_renderer_tpu_torch.models.camera import (
+        Camera,
+    )
+    from differential_projection_voxel_renderer_tpu_torch.models.chunk import (
+        Chunk,
+    )
+    from differential_projection_voxel_renderer_tpu_torch.rendering import (
+        legacy,
+    )
+
+    quads = mesh_chunk(Chunk.generate_terrain((0, 0, 0)))
+    n = len(quads)
+    corners = quad_corners_local(quads).reshape(-1, 3).astype(np.int64)
+    f = unpack_quads(quads)
+    light = np.random.default_rng(5).random(4 * n, np.float32)
+    packed = vertex.pack_vertices(
+        corners[:, 0], corners[:, 1], corners[:, 2], np.repeat(f["block"], 4),
+        light, np.repeat(f["face"], 4), np.zeros(4 * n))
+    idx = legacy.mesh_quads_to_triangles(n)
+
+    def render(device, w, h):
+        cam = Camera(np.array([0.0, 25.0, 0.0], np.float32), w / h)
+        cam.look_at(np.array([16.0, 12.0, 16.0], np.float32))
+        verts = {k: torch.from_numpy(a).to(device)
+                 for k, a in vertex.unpack_vertices(packed).items()}
+        return legacy.render_vertex_mesh(
+            verts, torch.from_numpy(idx).to(device), len(idx),
+            torch.zeros(3, device=device),
+            torch.from_numpy(cam.view_projection_matrix().copy()).to(device),
+            width=w, height=h)
+
+    render("cuda", WIDTH, HEIGHT)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    c, _ = render("cuda", WIDTH, HEIGHT)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    px = int((c != legacy.SKY_I32).sum())
+    if px < WIDTH * HEIGHT // 20:
+        raise AssertionError(f"[16] the legacy frame shows {px} pixels")
+    gc, gd = render("cuda", 320, 180)
+    cc, cd = render("cpu", 320, 180)
+    if not (torch.equal(gc.cpu(), cc) and torch.equal(
+            gd.cpu().view(torch.int32), cd.view(torch.int32))):
+        raise AssertionError("[16] the legacy 320x180 frame differs card vs "
+                             "CPU")
+    log(f"[16] legacy: a terrain chunk's {n} quads as {4 * n} vertices and "
+        f"{len(idx)} triangles; render_vertex_mesh at {WIDTH}x{HEIGHT} on "
+        f"the card {secs:.3f} s ({px} non-sky pixels); at 320x180 the card's "
+        f"frame equals the CPU's bit for bit "
+        f"({int((cc != legacy.SKY_I32).sum())} non-sky); {card}")
+    return dict(seconds=secs, nonsky=px, triangles=len(idx))
+
+
 # ------------------------------------------------------------- K1 / K2
 
 
@@ -2311,7 +2651,7 @@ def probe_path(torch, card, k1_call):
     stream = torch.cuda.current_stream().cuda_stream
     k1_ptrs = (*geometry.kernel_args(*args), None, gq, kw["width"],
                kw["height"], geometry.BACKFACE | geometry.SUBPIXEL,
-               *geometry.output_ptrs(gout), stream)
+               *geometry.output_ptrs(gout), None, stream)
     cin = [torch.zeros((1024, 128), dtype=torch.int32, device="cuda")
            for _ in range(9)]
     xs = torch.zeros(1, dtype=torch.int32, device="cuda")
@@ -2414,11 +2754,16 @@ def main() -> int:
                        "raster_packed_kernel", "fill_tiles_kernel",
                        "blocked_copy_kernel"):
             if f"{len(kernel)}{kernel}" in entry:
-                # K1's instances: one quad a thread (the port's) and the
-                # two- and four-quad ones of benches/k1_call.py --variants
-                vec = entry.partition(f"{kernel}ILi")[2][:1]
-                ptxas[f"{kernel}<{vec}>" if vec not in ("", "1")
-                      else kernel] = rep
+                # K1's instances: one quad a thread (the port's), the two-
+                # and four-quad ones of benches/k1_call.py --variants, and
+                # span mode's (one quad, kSpanMode true)
+                rest = entry.partition(f"{kernel}ILi")[2]
+                vec = rest[:1]
+                if rest[1:].startswith("ELb1"):
+                    ptxas[f"{kernel}<span>"] = rep
+                else:
+                    ptxas[f"{kernel}<{vec}>" if vec not in ("", "1")
+                          else kernel] = rep
     blocks = dict(raster_kernel=lib.dpvr_rasterize_tiles_blocks_per_sm(),
                   raster_packed_kernel=(
                       lib.dpvr_rasterize_packed_blocks_per_sm()))
@@ -2432,10 +2777,10 @@ def main() -> int:
             + (f", {blocks[kernel]} resident blocks an SM "
                f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)"
                if kernel in blocks else ""))
-    if len(ptxas) != 7:
+    if len(ptxas) != 8:
         raise AssertionError(f"ptxas reported {sorted(ptxas)}")
     for kernel in ("project_cull_kernel", "project_cull_kernel<2>",
-                   "project_cull_kernel<4>"):
+                   "project_cull_kernel<4>", "project_cull_kernel<span>"):
         if ptxas[kernel]["spill_stores"] or ptxas[kernel]["spill_loads"]:
             raise AssertionError(f"{kernel} spills: {ptxas[kernel]}")
     for kernel, n in blocks.items():
@@ -2795,9 +3140,21 @@ def main() -> int:
     # ---- 15. the resident superset stream
     launches15, secs15, kern15 = resident_path(
         torch, serial, flights14, card)
-    del serial, flights14
+    del flights14
     log("[15] seconds: " + ", ".join(f"{k} {v:.3f}"
                                      for k, v in secs15.items()))
+
+    # ---- 16. span mode, device meshing, the legacy vertex renderer
+    span16 = span_path(torch, card)
+    mesh16 = meshing_path(torch, serial, card)
+    del serial
+    legacy16 = legacy_path(torch, card)
+    log(f"[16] seconds: the settle batch meshed on the card "
+        f"{mesh16['device_s']:.3f}, on the host {mesh16['host_s']:.3f} "
+        f"({mesh16['chunks']} chunks, overflow_drops "
+        f"{mesh16['overflow']}); the legacy {WIDTH}x{HEIGHT} frame "
+        f"{legacy16['seconds']:.3f} ({legacy16['triangles']} triangles); "
+        f"{card}")
     sites = {k: sorted({r["site"] for r in rows11.values()
                         if r["kernel"] == k}) for k in ("M1", "M2")}
 
@@ -2831,7 +3188,19 @@ def main() -> int:
              resident_bound_ms=kern15["k1_bound_ms"],
              resident_bound_by=kern15["k1_bound_by"],
              registers=ptxas["project_cull_kernel"]["registers"],
-             spill_bytes=ptxas["project_cull_kernel"]["spill_stores"]),
+             spill_bytes=ptxas["project_cull_kernel"]["spill_stores"],
+             span_launches=span16["launches"],
+             span_max_abs_err=span16["max_abs_err"],
+             span_bucket=span16["bucket"], span_ms=span16["ms"],
+             span_call_ms=span16["call_ms"],
+             span_graph_ms=span16["graph_ms"],
+             span_exact_graph_ms=span16["exact_graph_ms"],
+             span_plain_ms=span16["plain_ms"],
+             span_bound_ms=span16["bound_ms"],
+             span_bound_by=span16["bound_by"],
+             span_registers=ptxas["project_cull_kernel<span>"]["registers"],
+             span_spill_bytes=ptxas["project_cull_kernel<span>"][
+                 "spill_stores"]),
         dict(name="K2 tile raster (rasterize_tiles)", route="cuda",
              source=f"{PKG}/csrc/raster.cu",
              replaces=f"{REF}/ops/raster.py:1131",
@@ -2868,7 +3237,9 @@ def main() -> int:
              resident_plain_ms=kern15["k2_plain_ms"],
              resident_bound_ms=kern15["k2_bound_ms"],
              resident_bound_by=kern15["k2_bound_by"],
-             resident_serial_graph_ms=kern15["k2_serial_graph_ms"]),
+             resident_serial_graph_ms=kern15["k2_serial_graph_ms"],
+             launches_span=span16["k2_launches"],
+             span_max_abs_err=span16["k2_max_abs_err"]),
         dict(name="K3 tile raster + next frame's stage A "
                   "(rasterize_tiles next_geom)", route="cuda",
              source=f"{PKG}/csrc/raster.cu",

@@ -43,9 +43,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # (quads, quad_world[3, gq], view_proj[16], cam_pos[3], n_quads, skip,
     #  gq, width, height, flags, valid, bbx, bby, depth_near, subpixel,
-    #  counts[2], stream)
+    #  counts[2], ndc[4, gq] (span mode; else null), stream)
     "dpvr_project_cull": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _P, _P, _P, _P, _P, _P, _P),
+                          _P, _P, _P, _P, _P, _P, _P, _P),
     # (records[24, cap], cap, starts, counts, octet_zmin, tiles_y,
     #  tiles_x, height, width, color, depth, init_color, init_depth (null
     #  for none), y0_px, then the next stream's stage A -- null pointers

@@ -14,8 +14,9 @@ bookkeeping) is carried
 over as it is, on the port's own copies of the host layers (``models``,
 ``meshing``, ``ops/culling.py``, ``ops/occlusion.py``, ``utils``); only
 the device calls change.  Every device tensor lives on the ``device`` the
-engine was built with, the card unless the caller asks for the CPU.  Not
-ported yet (it raises NotImplementedError): device meshing.
+engine was built with, the card unless the caller asks for the CPU.  With
+``device_meshing`` a remesh batch of 4 chunks or more is meshed on the
+device (ops/meshing_device.py) and its rows scattered into the pool there.
 """
 
 from __future__ import annotations
@@ -188,6 +189,33 @@ class QuadPool:
         self.counts[slot] = n
         self.counts6[slot] = _dir_counts(row[:n])
         self.positions[slot] = key
+        self._dev_cache = None
+        self._lookup_cache = None
+
+    def insert_rows_device(self, positions, quad_rows, counts, c6) -> None:
+        """Batched insert of device-resident quad rows (device meshing): the
+        host tables take ``counts`` and the per-direction ``c6`` (from the
+        meshing call's metadata, not from the rows), then one device
+        scatter of the rows i32[k, qcap] and of their counts6 mirror.  A
+        position may repeat only with identical rows (the bucket padding),
+        so the duplicate-index write is deterministic."""
+        k = len(positions)
+        if tuple(quad_rows.shape) != (k, self.qcap):
+            raise ValueError(f"quad rows of shape {tuple(quad_rows.shape)} "
+                             f"for {k} positions")
+        slots = np.zeros(k, np.int64)
+        for i, pos in enumerate(positions):
+            key = tuple(int(c) for c in pos)
+            slot = self._slot_for(key)
+            slots[i] = slot
+            self.counts[slot] = int(counts[i])
+            self.counts6[slot] = c6[i]
+            self.positions[slot] = key
+        slots_t = torch.from_numpy(slots).to(self.device)
+        counts_t = torch.from_numpy(np.asarray(counts, np.int32)).to(
+            self.device)
+        self.quads[slots_t] = quad_rows
+        self.counts6_dev[slots_t] = _c6_of(quad_rows, counts_t)
         self._dev_cache = None
         self._lookup_cache = None
 
@@ -414,8 +442,8 @@ class Engine:
                  horizon_config: HorizonCullingConfig | None = None,
                  device_meshing: bool = False,
                  resident_stream: bool | None = None, *, device="cuda"):
-        if device_meshing:
-            raise NotImplementedError("device_meshing is not ported yet")
+        # mesh remesh batches of 4 chunks or more on the device
+        # (ops/meshing_device.py, byte-identical to the host mesher)
         self.device_meshing = device_meshing
         self.device = resolve_device(device)
         self.config = render_config or RenderConfig()
@@ -536,6 +564,8 @@ class Engine:
         if not to_mesh:
             return 0
         to_mesh = sorted(set(to_mesh))
+        if self.device_meshing and len(to_mesh) >= 4:
+            return self._remesh_device(to_mesh)
         batch = []
         for pos in to_mesh:
             chunk = self.world.chunks.get(pos)
@@ -558,9 +588,11 @@ class Engine:
         first renders.  The host pool tables update now, so this frame's
         append metadata sees the new meshes.  Meshes over the payload's
         per-mesh cap, and batches that do not fit its shape, scatter now
-        (``insert_many``)."""
+        (``insert_many``).  A device-meshed batch lands in the pool at once
+        and queues nothing, as the reference's does."""
         if self.device_meshing and len(to_mesh) >= 4:
-            raise NotImplementedError("device_meshing is not ported yet")
+            self._remesh_device(sorted(set(to_mesh)))
+            return
         batch = []
         for pos in sorted(set(to_mesh)):
             chunk = self.world.chunks.get(pos)
@@ -594,6 +626,58 @@ class Engine:
                 self._res_insert, kp=RESIDENT_INSERT_KP,
                 mc=RESIDENT_INSERT_MC)
             self._res_insert = None
+
+    def _remesh_device(self, to_mesh) -> int:
+        """Batched meshing on the device (ops/meshing_device.py): voxels and
+        the neighbours' border planes go up once, and the packed rows land
+        in the pool there.  Uniform chunks mesh to None, as on the host.
+        Batches of at most 512 chunks, padded to their bucket by repeating
+        the first chunk, whose slot the padding rows rewrite with its own
+        row; planes past the merge's steps add to ``overflow_drops``."""
+        from ..ops import meshing_device as MD
+
+        varied, uniform = [], []
+        for pos in to_mesh:
+            chunk = self.world.chunks.get(pos)
+            if chunk is None:
+                continue
+            (uniform if chunk.is_uniform else varied).append((pos, chunk))
+        self.pool.insert_many([(pos, None) for pos, _ in uniform])
+        if not varied:
+            return len(to_mesh)
+        positions = [pos for pos, _ in varied]
+        dense_cache: dict[tuple, np.ndarray | None] = {}
+
+        def dense_at(p):
+            if p not in dense_cache:
+                c = self.world.chunks.get(p)
+                dense_cache[p] = None if c is None else c.dense()
+            return dense_cache[p]
+
+        blocks_by_pos = {}
+        for pos, _ in varied:
+            blocks_by_pos[pos] = dense_at(pos)
+            for off in self._neighbor_offsets:
+                np_ = (pos[0] + off[0], pos[1] + off[1], pos[2] + off[2])
+                d = dense_at(np_)
+                if d is not None:
+                    blocks_by_pos[np_] = d
+        for i in range(0, len(varied), 512):
+            part = positions[i:i + 512]
+            planes = MD.neighbor_planes_from_batch(blocks_by_pos, part)
+            batch = np.stack([blocks_by_pos[p] for p in part])
+            quads, counts, overflow, c6, bucket = (
+                MD.mesh_chunks_device_bucketed(batch, planes,
+                                               qcap=self.pool.qcap,
+                                               device=self.device))
+            if bucket != len(part):
+                pad = bucket - len(part)
+                part = part + [part[0]] * pad
+                counts = np.concatenate([counts, counts[:1].repeat(pad)])
+                c6 = np.concatenate([c6, c6[:1].repeat(pad, axis=0)])
+            self.pool.insert_rows_device(part, quads, counts, c6)
+            self.pool.overflow_drops += int(overflow.sum())
+        return len(to_mesh)
 
     # ------------------------------------------------------- runtime toggles
     def toggle_shading(self) -> bool:
@@ -743,8 +827,9 @@ class Engine:
     def _dir_keep_mask(self, positions, cam_pos) -> np.ndarray:
         """Per-chunk face-direction keep mask [n, 6]: 0 where every quad of
         the direction is provably backfacing (a strict subset of the
-        device backface cull, exact in f32)."""
-        if not self.config.backface_culling:
+        device backface cull, exact in f32).  All ones when the device
+        cull is off or in span mode, whose clip-normal test differs."""
+        if not self.config.backface_culling or self.config.span_mode:
             return np.ones((len(positions), 6), np.int32)
         m = positions.astype(np.float32) * np.float32(CHUNK_SIZE)
         cam = np.asarray(cam_pos, np.float32)

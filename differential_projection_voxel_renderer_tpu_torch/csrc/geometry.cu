@@ -24,6 +24,14 @@
 // a thread, and two or four a thread run their chains one after another
 // on fewer warps (benches/k1_call.py --variants times the three).
 //
+// Span mode (flag kSpan, bit 4) runs a separate instance at one quad a
+// thread: the same fields with the clip-normal backface test and no
+// sub-pixel test, plus the four NDC rows of each quad's box (nx_min,
+// nx_max, ny_min, ny_max) into ndc f32[4, gq], which span mode's records
+// are built from.  It replaces the jnp form of stage A that the reference
+// runs in span mode (rendering/pipeline.py `_render_step`, the Pallas
+// kernel having no span form), and moves 16 more bytes a quad.
+//
 // Rounding contract: this file is compiled with -fmad=false (no
 // multiply-add contraction), IEEE division (-prec-div=true) and no fast
 // math; the per-quad math lives in stage_a.cuh, shared with kernel K3.
@@ -110,14 +118,16 @@ __device__ __forceinline__ void load_group(
 
 // kVec consecutive quads a thread over a grid-stride loop.  Each group's
 // loads go out before the work that precedes it (the first group's before
-// the camera's barrier), so the round trips to memory overlap.
-template <int kVec>
+// the camera's barrier), so the round trips to memory overlap.  The span
+// instance (kSpanMode, kVec 1) also writes ndc f32[4, gq].
+template <int kVec, bool kSpanMode>
 __global__ void __launch_bounds__(kK1Threads) project_cull_kernel(
     const int* __restrict__ quads, const float* __restrict__ wx,
     const float* __restrict__ wy, const float* __restrict__ wz,
     const float* __restrict__ view_proj, const float* __restrict__ cam_pos,
     const int* __restrict__ n_quads_in, const int* __restrict__ skip_in,
-    int gq, int width, int height, int flags, int vec, StageAOut o) {
+    int gq, int width, int height, int flags, int vec, StageAOut o,
+    float* __restrict__ ndc) {
   __shared__ StageACam c;
   const int n_groups = (gq + kVec - 1) / kVec;
   const int stride = gridDim.x * kK1Threads;
@@ -132,8 +142,8 @@ __global__ void __launch_bounds__(kK1Threads) project_cull_kernel(
     StageAResult r[kVec];
 #pragma unroll
     for (int k = 0; k < kVec; ++k)
-      r[k] = stage_a_math(i0 + k, q[k], x[k], y[k], z[k], c, width, height,
-                          flags);
+      r[k] = stage_a_math<kSpanMode>(i0 + k, q[k], x[k], y[k], z[k], c,
+                                     width, height, flags);
     const bool whole = vec && i0 + kVec <= gq;
     if (whole) {
       int bbx[kVec], bby[kVec], sub[kVec];
@@ -157,6 +167,11 @@ __global__ void __launch_bounds__(kK1Threads) project_cull_kernel(
     for (int k = 0; k < kVec; ++k) {
       if (i0 + k < gq) {
         if (!whole) store_stage_a(o, i0 + k, r[k]);
+        if constexpr (kSpanMode) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            ndc[(size_t)j * gq + i0 + k] = r[k].ndc[j];
+        }
         n_sub += r[k].subpixel;
         n_valid += r[k].valid;
       }
@@ -184,17 +199,19 @@ int sm_count() {
 // Stage A over quads i32[gq] with chunk origins quad_world f32[3, gq]
 // under the camera view_proj f32[16] and cam_pos f32[3]; n_quads and skip
 // (null: none skipped) are device i32 scalars; flags holds kBackface and
-// kSubpixelCulling, and in bits 2-3 log2 of the quads a thread (0 is the
-// port's choice; 1 and 2 are kept for benches/k1_call.py --variants).
+// kSubpixelCulling, in bits 2-3 log2 of the quads a thread (0 is the
+// port's choice; 1 and 2 are kept for benches/k1_call.py --variants), and
+// kSpan (span mode: one quad a thread only, and ndc not null).
 // Writes valid (bool), bbx, bby, sub (i32) and dn (f32),
-// each [gq], and counts i32[2] (subpix_total, valid_count), which it
-// zeroes first on the same stream.
+// each [gq], counts i32[2] (subpix_total, valid_count), which it
+// zeroes first on the same stream, and in span mode ndc f32[4, gq].
 extern "C" int dpvr_project_cull(const void* quads, const void* quad_world,
                                  const void* view_proj, const void* cam_pos,
                                  const void* n_quads, const void* skip,
                                  int gq, int width, int height, int flags,
                                  void* valid, void* bbx, void* bby, void* dn,
-                                 void* sub, void* counts, void* stream) {
+                                 void* sub, void* counts, void* ndc,
+                                 void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = cudaMemsetAsync(counts, 0, 2 * sizeof(int), s);
   if (err != cudaSuccess || gq <= 0) return (int)err;
@@ -206,7 +223,9 @@ extern "C" int dpvr_project_cull(const void* quads, const void* quad_world,
                        static_cast<float*>(dn), static_cast<int*>(sub),
                        static_cast<int*>(counts)};
   const int log_vec = (flags >> kQuadsShift) & 3;
-  if (log_vec > 2) return (int)cudaErrorInvalidValue;
+  const bool span = (flags & kSpan) != 0;
+  if (log_vec > 2 || (span && (log_vec != 0 || ndc == nullptr)))
+    return (int)cudaErrorInvalidValue;
   const int n_vec = 1 << log_vec;
   const uintptr_t align = 4u * n_vec - 1;
   const int vec = ((reinterpret_cast<uintptr_t>(quads) |
@@ -222,13 +241,15 @@ extern "C" int dpvr_project_cull(const void* quads, const void* quad_world,
   int blocks = (n_groups + kK1Threads - 1) / kK1Threads;
   const int cap = sm_count() * kK1BlocksPerSm;
   if (blocks > cap) blocks = cap;
-  auto kernel = log_vec == 0   ? project_cull_kernel<1>
-                : log_vec == 1 ? project_cull_kernel<2>
-                               : project_cull_kernel<4>;
+  auto kernel = span           ? project_cull_kernel<1, true>
+                : log_vec == 0 ? project_cull_kernel<1, false>
+                : log_vec == 1 ? project_cull_kernel<2, false>
+                               : project_cull_kernel<4, false>;
   kernel<<<blocks, kK1Threads, 0, s>>>(
       static_cast<const int*>(quads), qw, wy, wz,
       static_cast<const float*>(view_proj),
       static_cast<const float*>(cam_pos), static_cast<const int*>(n_quads),
-      static_cast<const int*>(skip), gq, width, height, flags, vec, o);
+      static_cast<const int*>(skip), gq, width, height, flags, vec, o,
+      static_cast<float*>(ndc));
   return (int)cudaGetLastError();
 }

@@ -9,7 +9,10 @@
 // project the 4 corners through the differential basis, exact plane-side
 // backface test, NDC frustum test, 0.05 px^2 fan-split sub-pixel test
 // (when enabled), integer screen bbox (full screen if any corner has
-// w <= 0.001).
+// w <= 0.001).  Span mode (a separate template instance, kSpanMode) takes
+// the clip-normal backface test instead of the plane-side one, has no
+// sub-pixel test, and also returns the NDC box the span records are built
+// from.
 //
 // Rounding contract: every file that includes this header is compiled
 // with -fmad=false (no multiply-add contraction), IEEE division
@@ -28,9 +31,11 @@ namespace {
 constexpr float kNearWEps = 0.001f;       // utils/config.py NEAR_W_EPS
 constexpr float kMinTriangleArea = 0.1f;  // utils/config.py MIN_TRIANGLE_AREA
 
-// flag bits of a launch (ops/geometry.py BACKFACE, SUBPIXEL)
+// flag bits of a launch (ops/geometry.py BACKFACE, SUBPIXEL, SPAN); bits
+// 2-3 are K1's quads a thread (geometry.cu)
 constexpr int kBackface = 1;
 constexpr int kSubpixelCulling = 2;
+constexpr int kSpan = 16;
 
 // The camera and the stream range of a launch: view_proj row-major,
 // cam_pos, and the range [skip, n_quads) of stream indices.
@@ -78,6 +83,7 @@ struct StageAResult {
   int bbx, bby;
   float depth_near;
   bool valid, subpixel;
+  float ndc[4];  // span mode: nx_min, nx_max, ny_min, ny_max
 };
 
 __device__ __forceinline__ float jmin(float a, float b) {
@@ -105,7 +111,8 @@ __device__ __forceinline__ int clip_to_int(float x, int hi) {
 
 // Stage A of stream entry i: its word q and chunk origin (wx, wy, wz), the
 // camera and range c, the frame size and the flags (kBackface,
-// kSubpixelCulling).
+// kSubpixelCulling; the span instance ignores the latter).
+template <bool kSpanMode = false>
 __device__ __forceinline__ StageAResult stage_a_math(
     int i, int q, float wx, float wy, float wz, const StageACam& c,
     int width, int height, int flags) {
@@ -182,7 +189,18 @@ __device__ __forceinline__ StageAResult stage_a_math(
   in_frustum = (in_frustum || any_behind) && !all_behind;
 
   bool front = true;
-  if (flags & kBackface) {
+  if constexpr (kSpanMode) {
+    // the clip-space normal's z below zero keeps the face: the normal's
+    // column of view_proj's third row, signed by the face's direction
+    if (flags & kBackface) {
+      const float ncz = sel3(na, c.vp[8], c.vp[9], c.vp[10]);
+      front = (is_pos ? 1.0f : -1.0f) * ncz < 0.0f;
+    }
+    res.ndc[0] = nx_min;
+    res.ndc[1] = nx_max;
+    res.ndc[2] = ny_min;
+    res.ndc[3] = ny_max;
+  } else if (flags & kBackface) {
     const float plane = sel3(na, wx, wy, wz) + ap;
     const float d = sel3(na, c.cam[0], c.cam[1], c.cam[2]) - plane;
     front = is_pos ? (d > 0.0f) : (d < 0.0f);
@@ -192,7 +210,7 @@ __device__ __forceinline__ StageAResult stage_a_math(
 
   const float wf = (float)width, hf = (float)height;
   res.subpixel = false;
-  if (flags & kSubpixelCulling) {
+  if (!kSpanMode && (flags & kSubpixelCulling)) {
     float sxs[4], sys[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {

@@ -2,7 +2,7 @@
 
 The port's counterpart of ``examples/render_demo.py``, with the same
 arguments and ``--device`` (the card unless ``cpu`` is asked for).
-``--span`` raises NotImplementedError: span mode is not ported yet.
+``--span`` renders in span mode (``RenderConfig.span_mode``).
 
 Usage:
     python -m differential_projection_voxel_renderer_tpu_torch.examples.render_demo \\

@@ -4,7 +4,9 @@ Counterpart of ``differential_projection_voxel_renderer_tpu/ops/
 geometry_pallas.py``.  ``project_cull`` launches the CUDA kernel for CUDA
 tensors and runs its plain PyTorch twin (``project_cull_plain``, the same
 ``stage_a_fields`` math) for CPU tensors; on a CUDA tensor it never falls
-back to the twin.
+back to the twin.  ``span_mode`` selects the kernel's span instance (the
+reference runs stage A as jnp in span mode; here it stays a kernel) and
+adds the NDC box the span records are built from.
 
 A launch costs the host more than the card, so the wrapper keeps its
 own work small: the checks read attributes only, and the five outputs and
@@ -19,12 +21,19 @@ import torch
 from .. import _build
 from . import projection as proj_ops
 
-# launches of the CUDA kernel (not of the twin)
+# launches of the CUDA kernel (not of the twin); ``launches_span`` counts
+# the span instance's among them
 launches = 0
+launches_span = 0
 
-# the kernel's flag bits (csrc/stage_a.cuh kBackface, kSubpixelCulling)
+# the kernel's flag bits (csrc/stage_a.cuh kBackface, kSubpixelCulling,
+# kSpan; bits 2-3 are the quads a thread)
 BACKFACE = 1
 SUBPIXEL = 2
+SPAN = 16
+
+# the rows of span mode's NDC box ``ndc`` f32[4, GQ]
+NDC_ROWS = ("nx_min", "nx_max", "ny_min", "ny_max")
 
 # consecutive quads a thread of K1 takes: 1, 2 or 4 (flag bits 2-3, their
 # log2; csrc/geometry.cu).  One is the fastest at the port's stream sizes;
@@ -69,21 +78,29 @@ def kernel_args(quads, quad_world, n_quads, view_proj, cam_pos) -> tuple:
             cam_pos.data_ptr(), n_quads.data_ptr())
 
 
-def kernel_outputs(gq: int, device) -> dict[str, torch.Tensor]:
+def kernel_outputs(gq: int, device, span: bool = False
+                   ) -> dict[str, torch.Tensor]:
     """The output dict of one launch over ``gq`` quads: views of one fresh
     i32 buffer holding bbx, bby, subpixel i32 and depth_near f32 (gq words
-    each, so 16-byte aligned rows when gq is a multiple of 4), valid as gq
-    bytes in (gq + 3) // 4 words, then ``subpix_total`` and
-    ``valid_count`` (adjacent i32 scalars).  Never cached: a carried or
-    shared stage A is still read while the next one is written."""
+    each, so 16-byte aligned rows when gq is a multiple of 4), with
+    ``span`` the NDC box ``ndc`` f32[4, gq] (rows nx_min, nx_max, ny_min,
+    ny_max), valid as gq bytes in (gq + 3) // 4 words, then
+    ``subpix_total`` and ``valid_count`` (adjacent i32 scalars).  Never
+    cached: a carried or shared stage A is still read while the next one
+    is written."""
     nv = (gq + 3) // 4
-    buf = torch.empty(4 * gq + nv + 2, dtype=torch.int32, device=device)
-    bbx, bby, sub, dn, valid, counts = buf.split((gq, gq, gq, gq, nv, 2))
+    nn = 4 * gq if span else 0
+    buf = torch.empty(4 * gq + nn + nv + 2, dtype=torch.int32, device=device)
+    bbx, bby, sub, dn, ndc, valid, counts = buf.split(
+        (gq, gq, gq, gq, nn, nv, 2))
     valid = valid.view(torch.bool)
     subpix_total, valid_count = counts.unbind()
-    return dict(valid=valid if gq % 4 == 0 else valid[:gq], bbx=bbx,
-                bby=bby, depth_near=dn.view(torch.float32), subpixel=sub,
-                subpix_total=subpix_total, valid_count=valid_count)
+    out = dict(valid=valid if gq % 4 == 0 else valid[:gq], bbx=bbx,
+               bby=bby, depth_near=dn.view(torch.float32), subpixel=sub,
+               subpix_total=subpix_total, valid_count=valid_count)
+    if span:
+        out["ndc"] = ndc.view(torch.float32).view(4, gq)
+    return out
 
 
 def output_ptrs(out: dict) -> tuple:
@@ -96,7 +113,8 @@ def output_ptrs(out: dict) -> tuple:
 
 def project_cull_plain(quads, quad_world, n_quads, view_proj, cam_pos, *,
                        width: int, height: int, backface_culling: bool = True,
-                       subpixel_culling: bool = True, skip_quads=0):
+                       subpixel_culling: bool = True, skip_quads=0,
+                       span_mode: bool = False):
     """Plain PyTorch twin of K1 with its signature and outputs."""
     dev = quads.device
     idx = torch.arange(quads.shape[0], dtype=torch.int32, device=dev)
@@ -107,21 +125,26 @@ def project_cull_plain(quads, quad_world, n_quads, view_proj, cam_pos, *,
         proj_ops.decode_quads(quads), qw, in_stream,
         view_proj.to(dev, torch.float32).reshape(4, 4),
         cam_pos.to(dev, torch.float32).reshape(3), width=width,
-        height=height, backface_culling=backface_culling,
+        height=height, span_mode=span_mode,
+        backface_culling=backface_culling,
         subpixel_culling=subpixel_culling)
     sub = pr["subpixel"].to(torch.int32)
-    return dict(valid=pr["valid"],
-                bbx=pr["bb_x0"] | (pr["bb_x1"] << 16),
-                bby=pr["bb_y0"] | (pr["bb_y1"] << 16),
-                depth_near=pr["depth_near"], subpixel=sub,
-                subpix_total=sub.sum(dtype=torch.int32),
-                valid_count=pr["valid"].sum(dtype=torch.int32))
+    out = dict(valid=pr["valid"],
+               bbx=pr["bb_x0"] | (pr["bb_x1"] << 16),
+               bby=pr["bb_y0"] | (pr["bb_y1"] << 16),
+               depth_near=pr["depth_near"], subpixel=sub,
+               subpix_total=sub.sum(dtype=torch.int32),
+               valid_count=pr["valid"].sum(dtype=torch.int32))
+    if span_mode:
+        out["ndc"] = torch.stack([pr[k] for k in NDC_ROWS])
+    return out
 
 
 def project_cull(quads, quad_world, n_quads, view_proj, cam_pos, *,
                  width: int, height: int, backface_culling: bool = True,
-                 subpixel_culling: bool = True, skip_quads=0):
-    """Stage A over the gather stream (exact mode).
+                 subpixel_culling: bool = True, skip_quads=0,
+                 span_mode: bool = False):
+    """Stage A over the gather stream.
 
     ``quads`` int32[GQ] words, ``quad_world`` f32[3, GQ] chunk origins,
     ``n_quads`` the stream length (a device scalar: no host sync),
@@ -131,13 +154,16 @@ def project_cull(quads, quad_world, n_quads, view_proj, cam_pos, *,
     y0|y1<<16) i32, ``depth_near`` f32, ``subpixel`` i32, each [GQ]; and
     the sums ``subpix_total`` and ``valid_count`` (i32 scalars).  Without
     ``subpixel_culling`` no quad is sub-pixel and tiny quads stay
-    valid."""
+    valid.  ``span_mode``: the clip-normal backface test, no sub-pixel
+    cull, and ``ndc`` f32[4, GQ], the NDC box (rows nx_min, nx_max,
+    ny_min, ny_max)."""
     if quads.device.type != "cuda":
         return project_cull_plain(
             quads, quad_world, n_quads, view_proj, cam_pos, width=width,
             height=height, backface_culling=backface_culling,
-            subpixel_culling=subpixel_culling, skip_quads=skip_quads)
-    global launches
+            subpixel_culling=subpixel_culling, skip_quads=skip_quads,
+            span_mode=span_mode)
+    global launches, launches_span
     dev = quads.device
     # a Python int becomes a device scalar here, so that it outlives the
     # launch's enqueueing (not the step's case: it passes device scalars)
@@ -146,15 +172,22 @@ def project_cull(quads, quad_world, n_quads, view_proj, cam_pos, *,
     skip = (None if isinstance(skip_quads, int) and skip_quads == 0
             else device_i32(skip_quads, dev))
     gq = quads.shape[0]
-    out = kernel_outputs(gq, dev)
+    out = kernel_outputs(gq, dev, span=span_mode)
+    if span_mode:  # the span instance: one quad a thread
+        flags = SPAN | (BACKFACE if backface_culling else 0)
+    else:
+        flags = ((BACKFACE if backface_culling else 0)
+                 | (SUBPIXEL if subpixel_culling else 0)
+                 | (QUADS_PER_THREAD.bit_length() - 1) << 2)
     # the raw handle of the current stream: torch.cuda.current_stream()
     # builds a Stream object on every call
     err = _build.lib().dpvr_project_cull(
         *args, None if skip is None else skip.data_ptr(), gq, width, height,
-        (BACKFACE if backface_culling else 0)
-        | (SUBPIXEL if subpixel_culling else 0)
-        | (QUADS_PER_THREAD.bit_length() - 1) << 2, *output_ptrs(out),
+        flags, *output_ptrs(out),
+        out["ndc"].data_ptr() if span_mode else None,
         torch._C._cuda_getCurrentRawStream(dev.index))
     _build.check(err, "project_cull")
     launches += 1
+    if span_mode:
+        launches_span += 1
     return out

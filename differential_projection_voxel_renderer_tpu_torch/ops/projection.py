@@ -1,9 +1,9 @@
 """Differential projection, culling and rasterizer coefficients in PyTorch.
 
 Counterpart of ``differential_projection_voxel_renderer_tpu/ops/projection.py``
-(exact mode only).  Every expression keeps the reference's operation order,
-because the parity contract is full-frame equality and a reordered sum
-rounds differently.  torch never fuses a multiply and an add across
+(exact and span mode).  Every expression keeps the reference's operation
+order, because the parity contract is full-frame equality and a reordered
+sum rounds differently.  torch never fuses a multiply and an add across
 separate operators, so ``(o + u * t) + v * b`` rounds each product and
 each sum, on the CPU and on the card alike; reciprocals go through
 ``torch.reciprocal``, an IEEE quotient on both.
@@ -18,7 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.config import MIN_TRIANGLE_AREA, NEAR_W_EPS
+from ..models.block_type import BLOCK_COLORS_ARGB
+from ..utils.config import MIN_TRIANGLE_AREA, NEAR_W_EPS, SPAN_EPSILON_PX
 
 # Per-face chunk-local axes (ops/projection.py of the reference package):
 # faces 0..5 are +X,-X,+Y,-Y,+Z,-Z; the 3-bit face field can hold 6 and 7,
@@ -89,12 +90,17 @@ class _Basis:
 
 
 def stage_a_fields(dec, quad_world, in_stream, vp, cam, *, width: int,
-                   height: int, backface_culling: bool = True,
+                   height: int, span_mode: bool = False,
+                   backface_culling: bool = True,
                    subpixel_culling: bool = True):
     """Stage A on decoded quads: project the 4 corners, backface + frustum +
-    sub-pixel cull, integer screen bbox.  The plain twin of kernel K1
-    (csrc/geometry.cu); see the reference's ``stage_a_fields``.  Without
-    ``subpixel_culling`` no quad is sub-pixel and tiny quads stay valid."""
+    sub-pixel cull, integer screen bbox, and the NDC box (``nx_min``,
+    ``nx_max``, ``ny_min``, ``ny_max``, which span mode draws).  The plain
+    twin of kernel K1 (csrc/geometry.cu); see the reference's
+    ``stage_a_fields``.  Without ``subpixel_culling`` no quad is sub-pixel
+    and tiny quads stay valid.  Span mode takes the clip-normal backface
+    test (the clip-space normal's z below zero keeps a face) and has no
+    sub-pixel cull."""
     face = dec["face"]
     dev = face.device
     vp = vp.to(torch.float32)
@@ -134,7 +140,11 @@ def stage_a_fields(dec, quad_world, in_stream, vp, cam, *, width: int,
                   & (depth_near >= 0.0) & (depth_near <= 1.0))
     in_frustum = (in_frustum | any_behind) & ~all_behind
 
-    if backface_culling:
+    if backface_culling and span_mode:
+        n_axis = _axis_table(FACE_N_AXIS, dev)[face.long()]
+        ncz = _select3(n_axis, vp[2, 0], vp[2, 1], vp[2, 2])
+        front = torch.where(dec["is_pos"], 1.0, -1.0) * ncz < 0.0
+    elif backface_culling:
         n_axis = _axis_table(FACE_N_AXIS, dev)[face.long()]
         plane = _select3(n_axis, *quad_world) + dec["axis_pos"]
         d = _select3(n_axis, cam[0], cam[1], cam[2]) - plane
@@ -147,7 +157,7 @@ def stage_a_fields(dec, quad_world, in_stream, vp, cam, *, width: int,
     wf, hf = float(width), float(height)
 
     subpixel = torch.zeros_like(valid)
-    if subpixel_culling:
+    if subpixel_culling and not span_mode:
         # fan split (0,1,3),(0,3,2) of the corner order c00, c10, c01,
         # c11; both doubled areas below MIN_TRIANGLE_AREA
         sxs = [(n + 1.0) * 0.5 * wf for n in nxs]
@@ -179,14 +189,17 @@ def stage_a_fields(dec, quad_world, in_stream, vp, cam, *, width: int,
         bb_x1=bound(torch.ceil(sx1), width - 1, width - 1),
         bb_y0=bound(torch.floor(sy0), height - 1, 0),
         bb_y1=bound(torch.ceil(sy1), height - 1, height - 1),
+        nx_min=nx_min, nx_max=nx_max, ny_min=ny_min, ny_max=ny_max,
     )
 
 
 def project_and_cull(quads, quad_world, in_stream, view_proj, cam_pos, *,
-                     width: int, height: int, backface_culling: bool = True):
+                     width: int, height: int, span_mode: bool = False,
+                     backface_culling: bool = True):
     """Stage A on raw int32 quad words (reference ``project_and_cull``)."""
     return stage_a_fields(decode_quads(quads), quad_world, in_stream,
                           view_proj, cam_pos, width=width, height=height,
+                          span_mode=span_mode,
                           backface_culling=backface_culling)
 
 
@@ -214,10 +227,18 @@ def color_table_tensors(color_tables: dict, device) -> dict[str, torch.Tensor]:
                          ("mask_lo", ml), ("mask_hi", mh))}
 
 
-def quad_coefficients(quads, quad_world, view_proj, color_tables):
-    """Stage B (exact mode): sign-fixed adjugate rows a00..a22, planar depth
-    z0..z2, coverage bounds u0/u1/v0/v1 and the two-tone texel colours.
-    ``color_tables`` comes from :func:`color_table_tensors`."""
+def quad_coefficients(quads, quad_world, view_proj, color_tables, span=None,
+                      *, width: int = 0, height: int = 0):
+    """Stage B: sign-fixed adjugate rows a00..a22, planar depth z0..z2,
+    coverage bounds u0/u1/v0/v1 and the two-tone texel colours.
+    ``color_tables`` comes from :func:`color_table_tensors`.
+
+    Span mode: ``span`` = (ndc f32[4, M], the stage-A rows nx_min, nx_max,
+    ny_min, ny_max of the same stream, and its depth_near f32[M]) gives the
+    span records of a ``width`` x ``height`` frame instead
+    (:func:`span_coefficients`)."""
+    if span is not None:
+        return span_coefficients(quads, *span, width=width, height=height)
     dec = decode_quads(quads)
     vp = view_proj.to(torch.float32)
     basis = _Basis(dec, quad_world, vp)
@@ -253,6 +274,38 @@ def quad_coefficients(quads, quad_world, view_proj, color_tables):
         mask_lo=color_tables["mask_lo"][block],
         mask_hi=color_tables["mask_hi"][block],
     )
+
+
+_FLAT_COLORS = torch.from_numpy(BLOCK_COLORS_ARGB.view(np.int32).copy())
+
+
+def span_coefficients(quads, ndc, depth_near, *, width: int, height: int):
+    """Stage B in span mode (the reference's ``quad_coefficients`` with
+    ``span_mode``): each quad drawn as its screen box at constant depth.
+    The coefficient matrix is the identity (q = (nx, ny, 1)), the planar
+    depth the constant ``depth_near``, the coverage bounds the NDC box
+    turned into pixels with the span walker's epsilon and clamps and back
+    into NDC, in the reference's order of operations; the colour is the
+    block's flat colour and the texel masks are zero."""
+    dev = quads.device
+    block = ((quads >> 22) & 0x3).long()
+    nx_min, nx_max, ny_min, ny_max = ndc.unbind()
+    wf, hf = float(width), float(height)
+    eps = np.float32(SPAN_EPSILON_PX).item()
+    sx0 = torch.clamp((nx_min + 1.0) * 0.5 * wf, min=0.0)
+    sy0 = torch.clamp((1.0 - ny_max) * 0.5 * hf, min=0.0)
+    sx1 = torch.clamp((nx_max + 1.0) * 0.5 * wf + eps, max=wf)
+    sy1 = torch.clamp((1.0 - ny_min) * 0.5 * hf + eps, max=hf)
+    zeros = torch.zeros(quads.shape, dtype=torch.float32, device=dev)
+    ones = torch.ones(quads.shape, dtype=torch.float32, device=dev)
+    col = _FLAT_COLORS.to(dev)[block]
+    izero = torch.zeros(quads.shape, dtype=torch.int32, device=dev)
+    return dict(
+        a00=ones, a01=zeros, a02=zeros, a10=zeros, a11=ones, a12=zeros,
+        a20=zeros, a21=zeros, a22=ones, z0=zeros, z1=zeros, z2=depth_near,
+        u0=sx0 / (0.5 * wf) - 1.0, u1=sx1 / (0.5 * wf) - 1.0,
+        v0=1.0 - sy1 / (0.5 * hf), v1=1.0 - sy0 / (0.5 * hf),
+        color_even=col, color_odd=col, mask_lo=izero, mask_hi=izero)
 
 
 def pack_tilebox(bb_x0, bb_x1, bb_y0, bb_y1, *, tile_h: int, tile_w: int):

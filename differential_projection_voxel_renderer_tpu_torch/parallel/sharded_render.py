@@ -56,7 +56,7 @@ def _render_one_camera(pool, counts_all, positions, visible_slots,
                        n_visible, view_proj, cam_pos, color_tables, *,
                        width: int, height: int, gather_cap: int,
                        render_cap: int, band_y0: int, band_h: int,
-                       tile_k_cap: int = 8192):
+                       span_mode: bool = False, tile_k_cap: int = 8192):
     """One camera's gather and render step on one row band: the pool rows
     of the first ``n_visible`` visible slots, ``counts_all`` quads each,
     flattened to a ``gather_cap`` stream with a searchsorted over the
@@ -84,8 +84,8 @@ def _render_one_camera(pool, counts_all, positions, visible_slots,
         quads, torch.stack(wq), torch.clamp(total, max=gather_cap),
         view_proj, cam_pos, color_tables=color_tables, width=width,
         height=height, tile_h=tile_h, tile_w=tile_w, render_cap=render_cap,
-        backface_culling=True, tile_k_cap=tile_k_cap, band_y0=band_y0,
-        band_h=band_h)
+        span_mode=span_mode, backface_culling=True, tile_k_cap=tile_k_cap,
+        band_y0=band_y0, band_h=band_h)
     return color, depth, stats[1]
 
 
@@ -106,11 +106,10 @@ def make_sharded_render(mesh: tuple[int, int], *, width: int, height: int,
     divided by tp (each band counts the quads that touch it).
     ``tile_k_cap`` is the reference's per-camera binning cap (there fixed
     at its default, 8192), here a keyword so that a 720p frame fits.
-    ``dp`` changes no frame: every camera is rendered in turn, and it is
-    kept, with its check that it divides B, for parity with the
-    reference's signature."""
-    if span_mode:
-        raise NotImplementedError("RenderConfig.span_mode is not ported yet")
+    ``span_mode`` renders every band in span mode.  ``dp`` changes no
+    frame: every camera is rendered in turn, and it is kept, with its
+    check that it divides B, for parity with the reference's
+    signature."""
     dp, tp = mesh
     if height % (tp * 8):
         raise ValueError("height must split into 8-aligned bands")
@@ -128,7 +127,8 @@ def make_sharded_render(mesh: tuple[int, int], *, width: int, height: int,
                 pool, counts, positions, visible_slots[i], n_visible[i],
                 view_proj[i], cam_pos[i], tables, width=width,
                 height=height, gather_cap=gather_cap, render_cap=render_cap,
-                band_y0=t * band_h, band_h=band_h, tile_k_cap=tile_k_cap)
+                band_y0=t * band_h, band_h=band_h, span_mode=span_mode,
+                tile_k_cap=tile_k_cap)
                 for t in range(tp)]
             colors.append(torch.cat([c for c, _, _ in bands]))
             depths.append(torch.cat([d for _, d, _ in bands]))

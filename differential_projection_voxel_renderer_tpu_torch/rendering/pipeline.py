@@ -32,6 +32,11 @@ equal the single pass's bit for bit.  A row band (``band_y0``/``band_h``,
 parallel/sharded_render.py) restricts the step to the quads that touch
 the band and rasterizes a band-sized buffer at global pixel NDC.
 
+Span mode (``RenderConfig.span_mode``) draws each quad as its screen box
+at constant depth: stage A runs K1's span instance, whose NDC box crosses
+the compaction into the span records (ops/projection.span_coefficients),
+and K2 rasterizes them, also in the two-pass, temporal and band steps.
+
 The packed raster (``RenderConfig.packed_raster``, ``_packed_tail``)
 always compacts, keyed by 4 bits of log-quantized near depth so the
 stream comes out front to back, then bins into five bins per tile (the
@@ -100,7 +105,7 @@ def _pre_geom_of(ga):
 
 def render_step(quads, quad_world, n_quads, view_proj, cam_pos, *,
                 color_tables, width: int, height: int, tile_h: int,
-                tile_w: int, render_cap: int,
+                tile_w: int, render_cap: int, span_mode: bool = False,
                 backface_culling: bool = True, tile_k_cap: int = 8192,
                 packed_raster: bool = False,
                 debug_return_records: bool | str = False, skip_quads=0,
@@ -132,16 +137,27 @@ def render_step(quads, quad_world, n_quads, view_proj, cam_pos, *,
     sixth and seventh outputs and may also be "bin" or "gather" (see
     there).
 
+    ``span_mode``: each quad drawn as its screen box at constant depth in
+    its block's flat colour (``RenderConfig.span_mode``): stage A runs K1's
+    span instance, whose NDC box crosses the compaction into
+    ``quad_coefficients``' span records, rasterized by K2.  Span mode
+    takes the tile raster even with ``packed_raster`` (as the reference)
+    and excludes ``pre_geom`` and ``next_geom``.
+
     Frames in flight: ``pre_geom`` = (valid, bbx, bby, depth_near,
     subpix_total), this stream's stage A computed earlier, skips stage A
     (``valid`` is masked with the stream range); ``next_geom`` = (quads2,
     quad_world2, n2, view_proj2, cam_pos2) computes the next frame's stage
     A in the raster call (K3) and returns its pre_geom tuple as a fourth
     output."""
+    packed_raster = packed_raster and not span_mode
     if next_geom is not None and (debug_return_records or packed_raster
-                                  or band_h is not None):
+                                  or band_h is not None or span_mode):
         raise ValueError("next_geom runs with the full-frame tile raster "
-                         "and cannot return the raster's inputs")
+                         "in exact mode and cannot return the raster's "
+                         "inputs")
+    if pre_geom is not None and span_mode:
+        raise ValueError("a carried stage A has no span fields")
     if band_h is not None and (init_color is not None
                                or hiz_level1 is not None or packed_raster):
         raise ValueError("a row band runs with neither an init frame, the "
@@ -161,13 +177,15 @@ def render_step(quads, quad_world, n_quads, view_proj, cam_pos, *,
     # stage A's own valid count stands for ``count`` while nothing masks
     # ``valid`` after it (no carried stage A, Hi-Z cull or band)
     valid_count = None
+    ndc_a = None  # span mode's NDC box f32[4, GQ]
     if pre_geom is None:
         ga = geom_ops.project_cull(
             quads, quad_world, n_quads, view_proj, cam_pos, width=width,
             height=height, backface_culling=backface_culling,
-            skip_quads=skip_quads)
+            skip_quads=skip_quads, span_mode=span_mode)
         valid_a, bbx_a, bby_a, dn_a, subpix_total = _pre_geom_of(ga)
         valid_count = ga["valid_count"]
+        ndc_a = ga.get("ndc")
     else:
         # a shared stage A over the whole stream: this pass's quad range
         # folds in as a mask
@@ -208,7 +226,7 @@ def render_step(quads, quad_world, n_quads, view_proj, cam_pos, *,
         count_c = count
         overflow = torch.zeros((), dtype=i32, device=dev)
         quads_c, wq_c = quads, quad_world
-        bbx_c, bby_c, dn_c = bbx_a, bby_a, dn_a
+        bbx_c, bby_c, dn_c, ndc_c = bbx_a, bby_a, dn_a, ndc_a
         valid_c = valid_a
     else:
         stream_q = torch.arange(gq, dtype=i32, device=dev)
@@ -226,12 +244,15 @@ def render_step(quads, quad_world, n_quads, view_proj, cam_pos, *,
         idx = torch.clamp(idx, max=gq - 1).long()
         quads_c, wq_c = quads[idx], quad_world[:, idx]
         bbx_c, bby_c, dn_c = bbx_a[idx], bby_a[idx], dn_a[idx]
+        ndc_c = None if ndc_a is None else ndc_a[:, idx]
         overflow = torch.clamp(count - rc, min=0)
         count_c = torch.clamp(count, max=rc)
         valid_c = None
 
     coeffs = proj_ops.quad_coefficients(
-        quads_c, (wq_c[0], wq_c[1], wq_c[2]), view_proj, color_tables)
+        quads_c, (wq_c[0], wq_c[1], wq_c[2]), view_proj, color_tables,
+        None if ndc_c is None else (ndc_c, dn_c), width=width,
+        height=height)
 
     def stats_of(bin_overflow):
         return torch.stack([n_quads, count, overflow, bin_overflow,
@@ -621,8 +642,10 @@ def _two_pass_step(quads, quad_world, n_quads, view_proj, cam_pos, *,
     blend is commutative, so the frame equals the single pass's bit for
     bit.  Stats: the far pass's gathered count and Hi-Z cull, the passes'
     sums of rasterized, overflow and bin overflow, and the shared stage
-    A's subpixel count once."""
-    pre_geom = _geom_stage(
+    A's subpixel count once.  In span mode each pass runs its own stage A,
+    as the reference's does (its subpixel counts, zero, are summed)."""
+    span = step_kw.get("span_mode", False)
+    pre_geom = None if span else _geom_stage(
         quads, quad_world, n_quads, view_proj, cam_pos,
         width=step_kw["width"], height=step_kw["height"],
         backface_culling=step_kw.get("backface_culling", True))
@@ -636,7 +659,8 @@ def _two_pass_step(quads, quad_world, n_quads, view_proj, cam_pos, *,
         skip_quads=near_quads, hiz_level1=hiz1, init_color=color1,
         init_depth=depth1, pre_geom=pre_geom, **step_kw)
     stats = torch.stack([s2[0], s1[1] + s2[1], s1[2] + s2[2],
-                         s1[3] + s2[3], s2[4], s2[5]])
+                         s1[3] + s2[3], s1[4] + s2[4] if span else s2[4],
+                         s2[5]])
     return color, depth, stats
 
 
@@ -877,15 +901,13 @@ class Renderer:
                 "temporal_hiz and two_pass_near_quads are mutually "
                 "exclusive (both are forms of the same exact pyramid "
                 "cull; the temporal one has no near pass to seed)")
-        if cfg.span_mode:
-            raise NotImplementedError("RenderConfig.span_mode is not ported "
-                                      "yet")
         tile_h, tile_w = cfg.tile_h, cfg.tile_w
         if cfg.height % tile_h or cfg.width % tile_w:
             tile_h, tile_w = raster_ops.pick_tile(cfg.height, cfg.width)
         self._base_step_kw = dict(
             width=cfg.width, height=cfg.height, tile_h=tile_h,
-            tile_w=tile_w, backface_culling=cfg.backface_culling,
+            tile_w=tile_w, span_mode=cfg.span_mode,
+            backface_culling=cfg.backface_culling,
             packed_raster=cfg.packed_raster,
             near_quads=cfg.two_pass_near_quads)
         # the resident append steps of each gather cap: plain functions

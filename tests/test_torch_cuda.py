@@ -97,6 +97,30 @@ def test_project_cull_kernel_matches_twin(cuda_device, cam):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("backface", [True, False])
+@pytest.mark.parametrize("cam", sorted(CAMERAS))
+def test_project_cull_span_kernel_matches_twin(cuda_device, cam, backface):
+    """K1's span instance (flag kSpan): the five outputs, both counts and
+    the NDC box bit for bit, on odd lengths and with a skip too."""
+    words, qw = _fuzz_stream(8191, seed=99)
+    vp, cp = _camera_args(cam, cuda_device)
+    kw = dict(width=256, height=128, backface_culling=backface,
+              span_mode=True)
+    for n, skip in ((8191, 0), (7000, 1500)):
+        args = (words[:n].to(cuda_device), qw[:, :n].contiguous().to(
+            cuda_device), n - 100, vp, cp)
+        before = geometry.launches
+        got = geometry.project_cull(*args, skip_quads=skip, **kw)
+        assert geometry.launches == before + 1
+        ref = geometry.project_cull_plain(*args, skip_quads=skip, **kw)
+        _same_geometry(got, ref)
+        assert got["ndc"].shape == (4, n)
+        assert torch.equal(got["ndc"].view(torch.int32),
+                           ref["ndc"].view(torch.int32))
+        assert int(got["subpix_total"]) == 0 and int(got["valid_count"]) > 50
+
+
+@pytest.mark.cuda
 def test_project_cull_kernel_skip_matches_twin(cuda_device):
     """The kernel's skip argument, as a Python int and as a device scalar."""
     words, qw = _fuzz_stream(8192)
@@ -191,11 +215,14 @@ def test_project_cull_kernel_counts_on_two_streams(cuda_device):
 
 @pytest.mark.cuda
 def test_project_cull_kernel_keeps_its_budget(cuda_device):
-    """K1 builds without spills at one, two and four quads a thread."""
+    """K1 builds without spills at one, two and four quads a thread and in
+    its span instance."""
     _, log = _build.build(force=True, verbose=True)
-    reps = [r for name, r in _build.ptxas_report(log).items()
-            if "19project_cull_kernel" in name]
-    assert len(reps) == 3, reps
+    reps = {name: r for name, r in _build.ptxas_report(log).items()
+            if "19project_cull_kernel" in name}
+    assert len(reps) == 4, reps
+    assert sum("ILi1ELb1E" in name for name in reps) == 1, list(reps)
+    reps = list(reps.values())
     for rep in reps:
         assert rep["spill_stores"] == 0 and rep["spill_loads"] == 0, rep
 

@@ -176,22 +176,22 @@ def test_pool_round_trip_from_numpy(runs):
 @pytest.mark.parametrize("flag", ["span_mode", "packed_raster",
                                   "two_pass_near_quads", "temporal_hiz"])
 def test_unported_render_modes_raise(flag):
-    """Unported modes (span mode) raise NotImplementedError.  The packed
-    raster, two-pass and temporal Hi-Z modes are ported: their Renderer
-    builds, and only their combinations that the JAX Renderer refuses
-    (packed or temporal with two-pass) raise its ValueError."""
+    """Every render mode is ported: its Renderer builds with the mode in
+    its step keywords, and only the combinations that the JAX Renderer
+    refuses (packed or temporal with two-pass) raise its ValueError; span
+    mode with two-pass builds, as the JAX Renderer does."""
     cfg = TE.RenderConfig(width=256, height=128)
     setattr(cfg, flag, 1 if flag == "two_pass_near_quads" else True)
-    if flag == "span_mode":
-        with pytest.raises(NotImplementedError):
-            TPL.Renderer(cfg, device="cpu")
-        return
     r = TPL.Renderer(cfg, device="cpu")
+    assert r._base_step_kw["span_mode"] == (flag == "span_mode")
     assert r._base_step_kw["packed_raster"] == (flag == "packed_raster")
     assert r._base_step_kw["near_quads"] == cfg.two_pass_near_quads
     if flag == "two_pass_near_quads":
         return
     cfg.two_pass_near_quads = 1
+    if flag == "span_mode":
+        assert TPL.Renderer(cfg, device="cpu")._base_step_kw["near_quads"]
+        return
     with pytest.raises(ValueError, match="mutually exclusive"):
         TPL.Renderer(cfg, device="cpu")
 
@@ -272,10 +272,28 @@ def test_primed_resident_frame_matches_jax(primed_resident, frame):
                                 depth_ulps=S.JNP_DEPTH_ULPS)
 
 
-def test_device_meshing_still_raises():
-    with pytest.raises(NotImplementedError, match="device_meshing"):
-        TE.Engine(TE.RenderConfig(width=128, height=128), pool_slots=16,
-                  device_meshing=True, device="cpu")
+def test_device_meshing_still_raises(monkeypatch):
+    """Device meshing is ported (tests/test_torch_meshing_device.py holds
+    it to the JAX mesher): the engine builds, and a remesh batch of 4
+    chunks or more goes through ``_remesh_device``, a smaller one through
+    the host mesher, as the reference's ``_mesh_list`` chooses."""
+    eng = TE.Engine(TE.RenderConfig(width=128, height=128),
+                    TE.WorldConfig(view_distance=1), pool_slots=64,
+                    device_meshing=True, device="cpu")
+    assert eng.device_meshing
+    while eng.world.update(eng.camera.position):
+        pass
+    calls = []
+    real = eng._remesh_device
+    monkeypatch.setattr(eng, "_remesh_device",
+                        lambda to_mesh: calls.append(len(to_mesh))
+                        or real(to_mesh))
+    keys = sorted(eng.world.chunks)
+    assert eng._mesh_list(keys[:3]) == 3 and calls == []
+    rest = len(keys) - 3
+    assert rest >= 4
+    assert eng._mesh_list(keys[3:]) == rest and calls == [rest]
+    assert all(k in eng.pool for k in keys)
 
 
 @pytest.mark.parametrize("blocked", ["jax", REF])

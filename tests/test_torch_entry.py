@@ -146,8 +146,8 @@ def test_production_parity_on_the_cpu():
 
 def test_demo_writes_a_ppm(tmp_path, capsys):
     """The port's demo at a small size on the CPU: the PPM is its header
-    and 3 W H bytes, equal to the returned frame; ``--span`` raises until
-    span mode is ported."""
+    and 3 W H bytes, equal to the returned frame; ``--span`` renders the
+    same pose in span mode."""
     from differential_projection_voxel_renderer_tpu_torch.examples import (
         render_demo,
     )
@@ -162,5 +162,11 @@ def test_demo_writes_a_ppm(tmp_path, capsys):
     assert len(data) == len(header) + 3 * 128 * 64
     assert (fb.color != np.uint32(0xFF87CEEB)).sum() > 0
     assert "wrote" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError):
-        render_demo.main([str(out), "--span", "--device", "cpu"])
+    span = render_demo.main([str(out), "--vd", "1", "--width", "128",
+                             "--height", "64", "--span", "--device", "cpu"])
+    data = out.read_bytes()
+    assert data[len(header):] == span.to_rgb8().tobytes()
+    # span mode draws flat block colours: its frame differs from the
+    # textured one where the terrain shows
+    drawn = span.color != np.uint32(0xFF87CEEB)
+    assert drawn.sum() > 0 and (span.color != fb.color).any()

@@ -392,3 +392,47 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     assert len(files) == 1
     events = json.loads(files[0].read_text())["traceEvents"]
     assert any("cumsum" in e.get("name", "") for e in events)
+
+
+# ------------------------------------------- the last ported modules
+
+
+@pytest.mark.parametrize("module", ["ops/meshing_device.py",
+                                    "models/vertex.py",
+                                    "rendering/legacy.py"])
+def test_last_ported_modules_import_no_jax(module):
+    """The counterparts of ops/meshing_jax.py, models/vertex.py and
+    rendering/legacy.py (the three JAX modules that import jax) name
+    neither jax nor the JAX package, and import in a process where both
+    are blocked."""
+    import ast
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.join(os.path.dirname(__file__), "..")
+    port = "differential_projection_voxel_renderer_tpu_torch"
+    with open(os.path.join(root, port, module)) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module or ""] if isinstance(node, ast.ImportFrom)
+                 and node.level == 0 else [])
+        for n in names:
+            top = n.split(".")[0]
+            assert top not in ("jax", "jaxlib",
+                               "differential_projection_voxel_renderer_tpu"), n
+    name = port + "." + module[:-3].replace("/", ".")
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, n, path=None, target=None):\n"
+        "        if n.split('.')[0] in ('jax', "
+        "'differential_projection_voxel_renderer_tpu'):\n"
+        "            raise ImportError(n + ' is blocked')\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"import importlib; importlib.import_module({name!r})\n"
+        "assert 'jax' not in sys.modules\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=root)
+    assert out.returncode == 0, out.stderr

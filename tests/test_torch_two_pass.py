@@ -358,8 +358,7 @@ EXCLUSIONS = {
         band_y0=0, band_h=64, init_color=torch.zeros((64, W),
                                                       dtype=torch.int32),
         init_depth=torch.zeros((64, W)))),
-    "span mode": (NotImplementedError,
-                  lambda ta, tkw: _renderer(span_mode=True)),
+    "span mode in flight": (ValueError, _pipelined(span_mode=True)),
 }
 
 
