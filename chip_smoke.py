@@ -174,7 +174,20 @@ and times kernels and frames.  Phases:
    chunk by chunk and every frame at phase 3's poses equal between them
    and to phase 3's; (c) the legacy vertex renderer on a terrain chunk's
    mesh at 1280x720 on the card (seconds, non-sky pixels) and at 320x180
-   equal to the CPU's frame bit for bit.
+   equal to the CPU's frame bit for bit;
+17. the measuring side (the port's ``benches/``): ``rendering/pipeline.
+   make_repeated_step`` on phase 3's static stream over 4 cameras, its
+   first call one eager step and 4 captured in a CUDA graph (K1 and K2
+   launched 5 times by their wrappers), its last frame equal to an eager
+   ``render_step`` on the 4th camera bit for bit, a replay launching
+   through no wrapper, and the step's device ms a frame from a 30-step
+   graph beside phase 7's device busy; every bench module (bench --quick,
+   profile_stages with every stage, micro_project, micro_hiz, micro_sort,
+   pipeline_experiment, fly_profile, flythrough_diag, run_benches
+   --device --quick, kernel_cost_sim) at its smallest setting, each of
+   whose output lines must parse, and one flythrough_bench pass in a fresh
+   process; kernel_cost_sim's counts at the start pose equal to phase 9's.
+   The phase's seconds are printed.
 
 The script imports the port package and nothing else of the repo; before
 it prints its result it checks that neither jax nor any module of the JAX
@@ -233,15 +246,12 @@ NEAR_QUADS, WALL_NEAR = 8192, 16
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 N_SMS = 132
-# float32 operations a function needs, counted from the sources: stage A
-# per quad (the basis, four projected corners, the NDC divides, min/max,
-# the frustum, backface and sub-pixel tests and the bbox); the tile raster
-# per pixel of an item's box (four plane evaluations of a multiply and two
-# adds, four coverage products, six compares) and per item and column of
-# its box (the four hoisted column products)
+# float32 operations stage A needs per quad, counted from the sources (the
+# basis, four projected corners, the NDC divides, min/max, the frustum,
+# backface and sub-pixel tests and the bbox); the tile raster's per pixel
+# and per item column are benches/kernel_cost_sim.py's K2_OPS_PER_PIXEL
+# and K2_OPS_PER_ITEM_COLUMN
 K1_OPS_PER_QUAD = 200
-K2_OPS_PER_PIXEL = 22
-K2_OPS_PER_ITEM_COLUMN = 4
 # micro_fixed2's scalar x in phase 11 (SKY + x must differ from SKY), and
 # the turns of the host-time comparisons
 PROBE_X = 7
@@ -1499,6 +1509,9 @@ def resident_path(torch, serial, flights, card):
     from differential_projection_voxel_renderer_tpu_torch.benches import (
         common,
     )
+    from differential_projection_voxel_renderer_tpu_torch.benches import (
+        kernel_cost_sim as kcs,
+    )
     from differential_projection_voxel_renderer_tpu_torch.ops import (
         geometry,
         raster,
@@ -1716,9 +1729,9 @@ def resident_path(torch, serial, flights, card):
                 k1_plain_ms=median_ms(lambda: geometry.project_cull_plain(
                     *a1, **gkw), reps=5), k2_plain_ms=k2_plain)
     kern["k1_bound_ms"], kern["k1_bound_by"] = bound(*k1_work(a1, k1()))
-    boxes = item_boxes(torch, pipeline, (q, w, total_t, cam), step_kw, rec)
-    k2_bytes, k2_ops, _, _, _, k2_walk = k2_work(torch, raster, rec, boxes,
-                                                 HEIGHT, WIDTH)
+    boxes = kcs.item_boxes((q, w, total_t, cam), step_kw, rec)
+    k2_bytes, k2_ops, _, _, _, k2_walk = kcs.k2_work(rec, boxes, HEIGHT,
+                                                     WIDTH)
     kern["k2_bound_ms"], kern["k2_bound_by"] = bound(k2_bytes, k2_ops)
     # K2 on the serial path's records at the same camera, for comparison:
     # a fresh primed serial engine's frustum draw list there
@@ -2132,6 +2145,226 @@ def legacy_path(torch, card):
     return dict(seconds=secs, nonsky=px, triangles=len(idx))
 
 
+# ------------------------------------------------------------- benches
+
+
+# phase 17: each bench module of the port's benches/ at its smallest
+# setting -- (module, arguments, extra environment, how its output is read:
+# a list of (stream, pattern, least count) that must all match)
+NUM = r"-?[0-9.]+(?:e-?[0-9]+)?"
+BENCH_RUNS = (
+    ("bench", ["--quick", "--warmup", "2", "--frames", "5"],
+     {"DPVR_SKIP_FULL_PARITY": "1"},
+     [("out", r'^\{"metric": "fps_1280x720_vd4_textured_shaded", .*'
+              r'"conservative_fps": ' + NUM + r'\}$', 1),
+      ("err", r"^device per-frame \(one CUDA graph x30\): " + NUM + " ms$",
+       1),
+      ("err", r"^PARITY: kernels vs plain twins on .*: fuzz@128x128: exact",
+       1)]),
+    ("profile_stages", ["project", "compact", "coeffs", "bin", "raster",
+                        "raster0", "full", "pbin", "pbin1", "pbin2",
+                        "praster"], {"PROF_K": "2"},
+     [("out", r'^\{"stage": "[a-z0-9]+", "ms": ' + NUM + r'\}$', 11)]),
+    ("micro_project", [], {"PROF_K": "2"},
+     [("err", r"^ *(decode|basis|ws|invs|ndc|project): " + NUM + " ms$",
+       6)]),
+    ("micro_hiz", ["--k", "2"], {},
+     [("out", r'^\{"case": "[a-z_]+", "ms": ' + NUM + r'\}$', 3)]),
+    ("micro_sort", ["--k", "2"], {},
+     [("out", r'^\{"case": "[a-z0-9_]+", "ms": ' + NUM + r'\}$', 8),
+      ("err", r"^merge correctness OK at n=", 2)]),
+    ("pipeline_experiment", ["base", "pipe", "pipedep", "fused"],
+     {"PROF_K": "3"},
+     [("out", r'^\{"stage": "(base|pipe|pipedep|fused)", "ms": ' + NUM
+       + r'\}$', 4)]),
+    ("fly_profile", ["--vd", "4", "--frames", "3"], {},
+     [("out", r'^\{"section": "(world_update|remesh_mesh_upload|'
+              r'funnel_plus_render|wall_total|chunks_meshed_per_frame)", '
+              r'"ms_per_frame": ' + NUM + r'\}$', 5)]),
+    ("flythrough_diag", ["4", "--frames", "3"], {},
+     [("out", r"^pass [01]: " + NUM + r" FPS \(" + NUM + r" ms/frame\)$",
+       2),
+      ("out", r"^  _funnel: [0-9]+x, " + NUM + r" ms/frame", 2)]),
+    ("run_benches", ["--device", "--quick"], {},
+     [("out", r"^== (meshing|world|microbench|rendering|device)", 5),
+      ("out", r"^terrain chunk: " + NUM + " ms", 1),
+      ("out", r"^single solid chunk frame 256x256: " + NUM
+       + " ms/frame in one CUDA graph", 1),
+      ("out", r"^project\+cull 131k quads: " + NUM + " ms", 1)]),
+    ("kernel_cost_sim", ["--pose", "start"], {},
+     [("out", r'^\{"pose": "start", "tiles_nonempty": [0-9]+, .*\}$', 1)]),
+)
+
+
+def run_bench_module(name, argv, env, checks):
+    """Run benches.<name>.main(argv) in this process with ``env`` set, its
+    standard output and error captured: (seconds, stdout lines, stderr
+    lines).  Raises unless it returns 0 and every (stream, pattern, least
+    count) of ``checks`` matches that many lines."""
+    import contextlib
+    import importlib
+    import io
+    import re
+
+    mod = importlib.import_module(f"{PKG}.benches.{name}")
+    out, err = io.StringIO(), io.StringIO()
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = mod.main(list(argv))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    secs = time.perf_counter() - t0
+    lines = dict(out=out.getvalue().splitlines(),
+                 err=err.getvalue().splitlines())
+    if rc != 0:
+        raise AssertionError(f"benches.{name} returned {rc}")
+    for stream, pattern, least in checks:
+        n = sum(1 for ln in lines[stream] if re.match(pattern, ln))
+        if n < least:
+            raise AssertionError(
+                f"benches.{name}: {n} of {least} lines match {pattern!r} on "
+                f"std{stream}; its output ends: {lines['out'][-5:]} "
+                f"{lines['err'][-5:]}")
+    return secs, lines["out"], lines["err"]
+
+
+def bench_path(torch, eng, static, busy7, k2_counts9, card):
+    """Phase 17: the port's measuring side.
+
+    - make_repeated_step(renderer, 4) on phase 3's static stream over 4
+      cameras (phase 3's static pose and its first three moving poses):
+      the first call runs one eager step and captures 4 (K1 and K2 launch
+      5 times by their wrappers, K3 and K4 never); its last frame equals
+      an eager render_step on the 4th camera bit for bit (colour, depth,
+      stats); a second call replays the graph and launches through no
+      wrapper; the device ms a frame of a 30-step graph over 30 jittered
+      cameras (the median of 10 replays), beside phase 7's device busy.
+    - every bench module of benches/ at its smallest setting in this
+      process (BENCH_RUNS: each must return 0 and print its lines), and
+      one pass of flythrough_bench in a fresh process.
+    - kernel_cost_sim's counts at the start pose (its own scene,
+      benches/scene.py) equal phase 9's item-pixels evaluated, needed and
+      longest walk.
+
+    Returns {part: seconds}."""
+    import json as json_
+    import re
+
+    import numpy as np
+
+    from differential_projection_voxel_renderer_tpu_torch.models.camera import (
+        Camera,
+    )
+    from differential_projection_voxel_renderer_tpu_torch.rendering import (
+        pipeline,
+    )
+
+    secs = {}
+    r = eng.renderer
+    uploads, vp0, cp0 = static
+    cams = [(vp0, cp0)]
+    for pos, target in list(moving_poses())[:3]:
+        c = Camera(np.asarray(pos, np.float32), WIDTH / HEIGHT)
+        c.look_at(np.asarray(target, np.float32))
+        cams.append((c.view_projection_matrix(), c.position.copy()))
+    vps = torch.from_numpy(np.stack([v for v, _ in cams]).astype(
+        np.float32)).cuda()
+    cps = torch.from_numpy(np.stack([p for _, p in cams]).astype(
+        np.float32)).cuda()
+    t0 = time.perf_counter()
+    run = pipeline.make_repeated_step(r, 4)
+    torch.cuda.synchronize()
+    reset_counters()
+    out = [t.clone() for t in run(*uploads, vps, cps)]
+    torch.cuda.synchronize()
+    first = counters()
+    kw = {k: v for k, v in r._base_step_kw.items() if k != "near_quads"}
+    kw.update(render_cap=r.config.quads_cap, tile_k_cap=r.config.tile_k_cap)
+    ref = pipeline.render_step(*uploads, vps[3], cps[3], **kw)
+    reset_counters()
+    again = run(*uploads, vps, cps)
+    torch.cuda.synchronize()
+    second = counters()
+    if first != (5, 5, 0, 0) or second != (0, 0, 0, 0):
+        raise AssertionError(f"make_repeated_step launches: {first} after "
+                             f"the first call, {second} after the second")
+    for name, got in (("first", out), ("replayed", again)):
+        if not (same_frame_bits(torch, got, ref)
+                and torch.equal(got[2], ref[2])):
+            raise AssertionError(f"the {name} graph frame differs from the "
+                                 f"eager render_step's")
+    if same_frame_bits(torch, out, pipeline.render_step(
+            *uploads, vps[0], cps[0], **kw)):
+        raise AssertionError("the 4th and 1st cameras give the same frame")
+    log(f"[17] make_repeated_step(4) on phase 3's static stream "
+        f"({int(uploads[2])} quads): K1 and K2 launched {first[:2]} by the "
+        f"first call (1 eager step, 4 captured), none by the replay; the "
+        f"last frame equals an eager render_step on the 4th camera bit for "
+        f"bit (stats {ref[2].tolist()}), first call and replay")
+    k = 30
+    run30 = pipeline.make_repeated_step(r, k)
+    rng = np.random.default_rng(0)
+    jit = torch.from_numpy(rng.normal(0, 0.01, (k, 3)).astype(
+        np.float32)).cuda()
+    args30 = (*uploads, vps[:1].repeat(k, 1, 1), cps[:1] + jit)
+    run30(*args30)
+    times = []
+    for _ in range(10):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        run30(*args30)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / k)
+    graph_ms = statistics.median(times)
+    secs["repeated step"] = time.perf_counter() - t0
+    log(f"[17] the step from one CUDA graph of {k} (make_repeated_step, "
+        f"{k} jittered cameras at the static pose): {graph_ms:.4f} ms a "
+        f"frame (median of 10 replays; spread {min(times):.4f}-"
+        f"{max(times):.4f}); phase 7's device busy {busy7:.4f} ms a frame; "
+        f"{card}")
+
+    for name, argv, env, checks in BENCH_RUNS:
+        s, out_lines, err_lines = run_bench_module(name, argv, env, checks)
+        secs[name] = s
+        tail = (out_lines or err_lines)[-1:]
+        log(f"[17] benches.{name} {' '.join(argv)}: {s:.1f} s, "
+            f"{len(out_lines)} + {len(err_lines)} lines; last: {tail}")
+        if name == "kernel_cost_sim":
+            sim = json_.loads(out_lines[-1])
+            got = (sim["evaluated"], sim["needed"], sim["longest_walk"])
+            if got != k2_counts9:
+                raise AssertionError(f"kernel_cost_sim at the start pose "
+                                     f"{got} != phase 9's {k2_counts9}")
+            log(f"[17] kernel_cost_sim at the start pose: item-pixels "
+                f"evaluated {got[0]}, needed {got[1]}, longest walk "
+                f"{got[2]}, equal to phase 9's; {sim['walked']} of "
+                f"{sim['items']} items walked, {sim['octets_skipped']} "
+                f"octets skipped by the break")
+    t0 = time.perf_counter()
+    fly = subprocess.run(
+        [sys.executable, "-m", f"{PKG}.benches.flythrough_bench", "4",
+         "--frames", "5", "--passes", "1"], capture_output=True, text=True,
+        timeout=300, cwd=ROOT)
+    secs["flythrough_bench"] = time.perf_counter() - t0
+    lines = [ln for ln in fly.stdout.splitlines()
+             if re.match(r"^FLYTHROUGH " + NUM + "$", ln)]
+    if fly.returncode or not lines:
+        raise AssertionError(f"flythrough_bench failed ({fly.returncode}): "
+                             f"{fly.stderr[-1500:]}")
+    log(f"[17] benches.flythrough_bench 4 --frames 5 --passes 1, a fresh "
+        f"process: {lines[0]} ({secs['flythrough_bench']:.1f} s)")
+    return secs
+
+
 # ------------------------------------------------------------- K1 / K2
 
 
@@ -2201,230 +2434,6 @@ def k1_work(args, out) -> tuple[int, int]:
     """(bytes, operations) of stage A over a stream: every input read once,
     every output written once, K1_OPS_PER_QUAD per stream entry."""
     return nbytes(*args, *out.values()), K1_OPS_PER_QUAD * args[0].shape[0]
-
-
-def item_boxes(torch, pipeline, step_args, step_kw, rec):
-    """Each binned item's screen bbox (x0, x1, y0, y1), inclusive pixels,
-    each i32[cap]: render_step on the same inputs again, with its tile-box
-    packer and its binner (the packed path's with ``packed_raster``)
-    observed to map items to quads.  Raises unless that call gives
-    ``rec``'s blend fields and the items' bby row."""
-    seen = {}
-    packed = step_kw.get("packed_raster", False)
-    mod, attr = ((pipeline.packed_ops, "build_bin_lists") if packed
-                 else (pipeline.raster_ops, "build_tile_lists"))
-    pack = pipeline.proj_ops.pack_tilebox
-    binner = getattr(mod, attr)
-
-    def pack_spy(*a, **kw):
-        seen["box"] = a
-        return pack(*a, **kw)
-
-    def bin_spy(*a, **kw):
-        out = binner(*a, **kw)
-        seen["flat"] = out[0].long()
-        return out
-
-    pipeline.proj_ops.pack_tilebox = pack_spy
-    setattr(mod, attr, bin_spy)
-    try:
-        # the packed path's "gather" output: (blend fields, words with bby
-        # in row 4, ...); the default path keeps bby in record row 20
-        again = pipeline._step_camf(
-            *step_args, debug_return_records="gather" if packed else True,
-            **step_kw)
-    finally:
-        pipeline.proj_ops.pack_tilebox = pack
-        setattr(mod, attr, binner)
-    x0, x1, y0, y1 = (b[seen["flat"]] for b in seen["box"])
-    same, bby = ((torch.equal(again[0].view(torch.int32), rec[0][:16]),
-                  again[1][4]) if packed
-                 else (torch.equal(again[0], rec[0]), again[0][20]))
-    if not (same and torch.equal(y0 | (y1 << 16), bby)):
-        raise AssertionError("the items' boxes do not match the records")
-    return x0, x1, y0, y1
-
-
-def walk_sums(torch, per_item, st, walked):
-    """Per segment, the sum of ``per_item`` over its walk [st, walked)."""
-    cum = torch.cat([torch.zeros(1, dtype=torch.long, device=per_item.device),
-                     torch.cumsum(per_item, 0)])
-    return cum[walked] - cum[st]
-
-
-def box_in_window(torch, boxes, n, cx0, cx1, ty):
-    """(columns, rows) of the first ``n`` items' screen boxes inside
-    columns [cx0, cx1] and the 16 rows from ``ty``; no columns where no
-    rows."""
-    x0, x1, y0, y1 = (b[:n].long() for b in boxes)
-    cols = torch.clamp(torch.minimum(x1, cx1) - torch.maximum(x0, cx0) + 1,
-                       min=0)
-    rows = torch.clamp(torch.minimum(y1, ty + 15) - torch.maximum(y0, ty)
-                       + 1, min=0)
-    return torch.where(rows > 0, cols, 0), rows
-
-
-def item_rows(torch, bby, row0):
-    """Rows of each item's screen box (bby = y0 | y1 << 16) inside the
-    16-row tile that starts at ``row0``, as the kernels clamp them."""
-    y0 = torch.clamp((bby & 0xFFFF) - row0, 0, 15)
-    y1 = torch.clamp((bby >> 16) - row0, 0, 15)
-    return (y1 - y0 + 1).long()
-
-
-def k2_work(torch, raster, rec, boxes, height, width):
-    """(bytes, operations, the busiest tile's operations, pixels the
-    kernel evaluates, pixels the inputs need, the longest tile walk in
-    items) of the tile raster on these records.  A tile's walk ends at the
-    first octet base (a multiple of 8) strictly inside its segment where
-    the suffix-min of near depth lies beyond every depth the tile holds so
-    far (the occlusion break: no later item can win a pixel); the depth at
-    each base comes from K2 on the segment prefixes, all tiles at once, the
-    m-th base of each tile in the m-th launch.  An item of the walk needs
-    the pixels of its screen bbox (``boxes``) inside its tile,
-    K2_OPS_PER_PIXEL each, plus K2_OPS_PER_ITEM_COLUMN per column of that
-    box.  The kernel evaluates more: every column of its tile for each row
-    of its own box."""
-    records, starts, counts, orows, ozmin = rec
-    out_h = -height % 16 + height
-    tiles_y, tiles_x = out_h // 16, width // 128
-    kw = dict(height=height, width=width, tile_h=16, tile_w=128, out_h=out_h)
-    st, ends = starts.long(), (starts + counts).long()
-    if not torch.equal(st, torch.cumsum(counts.long(), 0) - counts.long()):
-        raise AssertionError("the tile segments are not contiguous")
-    walked = ends.clone()
-    first = torch.div(st, 8, rounding_mode="floor")
-    for m in range(1, int(counts.max()) // 8 + 2):
-        b = (first + m) * 8
-        active = b < walked
-        if not bool(active.any()):
-            break
-        pc = torch.where(active, b - st, 0)
-        _, depth = raster.rasterize_tiles(records, starts, pc.int(), orows,
-                                          ozmin, **kw)
-        dmax = depth.view(tiles_y, 16, tiles_x, 128).amax(dim=(1, 3))
-        zm = ozmin[torch.clamp(b >> 3, max=ozmin.numel() - 1)]
-        walked = torch.where(active & (zm > dmax.reshape(-1)), b, walked)
-
-    def per_tile(per_item):
-        return walk_sums(torch, per_item, st, walked)
-
-    n_kept = int(ends[-1])
-    tile = torch.repeat_interleave(
-        torch.arange(tiles_y * tiles_x, device=counts.device), counts.long())
-    ty, tx = tile // tiles_x * 16, tile % tiles_x * 128
-    cols, rows = box_in_window(torch, boxes, n_kept, tx, tx + 127, ty)
-    ops = per_tile(cols * (rows * K2_OPS_PER_PIXEL + K2_OPS_PER_ITEM_COLUMN))
-    evaluated = per_tile(item_rows(torch, records[20, :n_kept], ty) * 128)
-    n_items = int((walked - st).sum())
-    # an item reads its 21 record words and its octet's suffix-min word;
-    # the frame writes colour and depth
-    moved = (n_items * (21 * 4) + n_items // 8 * 4 + nbytes(starts, counts)
-             + out_h * width * 8)
-    return (moved, int(ops.sum()), int(ops.max()), int(evaluated.sum()),
-            int(per_tile(cols * rows).sum()), int((walked - st).max()))
-
-
-def k4_work(torch, raster_packed, rec, boxes, height, width):
-    """The work of K4 on these packed records, a dict: bytes, ops
-    (operations), tile_ops (the busiest tile's), items (walked), kept,
-    walk_wide and walk_bucket (the longest walks), slices_bucket (the most
-    32-item slices of one bucket's walk), slices_tile and tile (the most
-    bucket slices one tile walks, and that tile), and box_w, box_h and
-    tile_box_w, tile_box_h (the mean columns and rows of the walked
-    bucket items' boxes in their buckets, over all tiles and in that
-    tile).  A bin's walk ends at its occlusion break in the
-    serial order of the plain version -- the wide bin, then each bucket --
-    which walks the fewest items of any order of K4's slices, since it
-    tests each octet against the nearest depths possible: the wide bin at
-    octet bases strictly inside it, against the max depth of its tile over
-    the wide prefix so far; a bucket at octet bases at or past its start,
-    against the max depth of its 512 pixels after the tile's wide walk and
-    the bucket's own prefix.  The depths come from K4 on those prefixes,
-    all bins at once, the m-th octet base of each in the m-th launch.  An
-    item of a walk needs the pixels of its screen bbox (``boxes``) inside
-    its bin's columns (the tile's 128, or the bucket's 32) and its tile's
-    rows, K2_OPS_PER_PIXEL each, plus K2_OPS_PER_ITEM_COLUMN per column of
-    that box."""
-    BINS_PER_TILE = raster_packed.BINS_PER_TILE
-    records, starts, counts, orows, ozmin, item_bby, item_bbx = rec
-    out_h = -height % 16 + height
-    tiles_y, tiles_x = out_h // 16, width // 128
-    n_tiles = tiles_y * tiles_x
-    kw = dict(height=height, width=width, out_h=out_h)
-    st, cn = starts.long(), counts.long()
-    ends = st + cn
-    if not torch.equal(st, torch.cumsum(cn, 0) - cn):
-        raise AssertionError("the bin segments are not contiguous")
-    kind = torch.arange(st.numel(), device=st.device) % BINS_PER_TILE
-    wide = kind == 0
-    walked = ends.clone()
-
-    def depth_of(prefix):
-        return raster_packed.rasterize_packed(
-            records, starts, prefix.int(), orows, ozmin, item_bby, item_bbx,
-            **kw)[1]
-
-    first = torch.div(st, 8, rounding_mode="floor")
-    for m in range(1, int(cn[wide].max()) // 8 + 2):
-        b = (first + m) * 8
-        active = wide & (b < walked)
-        if not bool(active.any()):
-            break
-        dmax = depth_of(torch.where(active, b - st, 0)).view(
-            tiles_y, 16, tiles_x, 128).amax(dim=(1, 3))
-        dmax = dmax.reshape(-1).repeat_interleave(BINS_PER_TILE)
-        zm = ozmin[torch.clamp(b >> 3, max=ozmin.numel() - 1)]
-        walked = torch.where(active & (zm > dmax), b, walked)
-    first = torch.div(st + 7, 8, rounding_mode="floor")
-    for m in range(0, int(cn[~wide].max()) // 8 + 2):
-        b = (first + m) * 8
-        active = ~wide & (b < walked)
-        if not bool(active.any()):
-            break
-        pc = torch.where(wide, walked - st, torch.where(active, b - st, 0))
-        dmax = depth_of(pc).view(tiles_y, 16, tiles_x, 4, 32).amax(
-            dim=(1, 4)).reshape(n_tiles, 4)
-        dmax = torch.cat([dmax[:, :1], dmax], 1).reshape(-1)
-        zm = ozmin[torch.clamp(b >> 3, max=ozmin.numel() - 1)]
-        walked = torch.where(active & (zm > dmax), b, walked)
-
-    n_kept = int(ends[-1])
-    bins = torch.repeat_interleave(torch.arange(st.numel(),
-                                                device=st.device), cn)
-    tile, k = bins // BINS_PER_TILE, bins % BINS_PER_TILE
-    ty = tile // tiles_x * 16
-    cx0 = tile % tiles_x * 128 + torch.where(k == 0, 0, 32 * (k - 1))
-    cx1 = cx0 + torch.where(k == 0, 127, 31)
-    cols, rows = box_in_window(torch, boxes, n_kept, cx0, cx1, ty)
-    ops = walk_sums(torch, cols * (rows * K2_OPS_PER_PIXEL
-                                   + K2_OPS_PER_ITEM_COLUMN), st, walked)
-    n_items = int((walked - st).sum())
-    # an item reads its 20 record words, its bby and bbx and its octet's
-    # suffix-min word; the frame writes colour and depth
-    moved = (n_items * (22 * 4) + n_items // 8 * 4 + nbytes(starts, counts)
-             + out_h * width * 8)
-    tile_ops = ops.view(n_tiles, BINS_PER_TILE).sum(1)
-    walk = walked - st
-    # the 32-aligned slices of each bucket's walk
-    slices = torch.where(~wide & (walk > 0),
-                         torch.div(walked - 1, 32, rounding_mode="floor")
-                         - torch.div(st, 32, rounding_mode="floor") + 1, 0)
-    tile_slices = slices.view(n_tiles, BINS_PER_TILE).sum(1)
-    busiest = int(tile_slices.argmax())
-    # the walked bucket items' boxes in their buckets
-    pos = torch.arange(n_kept, device=st.device)
-    in_walk = (k > 0) & (pos < walked[bins])
-    in_tile = in_walk & (tile == busiest)
-    return dict(
-        bytes=moved, ops=int(ops.sum()), tile_ops=int(tile_ops.max()),
-        items=n_items, kept=n_kept, walk_wide=int(walk[wide].max()),
-        walk_bucket=int(walk[~wide].max()), slices_bucket=int(slices.max()),
-        slices_tile=int(tile_slices.max()), tile=busiest,
-        box_w=float(cols[in_walk].float().mean()),
-        box_h=float(rows[in_walk].float().mean()),
-        tile_box_w=float(cols[in_tile].float().mean()),
-        tile_box_h=float(rows[in_tile].float().mean()))
 
 
 def profile_frames(torch, frame_fn, n: int = 10):
@@ -2719,6 +2728,9 @@ def main() -> int:
             common,
             k1_call,
         )
+        from differential_projection_voxel_renderer_tpu_torch.benches import (
+            kernel_cost_sim as kcs,
+        )
         from differential_projection_voxel_renderer_tpu_torch.ops import (
             geometry,
             hiz,
@@ -2886,8 +2898,8 @@ def main() -> int:
         f"{frame['host_ms']:.3f} ms host clock; {card}")
 
     # ---- 7. where a static frame's device time goes
-    log_profile("7", "static frame", profile_frames(
-        torch, lambda: eng.render_frame(dt=0.0)), frame["static_ms"], card)
+    prof7 = profile_frames(torch, lambda: eng.render_frame(dt=0.0))
+    log_profile("7", "static frame", prof7, frame["static_ms"], card)
 
     # ---- 8. frames in flight
     launches8, times8, profiles8 = pipelined_path(torch, serial)
@@ -2940,6 +2952,7 @@ def main() -> int:
     k3_ms, k21_ms = median_ms(k3), median_ms(k2_k1)
     k3_run, k21_run = median_ms(k3, batch=20), median_ms(k2_k1, batch=20)
     k3_graph = common.graph_ms(k3)
+    k3_host = common.host_us(k3)
     k3_plain = median_ms(lambda: (
         raster.rasterize_tiles_plain(*rec720, **rkw),
         geometry.project_cull_plain(*fk1, **gkw)), reps=5)
@@ -2947,15 +2960,15 @@ def main() -> int:
         f"call, {k3_run:.4f} ms in runs of 20; K2 + K1 launches "
         f"{k21_ms:.4f} ms a call, {k21_run:.4f} ms in runs of 20 (medians "
         f"of 20); plain version {k3_plain:.4f} ms (median of 5); "
-        f"{k3_graph:.4f} ms from a CUDA graph; {card}")
+        f"{k3_graph:.4f} ms from a CUDA graph; its wrapper {k3_host:.1f} us "
+        f"of host a call; {card}")
 
     # ---- bounds, from this run's inputs
     k1_bytes, k1_ops = k1_work(fk1, geometry.project_cull(*fk1, **gkw))
     k1_bound, k1_by = bound(k1_bytes, k1_ops)
-    boxes = item_boxes(torch, pipeline, (quads, qw, total, static_cam),
-                       step_kw, rec720)
-    k2_bytes, k2_ops, k2_tile_ops, k2_evaluated, k2_needed, k2_walk = k2_work(
-        torch, raster, rec720, boxes, HEIGHT, WIDTH)
+    boxes = kcs.item_boxes((quads, qw, total, static_cam), step_kw, rec720)
+    k2_bytes, k2_ops, k2_tile_ops, k2_evaluated, k2_needed, k2_walk = (
+        kcs.k2_work(rec720, boxes, HEIGHT, WIDTH))
     k2_bound, k2_by = bound(k2_bytes, k2_ops)
     k2_tile_ms = k2_tile_ops / (F32_OPS_PER_S / N_SMS) * 1e3
     k3_bound, k3_by = bound(k2_bytes + k1_bytes, k2_ops + k1_ops)
@@ -3037,13 +3050,14 @@ def main() -> int:
                        batch=20)
     k4_graph = common.graph_ms(lambda: raster_packed.rasterize_packed(
         *recp, **pkw))
+    k4_host = common.host_us(lambda: raster_packed.rasterize_packed(
+        *recp, **pkw))
     k2_run10 = median_ms(lambda: raster.rasterize_tiles(*rec720, **rkw),
                          batch=20)
     k4_plain = median_ms(lambda: raster_packed.rasterize_packed_plain(
         *recp[:5], **pkw), reps=5)
-    boxes_p = item_boxes(torch, pipeline, (quads, qw, total, static_cam),
-                         pstep_kw, recp)
-    w4 = k4_work(torch, raster_packed, recp, boxes_p, HEIGHT, WIDTH)
+    boxes_p = kcs.item_boxes((quads, qw, total, static_cam), pstep_kw, recp)
+    w4 = kcs.k4_work(recp, boxes_p, HEIGHT, WIDTH)
     busiest = w4["tile"]
     k4_bound, k4_by = bound(w4["bytes"], w4["ops"])
     k4_tile_ms = w4["tile_ops"] / (F32_OPS_PER_S / N_SMS) * 1e3
@@ -3062,7 +3076,8 @@ def main() -> int:
             batch=20)
     log(f"[10] K4 (vd12 packed records): {k4_ms:.4f} ms a call, "
         f"{k4_run:.4f} ms in runs of 20 (medians of 20), {k4_graph:.4f} ms "
-        f"from a CUDA graph; K2 on the default "
+        f"from a CUDA graph, its wrapper {k4_host:.1f} us of host a call; K2 "
+        f"on the default "
         f"records of the same pose {k2_run10:.4f} ms in runs of 20; plain "
         f"version {k4_plain:.4f} ms (median of 5); K4 on "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in k4_phase_ms.items())
@@ -3155,6 +3170,14 @@ def main() -> int:
         f"{mesh16['overflow']}); the legacy {WIDTH}x{HEIGHT} frame "
         f"{legacy16['seconds']:.3f} ({legacy16['triangles']} triangles); "
         f"{card}")
+
+    # ---- 17. the measuring side: the repeated step and the benches
+    t17 = time.perf_counter()
+    secs17 = bench_path(torch, eng, (uploads, vp0, cp0), prof7[0],
+                        (k2_evaluated, k2_needed, k2_walk), card)
+    log("[17] seconds: " + ", ".join(f"{k} {v:.1f}"
+                                     for k, v in secs17.items())
+        + f"; phase 17 {time.perf_counter() - t17:.1f}")
     sites = {k: sorted({r["site"] for r in rows11.values()
                         if r["kernel"] == k}) for k in ("M1", "M2")}
 
@@ -3247,7 +3270,7 @@ def main() -> int:
              launches=launches8[2], max_abs_err=k3_err, ms=k3_run,
              plain_ms=k3_plain, bound_ms=k3_bound, bound_by=k3_by,
              library_ms=None, tile_bound_ms=k3_tile_ms,
-             k2_plus_k1_ms=k21_run, graph_ms=k3_graph,
+             k2_plus_k1_ms=k21_run, graph_ms=k3_graph, host_us=k3_host,
              launches_app={k: v[2] for k, v in launches14.items()},
              launches_resident={k: v[2] for k, v in launches15.items()}),
         dict(name="K4 packed tile raster (rasterize_packed)", route="cuda",
@@ -3256,7 +3279,7 @@ def main() -> int:
              launches=launches10[3], max_abs_err=k4_err, ms=k4_run,
              plain_ms=k4_plain, bound_ms=k4_bound, bound_by=k4_by,
              library_ms=None, tile_bound_ms=k4_tile_ms,
-             k2_same_frame_ms=k2_run10, graph_ms=k4_graph,
+             k2_same_frame_ms=k2_run10, graph_ms=k4_graph, host_us=k4_host,
              registers=ptxas["raster_packed_kernel"]["registers"],
              spill_bytes=ptxas["raster_packed_kernel"]["spill_stores"],
              blocks_per_sm=blocks["raster_packed_kernel"],

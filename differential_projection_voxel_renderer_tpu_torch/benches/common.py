@@ -109,7 +109,7 @@ def same_bits(a, b) -> bool:
         for x, y in zip(a, b))
 
 
-def _need_card():
+def need_card():
     if not torch.cuda.is_available():
         raise RuntimeError("timing needs a CUDA device")
 
@@ -119,7 +119,7 @@ def median_ms(fn, reps: int = 20, batch: int = 1) -> float:
     back-to-back calls of ``fn``, per call, after one warm-up call (with
     ``batch`` 1 the host's work before the launch counts; a longer batch
     overlaps it with the previous call's device work)."""
-    _need_card()
+    need_card()
     fn()
     times = []
     for _ in range(reps):
@@ -138,7 +138,7 @@ def host_us(fn, n: int = 50, blocks: int = 5) -> float:
     """Host microseconds of a call: the median over ``blocks`` of the host
     clock around ``n`` calls that are only queued (no synchronisation
     inside), after a warm-up."""
-    _need_card()
+    need_card()
     fn()
     times = []
     for _ in range(blocks):
@@ -155,7 +155,7 @@ def graph_ms(fn, calls: int = 30, reps: int = 10) -> float:
     """Device milliseconds of a call with the host out of the way: ``calls``
     calls captured in one CUDA graph, the median over ``reps`` replays
     between CUDA events, per call."""
-    _need_card()
+    need_card()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -194,7 +194,7 @@ def main_loop(labels, default, time_variant, variant) -> int:
     (``{"variant": ..., "ms": ...}``, ms = a call of 30 queued), with the
     port's fields: the other times, the kernel, the original's
     pallas_call and the card."""
-    _need_card()
+    need_card()
     name = torch.cuda.get_device_name(0)
     for label in labels or default:
         v = variant(label)

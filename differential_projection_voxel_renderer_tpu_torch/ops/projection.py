@@ -15,6 +15,8 @@ arithmetic shift is harmless.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -29,7 +31,11 @@ FACE_B_AXIS = (2, 2, 2, 2, 1, 1)
 FACE_N_AXIS = (0, 0, 1, 1, 2, 2)
 
 
+@functools.lru_cache(maxsize=None)
 def _axis_table(table, device) -> torch.Tensor:
+    """``table`` as an i32[8] lookup on ``device``, made once a device: a
+    copy from host memory inside the step would wait for the card's queue
+    and could not be captured in a CUDA graph."""
     return torch.tensor(list(table) + [table[5], table[5]], dtype=torch.int32,
                         device=device)
 
@@ -203,6 +209,20 @@ def project_and_cull(quads, quad_world, in_stream, view_proj, cam_pos, *,
                           backface_culling=backface_culling)
 
 
+def chunk_clip_origins(view_proj, chunk_positions):
+    """``view_proj @ [chunk_pos * 32, 1]`` for every chunk slot
+    (``chunk_positions`` i32[V, 3]), as a tuple of four f32[V] tensors,
+    the clip-space x, y, z and w of each chunk's origin (the reference's
+    ``chunk_clip_origins``).  Each component is the sum of the four
+    products in column order, each product and sum rounded to float32."""
+    vp = torch.as_tensor(view_proj, dtype=torch.float32).reshape(4, 4)
+    pos = torch.as_tensor(chunk_positions)
+    vp = vp.to(pos.device)
+    world = pos.to(torch.float32) * 32.0
+    return tuple(vp[r, 0] * world[:, 0] + vp[r, 1] * world[:, 1]
+                 + vp[r, 2] * world[:, 2] + vp[r, 3] for r in range(4))
+
+
 def quad_world_from_slots(chunk_world, chunk_slot):
     """Per-quad world origins gathered from per-chunk tables: three f32[C]
     and the chunk index of each quad (parallel/sharded_render.py)."""
@@ -279,6 +299,13 @@ def quad_coefficients(quads, quad_world, view_proj, color_tables, span=None,
 _FLAT_COLORS = torch.from_numpy(BLOCK_COLORS_ARGB.view(np.int32).copy())
 
 
+@functools.lru_cache(maxsize=None)
+def _flat_colors(device) -> torch.Tensor:
+    """``_FLAT_COLORS`` on ``device``, copied once a device (as
+    ``_axis_table``)."""
+    return _FLAT_COLORS.to(device)
+
+
 def span_coefficients(quads, ndc, depth_near, *, width: int, height: int):
     """Stage B in span mode (the reference's ``quad_coefficients`` with
     ``span_mode``): each quad drawn as its screen box at constant depth.
@@ -298,7 +325,7 @@ def span_coefficients(quads, ndc, depth_near, *, width: int, height: int):
     sy1 = torch.clamp((1.0 - ny_min) * 0.5 * hf + eps, max=hf)
     zeros = torch.zeros(quads.shape, dtype=torch.float32, device=dev)
     ones = torch.ones(quads.shape, dtype=torch.float32, device=dev)
-    col = _FLAT_COLORS.to(dev)[block]
+    col = _flat_colors(dev)[block]
     izero = torch.zeros(quads.shape, dtype=torch.int32, device=dev)
     return dict(
         a00=ones, a01=zeros, a02=zeros, a10=zeros, a11=ones, a12=zeros,

@@ -1353,3 +1353,87 @@ class Renderer:
         self._pipe_carry = None
         cap, up, cam, _pre = carry
         return _step_camf(up[0], up[1], up[2], cam, **self._bucket_kw(cap))
+
+
+def make_repeated_step(renderer: Renderer, n_frames: int):
+    """N full render steps over per-frame cameras, for measuring the
+    step's device time with the host out of the way (the reference's
+    ``make_repeated_step``, N steps inside one jit).
+
+    Returns ``run(quads, quad_world, n_quads, vps, cams)``: ``quads``
+    i32[GQ], ``quad_world`` f32[3, GQ] and ``n_quads`` (an i32 device
+    scalar or an int) an expanded stream (``Renderer.prepare_uploads``),
+    ``vps`` f32[N, 4, 4] and ``cams`` f32[N, 3] the cameras.  Each step is
+    ``render_step`` with the renderer's configuration: its colour tables,
+    frame and tile, span mode, backface culling and packed raster, the
+    render cap ``quads_cap`` and the item cap ``tile_k_cap`` (the two-pass
+    and temporal modes are not applied, as in the reference).  ``run``
+    returns the last frame's (color, depth, stats).
+
+    On the card the N steps are captured once, at the first call with a
+    stream of GQ quads, into one CUDA graph over static input buffers;
+    each call copies its inputs into those buffers and replays the graph,
+    so K1 and K2 (K4 with ``packed_raster``, K1's span instance in span
+    mode) launch N times a replay from one host call.  The step makes no
+    host sync, so it captures whole.  The returned tensors are the graph's
+    own memory: the next call overwrites them, so a caller that keeps a
+    frame clones it.  On the CPU ``run`` is a plain loop over
+    ``render_step``."""
+    if n_frames < 1:
+        raise ValueError("make_repeated_step needs at least one frame")
+    cfg = renderer.config
+    kw = {k: v for k, v in renderer._base_step_kw.items()
+          if k != "near_quads"}
+    kw.update(render_cap=cfg.quads_cap, tile_k_cap=cfg.tile_k_cap)
+    dev = renderer.device
+    graphs: dict[int, tuple] = {}
+
+    def steps(quads, quad_world, n_quads, vps, cams):
+        out = None
+        for i in range(n_frames):
+            out = render_step(quads, quad_world, n_quads, vps[i], cams[i],
+                              **kw)
+        return out
+
+    def cameras(vps, cams):
+        vps = torch.as_tensor(vps, dtype=torch.float32).to(dev)
+        cams = torch.as_tensor(cams, dtype=torch.float32).to(dev)
+        if vps.shape != (n_frames, 4, 4) or cams.shape != (n_frames, 3):
+            raise ValueError(f"vps must be f32[{n_frames}, 4, 4] and cams "
+                             f"f32[{n_frames}, 3]")
+        return vps, cams
+
+    def run(quads, quad_world, n_quads, vps, cams):
+        vps, cams = cameras(vps, cams)
+        if dev.type != "cuda":
+            return steps(quads, quad_world, n_quads, vps.contiguous(),
+                         cams.contiguous())
+        gq = quads.shape[0]
+        if gq not in graphs:
+            static = (torch.empty_like(quads), torch.empty_like(quad_world),
+                      torch.empty((), dtype=torch.int32, device=dev),
+                      torch.empty_like(vps), torch.empty_like(cams))
+            graphs[gq] = (None, static, None)
+        graph, static, out = graphs[gq]
+        static[0].copy_(quads)
+        static[1].copy_(quad_world)
+        static[2].copy_(geom_ops.device_i32(n_quads, dev))
+        static[3].copy_(vps)
+        static[4].copy_(cams)
+        if graph is None:
+            # one eager step on a side stream first: the kernels build and
+            # load, K4 sets its shared-memory attribute, the device tables
+            # are made, and the allocator holds the step's buffers
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                render_step(*static[:3], static[3][0], static[4][0], **kw)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = steps(*static)
+            graphs[gq] = (graph, static, out)
+        graph.replay()
+        return out
+
+    return run

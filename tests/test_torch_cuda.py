@@ -620,3 +620,85 @@ def test_hardware_selftest_is_exact(cuda_device):
     assert parity.run_hardware_selftest(device="cuda") == "exact"
     assert parity.run_hardware_selftest(device="cuda", width=640) == "exact"
     assert geometry.launches > k1 and raster.launches > k2
+
+
+def _path_cameras(device, shift=(0.0, 0.0, 0.0), n=4):
+    """n cameras of the terrain scene stepping (2, 0, -2) a frame from its
+    pose moved by ``shift``, all looking at its target: (vps f32[n, 4, 4],
+    cams f32[n, 3]) on ``device``."""
+    w, h, _, pos, tgt = parity.SMALL_SCENES["terrain 640x128"]
+    vps, cams = [], []
+    for i in range(n):
+        c = Camera(np.asarray(pos, np.float32) + np.float32(shift)
+                   + np.float32([2.0 * i, 0.0, -2.0 * i]), w / h)
+        c.look_at(np.asarray(tgt, np.float32))
+        vps.append(c.view_projection_matrix())
+        cams.append(c.position.copy())
+    return (torch.from_numpy(np.stack(vps).astype(np.float32)).to(device),
+            torch.from_numpy(np.stack(cams).astype(np.float32)).to(device))
+
+
+def _repeated_setup(device, mode, n=4):
+    """The terrain scene at 640x128 with a renderer of ``mode`` (serial,
+    packed or span), ``make_repeated_step(r, n)``, the step's keywords as
+    make_repeated_step sets them, and n cameras along a short path (vps,
+    cams on the card)."""
+    gargs, gkw = parity.small_scene("terrain 640x128", device)
+    gc = gkw["render_cap"]
+    cfg = pipeline.RenderConfig(
+        width=gkw["width"], height=gkw["height"], gather_cap=gc,
+        quads_cap=gc // 2, tile_k_cap=2 * gc,
+        packed_raster=mode == "packed", span_mode=mode == "span")
+    r = pipeline.Renderer(cfg, device=device)
+    kw = {k: v for k, v in r._base_step_kw.items() if k != "near_quads"}
+    kw.update(render_cap=cfg.quads_cap, tile_k_cap=cfg.tile_k_cap)
+    return (gargs, kw, pipeline.make_repeated_step(r, n),
+            *_path_cameras(device, n=n))
+
+
+def _same(a, b):
+    return (torch.equal(a[0], b[0]) and torch.equal(a[2], b[2])
+            and torch.equal(a[1].view(torch.int32), b[1].view(torch.int32)))
+
+
+def _k1_k2(mode):
+    k1 = geometry.launches_span if mode == "span" else geometry.launches
+    return k1, (raster_packed if mode == "packed" else raster).launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["serial", "packed", "span"])
+def test_repeated_step_graph_matches_eager(cuda_device, mode):
+    """make_repeated_step's CUDA graph of 4 steps: its last frame equals an
+    eager render_step on the 4th camera bit for bit; the first call runs
+    one eager step and captures 4 (K1 and K2, or K4, or K1's span instance
+    and K2, launched 5 times by their wrappers), a replay calls no
+    wrapper."""
+    gargs, kw, run, vps, cams = _repeated_setup(cuda_device, mode)
+    before = _k1_k2(mode)
+    out = [t.clone() for t in run(*gargs[:3], vps, cams)]
+    assert _k1_k2(mode) == (before[0] + 5, before[1] + 5)
+    ref = pipeline.render_step(*gargs[:3], vps[3], cams[3], **kw)
+    assert _same(out, ref)
+    before = _k1_k2(mode)
+    again = run(*gargs[:3], vps, cams)
+    assert _k1_k2(mode) == before
+    assert _same(again, ref)
+    assert int((ref[0] != raster.SKY_I32).sum()) > 1000
+    first = pipeline.render_step(*gargs[:3], vps[0], cams[0], **kw)
+    assert not torch.equal(first[0], ref[0])
+
+
+@pytest.mark.cuda
+def test_repeated_step_takes_new_cameras(cuda_device):
+    """A second call with other cameras gives the frame of its own last
+    camera (the inputs are copied into the graph's buffers each call, not
+    captured by value), and a third with the first cameras the first
+    frame again."""
+    gargs, kw, run, vps, cams = _repeated_setup(cuda_device, "serial")
+    first = [t.clone() for t in run(*gargs[:3], vps, cams)]
+    vps2, cams2 = _path_cameras(cuda_device, shift=(6.0, -4.0, 9.0))
+    second = [t.clone() for t in run(*gargs[:3], vps2, cams2)]
+    ref2 = pipeline.render_step(*gargs[:3], vps2[3], cams2[3], **kw)
+    assert _same(second, ref2) and not torch.equal(second[0], first[0])
+    assert _same(run(*gargs[:3], vps, cams), first)
