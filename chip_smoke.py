@@ -88,9 +88,11 @@ and times kernels and frames.  Phases:
    frame.  Each variant is timed (a call, runs of 20, 30 queued, host us a
    call) beside its plain version, its library call (``Tensor.fill_`` on
    each output for M1 and K2, ``torch.add`` into each output for M2) and
-   its bound; then the host us a launch against the operand count, K1's
-   wrapper against its C entry point called alone, and K2's empty floor
-   beside its vd12 time of phase 6;
+   its bound, and beside its launches a call times the graph launch floor
+   (``torch.cuda._sleep(0)``, a launch that does no work, from a CUDA
+   graph) plus its bound; then the host us a launch against the operand
+   count, K1's wrapper against its C entry point called alone, and K2's
+   empty floor beside its vd12 time of phase 6;
 12. exact occlusion: a two-pass engine (RenderConfig(two_pass_near_quads=
    8192)) and a temporal one (RenderConfig(temporal_hiz=True)), settled
    and primed like the first, drive phase 3's camera sequence (3 static
@@ -187,7 +189,15 @@ and times kernels and frames.  Phases:
    --device --quick, kernel_cost_sim) at its smallest setting, each of
    whose output lines must parse, and one flythrough_bench pass in a fresh
    process; kernel_cost_sim's counts at the start pose equal to phase 9's.
-   The phase's seconds are printed.
+   The phase's seconds are printed;
+18. the binnings on the flights where they dropped visible quads, each
+   part with the counters zeroed before and read after it: a packed
+   engine primed with ``prime_all`` over ``default_path(24)`` (stats[3] 0
+   on every key, every frame equal to phase 14's primed serial flight bit
+   for bit, K1 and K4 once a frame), and a serial and a resident engine
+   primed alike over ``default_path(96)``, the same orbit at four times
+   the keys (stats[3] 0 on every key of both, every resident frame equal
+   to the serial frame of its key bit for bit).
 
 The script imports the port package and nothing else of the repo; before
 it prints its result it checks that neither jax nor any module of the JAX
@@ -200,7 +210,9 @@ form with every probe site each replaces; K2's entry also gives its empty
 floor, its launches on the paths of phases 12-13, its time with an init
 frame and each band's, its wrapper's host us and the production parity
 verdict; K1-K3 give their launches on each part of phase 14, K1-K4 on
-each part of phase 15, K1 and K2 their time, plain time and bound at the
+each part of phase 15, K1, K2 and K4 on each part of phase 18, M1 and
+M2 the graph launch floor and their variants within it, K1 and K2 their
+time, plain time and bound at the
 resident shapes, K3 and K4 their device time from a CUDA graph, K1 its
 span instance's launches, error, times, bound, registers and spills and
 K2 its launches on phase 16's span frames), the
@@ -230,6 +242,9 @@ N_TIMED, N_TIMED_PIPELINED, N_MOVING = 50, 20, 10
 # about as many chunks as the JAX benches' 8192 slots (phase 14 prints it)
 FLY_KEYS = 24
 APP_POOL_SLOTS = 16384
+# phase 18's long flight: default_path's orbit at four times the keys, so
+# that several frames fall in each chunk cell
+LONG_KEYS = 96
 # phase 15: the frames a stash may take to drain with the camera held, and
 # the turns of each mode in the frames-a-second comparison
 SETTLE_FRAMES = 2000
@@ -1827,6 +1842,102 @@ def resident_path(torch, serial, flights, card):
     return parts.launches, parts.secs, kern
 
 
+# ------------------------------------------------------------- binning
+
+
+def binning_path(torch, primed, card):
+    """Phase 18: the binnings on the flights where they dropped visible
+    quads, engines primed with prime_all like phase 14's (16384-slot
+    pools), each part with the launch counters zeroed before and read
+    after it.
+
+    - A packed engine (RenderConfig(packed_raster=True)) over
+      default_path(FLY_KEYS): bin_overflow (stats[3]) 0 on every key and
+      every frame equal to phase 14's primed serial flight (``primed``) bit
+      for bit (colour and depth), K1 and K4 once a frame, K2 and K3 never.
+      With the reference's packed binning (one class of 512 big quads) it
+      dropped up to 157 quads a key and changed up to 35089 pixels
+      (benches/big_quad_cap.py on an H100).
+    - A serial and a resident engine over default_path(LONG_KEYS):
+      stats[3] 0 on every key of both and every resident frame equal to the
+      serial frame of its key bit for bit, K1 and K2 once a frame.  With
+      the reference's whole-screen boxes for quads that straddle the near
+      plane, the resident stream dropped 149-698 of them a key past
+      HUGE_CAP and changed 20405 pixels of one key (the same bench).
+
+    Returns (launches {part: (K1, K2, K3, K4)}, {part: seconds})."""
+    from differential_projection_voxel_renderer_tpu_torch.app import (
+        flythrough,
+    )
+    from differential_projection_voxel_renderer_tpu_torch.app.engine import (
+        RenderConfig,
+    )
+
+    parts = Parts(torch, "18")
+    timed, need = parts.run, parts.need
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def primed_engine(**kw):
+        eng = new_engine(torch, pool_slots=APP_POOL_SLOTS, prime_all=True,
+                         **kw)[0]
+        eng.render_frame(dt=0.0)
+        return eng
+
+    def dropped(frames):
+        return [int(f[2][3]) for f in frames]
+
+    packed = timed("packed settle + prime_all", lambda: primed_engine(
+        config=RenderConfig(WIDTH, HEIGHT, packed_raster=True)))
+    frames = timed("packed flight", lambda: fly_path(
+        packed, flythrough.default_path(FLY_KEYS), ev))
+    need("packed flight", FLY_KEYS, 0, 0, FLY_KEYS)
+    differ = [(i, int(((a[0] != b[0]) | (a[1] != b[1])).sum()))
+              for i, (a, b) in enumerate(zip(frames, primed))
+              if not same_frame_bits(torch, a, b)]
+    if any(dropped(frames)) or differ:
+        raise AssertionError(f"[18] the packed flight: bin_overflow "
+                             f"{dropped(frames)}, (key, pixels) that differ "
+                             f"from phase 14's serial flight {differ}")
+    log(f"[18] packed flight over default_path({FLY_KEYS}): bin_overflow 0 "
+        f"on every key, every frame equal to phase 14's primed serial "
+        f"flight bit for bit (colour and depth); launches "
+        f"{parts.launches['packed flight']}; "
+        f"{FLY_KEYS / parts.secs['packed flight']:.2f} frames/s by the host "
+        f"clock; {card}")
+    del packed, frames
+
+    path = flythrough.default_path(LONG_KEYS)
+    flights = {}
+    for kind in ("serial", "resident"):
+        eng = timed(f"{kind} settle + prime_all",
+                    lambda kind=kind: primed_engine(
+                        resident=kind == "resident"))
+        flights[kind] = timed(f"{kind} long flight",
+                              lambda eng=eng: fly_path(eng, path, ev))
+        need(f"{kind} long flight", LONG_KEYS, LONG_KEYS, 0, 0)
+        if kind == "resident" and not eng.resident_stream:
+            raise AssertionError("[18] the resident engine fell back")
+        del eng
+    differ = [(i, int(((a[0] != b[0]) | (a[1] != b[1])).sum()))
+              for i, (a, b) in enumerate(zip(flights["resident"],
+                                             flights["serial"]))
+              if not same_frame_bits(torch, a, b)]
+    drops = {k: dropped(v) for k, v in flights.items()}
+    if any(map(any, drops.values())) or differ:
+        raise AssertionError(f"[18] the long flights: bin_overflow {drops}, "
+                             f"(key, pixels) where the resident frame "
+                             f"differs from the serial one {differ}")
+    more = [int(a[2][1]) - int(b[2][1])
+            for a, b in zip(flights["resident"], flights["serial"])]
+    log(f"[18] serial and resident flights over default_path({LONG_KEYS}): "
+        f"bin_overflow 0 on every key of both, every resident frame equal "
+        f"to the serial frame of its key bit for bit (colour and depth); the "
+        f"superset rasterizes {min(more)}..{max(more)} more quads a frame; "
+        f"launches serial {parts.launches['serial long flight']}, resident "
+        f"{parts.launches['resident long flight']}; {card}")
+    return parts.launches, parts.secs
+
+
 # ---------------------------------------------- span, device meshing, legacy
 
 
@@ -2702,6 +2813,30 @@ def probe_path(torch, card, k1_call):
                    m2_bare_us=host["M2 C entry"], sweep_us=sweep,
                    us_per_operand=slope, us_at_zero=icept,
                    k1_graph_ms=k1_graph)
+    # the graph launch floor: the device time of one launch that does no
+    # work (torch.cuda._sleep(0), the CUDA runtime's spin kernel for no
+    # cycles) replayed from a CUDA graph; a probe lies within it when its
+    # graph time is at most its launches a call times the floor plus its
+    # bound
+    floor_ms = common.graph_ms(lambda: torch.cuda._sleep(0))
+    by_site = {}
+    for t in rows.values():
+        t["floor_bound_ms"] = t["launches"] * floor_ms + t["bound_ms"]
+        t["within_floor"] = t["graph_ms"] <= t["floor_bound_ms"]
+        by_site.setdefault((t["kernel"], t["site"]), []).append(t)
+    for (kernel, site), ts in by_site.items():
+        log(f"[11] {kernel} {site}: from a CUDA graph "
+            f"{min(t['graph_ms'] for t in ts):.4f}.."
+            f"{max(t['graph_ms'] for t in ts):.4f} ms a call against "
+            f"launches x floor + bound "
+            f"{min(t['floor_bound_ms'] for t in ts):.4f}.."
+            f"{max(t['floor_bound_ms'] for t in ts):.4f} "
+            f"({min(t['launches'] for t in ts)}.."
+            f"{max(t['launches'] for t in ts)} launches); "
+            f"{sum(t['within_floor'] for t in ts)} of {len(ts)} variants "
+            f"within")
+    log(f"[11] graph launch floor: {floor_ms:.5f} ms a launch that does no "
+        f"work, from a CUDA graph of 30; {card}")
     k2e = rows["micro_fixed3", "3"]
     log(f"[11] K2 on the empty 736x1280 stream: {k2e['call_ms']:.4f} ms a "
         f"call, {k2e['run_ms']:.4f} ms in runs of 20, {k2e['graph_ms']:.4f} "
@@ -2709,7 +2844,7 @@ def probe_path(torch, card, k1_call):
         f"bound {k2e['bound_ms']:.5f} ms; {time.perf_counter() - t0:.1f} s "
         f"for phase 11; {card}")
     return dict(variants=rows, launches=launches, errors=errs,
-                binding=binding)
+                binding=binding, floor_ms=floor_ms)
 
 
 def main() -> int:
@@ -3155,6 +3290,7 @@ def main() -> int:
     # ---- 15. the resident superset stream
     launches15, secs15, kern15 = resident_path(
         torch, serial, flights14, card)
+    primed14 = flights14["primed"]
     del flights14
     log("[15] seconds: " + ", ".join(f"{k} {v:.3f}"
                                      for k, v in secs15.items()))
@@ -3178,8 +3314,19 @@ def main() -> int:
     log("[17] seconds: " + ", ".join(f"{k} {v:.1f}"
                                      for k, v in secs17.items())
         + f"; phase 17 {time.perf_counter() - t17:.1f}")
+
+    # ---- 18. the binnings on the flights that dropped visible quads
+    launches18, secs18 = binning_path(torch, primed14, card)
+    del primed14
+    log("[18] seconds: " + ", ".join(f"{k} {v:.3f}"
+                                     for k, v in secs18.items()))
     sites = {k: sorted({r["site"] for r in rows11.values()
                         if r["kernel"] == k}) for k in ("M1", "M2")}
+    # (variants within launches x floor + bound, variants) of each probe
+    within = {k: (sum(r["within_floor"] for r in rows11.values()
+                      if r["kernel"] == k),
+                  sum(r["kernel"] == k for r in rows11.values()))
+              for k in ("M1", "M2")}
 
     ref_mods = [m for m in sys.modules if m == REF or m.startswith(REF + ".")]
     if "jax" in sys.modules or ref_mods:
@@ -3203,6 +3350,7 @@ def main() -> int:
              c_entry_us=probes["binding"]["k1_bare_us"],
              launches_app={k: v[0] for k, v in launches14.items()},
              launches_resident={k: v[0] for k, v in launches15.items()},
+             launches_binning={k: v[0] for k, v in launches18.items()},
              resident_stream_quads=kern15["shape"],
              resident_bucket=kern15["bucket"],
              resident_max_abs_err=kern15["k1_err"],
@@ -3252,6 +3400,7 @@ def main() -> int:
              launches_app={k: v[1] for k, v in launches14.items()},
              production_parity=verdict14,
              launches_resident={k: v[1] for k, v in launches15.items()},
+             launches_binning={k: v[1] for k, v in launches18.items()},
              resident_items=kern15["items"],
              resident_tile_k_cap=kern15["tile_k_cap"],
              resident_render_cap=kern15["render_cap"],
@@ -3284,7 +3433,8 @@ def main() -> int:
              spill_bytes=ptxas["raster_packed_kernel"]["spill_stores"],
              blocks_per_sm=blocks["raster_packed_kernel"],
              split_ms=k4_phase_ms,
-             launches_resident={k: v[3] for k, v in launches15.items()}),
+             launches_resident={k: v[3] for k, v in launches15.items()},
+             launches_binning={k: v[3] for k, v in launches18.items()}),
         dict(name="M1 constant tile fill (fill_tiles), at a_base",
              route="cuda", source=f"{PKG}/csrc/micro.cu",
              replaces="benches/micro_fixed2.py:65",
@@ -3295,6 +3445,9 @@ def main() -> int:
              call_ms=m1["call_ms"], queued_ms=m1["queued_ms"],
              graph_ms=m1["graph_ms"], host_us=m1["host_us"],
              replaces_all=sites["M1"],
+             launch_floor_ms=probes["floor_ms"],
+             floor_bound_ms=m1["floor_bound_ms"],
+             variants_within_floor=within["M1"],
              registers=ptxas["fill_tiles_kernel"]["registers"],
              spill_bytes=ptxas["fill_tiles_kernel"]["spill_stores"]),
         dict(name="M2 blocked copy (blocked_copy), at make9 4x5",
@@ -3307,6 +3460,9 @@ def main() -> int:
              call_ms=m2["call_ms"], queued_ms=m2["queued_ms"],
              graph_ms=m2["graph_ms"], host_us=m2["host_us"],
              replaces_all=sites["M2"],
+             launch_floor_ms=probes["floor_ms"],
+             floor_bound_ms=m2["floor_bound_ms"],
+             variants_within_floor=within["M2"],
              binding_us=probes["binding"],
              registers=ptxas["blocked_copy_kernel"]["registers"],
              spill_bytes=ptxas["blocked_copy_kernel"]["spill_stores"]),

@@ -15,8 +15,10 @@
   (``ops.micro.blocked_copy``) or, for micro_fixed3's level 3, K2
   (``ops.raster.rasterize_tiles``) on an empty stream; one JSON line per
   variant (``common`` holds what they share).
-- ``k1_call`` and ``big_quad_cap``: K1 and its call across two trees, and
-  the binning's big-quad cap on the vd12 flythrough.
+- ``k1_call``, ``big_quad_cap`` and ``smoke_digests``: K1 and its call
+  across two trees, the binnings' big-quad caps on the vd12 flythrough,
+  serial, resident and packed, and the digests of ``chip_smoke.py``'s
+  serial and packed frames, to compare trees.
 
 Run a module with ``python -m differential_projection_voxel_renderer_tpu_
 torch.benches.<module> [arguments]``.  The entry points run on the card

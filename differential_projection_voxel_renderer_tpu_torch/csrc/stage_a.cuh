@@ -8,11 +8,12 @@
 // body of its `geom_block_compute`).  Per quad: decode the 32-bit word,
 // project the 4 corners through the differential basis, exact plane-side
 // backface test, NDC frustum test, 0.05 px^2 fan-split sub-pixel test
-// (when enabled), integer screen bbox (full screen if any corner has
-// w <= 0.001).  Span mode (a separate template instance, kSpanMode) takes
-// the clip-normal backface test instead of the plane-side one, has no
-// sub-pixel test, and also returns the NDC box the span records are built
-// from.
+// (when enabled), integer screen bbox (see straddle_bounded for a quad
+// with a corner at w <= 0.001 and one in front).  Span mode (a separate
+// template instance, kSpanMode) takes the clip-normal backface test
+// instead of the plane-side one, has no sub-pixel test, keeps the whole
+// screen as a straddling quad's box, and also returns the NDC box the
+// span records are built from.
 //
 // Rounding contract: every file that includes this header is compiled
 // with -fmad=false (no multiply-add contraction), IEEE division
@@ -30,6 +31,9 @@ namespace {
 
 constexpr float kNearWEps = 0.001f;       // utils/config.py NEAR_W_EPS
 constexpr float kMinTriangleArea = 0.1f;  // utils/config.py MIN_TRIANGLE_AREA
+// a straddling quad's side bound holds by this share of its terms
+// (ops/projection.py STRADDLE_MARGIN; a power of two, so exact)
+constexpr float kStraddleMargin = 1.0f / 4096.0f;
 
 // flag bits of a launch (ops/geometry.py BACKFACE, SUBPIXEL, SPAN); bits
 // 2-3 are K1's quads a thread (geometry.cu)
@@ -109,6 +113,31 @@ __device__ __forceinline__ int clip_to_int(float x, int hi) {
   return __float2int_rz(c);
 }
 
+// A quad with a corner on or behind the near plane (w <= kNearWEps) and
+// one in front straddles it: the reference boxes it as the whole screen.
+// Stage A bounds one side of its visible part (w > 0) by k, the front
+// corners' NDC extreme on that axis, where that is sound: clip coordinates
+// are affine across a quad, so c - k w <= 0 at all four corners gives
+// c / w <= k wherever w > 0 (s = 1; s = -1 for >= k).  The front corners
+// hold it by k's choice; each other corner must lie behind the camera (w <
+// -kNearWEps) and hold it by kStraddleMargin of its terms, which rounding
+// cannot fake.  Otherwise that side stays at the screen's edge.  A
+// deliberate divergence (ops/projection.py stage_a_fields): the whole-
+// screen boxes fill the binning's huge class, which keeps 64, so that
+// frames lost visible quads.
+__device__ __forceinline__ bool straddle_bounded(
+    const float* cs, const float* ws, const bool* oks, float k, float s) {
+  bool ok = true;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float kw = k * ws[i];
+    const float d = cs[i] - kw;
+    const float margin = kStraddleMargin * (fabsf(cs[i]) + fabsf(kw));
+    ok = ok && (oks[i] || (ws[i] < -kNearWEps && s * d <= -margin));
+  }
+  return ok;
+}
+
 // Stage A of stream entry i: its word q and chunk origin (wx, wy, wz), the
 // camera and range c, the frame size and the flags (kBackface,
 // kSubpixelCulling; the span instance ignores the latter).
@@ -164,14 +193,16 @@ __device__ __forceinline__ StageAResult stage_a_math(
     oks[k] = ws[k] > kNearWEps;
   }
 
-  float nxs[4], nys[4];
+  float xs[4], ys[4], nxs[4], nys[4];
   const float inf = __int_as_float(0x7f800000);
   float nx_min = inf, nx_max = -inf, ny_min = inf, ny_max = -inf;
   float nz_min = inf;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    nxs[k] = CORNER(k, 0) * invs[k];
-    nys[k] = CORNER(k, 1) * invs[k];
+    xs[k] = CORNER(k, 0);
+    ys[k] = CORNER(k, 1);
+    nxs[k] = xs[k] * invs[k];
+    nys[k] = ys[k] * invs[k];
     const float nz = CORNER(k, 2) * invs[k];
     nx_min = jmin(nx_min, oks[k] ? nxs[k] : inf);
     nx_max = jmax(nx_max, oks[k] ? nxs[k] : -inf);
@@ -228,18 +259,29 @@ __device__ __forceinline__ StageAResult stage_a_math(
     res.valid = res.valid && !tiny;
   }
 
-  int bx0, bx1, by0, by1;
+  // each side from the front corners' NDC box, or the screen's edge
+  bool lo_x = true, hi_x = true, lo_y = true, hi_y = true;
   if (any_behind) {
-    bx0 = 0;
-    bx1 = width - 1;
-    by0 = 0;
-    by1 = height - 1;
-  } else {
-    bx0 = clip_to_int(floorf(((nx_min + 1.0f) * 0.5f) * wf), width - 1);
-    bx1 = clip_to_int(ceilf(((nx_max + 1.0f) * 0.5f) * wf), width - 1);
-    by0 = clip_to_int(floorf(((1.0f - ny_max) * 0.5f) * hf), height - 1);
-    by1 = clip_to_int(ceilf(((1.0f - ny_min) * 0.5f) * hf), height - 1);
+    lo_x = hi_x = lo_y = hi_y = false;
+    if (!kSpanMode && !all_behind) {
+      lo_x = straddle_bounded(xs, ws, oks, nx_min, -1.0f);
+      hi_x = straddle_bounded(xs, ws, oks, nx_max, 1.0f);
+      lo_y = straddle_bounded(ys, ws, oks, ny_min, -1.0f);
+      hi_y = straddle_bounded(ys, ws, oks, ny_max, 1.0f);
+    }
   }
+  const int bx0 =
+      lo_x ? clip_to_int(floorf(((nx_min + 1.0f) * 0.5f) * wf), width - 1)
+           : 0;
+  const int bx1 =
+      hi_x ? clip_to_int(ceilf(((nx_max + 1.0f) * 0.5f) * wf), width - 1)
+           : width - 1;
+  const int by0 =
+      hi_y ? clip_to_int(floorf(((1.0f - ny_max) * 0.5f) * hf), height - 1)
+           : 0;
+  const int by1 =
+      lo_y ? clip_to_int(ceilf(((1.0f - ny_min) * 0.5f) * hf), height - 1)
+           : height - 1;
   res.bbx = bx0 | (bx1 << 16);
   res.bby = by0 | (by1 << 16);
   return res;

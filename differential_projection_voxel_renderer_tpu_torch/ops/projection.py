@@ -29,6 +29,9 @@ from ..utils.config import MIN_TRIANGLE_AREA, NEAR_W_EPS, SPAN_EPSILON_PX
 FACE_T_AXIS = (1, 1, 0, 0, 0, 0)
 FACE_B_AXIS = (2, 2, 2, 2, 1, 1)
 FACE_N_AXIS = (0, 0, 1, 1, 2, 2)
+# a straddling quad's side bound holds by this share of its terms
+# (stage_a_fields; a power of two, so the product is exact)
+STRADDLE_MARGIN = 1.0 / 4096.0
 
 
 @functools.lru_cache(maxsize=None)
@@ -123,9 +126,11 @@ def stage_a_fields(dec, quad_world, in_stream, vp, cam, *, width: int,
             for w in ws]
     oks = [w > eps for w in ws]
 
-    def corner_ndc(r):
-        return [basis.corner(u, v, r) * inv
-                for (u, v), inv in zip(corners_uv, invs)]
+    def corner_clip(r):
+        return [basis.corner(u, v, r) for (u, v) in corners_uv]
+
+    def corner_ndc(cs):
+        return [c * inv for c, inv in zip(cs, invs)]
 
     def minmax(ns):
         lo, hi = big, -big
@@ -134,11 +139,12 @@ def stage_a_fields(dec, quad_world, in_stream, vp, cam, *, width: int,
             hi = torch.maximum(hi, torch.where(ok, n, -big))
         return lo, hi
 
-    nxs = corner_ndc(0)
-    nys = corner_ndc(1)
+    xs, ys = corner_clip(0), corner_clip(1)
+    nxs = corner_ndc(xs)
+    nys = corner_ndc(ys)
     nx_min, nx_max = minmax(nxs)
     ny_min, ny_max = minmax(nys)
-    nz_min, _ = minmax(corner_ndc(2))
+    nz_min, _ = minmax(corner_ndc(corner_clip(2)))
     depth_near = torch.where(any_behind, 0.0, nz_min)
 
     in_frustum = ((nx_max >= -1.0) & (nx_min <= 1.0)
@@ -184,17 +190,46 @@ def stage_a_fields(dec, quad_world, in_stream, vp, cam, *, width: int,
     sy0 = (1.0 - ny_max) * 0.5 * hf
     sy1 = (1.0 - ny_min) * 0.5 * hf
 
-    def bound(x, hi_px, behind_value):
+    # A quad with a corner at w <= eps and one in front straddles the near
+    # plane; the reference boxes it as the whole screen.  Each side of the
+    # port's box is the front corners' NDC extreme k where that bounds the
+    # visible part (w > 0): clip coordinates are affine across a quad, so
+    # c - k w <= 0 at all four corners gives c / w <= k wherever w > 0
+    # (>= for the low side).  The front corners hold it by k's choice; each
+    # other corner must lie behind the camera (w < -eps) and hold it by
+    # STRADDLE_MARGIN of its terms, which rounding cannot fake; otherwise
+    # the side stays at the screen's edge.  A deliberate divergence (K1's
+    # csrc/stage_a.cuh straddle_bounded): the whole-screen boxes fill the
+    # binning's huge class (ops/raster.py HUGE_CAP, 64), which drops the
+    # rest, so that frames lost visible quads.  Span mode keeps the
+    # reference's box.
+    straddles = any_behind & ~all_behind
+
+    def bounded(cs, k, s):
+        if span_mode:
+            return torch.zeros_like(straddles)
+        ok = straddles
+        for c, w, front in zip(cs, ws, oks):
+            kw = k * w
+            margin = STRADDLE_MARGIN * (c.abs() + kw.abs())
+            ok = ok & (front | ((w < -eps) & (s * (c - kw) <= -margin)))
+        return ok
+
+    def bound(x, hi_px, edge, tight):
         px = torch.clamp(x, 0, hi_px).to(torch.int32)
-        return torch.where(any_behind, behind_value, px)
+        return torch.where(any_behind & ~tight, edge, px)
 
     return dict(
         valid=valid, subpixel=subpixel, depth_near=depth_near,
         any_behind=any_behind,
-        bb_x0=bound(torch.floor(sx0), width - 1, 0),
-        bb_x1=bound(torch.ceil(sx1), width - 1, width - 1),
-        bb_y0=bound(torch.floor(sy0), height - 1, 0),
-        bb_y1=bound(torch.ceil(sy1), height - 1, height - 1),
+        bb_x0=bound(torch.floor(sx0), width - 1, 0,
+                    bounded(xs, nx_min, -1.0)),
+        bb_x1=bound(torch.ceil(sx1), width - 1, width - 1,
+                    bounded(xs, nx_max, 1.0)),
+        bb_y0=bound(torch.floor(sy0), height - 1, 0,
+                    bounded(ys, ny_max, 1.0)),
+        bb_y1=bound(torch.ceil(sy1), height - 1, height - 1,
+                    bounded(ys, ny_min, -1.0)),
         nx_min=nx_min, nx_max=nx_max, ny_min=ny_min, ny_max=ny_max,
     )
 

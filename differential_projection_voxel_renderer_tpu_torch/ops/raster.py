@@ -20,6 +20,8 @@ Counterpart of ``differential_projection_voxel_renderer_tpu/ops/raster.py``:
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -109,15 +111,72 @@ def _u32(x):
 
 
 # quads over more than 2x2 tiles binned a frame: the first BIG_CAP of
-# those over at most 64 tiles, the first HUGE_CAP of those over more, in
-# stream order; the rest are dropped and count in bin_overflow.  A
+# those over at most MAX_TILES_BIG tiles, the first HUGE_CAP of those over
+# more, in stream order; the rest are dropped and count in bin_overflow.  A
 # deliberate divergence: the reference's BIG_CAP is 512, which drops
 # visible quads on the 1280x720 view-distance-12 flythrough, serial and
 # resident, so that their frames differ (benches/big_quad_cap.py prints
 # the drops and the pixels they change); at 1024 and 2048 the serial
 # flight drops none and the two agree.  At the step's shapes 2048 pads
-# the key sort to the same power of two as 1024 does
-BIG_CAP, HUGE_CAP = 2048, 64
+# the key sort to the same power of two as 1024 does.  HUGE_CAP is the
+# reference's: stage A bounds the boxes of quads that straddle the near
+# plane (ops/projection.py STRADDLE_MARGIN), which the reference boxes as
+# the whole screen, so that the class holds the few quads that do cover
+# most of the screen.  The packed binning (ops/raster_packed.py) keeps the
+# same classes
+BIG_CAP, HUGE_CAP, MAX_TILES_BIG = 2048, 64, 64
+
+
+@functools.lru_cache(maxsize=None)
+def _class_blocks(shapes, m: int, device):
+    """For classes of (cap, rows) ``shapes`` over ``m`` quads: the
+    compaction's targets 1..C (C the largest cap), i64[classes, C]; each
+    class's first index in the classes' masks laid end to end,
+    i64[classes, 1]; the caps, i64[classes]; and for the classes' [rows,
+    cap] blocks flattened one after another, each element's row (i32) and
+    its index into the flattened [classes, C] compaction (i64).  Made once
+    a device and shape: a copy from the host inside the step could not be
+    captured in a CUDA graph."""
+    width = max(cap for cap, _ in shapes)
+    rows_of, cols = [], []
+    for c, (cap, rows) in enumerate(shapes):
+        k = torch.arange(rows * cap, device=device)
+        rows_of.append(torch.div(k, cap, rounding_mode="floor").int())
+        cols.append(c * width + k % cap)
+    n = len(shapes)
+    targets = torch.arange(1, width + 1, device=device).repeat(n, 1)
+    base = torch.arange(n, device=device)[:, None] * m
+    caps = torch.tensor([cap for cap, _ in shapes], device=device)
+    return targets, base, caps, torch.cat(rows_of), torch.cat(cols)
+
+
+def big_quad_tiles(classes, tx0, ty0, spanx, ntile):
+    """The big quads a frame bins: for each (mask, cap, rows) of
+    ``classes`` the first ``cap`` quads of ``mask`` (bool[m]) by stream
+    index, each over the tiles of its box (``tx0``, ``ty0``, ``spanx``
+    tiles a row, ``ntile`` in all) enumerated row-major down the rows of a
+    [rows, cap] block.  Returns the blocks flattened one after another --
+    (src i64, ty and tx i32, ok bool where the element holds one of its
+    quad's tiles) --, the quads dropped past the caps, and each class's
+    quads, kept or not (i64[classes]).  One scan runs
+    over the masks laid end to end (a scan along the rows of [classes, m]
+    takes a slow kernel on the card)."""
+    m = tx0.shape[0]
+    targets, base, caps, j, col = _class_blocks(
+        tuple((cap, rows) for _, cap, rows in classes), m, tx0.device)
+    csum = torch.cumsum(torch.cat([mask for mask, _, _ in classes]), 0)
+    ends = csum[m - 1::m]
+    before = torch.cat([ends.new_zeros(1), ends[:-1]])
+    n_cls = (ends - before)[:, None]
+    pos = torch.searchsorted(csum, targets + before[:, None])
+    src = torch.clamp(pos - base, max=m - 1).view(-1)[col]
+    valid = (targets <= n_cls).view(-1)[col]
+    sx = torch.where(valid, spanx[src], 1)
+    ty = ty0[src] + torch.div(j, sx, rounding_mode="floor")
+    tx = tx0[src] + j % sx
+    ok = valid & (j < torch.where(valid, ntile[src], 0))
+    n_cls = n_cls[:, 0]
+    return src, ty, tx, ok, torch.clamp(n_cls - caps, min=0).sum(), n_cls
 
 
 def build_tile_lists(tilebox, count, order6, order6_dy1, *, tiles_y: int,
@@ -134,7 +193,6 @@ def build_tile_lists(tilebox, count, order6, order6_dy1, *, tiles_y: int,
     n_tiles = tiles_y * tiles_x
     shift_t = shift + 6
     assert n_tiles << shift_t < 2**32, "tile/quad key would overflow u32"
-    big_cap, max_tiles_big, huge_cap = BIG_CAP, 64, HUGE_CAP
     maxkey = U32_MASK
 
     def tid_of(ty, tx):
@@ -160,49 +218,17 @@ def build_tile_lists(tilebox, count, order6, order6_dy1, *, tiles_y: int,
             key = (_u32(tid_of(ty, tx)) << shift_t) | obits | _u32(q)
             keys.append(torch.where(ok, key & U32_MASK, maxkey))
 
+    # the big quads by class, each over the tiles of its box (keys of
+    # values below 2**32, as the assert above bounds them)
     spanx = tx1 - tx0 + 1
-    spany = ty1 - ty0 + 1
-    ntile_of = spanx * spany
-    is_huge = is_big & (ntile_of > max_tiles_big)
-    is_bigb = is_big & ~is_huge
-
-    def compact_class(mask, cap):
-        # indices of the first `cap` set entries via one flat sort
-        ck = torch.sort(torch.where(mask, q, 2**30)).values[:cap]
-        ok = ck < 2**30
-        return (torch.clamp(ck, max=m - 1).long(), ok,
-                mask.sum().to(torch.int32))
-
-    src, bvalid, n_bigb = compact_class(is_bigb, big_cap)
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
-    ob_src = _u32(torch.where(bvalid, order6[src], zero)) << shift
-    j = torch.arange(max_tiles_big, dtype=torch.int32, device=dev)[:, None]
-    bsx = torch.clamp(torch.where(bvalid, spanx[src], 1), min=1)[None, :]
-    ty_b = torch.where(bvalid, ty0[src], zero)[None, :] + torch.div(
-        j, bsx, rounding_mode="floor")
-    tx_b = torch.where(bvalid, tx0[src], zero)[None, :] + j % bsx
-    okb = bvalid[None, :] & (j < torch.where(bvalid, ntile_of[src],
-                                             zero)[None, :])
-    keyb = ((_u32(tid_of(ty_b, tx_b)) << shift_t) | ob_src[None, :]
-            | _u32(src)[None, :])
-    keys.append(torch.where(okb, keyb & U32_MASK, maxkey).reshape(-1))
-
-    hsrc, hvalid, n_huge = compact_class(is_huge, huge_cap)
-    t = torch.arange(n_tiles, dtype=torch.int32, device=dev)
-    tyg = torch.div(t, tiles_x, rounding_mode="floor")[:, None]
-    txg = (t % tiles_x)[:, None]
-    one = torch.ones((), dtype=torch.int32, device=dev)
-    okh = (hvalid[None, :]
-           & (txg >= torch.where(hvalid, tx0[hsrc], one)[None, :])
-           & (txg <= torch.where(hvalid, tx1[hsrc], zero)[None, :])
-           & (tyg >= torch.where(hvalid, ty0[hsrc], one)[None, :])
-           & (tyg <= torch.where(hvalid, ty1[hsrc], zero)[None, :]))
-    oh = (_u32(torch.where(hvalid, order6[hsrc], zero)) << shift)[None, :]
-    tp_h = _u32(tid_of(tyg[:, 0], txg[:, 0]))[:, None]
-    keyh = (tp_h << shift_t) | oh | _u32(hsrc)[None, :]
-    keys.append(torch.where(okh, keyh & U32_MASK, maxkey).reshape(-1))
-    big_dropped = (torch.clamp(n_bigb - big_cap, min=0)
-                   + torch.clamp(n_huge - huge_cap, min=0))
+    ntile_of = spanx * (ty1 - ty0 + 1)
+    is_huge = is_big & (ntile_of > MAX_TILES_BIG)
+    src, ty_b, tx_b, okb, big_dropped, _ = big_quad_tiles(
+        ((is_big & ~is_huge, BIG_CAP, MAX_TILES_BIG),
+         (is_huge, HUGE_CAP, n_tiles)), tx0, ty0, spanx, ntile_of)
+    keyb = ((tid_of(ty_b, tx_b).long() << shift_t)
+            | (order6[src].long() << shift) | src)
+    keys.append(torch.where(okb, keyb, maxkey))
 
     raw = torch.cat(keys)
     n_raw = raw.shape[0]

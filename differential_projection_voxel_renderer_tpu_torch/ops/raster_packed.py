@@ -9,7 +9,8 @@ raster_packed.py``:
   than two 32-pixel buckets), bins 5t+1..5t+4 its four 32-pixel buckets
   (narrow quads, one item per bucket they touch).  The reference's u32
   keys become int64 with explicit 32-bit masks, its manual bisection
-  ``torch.searchsorted``.
+  ``torch.searchsorted``; its big quads are binned in the default
+  binning's two classes (a deliberate divergence, see ``_big_classes``).
 - ``rasterize_packed`` launches K4 for CUDA tensors and runs its plain
   twin ``rasterize_packed_plain`` for CPU tensors.  The per-pixel math and
   the blend are K2's (ops/raster.py), so the frame equals the tile
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from . import raster as raster_ops
 from .raster import (
     SKY_I32,
     U32_MASK,
@@ -40,6 +42,41 @@ CHAP_Q = 2048
 # launches of the CUDA kernel K4 (not of its plain twin)
 launches = 0
 
+# The big quads (over more than 2x2 tiles) are binned in the default
+# binning's classes (ops/raster.py BIG_CAP, HUGE_CAP, MAX_TILES_BIG), each
+# quad over exactly the tiles of its box.  A deliberate divergence: the
+# reference bins one class, the first 512 big quads by stream index over
+# the whole grid, which drops visible quads on the 1280x720
+# view-distance-12 flythrough, so that the packed frames differ from the
+# default path's (benches/big_quad_cap.py prints the drops and the pixels
+# they change).  The trade: the port keeps up to 2048 quads over at most
+# 64 tiles, but only the first 64 over more (the huge class), as the
+# default binning always has, where the reference keeps any mix up to 512
+# in all; a view with more than 64 huge quads drops some that the
+# reference bins.  The keys are the reference's, so each bin holds the
+# items of the quads it keeps in the reference's order, and at the step's
+# shapes the two classes sort fewer keys than its one.  With
+# raster.BIG_CAP 512 and raster.MAX_TILES_BIG at least the grid's tiles
+# there is one class, and it bins as the reference does
+
+
+def _big_classes(n_tiles: int) -> list[tuple[int, int]]:
+    """(cap, tiles enumerated a quad) of each class of big quads, by the
+    least tile count first; a class takes the quads over more tiles than
+    the one before it."""
+    big_cap, max_tiles = raster_ops.BIG_CAP, raster_ops.MAX_TILES_BIG
+    if max_tiles >= n_tiles:
+        return [(big_cap, n_tiles)]
+    return [(big_cap, max_tiles), (raster_ops.HUGE_CAP, n_tiles)]
+
+
+def sort_length(m: int, n_tiles: int, item_cap: int) -> int:
+    """Keys ``build_bin_lists`` sorts for ``m`` quads over ``n_tiles``
+    tiles: four a quad, a [tiles, cap] block a big class, padded to the
+    item cap."""
+    return max(4 * m + sum(c * t for c, t in _big_classes(n_tiles)),
+               item_cap)
+
 
 def build_bin_lists(bucketbox, count, order4, order4_dy1, *, tiles_y: int,
                     tiles_x: int, item_cap: int):
@@ -49,8 +86,11 @@ def build_bin_lists(bucketbox, count, order4, order4_dy1, *, tiles_y: int,
     (bx0 | bx1<<8 | ty0<<16 | ty1<<24), i.e. ``pack_tilebox`` at tile
     width 32.  Returns (flat i32[item_cap], b_of_item i32[item_cap] with
     n_bins - 1 on pad slots, valid_slot bool[item_cap], starts i32[n_bins],
-    counts i32[n_bins], overflow i32) exactly as the reference's
-    ``build_bin_lists``."""
+    counts i32[n_bins], overflow i32) as the reference's
+    ``build_bin_lists``, but for its big quads, which are binned in two
+    classes (see ``_big_classes``): the quads over at most 64 tiles that it
+    drops past its 512 are binned, and the quads over more past the first
+    64 are dropped."""
     dev = bucketbox.device
     m = bucketbox.shape[0]
     shift = max(1, (m - 1).bit_length())
@@ -58,7 +98,6 @@ def build_bin_lists(bucketbox, count, order4, order4_dy1, *, tiles_y: int,
     n_tiles = tiles_y * tiles_x
     n_bins = n_tiles * BINS_PER_TILE
     assert (n_bins << shift_t) < 2**32, "bin/quad key would overflow u32"
-    big_cap = 512
     maxkey = U32_MASK
 
     q = torch.arange(m, dtype=torch.int32, device=dev)
@@ -94,30 +133,21 @@ def build_bin_lists(bucketbox, count, order4, order4_dy1, *, tiles_y: int,
             binid = torch.where(ok_n, bin_n, bin_w)
             keys.append(torch.where(ok_n | ok_w, ukey(binid, ob, q), maxkey))
 
-    # big quads: the first big_cap by index, each over the tiles of its box
-    # (the wide bin)
-    csum = torch.cumsum(big, 0)
-    n_big = csum[-1]
-    targets = torch.arange(1, big_cap + 1, device=dev)
-    src = torch.clamp(torch.searchsorted(csum, targets, side="left"),
-                      max=m - 1)
-    bvalid = targets <= n_big
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
-    one = torch.ones((), dtype=torch.int32, device=dev)
-    btx0 = torch.where(bvalid, tx0[src], one)
-    btx1 = torch.where(bvalid, tx1[src], zero)
-    bty0 = torch.where(bvalid, ty0[src], one)
-    bty1 = torch.where(bvalid, ty1[src], zero)
-    t = torch.arange(n_tiles, dtype=torch.int32, device=dev)
-    tyg = torch.div(t, tiles_x, rounding_mode="floor")[:, None]
-    txg = (t % tiles_x)[:, None]
-    okb = ((txg >= btx0[None, :]) & (txg <= btx1[None, :])
-           & (tyg >= bty0[None, :]) & (tyg <= bty1[None, :]))
-    bob = torch.where(bvalid, order4[src], zero)[None, :]
-    keys.append(torch.where(
-        okb, ukey(t[:, None] * BINS_PER_TILE, bob, src[None, :]),
-        maxkey).reshape(-1))
-    big_dropped = torch.clamp(n_big - big_cap, min=0)
+    # big quads by class, each over the tiles of its box (the wide bin)
+    spanx = tx1 - tx0 + 1
+    ntile_of = spanx * (ty1 - ty0 + 1)
+    shapes = _big_classes(n_tiles)
+    if len(shapes) == 1:
+        masks = (big,)
+    else:
+        huge = big & (ntile_of > shapes[0][1])
+        masks = (big & ~huge, huge)
+    src, ty, tx, ok, big_dropped, _ = raster_ops.big_quad_tiles(
+        [(mask, *shape) for mask, shape in zip(masks, shapes)], tx0, ty0,
+        spanx, ntile_of)
+    binid = (ty * tiles_x + tx) * BINS_PER_TILE
+    keys.append(torch.where(ok, (binid.long() << shift_t)
+                            | (order4[src].long() << shift) | src, maxkey))
 
     raw = torch.cat(keys)
     if raw.shape[0] < item_cap:  # the stream's head is item_cap keys long

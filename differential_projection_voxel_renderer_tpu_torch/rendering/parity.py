@@ -145,6 +145,13 @@ SMALL_SCENES = {
                         (0.0, 8.0, 0.0)),
 }
 
+# (camera position, target) among the terrain patch's chunks, whose streams
+# at the terrain scene's size hold quads that straddle the near plane (the
+# reference boxes each as the whole screen, the port by its visible part
+# where stage A can bound it)
+STRADDLE_CAMERAS = {"low": ((0.0, 14.0, 0.0), (30.0, 8.0, 20.0)),
+                    "side": ((10.0, 16.0, -8.0), (-30.0, 6.0, 10.0))}
+
 
 def wall_scene(device, gather_cap: int = 16384):
     """The occluder wall of tests/test_macrotile.py at 128x128: a solid

@@ -28,6 +28,7 @@ from differential_projection_voxel_renderer_tpu_torch.rendering import (
 )
 from differential_projection_voxel_renderer_tpu_torch.rendering.parity import (
     SMALL_SCENES,
+    STRADDLE_CAMERAS,
 )
 
 # The twins run thousands of small ops; with several test workers on one
@@ -55,10 +56,19 @@ def _pool(name):
     return pool[:n], counts[:n], positions[:n]
 
 
-def scene(name):
+
+
+def straddle_scene(cam):
+    """``scene("terrain")`` seen from ``STRADDLE_CAMERAS[cam]``."""
+    w, h, gc, _, _ = SCENES["terrain"]
+    return scene("terrain", (w, h, gc, *STRADDLE_CAMERAS[cam]))
+
+
+def scene(name, view=None):
     """(stream u32[GC], quad_world f32[3, GC], total, view_proj, cam_pos,
-    (width, height, gather_cap))."""
-    w, h, gc, pos, tgt = SCENES[name]
+    (width, height, gather_cap)); ``view`` (width, height, gather cap,
+    camera position, camera target) replaces the scene's own."""
+    w, h, gc, pos, tgt = view or SCENES[name]
     pool, counts, positions = _pool(name)
     slots = np.arange(len(counts), dtype=np.int32)
     slot_of, within, quad_world, total = build_gather_indices(

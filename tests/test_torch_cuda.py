@@ -97,6 +97,37 @@ def test_project_cull_kernel_matches_twin(cuda_device, cam):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cam", sorted(parity.STRADDLE_CAMERAS))
+def test_project_cull_kernel_bounds_straddling_quads(cuda_device, cam):
+    """K1 against its twin on the terrain patch seen from among its chunks,
+    where quads straddle the near plane: every output bit for bit, and more
+    than three quarters of the visible straddlers get a box smaller than
+    the screen (K1's straddle_bounded, the twin's ``bounded``)."""
+    args, kw = parity.small_scene("terrain 640x128", cuda_device)
+    w, h = kw["width"], kw["height"]
+    pos, tgt = parity.STRADDLE_CAMERAS[cam]
+    c = Camera(np.asarray(pos, np.float32), w / h)
+    c.look_at(np.asarray(tgt, np.float32))
+    args = (*args[:3],
+            torch.from_numpy(c.view_projection_matrix()).to(cuda_device),
+            torch.from_numpy(c.position.copy()).to(cuda_device))
+    before = geometry.launches
+    got = geometry.project_cull(*args, width=w, height=h)
+    assert geometry.launches == before + 1
+    _same_geometry(got, geometry.project_cull_plain(*args, width=w,
+                                                    height=h))
+    in_stream = torch.arange(args[0].shape[0], device=cuda_device) < args[2]
+    behind = projection.project_and_cull(args[0], tuple(args[1]), in_stream,
+                                         *args[3:], width=w,
+                                         height=h)["any_behind"]
+    straddles = behind & got["valid"]
+    area = (((got["bbx"] >> 16) - (got["bbx"] & 0xFFFF) + 1)
+            * ((got["bby"] >> 16) - (got["bby"] & 0xFFFF) + 1))
+    n, bounded = int(straddles.sum()), int((straddles & (area < w * h)).sum())
+    assert 4 * bounded > 3 * n > 3 * 20
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("backface", [True, False])
 @pytest.mark.parametrize("cam", sorted(CAMERAS))
 def test_project_cull_span_kernel_matches_twin(cuda_device, cam, backface):

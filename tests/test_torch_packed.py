@@ -33,6 +33,16 @@ from differential_projection_voxel_renderer_tpu.rendering import parity
 from differential_projection_voxel_renderer_tpu.rendering import pipeline as JPL
 from differential_projection_voxel_renderer_tpu.utils import config as JCFG
 from differential_projection_voxel_renderer_tpu_torch.app import engine as TE
+from differential_projection_voxel_renderer_tpu_torch.meshing.greedy import (
+    mesh_chunk,
+)
+from differential_projection_voxel_renderer_tpu_torch.models.camera import (
+    Camera,
+)
+from differential_projection_voxel_renderer_tpu_torch.models.chunk import Chunk
+from differential_projection_voxel_renderer_tpu_torch.ops import (
+    projection as TP,
+)
 from differential_projection_voxel_renderer_tpu_torch.ops import (
     raster_packed as TRP,
 )
@@ -78,12 +88,10 @@ BIN_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(BIN_CASES))
-def test_build_bin_lists_matches_jax(case):
-    m, n_sw, n_big, frac_empty, count, item_cap = BIN_CASES[case]
-    rng = np.random.default_rng(sorted(BIN_CASES).index(case))
-    box = _bucketboxes(rng, m, n_sw, n_big, frac_empty)
-    order4 = rng.integers(0, 16, m).astype(np.int32)
+def _bin_both(box, count, item_cap, rng):
+    """``box`` binned by the JAX package and by the port, with orders drawn
+    from ``rng``: (ref, got)."""
+    order4 = rng.integers(0, 16, box.shape[0]).astype(np.int32)
     order4_dy1 = order4 & ~3
     kw = dict(tiles_y=TILES_Y, tiles_x=TILES_X, item_cap=item_cap)
     ref = JRP.build_bin_lists(jnp.asarray(box), count, jnp.asarray(order4),
@@ -91,12 +99,161 @@ def test_build_bin_lists_matches_jax(case):
     got = TRP.build_bin_lists(torch.from_numpy(box), count,
                               torch.from_numpy(order4),
                               torch.from_numpy(order4_dy1), **kw)
+    return ref, got
+
+
+def _case(case):
+    """The case's boxes, count and item cap, and its binnings (ref, got)."""
+    m, n_sw, n_big, frac_empty, count, item_cap = BIN_CASES[case]
+    rng = np.random.default_rng(sorted(BIN_CASES).index(case))
+    box = _bucketboxes(rng, m, n_sw, n_big, frac_empty)
+    return box, count, _bin_both(box, count, item_cap, rng)
+
+
+def _reference_binning(monkeypatch):
+    """The reference's big-quad binning: one class of 512 over the whole
+    grid (no grid the tests bin has more than 1024 tiles)."""
+    monkeypatch.setattr(TPL.raster_ops, "BIG_CAP", 512)
+    monkeypatch.setattr(TPL.raster_ops, "MAX_TILES_BIG", 1024)
+
+
+@pytest.mark.parametrize("case", sorted(BIN_CASES))
+def test_build_bin_lists_matches_jax(monkeypatch, case):
+    """At the reference's big-quad binning: one class of 512 over the whole
+    grid."""
+    _reference_binning(monkeypatch)
+    _, m, (ref, got) = _case(case)
     for name, r, g in zip(("flat", "b_of_item", "valid_slot", "starts",
                            "counts", "overflow"), ref, got):
         np.testing.assert_array_equal(np.asarray(r), g.numpy(),
                                       err_msg=name)
     assert (int(got[5]) > 0) == case.endswith("overflow"), int(got[5])
     assert int(got[4].sum()) > m // 2
+
+
+def _big_quads(box, count):
+    """Stream indices of the quads over more than 2x2 tiles, and each one's
+    tile box (tx0, tx1, ty0, ty1) and tile count, as the binning sees
+    them."""
+    bx0, bx1 = box & 0xFF, (box >> 8) & 0xFF
+    ty0, ty1 = (box >> 16) & 0xFF, (box >> 24) & 0xFF
+    tx0, tx1 = bx0 >> 2, bx1 >> 2
+    live = (np.arange(box.shape[0]) < count) & (bx0 <= bx1) & (ty0 <= ty1)
+    big = np.flatnonzero(live & ((tx1 - tx0 > 1) | (ty1 - ty0 > 1)))
+    tiles = (tx1 - tx0 + 1) * (ty1 - ty0 + 1)
+    return big, (tx0, tx1, ty0, ty1), tiles[big]
+
+
+def _assert_bins_add(ref, got, box, count, added, removed=()):
+    """Each bucket bin equals the reference's; each tile's wide bin is the
+    reference's in its order, less the big quads ``removed`` and plus the
+    big quads ``added`` whose box covers the tile."""
+    _, (tx0, tx1, ty0, ty1), _ = _big_quads(box, count)
+    added, removed = np.asarray(added, int), np.asarray(removed, int)
+    flat_r, flat_g = np.asarray(ref[0]), got[0].numpy()
+    st_r, cn_r = np.asarray(ref[3]), np.asarray(ref[4])
+    st_g, cn_g = got[3].numpy(), got[4].numpy()
+    n_added = 0
+    for b in range(TILES_Y * TILES_X * 5):
+        r = flat_r[st_r[b]:st_r[b] + cn_r[b]]
+        g = flat_g[st_g[b]:st_g[b] + cn_g[b]]
+        if b % 5:
+            np.testing.assert_array_equal(r, g, err_msg=f"bucket bin {b}")
+            continue
+        ty, tx = divmod(b // 5, TILES_X)
+
+        def cover(qs):
+            return qs[(tx0[qs] <= tx) & (tx <= tx1[qs]) & (ty0[qs] <= ty)
+                      & (ty <= ty1[qs])]
+
+        extra, gone = cover(added), cover(removed)
+        np.testing.assert_array_equal(g[~np.isin(g, extra)],
+                                      r[~np.isin(r, gone)],
+                                      err_msg=f"wide bin {b}")
+        assert sorted(g[np.isin(g, extra)]) == sorted(extra), b
+        assert np.isin(gone, r).all(), b
+        n_added += len(extra)
+    assert n_added > 0
+
+
+def test_build_bin_lists_bins_the_big_quads_the_reference_drops():
+    """The big-quad case at the port's own binning: no overflow, and each
+    wide bin holds the reference's items in their order plus the big quads
+    past its 512 (by stream index) that cover the tile."""
+    box, count, (ref, got) = _case("big_overflow")
+    big, _, _ = _big_quads(box, count)
+    assert int(ref[5]) == len(big) - 512 > 0 and int(got[5]) == 0
+    _assert_bins_add(ref, got, box, count, big[512:])
+
+
+def test_build_bin_lists_bins_big_and_huge_quads():
+    """More than 512 big quads and more than HUGE_CAP (64) over the whole
+    grid (80 tiles): the port keeps every big quad over at most 64 tiles
+    and the first 64 huge ones, the reference the first 512 of both by
+    stream index; each wide bin holds the reference's items, less its huge
+    quads past the port's 64, plus its big quads past 512."""
+    rng = np.random.default_rng(7)
+    m = 4096
+    box = _bucketboxes(rng, m, 100, 600, 0.0)
+    one_bucket = (box & 0xFF) == ((box >> 8) & 0xFF)
+    huge = rng.choice(np.flatnonzero(one_bucket), 100, replace=False)
+    box[huge] = ((4 * TILES_X - 1) << 8) | ((TILES_Y - 1) << 24)
+    ref, got = _bin_both(box, m, 32768, rng)
+    big, _, tiles = _big_quads(box, m)
+    assert (tiles > 64).sum() == 100 and (tiles <= 64).sum() > 512
+    kept_ref = big[:512]
+    kept = np.concatenate([big[tiles <= 64], big[tiles > 64][:64]])
+    assert int(ref[5]) == len(big) - 512
+    assert int(got[5]) == 100 - 64
+    assert int(got[4].sum()) < 32768
+    _assert_bins_add(ref, got, box, m, np.setdiff1d(kept, kept_ref),
+                     np.setdiff1d(kept_ref, kept))
+
+
+def _pillars_scene():
+    """Two chunks of 1x1 pillars, 32 blocks tall, every other column, seen
+    from the side at 256x128: 1008 quads rasterized, each side face over
+    three tile rows or more, so more than 512 big quads."""
+    blocks = np.zeros((32, 32, 32), np.uint8)
+    blocks[::2, :, ::2] = 1
+    chunks = [Chunk.varied((x, 0, 0), blocks) for x in (-1, 0)]
+    gc = 8192
+    stream = np.zeros(gc, np.uint32)
+    quad_world = np.zeros((3, gc), np.float32)
+    total = 0
+    for c in chunks:
+        q = mesh_chunk(c, chunks)
+        stream[total:total + len(q)] = q
+        quad_world[:, total:total + len(q)] = (
+            np.asarray(c.position, np.float32)[:, None] * 32.0)
+        total += len(q)
+    w, h = 256, 128
+    cam = Camera(np.array([0.0, 16.0, 60.0], np.float32), w / h)
+    cam.look_at(np.array([0.0, 16.0, 16.0], np.float32))
+    args = (TP.as_quad_words(stream), torch.from_numpy(quad_world),
+            torch.tensor(total, dtype=torch.int32),
+            torch.from_numpy(cam.view_projection_matrix().astype(np.float32)),
+            torch.from_numpy(cam.position.astype(np.float32)))
+    kw = dict(color_tables=TP.color_table_tensors(S.TABLES, "cpu"),
+              width=w, height=h, tile_h=16, tile_w=128, render_cap=gc,
+              tile_k_cap=2 * gc)
+    return args, kw
+
+
+def test_packed_frame_keeps_more_than_512_big_quads(monkeypatch):
+    """On a stream with more than 512 big quads the packed frame (K4's
+    plain twin) equals the default path's bit for bit, stats included; at
+    the reference's binning it drops big quads and differs."""
+    args, kw = _pillars_scene()
+    default = TPL.render_step(*args, **kw)
+    packed = TPL.render_step(*args, packed_raster=True, **kw)
+    assert int(default[2][3]) == 0 and int(default[2][1]) > 512
+    for a, b in zip(default, packed):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    _reference_binning(monkeypatch)
+    ref = TPL.render_step(*args, packed_raster=True, **kw)
+    assert int(ref[2][3]) > 0
+    assert int((ref[0] != default[0]).sum()) > 1000
 
 
 # ------------------------------------------------------------- the step

@@ -16,6 +16,13 @@ a few hundred ulps, measured 3.1e-5 relative, and the bbox by one pixel on
 quads that are culled anyway.  Against it the test therefore holds
 ``valid``, ``bby``, ``subpixel`` and the bbox of every valid quad exact and
 ``depth_near`` to 1e-4 relative.
+
+The port boxes a quad that straddles the near plane by its visible part
+where that is bounded (``ops/projection.py`` ``STRADDLE_MARGIN``), where the
+reference boxes it as the whole screen; the tests against the JAX package
+run at the reference's boxes (the margin set to infinity, which bounds no
+side), and ``test_stage_a_bounds_straddling_quads`` holds the port's boxes
+to the reference's everywhere else.
 """
 
 import numpy as np
@@ -75,6 +82,13 @@ def _camera(name):
             cam.position.astype(np.float32))
 
 
+@pytest.fixture
+def reference_boxes(monkeypatch):
+    """Stage A boxes every straddling quad as the whole screen, as the
+    reference does."""
+    monkeypatch.setattr(TP, "STRADDLE_MARGIN", float("inf"))
+
+
 def _jax_world(qw):
     return tuple(jnp.asarray(qw[a]) for a in range(3))
 
@@ -90,7 +104,7 @@ def test_decode_quads_matches_jax(stream):
 
 @pytest.mark.parametrize("cam", sorted(CAMERAS))
 @pytest.mark.parametrize("stream", sorted(STREAMS))
-def test_stage_a_matches_jax_bit_exact(stream, cam):
+def test_stage_a_matches_jax_bit_exact(stream, cam, reference_boxes):
     words, qw = STREAMS[stream]
     vp, cp = _camera(cam)
     in_stream = np.arange(N) < N_QUADS
@@ -149,14 +163,52 @@ def _assert_twin_matches_geometry_kernel(stream, cam, subpixel_culling):
 
 
 @pytest.mark.parametrize("cam", sorted(CAMERAS))
-def test_project_cull_twin_matches_geometry_kernel(cam):
+@pytest.mark.parametrize("stream", sorted(STREAMS))
+def test_stage_a_bounds_straddling_quads(stream, cam):
+    """At the port's boxes every field equals the reference's (the JAX
+    package's XLA stage A) but the boxes of the quads that straddle the
+    near plane, each of which lies in the reference's whole screen; the
+    camera inside a chunk bounds most of them."""
+    words, qw = STREAMS[stream]
+    vp, cp = _camera(cam)
+    in_stream = np.arange(N) < N_QUADS
+    ref = JP.project_and_cull(
+        jnp.asarray(words), _jax_world(qw), jnp.asarray(in_stream),
+        JP.view_tables(jnp.asarray(vp), jnp.asarray(cp)), width=W, height=H)
+    got = TP.project_and_cull(
+        TP.as_quad_words(words), tuple(torch.from_numpy(qw)),
+        torch.from_numpy(in_stream), torch.from_numpy(vp),
+        torch.from_numpy(cp), width=W, height=H)
+    ref = {k: np.asarray(v) for k, v in ref.items()}
+    got = {k: v.numpy() for k, v in got.items()}
+    box = ("bb_x0", "bb_x1", "bb_y0", "bb_y1")
+    for k in got:
+        if k not in box:
+            np.testing.assert_array_equal(ref[k], got[k], err_msg=k)
+    behind = got["any_behind"]
+    straddles = behind & got["valid"]
+    for k in box:
+        np.testing.assert_array_equal(ref[k][~behind], got[k][~behind],
+                                      err_msg=k)
+    assert (got["bb_x0"] >= 0).all() and (got["bb_x1"] <= W - 1).all()
+    assert (got["bb_y0"] >= 0).all() and (got["bb_y1"] <= H - 1).all()
+    area = ((got["bb_x1"] - got["bb_x0"] + 1)
+            * (got["bb_y1"] - got["bb_y0"] + 1))
+    # the reference's straddling boxes are the whole screen
+    assert (ref["bb_x1"][behind] - ref["bb_x0"][behind] == W - 1).all()
+    if stream == "fuzz" and cam == "inside":
+        assert (area[straddles] < W * H).sum() > straddles.sum() // 2 > 10
+
+
+@pytest.mark.parametrize("cam", sorted(CAMERAS))
+def test_project_cull_twin_matches_geometry_kernel(cam, reference_boxes):
     """K1's twin vs the Pallas geometry kernel in interpret mode (see the
     module note for the two contracted fields)."""
     _assert_twin_matches_geometry_kernel("fuzz", cam, True)
 
 
 @pytest.mark.parametrize("cam", sorted(CAMERAS))
-def test_project_cull_twin_without_subpixel_culling(cam):
+def test_project_cull_twin_without_subpixel_culling(cam, reference_boxes):
     """``subpixel_culling=False``: no quad is sub-pixel and the tiny quads
     stay valid, in the twin as in the Pallas kernel, on the fuzz chunk's
     mesh (the far camera sees 867 of its quads as sub-pixel)."""
@@ -173,7 +225,7 @@ def test_project_cull_twin_without_subpixel_culling(cam):
 
 
 @pytest.mark.parametrize("skip", [1024, 2500])
-def test_project_cull_twin_skip_matches_geometry_kernel(skip):
+def test_project_cull_twin_skip_matches_geometry_kernel(skip, reference_boxes):
     """``skip_quads`` drops the stream's head, as a Python int and as a
     device scalar, like the Pallas kernel's skip argument."""
     words, qw = STREAMS["fuzz"]

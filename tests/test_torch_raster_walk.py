@@ -88,7 +88,22 @@ def test_items_cover_only_their_own_box(monkeypatch, scenes, name, path):
     the whole tile for the wide bin, 32 columns for a bucket) lies in the
     item's own screen box, as the twin's per-pixel coverage evaluates
     it."""
-    sc = scenes[name]
+    # span mode culls more (the fuzz scene rasterizes 726 span quads)
+    _assert_items_in_boxes(monkeypatch, scenes[name], path,
+                           500 if path == "span" else 1000)
+
+
+@pytest.mark.parametrize("path", PATHS)
+@pytest.mark.parametrize("cam", sorted(S.STRADDLE_CAMERAS))
+def test_straddling_items_cover_only_their_own_box(monkeypatch, cam, path):
+    """The same on views among the terrain's chunks, where quads straddle
+    the near plane and stage A bounds their boxes by the visible part
+    (``ops/projection.py`` ``STRADDLE_MARGIN``) instead of the reference's
+    whole screen."""
+    _assert_items_in_boxes(monkeypatch, S.straddle_scene(cam), path, 250)
+
+
+def _assert_items_in_boxes(monkeypatch, sc, path, least_items):
     w, h, _ = sc[5]
     packed = path == "packed"
     rec, (x0, x1, y0, y1) = _binned_items(monkeypatch, sc, packed,
@@ -126,8 +141,7 @@ def test_items_cover_only_their_own_box(monkeypatch, scenes, name, path):
         assert bad.numel() == 0, (a + bad[:4, 0]).tolist()
         checked += len(k)
         covered_px += int(cov.sum())
-    # span mode culls more (the fuzz scene rasterizes 726 span quads)
-    assert checked > (500 if path == "span" else 1000)
+    assert checked > least_items
     assert covered_px > 5000
 
 

@@ -34,7 +34,18 @@
   tests/test_torch_app.py runs the resident-append self-test.)
 - ``warm_resident`` leaves the pool and every later frame as an unwarmed
   resident engine's, bit for bit.
-- The two deliberate divergences from the reference: ``DPVR_RES_BUDGET``
+- Quads that straddle the near plane, which the resident stream carries
+  by the hundred (chunks behind the camera are in it): the reference
+  boxes each as the whole screen, and its binning keeps the first 64 of
+  those over more than 64 tiles (``HUGE_CAP``) by stream index, so that
+  at 640x256 (80 tiles) its Pallas step drops a visible floor behind 100
+  copies of a wall beside the view; the port's stage A bounds their
+  boxes by their visible part (``ops/projection.py``
+  ``STRADDLE_MARGIN``), drops none and renders the frame the reference's
+  boxes give with a huge cap that drops nothing, default and packed.  On
+  views among the terrain's chunks the port's boxes and the reference's
+  give the same frame bit for bit, with fewer items.
+- The deliberate divergences from the reference: ``DPVR_RES_BUDGET``
   is clamped to at least 1 and falls back to RESIDENT_INSERT_KP when it is
   not an integer; an unload scatters a queued payload before freeing slots
   and zeroes the freed slots' counts mirror, so the mirror equals the host
@@ -516,3 +527,81 @@ def test_resident_steps_refuse_two_pass():
         for step_for in (r._append_step_for, r._append_ins_step_for):
             with pytest.raises(ValueError, match="two_pass_near_quads"):
                 step_for(16384)
+
+
+# ----------------------------------------------------- straddling quads
+
+
+def _straddle_stream():
+    """A 640x256 scene (tests/_torch_scenes.py ``scene``'s tuple) whose
+    stream is ordered as a resident stream may be: 100 copies of the mesh
+    of a wall beside the view, 20 blocks to the left of the camera and
+    crossing its near plane, before a floor under the camera that crosses
+    it in view."""
+    wall = np.zeros((32, 32, 32), np.uint8)   # [z, y, x]
+    wall[10:, :, 28] = 1
+    floor = np.zeros((32, 32, 32), np.uint8)
+    floor[:, :4, :] = 1
+    chunks = [Chunk.varied((-1, 0, 0), wall), Chunk.varied((0, 0, 0), floor)]
+    meshes = [(mesh_chunk(c, chunks), c.position) for c in chunks]
+    gc = 4096
+    stream = np.zeros(gc, np.uint32)
+    quad_world = np.zeros((3, gc), np.float32)
+    total = 0
+    for q, pos in [meshes[0]] * 100 + [meshes[1]]:
+        stream[total:total + len(q)] = q
+        quad_world[:, total:total + len(q)] = (
+            np.asarray(pos, np.float32)[:, None] * 32.0)
+        total += len(q)
+    w, h = 640, 256
+    cam = Camera(np.array([16.0, 10.0, 16.0], np.float32), w / h)
+    cam.look_at(np.array([16.0, 4.0, -10.0], np.float32))
+    return (stream, quad_world, total,
+            cam.view_projection_matrix().astype(np.float32),
+            cam.position.astype(np.float32), (w, h, gc))
+
+
+def test_straddling_quads_past_the_huge_cap(monkeypatch):
+    """The reference's Pallas step drops the straddling quads past its 64
+    by stream index, the floor among them (a sky frame); the port drops
+    none and renders the floor as the reference's boxes do with a huge cap
+    that drops nothing, default and packed, stats included."""
+    sc = _straddle_stream()
+    ref = JPL._render_step(*S.jax_args(sc), **S.jax_step_kw(sc, sc[5][2]))
+    ref_color, ref_stats = np.asarray(ref[0]), np.asarray(ref[2])
+    assert int(ref_stats[1]) == 101 and int(ref_stats[3]) == 37
+    assert (ref_color == ref_color[0, 0]).all()
+    args, kw = S.torch_args(sc), S.torch_step_kw(sc, sc[5][2])
+    got = {p: TPL.render_step(*args, packed_raster=p, **kw)
+           for p in (False, True)}
+    monkeypatch.setattr(TP, "STRADDLE_MARGIN", float("inf"))
+    monkeypatch.setattr(TPL.raster_ops, "HUGE_CAP", 512)
+    for p, frame in got.items():
+        want = TPL.render_step(*args, packed_raster=p, **kw)
+        for a, b in zip(frame, want):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32)), p
+        np.testing.assert_array_equal(frame[2].numpy(), ref_stats
+                                      - np.array([0, 0, 0, 37, 0, 0]))
+        assert int((frame[0] != frame[0][0, 0]).sum()) > 50000
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("cam", sorted(S.STRADDLE_CAMERAS))
+def test_straddling_boxes_keep_the_frame(monkeypatch, cam, packed):
+    """Among the terrain's chunks the port's straddling boxes give the
+    frame of the reference's whole-screen boxes bit for bit, stats
+    included, from fewer binned items."""
+    sc = S.straddle_scene(cam)
+    args, kw = S.torch_args(sc), dict(S.torch_step_kw(sc, sc[5][2]),
+                                      packed_raster=packed)
+    got = TPL.render_step(*args, **kw)
+    items = int(TPL.render_step(*args, debug_return_records=True,
+                                **kw)[2].sum())
+    monkeypatch.setattr(TP, "STRADDLE_MARGIN", float("inf"))
+    want = TPL.render_step(*args, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    ref_items = int(TPL.render_step(*args, debug_return_records=True,
+                                    **kw)[2].sum())
+    assert items < ref_items * 0.8, (items, ref_items)
+    assert int((got[0] != got[0][0, 0]).sum()) > 10000
