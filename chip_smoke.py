@@ -85,14 +85,18 @@ and times kernels and frames.  Phases:
    as often as it calls it.  Every output must equal the plain versions'
    bit for bit where the kernel writes (levels 1-2 also on random tile
    counts, which stage records), and K2's empty frame must be the constant
-   frame.  Each variant is timed (a call, runs of 20, 30 queued, host us a
-   call) beside its plain version, its library call (``Tensor.fill_`` on
-   each output for M1 and K2, ``torch.add`` into each output for M2) and
-   its bound, and beside its launches a call times the graph launch floor
+   frame.  Each variant is timed (a call, runs of 20, 30 queued, from a
+   CUDA graph, host us a call) beside its plain version, its library call
+   (``Tensor.fill_`` on each output for M1 and K2, ``torch.add`` into each
+   output for M2; in runs of 20, from a CUDA graph and by host us) and its
+   bound, and beside its launches a call times the graph launch floor
    (``torch.cuda._sleep(0)``, a launch that does no work, from a CUDA
-   graph) plus its bound; then the host us a launch against the operand
-   count, K1's wrapper against its C entry point called alone, and K2's
-   empty floor beside its vd12 time of phase 6;
+   graph) plus its bound, with and without the torch ops its run makes
+   around its calls; the variants within 1.5x of it are counted
+   (``benches/probe_call.py`` drives, checks and times them); then the
+   host us a launch against the operand count, K1's, M1's and M2's C
+   entry points called alone, and K2's empty floor beside its vd12 time
+   of phase 6;
 12. exact occlusion: a two-pass engine (RenderConfig(two_pass_near_quads=
    8192)) and a temporal one (RenderConfig(temporal_hiz=True)), settled
    and primed like the first, drive phase 3's camera sequence (3 static
@@ -267,9 +271,7 @@ N_SMS = 132
 # and per item column are benches/kernel_cost_sim.py's K2_OPS_PER_PIXEL
 # and K2_OPS_PER_ITEM_COLUMN
 K1_OPS_PER_QUAD = 200
-# micro_fixed2's scalar x in phase 11 (SKY + x must differ from SKY), and
-# the turns of the host-time comparisons
-PROBE_X = 7
+# the turns of phase 11's host-time comparisons
 PROBE_TURNS = 7
 
 
@@ -2612,30 +2614,6 @@ def log_profile(phase: str, what: str, prof, ref_ms: float, card: str):
 # ------------------------------------------------------------- cost probes
 
 
-def probe_modules() -> dict:
-    from differential_projection_voxel_renderer_tpu_torch.benches import (
-        micro_fixed,
-        micro_fixed2,
-        micro_fixed3,
-    )
-
-    return dict(micro_fixed=micro_fixed, micro_fixed2=micro_fixed2,
-                micro_fixed3=micro_fixed3)
-
-
-def probe_variants():
-    """[(module name, module, label, run arguments)] of the cost-probe
-    path: micro_fixed's levels, micro_fixed2's 63 labels and its SOLO10
-    sweep (x = PROBE_X), micro_fixed3's levels and h variants."""
-    m = probe_modules()
-    return ([("micro_fixed", m["micro_fixed"], str(lv), ())
-             for lv in m["micro_fixed"].LEVELS]
-            + [("micro_fixed2", m["micro_fixed2"], lab, (PROBE_X,))
-               for lab in m["micro_fixed2"].LABELS + m["micro_fixed2"].SWEEP]
-            + [("micro_fixed3", m["micro_fixed3"], lab, ())
-               for lab in m["micro_fixed3"].LABELS])
-
-
 def probe_launches():
     """Launch counts (M1, M2, K1, K2, K3, K4)."""
     from differential_projection_voxel_renderer_tpu_torch.ops import micro
@@ -2643,124 +2621,64 @@ def probe_launches():
     return (micro.launches_fill, micro.launches_copy, *counters())
 
 
-def library_call(torch, v, outs):
-    """The PyTorch calls that compute a variant's function on the same
-    inputs into its outputs: ``Tensor.fill_`` of each output with its value
-    (M1, and K2 on the empty stream, whose frame is constant), or
-    ``torch.add`` into each output for each of M2's calls."""
-    if v.kernel in ("M1", "K2"):
-        vals = [o.reshape(-1)[0].clone() for o in outs]
-        return lambda: [o.fill_(c) for o, c in zip(outs, vals)]
-    in0 = torch.zeros_like(outs[0])
-    adds = [torch.tensor(a + (PROBE_X if ax else 0), dtype=torch.int32,
-                         device=in0.device) for _, a, ax in v.pairs]
-
-    def lib():
-        for _ in range(v.calls):
-            for (m, _, _), o, c in zip(v.pairs, outs, adds):
-                torch.add(in0, in0 if m == 2 else c, out=o)
-    return lib
-
-
 def probe_path(torch, card, k1_call):
-    """Phase 11: the cost-probe path.  Drives every variant once through
-    its module's ``run_variant`` with the counters zeroed before and read
-    after (each variant must launch its kernel as often as it calls it);
+    """Phase 11: the cost-probe path, as ``benches/probe_call.py`` drives
+    it.  Drives every variant once through its module's ``run_variant``
+    with the counters zeroed before and read after (each variant must
+    launch its kernel as often as it calls it, and K1, K3, K4 never);
     holds every output to the plain versions' bit for bit, micro_fixed's
-    and micro_fixed3's levels 1-2 also on random tile counts (the record
-    stage), and K2's empty frame to the constant frame; then times each
-    variant (a call, runs of 20, 30 queued, replayed from a CUDA graph,
-    host us a call), its plain version and its library call, and computes
-    its bound; then the host's cost of a call against the operand count
-    and the binding's beside K1's wrapper (``k1_call``: K1's args and
-    kwargs).  Returns a dict: ``variants`` {(module, label): times},
-    ``launches`` (M1, M2, K1-K4), ``errors`` (the max abs error of each
-    kernel against its plain version) and ``binding``."""
+    and micro_fixed3's levels 1-2 also on random tile counts, and K2's
+    empty frame to the constant frame (``probe_call.drive``); then times
+    each variant (a call, runs of 20, 30 queued, replayed from a CUDA
+    graph, host us a call), its plain version and its library call (in
+    runs of 20, from a CUDA graph and by host us), and derives its bound
+    and launches x floor + bound (``probe_call.time_rows``, ``derive``);
+    then the host's cost of a call against the operand count and the
+    binding's beside K1's wrapper (``k1_call``: K1's args and kwargs).
+    Returns a dict: ``variants`` {(module, label): times}, ``launches``
+    (M1, M2, K1-K4), ``errors`` (the max abs error of each kernel against
+    its plain version), ``binding``, ``floor_ms`` and ``summary`` (counts
+    a kernel, ``probe_call.summary``)."""
     from differential_projection_voxel_renderer_tpu_torch import _build
     from differential_projection_voxel_renderer_tpu_torch.benches import (
         common,
+        probe_call,
     )
     from differential_projection_voxel_renderer_tpu_torch.ops import (
         geometry,
-        micro,
-    )
-    from differential_projection_voxel_renderer_tpu_torch.ops.raster import (
-        SKY_I32,
     )
 
     t0 = time.perf_counter()
-    variants = probe_variants()
-    expect = [0] * 6
-    outs = {}
+    mods = probe_call.modules()
     torch.cuda.synchronize()
     reset_counters()
-    for name, mod, label, args in variants:
-        v = mod.variant(label)
-        before = probe_launches()
-        outs[name, label] = (v, mod.run_variant(label, *args))
-        got = tuple(a - b for a, b in zip(probe_launches(), before))
-        k = {"M1": 0, "M2": 1, "K2": 3}[v.kernel]
-        want = tuple(v.calls if i == k else 0 for i in range(6))
-        if got != want:
-            raise AssertionError(f"{name} {label} launched M1, M2, K1-K4 "
-                                 f"{got}, expected {want}")
-        expect[k] += v.calls
-    torch.cuda.synchronize()
+    outs, (m1_n, m2_n, k2_n) = probe_call.drive(torch, mods)
     launches = probe_launches()
-    if launches != tuple(expect):
-        raise AssertionError(f"probe launches {launches}, expected {expect}")
-    log(f"[11] cost-probe path: {len(variants)} variants through "
+    if launches != (m1_n, m2_n, 0, k2_n, 0, 0):
+        raise AssertionError(f"probe launches M1, M2, K1-K4 {launches}, "
+                             f"expected {(m1_n, m2_n, 0, k2_n, 0, 0)}")
+    log(f"[11] cost-probe path: {len(outs)} variants through "
         f"run_variant; launches M1={launches[0]} M2={launches[1]} "
         f"K2={launches[3]} (K1, K3, K4 none)")
-
-    errs = {"M1": 0.0, "M2": 0.0, "K2": 0.0}
-    for name, mod, label, args in variants:
-        v, got = outs[name, label]
-        ref = mod.run_variant(label, *args, plain=True)
-        if not common.same_bits(v.written(got), v.written(ref)):
-            raise AssertionError(f"{name} {label}: {v.kernel} differs from "
-                                 f"its plain version")
-        for a, b in zip(v.written(got), v.written(ref)):
-            d = (a.double() - b.double()).abs()
-            d = d[torch.isfinite(d)]
-            if d.numel():
-                errs[v.kernel] = max(errs[v.kernel], float(d.max()))
-    for name in ("micro_fixed", "micro_fixed3"):
-        mod = probe_modules()[name]
-        inputs = mod.build_inputs(seed=11)
-        for level in ("1", "2"):
-            if not common.same_bits(mod.run_variant(level, inputs),
-                                    mod.run_variant(level, inputs,
-                                                    plain=True)):
-                raise AssertionError(f"{name} level {level} on random tile "
-                                     f"counts differs from its plain version")
-    c3, d3 = outs["micro_fixed3", "3"][1]
-    if not (bool((c3 == SKY_I32).all()) and bool(torch.isinf(d3).all())
-            and bool((d3 > 0).all())):
-        raise AssertionError("K2 on the empty stream is not the constant "
-                             "frame")
+    errs = probe_call.check(torch, mods, outs)
     log(f"[11] every variant equal to its plain version bit for bit where "
         f"the kernel writes (micro_fixed and micro_fixed3 levels 1-2 also "
         f"on random tile counts); K2 on the empty 736x1280 stream gives the "
         f"constant frame (SKY, +inf)")
 
-    rows = {}
-    for name, mod, label, args in variants:
-        v, got = outs[name, label]
-        t = mod.time_variant(label, *args)
-        t["plain_ms"] = median_ms(mod.prepare(label, *args, plain=True),
-                                  reps=5)
-        t["library_ms"] = median_ms(library_call(torch, v, got), batch=20)
-        t["bound_ms"], t["bound_by"] = bound(v.bytes, 0)
-        t.update(kernel=v.kernel, site=v.site, launches=v.calls,
-                 bytes=v.bytes)
-        rows[name, label] = t
-        log(f"[11] {name} {label} ({v.kernel}, {v.site}): a call "
+    rows, floor_ms = probe_call.time_rows(torch, mods, outs)
+    probe_call.derive(rows, floor_ms, mods)
+    for (name, label), t in rows.items():
+        log(f"[11] {name} {label} ({t['kernel']}, {t['site']}): a call "
             f"{t['call_ms']:.4f} ms, runs of 20 {t['run_ms']:.4f}, 30 queued "
             f"{t['queued_ms']:.4f}, CUDA graph {t['graph_ms']:.4f}, host "
-            f"{t['host_us']:.1f} us a call; plain "
-            f"{t['plain_ms']:.4f}, library {t['library_ms']:.4f}, bound "
-            f"{t['bound_ms']:.5f} ms ({v.bytes} bytes)")
+            f"{t['host_us']:.1f} us a call; plain {t['plain_ms']:.4f}; "
+            f"library in runs {t['library_ms']:.4f}, CUDA graph "
+            f"{t['library_graph_ms']:.4f}, host {t['library_host_us']:.1f} "
+            f"us; bound {t['bound_ms']:.5f} ms ({t['bytes']} bytes), "
+            f"launches x floor + bound {t['floor_bound_ms']:.5f} "
+            f"({t['launches']} launches; with {t['torch_launches']} torch "
+            f"ops around the calls {t['run_floor_bound_ms']:.5f})")
 
     # host us a call against operand count, and the binding alone (the C
     # entry points called with prepared pointers), all in turns
@@ -2777,16 +2695,21 @@ def probe_path(torch, card, k1_call):
     xs = torch.zeros(1, dtype=torch.int32, device="cuda")
     m2_ptrs = (*(t.data_ptr() for t in cin[:4]), None, None, None, None,
                *(t.data_ptr() for t in cin[4:]), None, None, None,
-               xs.data_ptr(), micro._copy_params(
+               xs.data_ptr(), mods["micro"]._copy_params(
                    1024, 64, 4, tuple((1, i, True) for i in range(5))),
                stream)
-    m2mod = probe_modules()["micro_fixed2"]
-    fns = {lab.split("_")[1]: m2mod.prepare(lab, PROBE_X)
+    m2mod = mods["micro_fixed2"]
+    a_base = m2mod.variant("a_base").layout
+    fout = mods["micro"].fill_outputs(a_base, "cuda")
+    m1_ptrs = (*(o.data_ptr() for o in fout), xs.data_ptr(), *(None,) * 12,
+               a_base.c_params, stream)
+    fns = {lab.split("_")[1]: m2mod.prepare(lab, probe_call.PROBE_X)
            for lab in m2mod.SWEEP}
     fns.update({
         "K1 wrapper": lambda: geometry.project_cull(*args, **kw),
         "K1 C entry": lambda: lib.dpvr_project_cull(*k1_ptrs),
-        "M2 C entry": lambda: lib.dpvr_blocked_copy(*m2_ptrs)})
+        "M2 C entry": lambda: lib.dpvr_blocked_copy(*m2_ptrs),
+        "M1 C entry": lambda: lib.dpvr_fill_tiles(*m1_ptrs)})
     per = {k: [] for k in fns}
     for _ in range(PROBE_TURNS):
         for k, fn in fns.items():
@@ -2804,25 +2727,26 @@ def probe_path(torch, card, k1_call):
         f"C entry alone (ctypes, the counts' memset and the launch, 17 "
         f"arguments) "
         f"{host['K1 C entry']:.1f}; M2's wrapper at 4x5 {sweep['4x5']:.1f}, "
-        f"its C entry alone (19 arguments) {host['M2 C entry']:.1f}; the "
+        f"its C entry alone (19 arguments) {host['M2 C entry']:.1f}; M1's "
+        f"wrapper at a_base {rows['micro_fixed2', 'a_base']['host_us']:.1f} "
+        f"(timed above), its C entry alone (17 arguments) "
+        f"{host['M1 C entry']:.1f}; the "
         f"binding is {host['K1 C entry'] / host['K1 wrapper']:.2f} of K1's "
         f"wrapper call; K1's device time a call (131072 quads, from a CUDA "
         f"graph) {k1_graph * 1e3:.1f} us; {card}")
     binding = dict(k1_host_us=host["K1 wrapper"],
                    k1_bare_us=host["K1 C entry"],
-                   m2_bare_us=host["M2 C entry"], sweep_us=sweep,
+                   m2_bare_us=host["M2 C entry"],
+                   m1_bare_us=host["M1 C entry"], sweep_us=sweep,
                    us_per_operand=slope, us_at_zero=icept,
                    k1_graph_ms=k1_graph)
     # the graph launch floor: the device time of one launch that does no
     # work (torch.cuda._sleep(0), the CUDA runtime's spin kernel for no
     # cycles) replayed from a CUDA graph; a probe lies within it when its
     # graph time is at most its launches a call times the floor plus its
-    # bound
-    floor_ms = common.graph_ms(lambda: torch.cuda._sleep(0))
+    # bound, near it within 1.5 times that
     by_site = {}
     for t in rows.values():
-        t["floor_bound_ms"] = t["launches"] * floor_ms + t["bound_ms"]
-        t["within_floor"] = t["graph_ms"] <= t["floor_bound_ms"]
         by_site.setdefault((t["kernel"], t["site"]), []).append(t)
     for (kernel, site), ts in by_site.items():
         log(f"[11] {kernel} {site}: from a CUDA graph "
@@ -2832,9 +2756,20 @@ def probe_path(torch, card, k1_call):
             f"{min(t['floor_bound_ms'] for t in ts):.4f}.."
             f"{max(t['floor_bound_ms'] for t in ts):.4f} "
             f"({min(t['launches'] for t in ts)}.."
-            f"{max(t['launches'] for t in ts)} launches); "
-            f"{sum(t['within_floor'] for t in ts)} of {len(ts)} variants "
-            f"within")
+            f"{max(t['launches'] for t in ts)} launches); of "
+            f"{len(ts)} variants {sum(t['within_floor'] for t in ts)} "
+            f"within, {sum(t['near'] for t in ts)} within 1.5x, "
+            f"{sum(t['run_near'] for t in ts)} within 1.5x with the torch "
+            f"ops around the calls; {sum(t['beats_library'] for t in ts)} "
+            f"no slower in runs than the library call")
+    summary = probe_call.summary(rows, floor_ms)
+    for kernel in ("M1", "M2"):
+        c = summary[kernel]
+        log(f"[11] {kernel}: of {c['variants']} variants {c['within']} "
+            f"within launches x floor + bound from a CUDA graph, "
+            f"{c['near']} within 1.5x of it, {c['run_near']} within 1.5x "
+            f"counting the torch ops around the calls; {c['beats_library']} "
+            f"no slower in runs of 20 than the library call; {card}")
     log(f"[11] graph launch floor: {floor_ms:.5f} ms a launch that does no "
         f"work, from a CUDA graph of 30; {card}")
     k2e = rows["micro_fixed3", "3"]
@@ -2844,7 +2779,7 @@ def probe_path(torch, card, k1_call):
         f"bound {k2e['bound_ms']:.5f} ms; {time.perf_counter() - t0:.1f} s "
         f"for phase 11; {card}")
     return dict(variants=rows, launches=launches, errors=errs,
-                binding=binding, floor_ms=floor_ms)
+                binding=binding, floor_ms=floor_ms, summary=summary)
 
 
 def main() -> int:
@@ -3442,12 +3377,16 @@ def main() -> int:
              ms=m1["run_ms"],
              plain_ms=m1["plain_ms"], bound_ms=m1["bound_ms"],
              bound_by=m1["bound_by"], library_ms=m1["library_ms"],
+             library_graph_ms=m1["library_graph_ms"],
+             library_host_us=m1["library_host_us"],
              call_ms=m1["call_ms"], queued_ms=m1["queued_ms"],
              graph_ms=m1["graph_ms"], host_us=m1["host_us"],
+             c_entry_us=probes["binding"]["m1_bare_us"],
              replaces_all=sites["M1"],
              launch_floor_ms=probes["floor_ms"],
              floor_bound_ms=m1["floor_bound_ms"],
              variants_within_floor=within["M1"],
+             variant_counts=probes["summary"]["M1"],
              registers=ptxas["fill_tiles_kernel"]["registers"],
              spill_bytes=ptxas["fill_tiles_kernel"]["spill_stores"]),
         dict(name="M2 blocked copy (blocked_copy), at make9 4x5",
@@ -3457,12 +3396,16 @@ def main() -> int:
              ms=m2["run_ms"],
              plain_ms=m2["plain_ms"], bound_ms=m2["bound_ms"],
              bound_by=m2["bound_by"], library_ms=m2["library_ms"],
+             library_graph_ms=m2["library_graph_ms"],
+             library_host_us=m2["library_host_us"],
              call_ms=m2["call_ms"], queued_ms=m2["queued_ms"],
              graph_ms=m2["graph_ms"], host_us=m2["host_us"],
+             c_entry_us=probes["binding"]["m2_bare_us"],
              replaces_all=sites["M2"],
              launch_floor_ms=probes["floor_ms"],
              floor_bound_ms=m2["floor_bound_ms"],
              variants_within_floor=within["M2"],
+             variant_counts=probes["summary"]["M2"],
              binding_us=probes["binding"],
              registers=ptxas["blocked_copy_kernel"]["registers"],
              spill_bytes=ptxas["blocked_copy_kernel"]["spill_stores"]),

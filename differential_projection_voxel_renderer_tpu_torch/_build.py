@@ -67,9 +67,9 @@ _SIGNATURES = {
     "dpvr_rasterize_packed_blocks_per_sm": (),
     "dpvr_rasterize_packed_smem_bytes": (),
     # M1: (color, depth, x, order, starts, counts, meta_rows, meta_zmin,
-    #  recs, bidx, extra0..4, rec_cap, params (host int[13]), stream)
-    "dpvr_fill_tiles": (_P,) * 15 + (_I, _P, _P),
-    # M2: (in0..7, out0..7, x, params (host int[21]), stream)
+    #  recs, bidx, extra0..4, params (host int[16]), stream)
+    "dpvr_fill_tiles": (_P,) * 15 + (_P, _P),
+    # M2: (in0..7, out0..7, x, params (host int[23]), stream)
     "dpvr_blocked_copy": (_P,) * 16 + (_P, _P, _P),
 }
 

@@ -26,21 +26,15 @@ N_OCT = TK // 8
 BLOCK_Q = micro.BLOCK_Q
 
 
-def rec_scratch_bytes(tps: int) -> int:
-    """The originals' VMEM record scratch, (24, 2 * tps * BLOCK_Q) and
-    (BLOCK_Q, 24) int32, in bytes."""
-    return 4 * (micro.REC_ROWS * 2 * tps * BLOCK_Q + BLOCK_Q * micro.REC_ROWS)
-
-
 def frame_layout(tile_h=TILE_H, tps=TPS,
                  flags=micro.DEPTH | micro.DEPTH_ADD_X, grid2d=False,
-                 frame=(H, W), **kw) -> micro.FillLayout:
-    """M1 over the frame in tile_h x (128 * tps) tiles, one a block in
-    row-major order (a 2-D grid of blocks with ``grid2d``)."""
+                 frame=(H, W)) -> micro.FillLayout:
+    """M1 over the frame in tile_h x (128 * tps) tiles, one a grid step in
+    row-major order (a 2-D grid of steps with ``grid2d``)."""
     tiles_y, steps_x = frame[0] // tile_h, frame[1] // 128 // tps
     grid = (tiles_y, steps_x) if grid2d else (1, tiles_y * steps_x)
     return micro.FillLayout(tuple(frame), tile_h, 128 * tps, grid,
-                            flags=flags, tps=tps, **kw)
+                            flags=flags, tps=tps)
 
 
 @dataclass(frozen=True)
@@ -49,9 +43,11 @@ class Variant:
     ``pallas_call`` (file:line), its operands as numpy arrays (``arrays``,
     given the module's inputs), the call on device tensors
     (``run(tensors, plain)`` -> outputs, the plain PyTorch versions when
-    ``plain``), the bytes its function must move, the kernel launches a
-    run makes, M1's layout or M2's (mul, add, adds_x) pairs, and what of
-    the TPU variant has no counterpart."""
+    ``plain``), the bytes its kernel calls must move, the kernel launches
+    a run makes, M1's layout or M2's (mul, add, adds_x) pairs, what of
+    the TPU variant has no counterpart, and (launches, bytes) of the torch
+    ops a run makes around its kernel calls (the original's array ops
+    outside its ``pallas_call``)."""
 
     kernel: str
     site: str
@@ -62,6 +58,7 @@ class Variant:
     layout: micro.FillLayout | None = None
     pairs: tuple = ()
     note: str = ""
+    torch_ops: tuple = (0, 0)
 
     def written(self, outs) -> list:
         """The parts of the outputs the kernel writes (M1 may leave rows
@@ -74,16 +71,14 @@ class Variant:
 
 def fill_bytes(layout: micro.FillLayout, has_x: bool = True) -> int:
     """Bytes an M1 fill must move: its written outputs once, x, and what
-    the flags make it read for its values (order, metadata, record words,
-    the tiles' starts and counts, the metadata copy)."""
+    its values are read from (order, metadata, record words).  The TPU's
+    record stage and metadata copy decided no value: nothing reads them."""
     lay, f = layout, layout.flags
     out = lay.rows_written * lay.view[1] * 4 * (2 if f & micro.DEPTH else 1)
     read = 4 * has_x
     read += 4 * lay.steps * ((f & micro.MAP_ORDER > 0)
                              + 2 * (f & micro.X_FROM_META > 0)
                              + 2 * (f & micro.X_PLUS_REC > 0))
-    read += 8 * lay.n_tiles * (f & micro.TILE_GEO > 0)
-    read += 8 * (lay.smem_a + lay.smem_b) * (f & micro.META_COPY > 0)
     return out + read
 
 

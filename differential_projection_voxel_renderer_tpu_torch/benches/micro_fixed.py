@@ -3,21 +3,22 @@ cost live?
 
 The port of ``benches/micro_fixed.py`` (its Pallas ``variant_kernel``
 :36, pallas_call :93) as kernel M1 over the same 736x1280 frame: 460 tiles
-of 16x128, two a block (230 blocks), colour SKY and depth +inf.
+of 16x128, two a grid step (230 steps), colour SKY and depth +inf.
 
 - level 0: the constant frame only;
 - level 1: + each tile's starts and counts read, and its first record
-  block (24 x 256 int32) staged in shared memory when its count is
-  positive (the TPU started that copy and never waited on it);
+  block (24 x 256 int32) staged in VMEM when its count is positive (the
+  TPU started that copy and never waited on it).  No value depends on
+  it, so it has no counterpart: level 1 launches level 0's form;
 - level 2: the original adds an empty ``fori_loop`` over the tile's
-  blocks that carries its state unchanged; it has no counterpart, so
-  level 2 launches level 1's form.
+  blocks that carries its state unchanged; it has no counterpart either.
 
 Operands, the original's: starts, counts [460], rows [12288] int32 and
 zmin [12288] float32 (its scalar-prefetch arrays) and the records [24,
-98304] (its ANY input).  The block's shared memory is the original's VMEM
-scratch, (24, 2*2*256) and (256, 24) int32; its DMA semaphores have no
-counterpart.
+98304] (its ANY input), all passed to the launch.  Its VMEM scratch,
+(24, 2*2*256) and (256, 24) int32, and its DMA semaphores have no
+counterpart: nothing reads them, and the kernel reserves no shared
+memory.
 
     python -m differential_projection_voxel_renderer_tpu_torch.benches.micro_fixed [levels]
 """
@@ -53,17 +54,17 @@ def variant(level) -> C.Variant:
     level = int(level)
     if level not in LEVELS:
         raise KeyError(f"no micro_fixed level {level}")
-    lay = C.frame_layout(
-        flags=micro.DEPTH | (micro.TILE_GEO if level else 0),
-        smem_bytes=C.rec_scratch_bytes(C.TPS))
+    lay = C.frame_layout(flags=micro.DEPTH)
 
     def run(t, plain):
         fn = micro.fill_tiles_plain if plain else micro.fill_tiles
         return fn(lay, starts=t["starts"], counts=t["counts"],
                   meta_rows=t["rows"], meta_zmin=t["zmin"], recs=t["recs"])
 
-    note = ("the empty fori_loop over the tile's blocks has no counterpart: "
-            "level 1's form" if level == 2 else "")
+    note = ("the record stage decided no value and has no counterpart: "
+            "level 0's form with the same operands" if level else "")
+    if level == 2:
+        note += "; so has the empty fori_loop over the tile's blocks"
     return C.Variant("M1", SITE, lambda inputs: inputs, run,
                      C.fill_bytes(lay, has_x=False), layout=lay, note=note)
 

@@ -9,18 +9,20 @@ many inputs and outputs).  The fill family launches kernel M1
 (``ops.micro.fill_tiles``): colour SKY + x and depth +inf over the 736x1280
 frame in 16x(128 * tps) tiles, or the variant's own output shape.  The
 copy family (``make9``-``make11``) launches M2 (``ops.micro.blocked_copy``)
-over int32 [1024, 128] in [64, 128] blocks.
+over int32 [1024, 128] (the original's grid stepped over [64, 128]
+blocks).
 
 How the TPU's knobs map: tile_h, tps, the 2-D grid and the output shape
-are the CUDA blocks and grid; scalar-prefetch arrays, ANY inputs and
-metadata arrays are operands passed to the launch, zeros as in the
-original; VMEM and SMEM scratch is the block's shared memory, of the same
-size; a torch op stands where the original's run function worked on
-arrays around its call (``scalars[0] + x``, ``recs.at[23, 0].set(x)``,
-``x_in + x``, the XLA ops between chained calls).  What has no Hopper
-counterpart (DMA semaphores, memory-space tags, ``dimension_semantics``,
-rotating output buffers) is named in the variant's ``note``; such a
-variant launches its base form.
+are the tiles the kernel writes (its CUDA grid is sized for the card:
+``ops.micro.FillLayout.plan``, ``copy_grid``); scalar-prefetch arrays,
+ANY inputs and metadata arrays are operands passed to the launch, zeros
+as in the original; a torch op stands where the original's run function
+worked on arrays around its call (``scalars[0] + x``,
+``recs.at[23, 0].set(x)``, ``x_in + x``, the XLA ops between chained
+calls), counted in the variant's ``torch_ops``.  What has no Hopper
+counterpart (VMEM and SMEM scratch that nothing reads, DMA semaphores,
+memory-space tags, ``dimension_semantics``, rotating output buffers) is
+named in the variant's ``note``; such a variant launches its base form.
 
     python -m differential_projection_voxel_renderer_tpu_torch.benches.micro_fixed2 [labels]
 
@@ -58,20 +60,21 @@ def _copy(plain, *a, **kw):
     return fn(*a, **kw)
 
 
-def _fill_variant(site, layout, arrays, run, note, has_x=True) -> Variant:
+def _fill_variant(site, layout, arrays, run, note, has_x=True,
+                  torch_ops=(0, 0)) -> Variant:
     return Variant("M1", f"{SRC}:{site}", arrays, run,
-                   C.fill_bytes(layout, has_x), layout=layout, note=note)
+                   C.fill_bytes(layout, has_x), layout=layout, note=note,
+                   torch_ops=torch_ops)
 
 
 def make(tile_h=16, tps=2, outs=2, scratch=True, plain=False, grid2d=False):
     """``make`` (kernel :65, pallas_call :106): the output path alone."""
     flags = (micro.DEPTH if outs == 2 else 0) | (
         0 if plain else micro.DEPTH_ADD_X)
-    lay = C.frame_layout(
-        tile_h, tps, flags, grid2d,
-        smem_bytes=C.rec_scratch_bytes(tps) if scratch else 0)
-    note = ("the scratch (VMEM (24, 2*tps*256) and (256, 24) int32) is the "
-            "block's shared memory; its DMA semaphores have no counterpart"
+    lay = C.frame_layout(tile_h, tps, flags, grid2d)
+    note = ("the scratch (VMEM (24, 2*tps*256) and (256, 24) int32) and its "
+            "DMA semaphores have no counterpart: nothing reads them, the "
+            "kernel reserves no shared memory (b_noscratch's form)"
             if scratch else "")
     if plain:
         note = ("a whole-block store and (8, 128) slice stores are the same "
@@ -111,9 +114,11 @@ def make2(n_scalar=4, any_input=False, set_copy=False,
     note = ("x is element 0 of the first scalar array (scalars[0] + x, a "
             "torch add); the other scalar arrays and the records are passed "
             "and not read")
+    ops = (1, 8 * scalar_sizes[0] + 4)
     if set_copy:
         note += "; each call copies the records and sets [23, 0] to x"
-    return _fill_variant(156, lay, arrays, run, note)
+        ops = (ops[0] + 2, ops[1] + 8 * 24 * tk + 8)
+    return _fill_variant(156, lay, arrays, run, note, torch_ops=ops)
 
 
 def make3(mode):
@@ -140,18 +145,16 @@ def make3(mode):
     if mode != "smem":
         note += ("; SMEM vs VMEM input blocks have no counterpart: the "
                  "m_smem_meta form")
-    return _fill_variant(205, lay, arrays, run, note, has_x=False)
+    return _fill_variant(205, lay, arrays, run, note, has_x=False,
+                         torch_ops=(2, 8 * 460 + 8))
 
 
 def make4(any_sizes=(), smem_scratch=(), extra_sem=False, read_meta=False):
     """``make4`` (kernel :241, pallas_call :274): ANY inputs, SMEM scratch
     and extra semaphores added to the base."""
     read = bool(smem_scratch) and read_meta
-    lay = C.frame_layout(
-        flags=micro.DEPTH | micro.DEPTH_ADD_X
-        | (micro.X_PLUS_SCRATCH if read else 0),
-        smem_bytes=4 * sum(smem_scratch) + C.rec_scratch_bytes(2),
-        smem_a=smem_scratch[0] if smem_scratch else 0)
+    lay = C.frame_layout(flags=micro.DEPTH | micro.DEPTH_ADD_X
+                         | (micro.X_PLUS_SCRATCH if read else 0))
 
     def arrays(x):
         a = {"x": _x(x)}
@@ -163,13 +166,15 @@ def make4(any_sizes=(), smem_scratch=(), extra_sem=False, read_meta=False):
         return _fill(lay, plain, x=t["x"], extra=tuple(
             t[f"a{i}"] for i in range(len(any_sizes))))
 
-    note = ("SMEM scratch and the base's VMEM scratch are the block's "
-            "shared memory; ANY inputs are passed and not read")
+    note = ("SMEM scratch and the base's VMEM scratch have no counterpart "
+            "where nothing reads them (the kernel reserves no shared "
+            "memory); ANY inputs are passed and not read")
     if extra_sem:
         note += "; the extra DMA semaphores have no counterpart: m_base"
     if read:
         note += ("; the original adds SMEM scratch that nothing wrote "
-                 "(undefined on the TPU); the port zero-fills it, x_t = x")
+                 "(undefined on the TPU); the port's blocks zero-fill a "
+                 "shared word for each step they span and add it, x_t = x")
     return _fill_variant(274, lay, arrays, run, note)
 
 
@@ -208,14 +213,12 @@ def make6(space="any", dimsem=None, tps=2):
 def make7(n_bufs=2, manual_tps=2):
     """``make7`` (kernel :432, pallas_call :501): ANY outputs written by
     manual DMA from VMEM buffers."""
-    tile_w = 128 * manual_tps
     lay = C.frame_layout(tps=manual_tps,
-                         flags=micro.DEPTH | micro.STAGE_TILE,
-                         smem_bytes=8 * 16 * tile_w)
-    note = (f"each block builds its tile in its own shared memory (one of "
-            f"the original's {n_bufs} rotating buffers: blocks share none) "
-            f"and stores it; the slots' semaphores have no counterpart; the "
-            f"metadata input is passed and not read")
+                         flags=micro.DEPTH | micro.STAGE_TILE)
+    note = (f"each block stages its vectors in shared memory (16 bytes a "
+            f"thread and output) and stores them from there; the original's "
+            f"{n_bufs} rotating tile buffers and their semaphores have no "
+            f"counterpart; the metadata input is passed and not read")
     return _fill_variant(
         501, lay, lambda x: {"x": _x(x), "meta": np.zeros(256, np.int32)},
         lambda t, p: _fill(lay, p, x=t["x"], extra=(t["meta"],)), note)
@@ -233,7 +236,9 @@ def make8(out_mode="full", any_in=True):
     else:
         lay = micro.FillLayout((H * W,), 1, 16 * 256, (1, steps),
                                flags=micro.DEPTH)
-    note = {"full": "", "tiny": "every step writes the same 16x256 block",
+    note = {"full": "", "tiny": "every step writes the same 16x256 block; "
+                                "the kernel writes it once, with the last "
+                                "step's value",
             "flat1d": "a 1-D output in blocks of 4096"}[out_mode]
 
     def arrays(x):
@@ -320,7 +325,7 @@ def make10(alias=False, two_calls=False):
     return Variant("M2", f"{SRC}:736", lambda x: {
         "x": _x(x), "x_in": np.zeros((ROWS, 128), np.int32)}, run,
         C.copy_bytes(ROWS, 2) * (1 + two_calls), calls=1 + two_calls,
-        pairs=pairs, note=note)
+        pairs=pairs, note=note, torch_ops=(1, C.copy_bytes(ROWS, 1)))
 
 
 def make11(n_chain=2, xla_between=False, reshape_between=False):
@@ -341,10 +346,13 @@ def make11(n_chain=2, xla_between=False, reshape_between=False):
 
     note = ("x_in + x and x + i are torch adds; the ops between calls are "
             "torch ops (a reshape round trip is a view, no copy)")
+    xla = n_chain if xla_between else 0
     return Variant("M2", f"{SRC}:782", lambda x: {
         "x": _x(x), "x_in": np.zeros((ROWS, 128), np.int32)}, run,
         C.copy_bytes(ROWS, 2) * n_chain, calls=n_chain, pairs=pairs,
-        note=note)
+        note=note, torch_ops=(1 + n_chain + xla,
+                              C.copy_bytes(ROWS, 1) + 8 * n_chain
+                              + xla * 8 * ROWS * 128))
 
 
 # the original's labels and the calls that build them

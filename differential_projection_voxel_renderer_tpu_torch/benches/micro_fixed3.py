@@ -9,24 +9,27 @@ block; colour SKY, depth +inf.
 
 - level 0: the constant frame only;
 - level 1: + the one-time copy of the four metadata arrays (starts,
-  counts [460], rows [12288] int32, zmin [12288] float32) into shared
-  memory by block 0, the TPU's copy at grid step 0 (blocks share no
-  memory here, so the other blocks read their metadata from global);
+  counts [460], rows [12288] int32, zmin [12288] float32) into SMEM at
+  grid step 0;
 - level 2: + each tile's starts and counts read, and its first record
-  block staged in shared memory when its count is positive;
+  block staged in VMEM when its count is positive;
 - level 3: K2 on the empty stream (``rasterize_pallas`` in the original).
+The copy and the stage of levels 1-2 decide no value: they have no
+counterpart, and those levels launch level 0's form.
 
 The ``h`` variants bisect the operand and scratch sets of level 0:
 ``h0_base`` (five inputs, all scratch), ``h1_static_recs`` (the same call;
 the original's timing loop varied starts instead of the records),
 ``h2_no_oct_scratch`` (without the two octet arrays' scratch),
-``h3_vmem_oct`` (the octet scratch in VMEM rather than SMEM, the same
-shared memory here), ``h4_one_input`` (starts only).
+``h3_vmem_oct`` (the octet scratch in VMEM rather than SMEM),
+``h4_one_input`` (starts only).
 
-Operands are the original's five (ANY inputs there); shared memory is its
-scratch: SMEM starts, counts [460], rows, zmin [12288] and the VMEM
-records (24, 2*2*256) and (256, 24) int32, 219.6 KiB; its DMA semaphores
-have no counterpart.
+Operands are the original's five (ANY inputs there), all passed to the
+launch.  Its scratch -- SMEM starts, counts [460], rows, zmin [12288] and
+the VMEM records (24, 2*2*256) and (256, 24) int32, 219.6 KiB -- and its
+DMA semaphores have no counterpart: nothing reads them, and the kernel
+reserves no shared memory, so the h variants differ in their operands
+only.
 
     python -m differential_projection_voxel_renderer_tpu_torch.benches.micro_fixed3 [labels]
 """
@@ -63,15 +66,6 @@ def build_inputs(seed=None, frame=(C.H, C.W)) -> dict:
             "recs": np.zeros((24, C.TK), np.int32)}
 
 
-def _scratch(n_tiles: int, octs: bool = True) -> dict:
-    """The shared memory of the original's scratch set: (smem_bytes,
-    smem_a, smem_b, stage_off)."""
-    n_oct = C.N_OCT if octs else 0
-    words = 2 * n_tiles + 2 * n_oct
-    return dict(smem_bytes=4 * words + C.rec_scratch_bytes(C.TPS),
-                smem_a=n_tiles, smem_b=n_oct, stage_off=words)
-
-
 def variant(label, frame=(C.H, C.W)) -> C.Variant:
     label = str(label)
     if label not in LABELS:
@@ -92,21 +86,19 @@ def variant(label, frame=(C.H, C.W)) -> C.Variant:
             frame[0] * frame[1] * 8 + n_tiles * 8,
             note="the port's K2 (ops/raster.py rasterize_tiles) for "
                  "rasterize_pallas, zero counts")
-    flags = micro.DEPTH
-    if label in ("1", "2"):
-        flags |= micro.META_COPY
-    if label == "2":
-        flags |= micro.TILE_GEO
-    lay = C.frame_layout(flags=flags, frame=frame,
-                         **_scratch(n_tiles, label != "h2_no_oct_scratch"))
+    lay = C.frame_layout(flags=micro.DEPTH, frame=frame)
     n_in = 1 if label == "h4_one_input" else 5
+    scratch = ("the scratch has no counterpart (nothing reads it): "
+               "h0_base's call")
     notes = {
         "h1_static_recs": "the same call as h0_base (the original's timing "
                           "loop varied starts instead of the records)",
-        "h3_vmem_oct": "VMEM vs SMEM scratch of one size: h0_base's shared "
-                       "memory",
-        "1": "the one-time metadata copy is block 0's; the other blocks "
-             "share no memory with it",
+        "h2_no_oct_scratch": scratch,
+        "h3_vmem_oct": scratch,
+        "1": "the metadata copy decided no value and has no counterpart: "
+             "level 0's form",
+        "2": "the metadata copy and the record stage decided no value and "
+             "have no counterpart: level 0's form",
     }
 
     def run(t, plain):

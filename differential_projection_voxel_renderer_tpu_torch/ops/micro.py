@@ -7,14 +7,18 @@ which the port's ``benches`` package drives:
 - ``fill_tiles`` (M1) writes a constant frame, colour SKY + x_t and depth
   +inf, tile by tile as a ``FillLayout`` lays it out;
 - ``blocked_copy`` (M2) writes ``in0 * mul + add`` (plus x where asked)
-  for each output over int32 [rows, 128], block by block.
+  for each output over int32 [rows, 128].
 
 Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
 PyTorch version (``fill_tiles_plain``, ``blocked_copy_plain``) for CPU
-tensors; on a CUDA tensor it never falls back.  Every operand is checked
-and passed as a pointer argument of its own, as K1's wrapper passes its
-operands, so a call with more operands costs the host what such a call
-costs.  Integer sums wrap, as int32 sums do in the reference.
+tensors; on a CUDA tensor it never falls back.  A call is lean, as K1's
+is: its outputs are views of one new buffer (``fill_outputs``,
+``copy_outputs``), the launch goes to the current stream's raw handle,
+the host parameters are made once a form (``FillLayout.c_params``,
+``_copy_params``), and each operand is checked by a few attribute reads.
+Every operand is still passed as a pointer argument of its own, so a call
+with more operands costs the host what such a call costs.  Integer sums
+wrap, as int32 sums do in the reference.
 """
 
 from __future__ import annotations
@@ -22,32 +26,53 @@ from __future__ import annotations
 import ctypes
 from dataclasses import dataclass
 from functools import cached_property, lru_cache
+from typing import NamedTuple
 
 import torch
 
+from .. import _build
 from .raster import SKY_I32
 
 # fill flags (csrc/micro.cu)
 DEPTH = 1 << 0           # a depth output
 DEPTH_ADD_X = 1 << 1     # depth = +inf + x_t, else +inf
-MAP_ORDER = 1 << 2       # block b writes tile order[b]
-MAP_CONST = 1 << 3       # every block writes tile 0
+MAP_ORDER = 1 << 2       # step b writes tile order[b]
+MAP_CONST = 1 << 3       # every step writes tile 0
 X_FROM_META = 1 << 4     # x_t = counts[b * tps] + starts[b * tps]
 X_PLUS_SCRATCH = 1 << 5  # x_t += shared scratch[b], zero-filled first
 X_PLUS_REC = 1 << 6      # x_t += recs[0, bidx[b] * BLOCK_Q]
-TILE_GEO = 1 << 7        # stage a tile's first record block if count > 0
-META_COPY = 1 << 8       # block 0 copies the metadata to shared memory
-STAGE_TILE = 1 << 9      # build the tile in shared memory, then store
+STAGE_TILE = 1 << 7      # stage the block's vectors in shared memory
 
 REC_ROWS = 24
 BLOCK_Q = 256
 N_EXTRA = 5         # operands a fill passes and never reads
 MAX_IO = 8          # inputs, and outputs, a copy takes
-SMEM_MAX = 232448   # shared memory one block can have on the H100
+FILL_THREADS = 256  # M1's threads a block, one 16-byte vector each
+COPY_THREADS = 128  # M2's threads a block, one 16-byte vector of in0 each
+_NULLS = (None,) * MAX_IO
 
 # launches of the CUDA kernels M1 and M2 (not of their plain versions)
 launches_fill = 0
 launches_copy = 0
+
+
+class FillPlan(NamedTuple):
+    """M1's launch: thread g of ``blocks`` x ``threads`` writes vector
+    g % n4 of step ``step0`` + g // n4 (the last ``threads`` may pass the
+    ``steps`` x n4 vectors and store nothing); a block's dynamic shared
+    memory is ``smem_bytes``, the staged vectors first (``STAGE_TILE``:
+    16 bytes a thread and output) and ``scratch_words`` zero-filled words
+    at word ``scratch_off`` (``X_PLUS_SCRATCH``: one a step the block
+    spans)."""
+
+    step0: int
+    steps: int
+    n4: int
+    blocks: int
+    threads: int
+    smem_bytes: int
+    scratch_off: int
+    scratch_words: int
 
 
 @dataclass(frozen=True)
@@ -55,15 +80,15 @@ class FillLayout:
     """How M1 lays out a fill.
 
     The output (``out_shape``, 1-D or 2-D) is seen as a ``view`` frame of
-    [tile_h, tile_w] tiles, ``steps_x`` to a row.  ``grid`` is (y, x)
-    blocks; block b = y * grid[1] + x writes tile b in row-major order
-    (``MAP_ORDER``: tile order[b]; ``MAP_CONST``: tile 0).  ``tps`` is the
-    number of 128-wide tiles a block covers (the metadata index of
-    ``X_FROM_META`` and ``TILE_GEO``).  The block's shared memory is
-    ``smem_bytes`` in all; ``smem_a`` and ``smem_b`` are the words of its
-    first and third arrays (the metadata copy holds starts, counts
-    [smem_a] and rows, zmin [smem_b]; ``X_PLUS_SCRATCH`` reads the first),
-    ``stage_off`` the word offset of the record stage."""
+    [tile_h, tile_w] tiles, ``steps_x`` to a row, tile_w a multiple of 4
+    (16-byte stores).  ``grid`` is the reference's (y, x) grid; its step
+    b = y * grid[1] + x writes tile b in row-major order (``MAP_ORDER``:
+    tile order[b]; ``MAP_CONST``: tile 0, which keeps the last step's
+    value).  ``tps`` is the number of 128-wide tiles a step covers (the
+    metadata index of ``X_FROM_META``).  The TPU variants' scratch, their
+    metadata copy and their record stage decided no value and have no
+    field here; the kernel reserves only the shared memory its blocks
+    read (``plan``)."""
 
     out_shape: tuple
     tile_h: int
@@ -71,25 +96,10 @@ class FillLayout:
     grid: tuple
     flags: int = DEPTH
     tps: int = 1
-    smem_bytes: int = 0
-    smem_a: int = 0
-    smem_b: int = 0
-    stage_off: int = 0
 
     def __post_init__(self):
         rows, cols = self.view
-        need = 0
-        if self.flags & STAGE_TILE:
-            need = 8 * self.tile_h * self.tile_w
-        if self.flags & TILE_GEO:
-            need = max(need, 4 * (self.stage_off
-                                  + REC_ROWS * 2 * self.tps * BLOCK_Q))
-        if self.flags & META_COPY:
-            need = max(need, 8 * (self.smem_a + self.smem_b))
-        if self.flags & X_PLUS_SCRATCH:
-            need = max(need, 4 * self.smem_a)
-        if (cols % self.tile_w or self.tile_w % 4 or rows < self.tile_h
-                or not need <= self.smem_bytes <= SMEM_MAX):
+        if cols % self.tile_w or self.tile_w % 4 or rows < self.tile_h:
             raise ValueError(f"bad fill layout {self}")
 
     @property
@@ -108,25 +118,64 @@ class FillLayout:
 
     @property
     def rows_written(self) -> int:
-        """Rows of ``view`` the blocks write (all unless the tiles stop
+        """Rows of ``view`` the steps write (all unless the tiles stop
         short of the frame; ``MAP_ORDER`` is taken as a permutation)."""
         if self.flags & MAP_CONST:
             return self.tile_h
         tile_rows = -(-self.steps // self.steps_x)
         return min(self.view[0], tile_rows * self.tile_h)
 
-    @property
-    def n_tiles(self) -> int:
-        """The frame's 128-wide tiles (the metadata ``TILE_GEO`` reads)."""
-        return self.view[0] // self.tile_h * self.steps_x * self.tps
+    @cached_property
+    def plan(self) -> FillPlan:
+        """M1's launch on the card (csrc/micro.cu fill_tiles_kernel)."""
+        n4 = self.tile_h * self.tile_w // 4
+        step0, steps = ((self.steps - 1, 1) if self.flags & MAP_CONST
+                        else (0, self.steps))
+        blocks = -(-steps * n4 // FILL_THREADS)
+        staged = 0
+        if self.flags & STAGE_TILE:
+            staged = 16 * FILL_THREADS * (2 if self.flags & DEPTH else 1)
+        words = 0
+        if self.flags & X_PLUS_SCRATCH:  # the most steps a block spans
+            last = steps * n4 - 1
+            words = max(min(g + FILL_THREADS - 1, last) // n4 - g // n4 + 1
+                        for g in range(0, blocks * FILL_THREADS,
+                                       FILL_THREADS))
+        return FillPlan(step0, steps, n4, blocks, FILL_THREADS,
+                        staged + 4 * words, staged // 4, words)
 
     @cached_property
     def c_params(self) -> ctypes.Array:
-        """The kernel's host parameters (csrc/micro.cu FillParams)."""
-        vals = (*self.view, self.tile_h, self.tile_w, *self.grid,
-                self.steps_x, self.tps, self.flags, self.smem_a, self.smem_b,
-                self.stage_off, self.smem_bytes)
+        """The kernel's host parameters (csrc/micro.cu FillParams, then
+        blocks, threads and shared memory)."""
+        rows, cols = self.view
+        p = self.plan
+        vals = (rows, cols, self.tile_h, self.tile_w, rows // self.tile_h,
+                self.steps_x, self.tps, self.flags, p.step0, p.n4,
+                p.steps * p.n4, p.scratch_off, p.scratch_words, p.blocks,
+                p.threads, p.smem_bytes)
         return (ctypes.c_int * len(vals))(*vals)
+
+    @cached_property
+    def reads(self) -> tuple:
+        """(name, dtype, values the kernel reads) of each named operand of
+        ``fill_tiles``, in order: x is optional and read where given; the
+        others are read, and needed, where a flag reads them (values > 0,
+        ``needs``)."""
+        f, steps = self.flags, self.steps
+        meta = steps * self.tps if f & X_FROM_META else 0
+        i32 = torch.int32
+        return (("x", i32, 1), ("order", i32, steps if f & MAP_ORDER else 0),
+                ("starts", i32, meta), ("counts", i32, meta),
+                ("meta_rows", i32, 0), ("meta_zmin", torch.float32, 0),
+                ("recs", i32, BLOCK_Q if f & X_PLUS_REC else 0),
+                ("bidx", i32, steps if f & X_PLUS_REC else 0))
+
+    @cached_property
+    def needs(self) -> tuple:
+        """Indices in ``reads`` of the operands the layout needs."""
+        return tuple(i for i, (_, _, n) in enumerate(self.reads)
+                     if n and i)
 
 
 def _wrap_i32(v: torch.Tensor) -> torch.Tensor:
@@ -135,13 +184,14 @@ def _wrap_i32(v: torch.Tensor) -> torch.Tensor:
     return torch.where(v >= 2**31, v - 2**32, v).to(torch.int32)
 
 
-def _check(t, name, dev, dtype=None, numel=0) -> int:
-    """The pointer of a checked operand."""
-    if t.device != dev or not t.is_contiguous() or (
-            dtype is not None and t.dtype != dtype):
+def _ptr(t, dev: int, dtype, name: str, numel: int = 0) -> int:
+    """The pointer of a checked operand: contiguous, on card ``dev``, of
+    ``dtype`` (any where None), with at least ``numel`` values."""
+    if (t.get_device() != dev or not t.is_contiguous()
+            or (dtype is not None and t.dtype is not dtype)):
         raise ValueError(f"{name} must be a contiguous "
-                         f"{dtype or 'tensor'} on {dev}")
-    if t.numel() < numel:
+                         f"{dtype or 'tensor'} on cuda:{dev}")
+    if numel and t.numel() < numel:
         raise ValueError(f"{name} holds {t.numel()} values, needs {numel}")
     return t.data_ptr()
 
@@ -201,79 +251,90 @@ def fill_tiles_plain(layout: FillLayout, *, x=None, order=None, starts=None,
     return tuple(res)
 
 
+def fill_outputs(layout: FillLayout, device) -> tuple:
+    """M1's outputs for a call: (colour,) or, with ``DEPTH``, (colour,
+    depth), int32 and float32 of ``layout.out_shape``, views of one new
+    int32 buffer (the depth view 16-byte aligned: a frame's columns are a
+    multiple of 4)."""
+    if not layout.flags & DEPTH:
+        return (torch.empty(layout.out_shape, dtype=torch.int32,
+                            device=device),)
+    colour, depth = torch.empty((2, *layout.out_shape), dtype=torch.int32,
+                                device=device).unbind()
+    return colour, depth.view(torch.float32)
+
+
 def fill_tiles(layout: FillLayout, *, x=None, order=None, starts=None,
                counts=None, meta_rows=None, meta_zmin=None, recs=None,
                bidx=None, extra=()):
     """M1: the constant frame of ``layout``: colour (int32) SKY + x_t and,
     with ``DEPTH``, depth (float32) +inf, or +inf + x_t with
-    ``DEPTH_ADD_X``, on every tile a block writes; other elements are left
+    ``DEPTH_ADD_X``, on every tile a step writes; other elements are left
     unwritten, as on the TPU.
 
     Operands, int32 unless said: ``x`` (x_t = x[0]), ``order`` [steps]
     (``MAP_ORDER``; a permutation of the tiles), ``starts``/``counts``
-    (``X_FROM_META``, ``TILE_GEO``, ``META_COPY``), ``meta_rows`` and
-    float32 ``meta_zmin`` [smem_b] (``META_COPY``), ``recs`` [24, cap]
-    (``TILE_GEO``, ``X_PLUS_REC``), ``bidx`` [steps] (``X_PLUS_REC``; each
-    must index a 256-column block of ``recs``), and up to five ``extra``
-    operands of any type that the call passes and never reads.  Returns
-    (colour,) or (colour, depth), each of ``layout.out_shape``."""
-    ops = dict(x=x, order=order, starts=starts, counts=counts,
-               meta_rows=meta_rows, meta_zmin=meta_zmin, recs=recs, bidx=bidx)
-    dev = _device(*ops.values(), *extra)
+    (``X_FROM_META``), ``meta_rows`` and float32 ``meta_zmin`` (passed,
+    never read), ``recs`` [24, cap] (``X_PLUS_REC``), ``bidx`` [steps]
+    (``X_PLUS_REC``; each must index a 256-column block of ``recs``), and
+    up to five ``extra`` operands of any type that the call passes and
+    never reads; each named operand may be given where no flag reads it,
+    as the TPU variants pass their metadata and records.  Returns
+    (colour,) or (colour, depth), each of ``layout.out_shape``
+    (``fill_outputs``)."""
+    ops = (x, order, starts, counts, meta_rows, meta_zmin, recs, bidx)
+    dev = x.device if x is not None else _device(*ops, *extra)
     if dev.type != "cuda":
-        return fill_tiles_plain(layout, extra=extra, **ops)
+        return fill_tiles_plain(layout, x=x, order=order, starts=starts,
+                                counts=counts, meta_rows=meta_rows,
+                                meta_zmin=meta_zmin, recs=recs, bidx=bidx,
+                                extra=extra)
     global launches_fill
-    from .. import _build
-
-    lay, f = layout, layout.flags
-    meta = max(lay.steps * lay.tps if f & X_FROM_META else 0,
-               lay.n_tiles if f & TILE_GEO else 0,
-               lay.smem_a if f & META_COPY else 0)
-    need = dict(x=1 if x is not None else 0,
-                order=lay.steps if f & MAP_ORDER else 0,
-                starts=meta, counts=meta,
-                meta_rows=lay.smem_b if f & META_COPY else 0,
-                meta_zmin=lay.smem_b if f & META_COPY else 0,
-                recs=BLOCK_Q if f & (TILE_GEO | X_PLUS_REC) else 0,
-                bidx=lay.steps if f & X_PLUS_REC else 0)
-    ptrs = []
-    for name, t in ops.items():
-        if t is None:
-            if need[name]:
-                raise ValueError(f"fill_tiles: layout needs {name}")
-            ptrs.append(None)
-        else:
-            dtype = torch.float32 if name == "meta_zmin" else torch.int32
-            ptrs.append(_check(t, name, dev, dtype, need[name]))
-    if len(extra) > N_EXTRA:
-        raise ValueError(f"fill_tiles passes at most {N_EXTRA} extra "
-                         f"operands")
-    ptrs += [_check(t, "extra", dev) for t in extra]
-    ptrs += [None] * (N_EXTRA - len(extra))
+    idx = dev.index
+    for i in layout.needs:
+        if ops[i] is None:
+            raise ValueError(f"fill_tiles: layout needs {layout.reads[i][0]}")
+    ptrs = [None if t is None else _ptr(t, idx, dtype, name, numel)
+            for t, (name, dtype, numel) in zip(ops, layout.reads)]
+    if extra:
+        if len(extra) > N_EXTRA:
+            raise ValueError(f"fill_tiles passes at most {N_EXTRA} extra "
+                             f"operands")
+        ptrs += [_ptr(t, idx, None, "extra") for t in extra]
     if recs is not None and (recs.dim() != 2 or recs.shape[0] != REC_ROWS):
         raise ValueError("recs must be int32 [24, cap]")
-    rec_cap = recs.shape[1] if recs is not None else 0
-    colour = torch.empty(lay.out_shape, dtype=torch.int32, device=dev)
-    outs = (colour,)
-    if f & DEPTH:
-        outs += (torch.empty(lay.out_shape, dtype=torch.float32,
-                             device=dev),)
+    outs = fill_outputs(layout, dev)
+    # the raw handle of the current stream, as K1's wrapper takes it
     err = _build.lib().dpvr_fill_tiles(
-        colour.data_ptr(), outs[1].data_ptr() if f & DEPTH else None,
-        *ptrs, rec_cap, lay.c_params,
-        torch.cuda.current_stream(dev).cuda_stream)
+        outs[0].data_ptr(), outs[1].data_ptr() if len(outs) > 1 else None,
+        *ptrs, *_NULLS[:N_EXTRA - len(extra)], layout.c_params,
+        torch._C._cuda_getCurrentRawStream(idx))
     _build.check(err, "fill_tiles")
     launches_fill += 1
     return outs
 
 
+def copy_grid(rows: int) -> tuple[int, int]:
+    """M2's launch over int32 [rows, 128]: (blocks, threads); thread g =
+    block * threads + thread reads vector g of in0 and writes vector g of
+    each output, where g < rows * 32."""
+    return -(-rows * 32 // COPY_THREADS), COPY_THREADS
+
+
 @lru_cache(maxsize=256)
 def _copy_params(rows, block_rows, n_in, pairs) -> ctypes.Array:
-    """M2's host parameters (csrc/micro.cu CopyParams), made once for each
-    form."""
+    """M2's host parameters (csrc/micro.cu CopyParams, in the order the C
+    entry reads them), made once for each form; checks the form."""
+    pairs = tuple((int(m), int(a), bool(ax)) for m, a, ax in pairs)
+    if not (1 <= n_in <= MAX_IO and 1 <= len(pairs) <= MAX_IO):
+        raise ValueError("blocked_copy takes 1-8 inputs and 1-8 outputs")
+    if block_rows <= 0 or rows % block_rows:
+        raise ValueError(f"inputs[0] must be int32 [rows, 128], rows a "
+                         f"multiple of {block_rows}")
     pad = MAX_IO - len(pairs)
     vals = (rows, block_rows, n_in, len(pairs),
             sum(1 << k for k, p in enumerate(pairs) if p[2]),
+            *copy_grid(rows),
             *(p[0] for p in pairs), *(1,) * pad,
             *(p[1] for p in pairs), *(0,) * pad)
     return (ctypes.c_int * len(vals))(*vals)
@@ -296,47 +357,66 @@ def blocked_copy_plain(inputs, x, pairs, *, block_rows: int = 64, out=None):
     return tuple(res)
 
 
+def copy_outputs(in0, n_out: int, out=None) -> tuple:
+    """M2's outputs for a call: the tensors ``out`` gives (each an int32
+    [rows, 128] like ``in0`` on its device, ``in0`` itself allowed), and
+    for the k outputs it leaves None (all of them without ``out``) views
+    of one new int32 buffer [k, rows, 128] (the buffer itself where k is
+    1)."""
+    if out is None:
+        if n_out == 1:
+            return (torch.empty(in0.shape, dtype=torch.int32,
+                                device=in0.device),)
+        return torch.empty((n_out, *in0.shape), dtype=torch.int32,
+                           device=in0.device).unbind()
+    if len(out) != n_out:
+        raise ValueError("out must give one entry for each output")
+    missing = sum(o is None for o in out)
+    new = iter(torch.empty((missing, *in0.shape), dtype=torch.int32,
+                           device=in0.device).unbind() if missing else ())
+    outs = []
+    for o in out:
+        if o is None:
+            o = next(new)
+        elif (o.shape != in0.shape or o.dtype is not torch.int32
+              or o.device != in0.device or not o.is_contiguous()):
+            raise ValueError("an output must be a contiguous int32 tensor "
+                             "of the input's shape and device")
+        outs.append(o)
+    return tuple(outs)
+
+
 def blocked_copy(inputs, x, pairs, *, block_rows: int = 64, out=None):
     """M2: for each (mul, add, adds_x) of ``pairs``, an int32 output
     ``inputs[0] * mul + add``, plus x[0] where ``adds_x``, over int32
-    [rows, 128] in [block_rows, 128] blocks (one block a grid step, as on
-    the TPU).  The other inputs are operands the call passes and never
-    reads.  ``out`` may give a tensor for each output (None: a new one); an
-    output may be ``inputs[0]`` itself, the in-place form of the TPU's
-    ``input_output_aliases``.  At most eight inputs and eight outputs.
-    Returns the outputs."""
+    [rows, 128]; rows must be a multiple of ``block_rows``, the reference's
+    grid step (the CUDA grid is ``copy_grid``'s).  The other inputs are
+    operands the call passes and never reads.  ``out`` may give a tensor
+    for each output (None: a new one); an output may be ``inputs[0]``
+    itself, the in-place form of the TPU's ``input_output_aliases``.  At
+    most eight inputs and eight outputs.  Returns the outputs
+    (``copy_outputs``)."""
     in0 = inputs[0]
-    if in0.device.type != "cuda":
+    if not in0.is_cuda:
         return blocked_copy_plain(inputs, x, pairs, block_rows=block_rows,
                                   out=out)
     global launches_copy
-    from .. import _build
-
-    dev = in0.device
-    pairs = tuple((int(m), int(a), bool(ax)) for m, a, ax in pairs)
-    if not (1 <= len(inputs) <= MAX_IO and 1 <= len(pairs) <= MAX_IO):
-        raise ValueError("blocked_copy takes 1-8 inputs and 1-8 outputs")
-    if (in0.dim() != 2 or in0.shape[1] != 128
-            or in0.shape[0] % block_rows):
-        raise ValueError(f"inputs[0] must be int32 [rows, 128], rows a "
-                         f"multiple of {block_rows}")
-    in_ptrs = [_check(t, "input", dev, torch.int32) for t in inputs]
-    x_ptr = _check(x, "x", dev, torch.int32, 1)
-    outs = list(out) if out is not None else [None] * len(pairs)
-    if len(outs) != len(pairs):
-        raise ValueError("out must give one entry for each output")
-    for k, o in enumerate(outs):
-        if o is None:
-            outs[k] = torch.empty_like(in0)
-        elif o.shape != in0.shape:
-            raise ValueError("an output must have the input's shape")
-    out_ptrs = [_check(o, "output", dev, torch.int32) for o in outs]
-    pad = MAX_IO - len(pairs)
+    shape = in0.shape
+    if len(shape) != 2 or shape[1] != 128:
+        raise ValueError("inputs[0] must be int32 [rows, 128]")
+    try:
+        params = _copy_params(shape[0], block_rows, len(inputs), pairs)
+    except TypeError:  # pairs given as lists
+        params = _copy_params(shape[0], block_rows, len(inputs),
+                              tuple(map(tuple, pairs)))
+    idx = in0.get_device()
+    in_ptrs = [_ptr(t, idx, torch.int32, "input") for t in inputs]
+    x_ptr = _ptr(x, idx, torch.int32, "x", 1)
+    outs = copy_outputs(in0, len(pairs), out)
     err = _build.lib().dpvr_blocked_copy(
-        *in_ptrs, *(None,) * (MAX_IO - len(inputs)), *out_ptrs,
-        *(None,) * pad, x_ptr,
-        _copy_params(in0.shape[0], block_rows, len(inputs), pairs),
-        torch.cuda.current_stream(dev).cuda_stream)
+        *in_ptrs, *_NULLS[len(inputs):], *(o.data_ptr() for o in outs),
+        *_NULLS[len(outs):], x_ptr, params,
+        torch._C._cuda_getCurrentRawStream(idx))
     _build.check(err, "blocked_copy")
     launches_copy += 1
-    return tuple(outs)
+    return outs

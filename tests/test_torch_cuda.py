@@ -606,8 +606,7 @@ def test_fill_kernel_reads_its_operands(cuda_device, flag):
     """M1 against its plain version on random operands."""
     rng = np.random.default_rng(3)
     lay = bench_common.frame_layout(
-        flags=micro.DEPTH | micro.DEPTH_ADD_X | getattr(micro, flag),
-        smem_bytes=4 * 460, smem_a=460)
+        flags=micro.DEPTH | micro.DEPTH_ADD_X | getattr(micro, flag))
     ops = dict(x=rng.integers(-2**31, 2**31, 1),
                order=rng.permutation(lay.steps),
                starts=rng.integers(-2**31, 2**31, 460),
@@ -640,6 +639,135 @@ def test_copy_kernel_matches_plain(cuda_device):
     buf = ins[0].clone()
     out = micro.blocked_copy([buf], x, pairs[:2], out=(buf, None))
     assert out[0] is buf and bench_common.same_bits(out, ref[:2])
+
+
+def _fill_ops(lay, device, seed):
+    """Random operands of every kind a fill reads, for ``lay``."""
+    rng = np.random.default_rng(seed)
+    n_meta = lay.steps * lay.tps
+    ops = dict(x=rng.integers(-2**31, 2**31, 1),
+               order=rng.permutation(lay.steps),
+               starts=rng.integers(-2**31, 2**31, n_meta),
+               counts=rng.integers(-2**31, 2**31, n_meta),
+               recs=rng.integers(-2**31, 2**31, (24, 4096)),
+               bidx=rng.integers(0, 16, lay.steps))
+    return {k: torch.from_numpy(a.astype(np.int32)).to(device)
+            for k, a in ops.items()}
+
+
+FILL_FLAGS = ("MAP_ORDER", "MAP_CONST", "X_FROM_META", "X_PLUS_SCRATCH",
+              "X_PLUS_REC", "STAGE_TILE")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["736x1280 16x256", "48x64 3x4",
+                                   "64x64 1x8"])
+def test_fill_kernel_under_every_flag(cuda_device, shape):
+    """M1 against its plain version on random operands under each flag
+    alone, all value flags together, and MAP_CONST with each (its tile
+    keeps the last step's value), with and without depth: bit for bit
+    where it writes, one launch a call, at tiles wider and narrower than
+    a block."""
+    frame, tile = (tuple(map(int, p.split("x"))) for p in shape.split())
+    tps = max(1, tile[1] // 128)
+    steps = frame[0] // tile[0] * (frame[1] // tile[1])
+    combos = [(f,) for f in FILL_FLAGS] + [
+        ("MAP_ORDER", "X_FROM_META", "X_PLUS_SCRATCH", "X_PLUS_REC",
+         "STAGE_TILE"),
+        ("MAP_CONST", "X_PLUS_SCRATCH", "STAGE_TILE"),
+        ("MAP_CONST", "X_FROM_META"), ("MAP_CONST", "X_PLUS_REC")]
+    for combo, depth in ((c, d) for c in combos for d in (True, False)):
+        flags = sum(getattr(micro, f) for f in combo)
+        flags |= (micro.DEPTH | micro.DEPTH_ADD_X) if depth else 0
+        lay = micro.FillLayout(frame, *tile, (1, steps), flags=flags,
+                               tps=tps)
+        ops = _fill_ops(lay, cuda_device, seed=len(combo) + flags)
+        before = micro.launches_fill
+        got = micro.fill_tiles(lay, **ops)
+        assert micro.launches_fill == before + 1
+        assert len(got) == 1 + depth
+        if flags & micro.MAP_CONST:
+            # the plain version's duplicate stores leave any step's value
+            last = lay.steps - 1
+            xt = int(ops["x"][0])
+            if flags & micro.X_FROM_META:
+                xt = int(ops["counts"][last * tps]) + int(
+                    ops["starts"][last * tps])
+            if flags & micro.X_PLUS_REC:
+                xt += int(ops["recs"][0, int(ops["bidx"][last]) * 256])
+            want = (raster.SKY_I32 + xt + 2**31) % 2**32 - 2**31
+            tile0 = got[0].reshape(lay.view)[:tile[0], :tile[1]]
+            assert bool((tile0 == want).all()), combo
+            if depth:
+                assert bool(torch.isinf(got[1].reshape(lay.view)
+                                        [:tile[0], :tile[1]]).all())
+            continue
+        ref = micro.fill_tiles_plain(lay, **ops)
+        rows = lay.rows_written
+        assert bench_common.same_bits(
+            [o.reshape(lay.view)[:rows] for o in got],
+            [o.reshape(lay.view)[:rows] for o in ref]), combo
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [64, 1024, 3 * 64])
+def test_copy_kernel_grid_matches_plain(cuda_device, rows):
+    """M2 at its grid (one 16-byte vector a thread, 128 threads a block)
+    against its plain version: eight inputs and eight outputs, one output,
+    block_rows 64 or all the rows, and in place with out0 = in0."""
+    rng = np.random.default_rng(rows)
+    ins = [torch.from_numpy(rng.integers(-2**31, 2**31, (rows, 128))
+                            .astype(np.int32)).to(cuda_device)
+           for _ in range(8)]
+    x = torch.tensor([-2**31 + 9], dtype=torch.int32, device=cuda_device)
+    pairs = tuple((3 - k % 3, 11 * k - 40, k % 2 == 1) for k in range(8))
+    for br, n_in, n_out in ((64, 8, 8), (rows, 1, 1), (64, 2, 5)):
+        got = micro.blocked_copy(ins[:n_in], x, pairs[:n_out],
+                                 block_rows=br)
+        ref = micro.blocked_copy_plain(ins[:n_in], x, pairs[:n_out])
+        assert bench_common.same_bits(got, ref), (br, n_in, n_out)
+        ptrs = sorted(o.data_ptr() for o in got)
+        assert all(b - a >= rows * 512 for a, b in zip(ptrs, ptrs[1:]))
+    buf = ins[0].clone()
+    out = micro.blocked_copy([buf, ins[1]], x, pairs[:3],
+                             out=(buf, None, ins[2]))
+    ref = micro.blocked_copy_plain(ins[:1], x, pairs[:3])
+    assert out[0] is buf and out[2] is ins[2]
+    assert bench_common.same_bits(out, ref)
+
+
+@pytest.mark.cuda
+def test_copy_chain_in_a_cuda_graph(cuda_device):
+    """Two M2 calls, the second fed the first one's outputs (views of one
+    buffer), captured in one CUDA graph: each replay recomputes both from
+    the input's current values, equal to the plain chain bit for bit."""
+    rng = np.random.default_rng(13)
+    a = torch.from_numpy(rng.integers(-2**31, 2**31, (1024, 128))
+                         .astype(np.int32)).to(cuda_device)
+    x = torch.tensor([12345], dtype=torch.int32, device=cuda_device)
+    p1, p2 = ((1, 0, True), (2, 1, False)), ((1, 1, True), (5, -7, True))
+
+    def chain(copy):
+        o = copy([a], x, p1)
+        return copy([o[0], o[1]], x, p2) + (o[1],)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        chain(micro.blocked_copy)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = micro.launches_copy
+    with torch.cuda.graph(graph):
+        out = chain(micro.blocked_copy)
+    assert micro.launches_copy == before + 2
+    for seed in (1, 2):
+        a.copy_(torch.from_numpy(np.random.default_rng(seed).integers(
+            -2**31, 2**31, (1024, 128)).astype(np.int32)))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert bench_common.same_bits(out, chain(micro.blocked_copy_plain))
+    assert micro.launches_copy == before + 2
 
 
 @pytest.mark.cuda

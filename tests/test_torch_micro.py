@@ -289,11 +289,14 @@ def test_copy_plain_wraps_and_writes_in_place():
 
 
 def test_fill_layout_refuses_what_the_card_cannot_hold():
+    """Tiles that 16-byte stores cannot write (a width that is not a
+    multiple of 4) or that do not fit the frame."""
     with pytest.raises(ValueError):
-        common.frame_layout(smem_bytes=micro.SMEM_MAX + 4)
+        micro.FillLayout((64, 120), 16, 6, (1, 20))
     with pytest.raises(ValueError):
-        common.frame_layout(tps=10, flags=micro.DEPTH | micro.STAGE_TILE,
-                            smem_bytes=8 * 16 * 1280 - 4)
+        micro.FillLayout((64, 1280), 16, 384, (1, 12))
+    with pytest.raises(ValueError):
+        common.frame_layout(tile_h=1024)
 
 
 def test_cost_probes_run_on_the_card_by_default():
