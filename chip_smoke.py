@@ -118,13 +118,15 @@ and times kernels and frames.  Phases:
 13. row bands and the camera batch on the phase-3 engine's pool:
    ``parallel/sharded_render.make_sharded_render`` with dp = 2 cameras
    (phase 3's static and last moving pose and draw lists) and tp = 2
-   (360-row bands in 368-row buffers) and tp = 3 (240 rows): K1 and K2
-   launch tp times a camera, and the stacked bands must equal phase 3's
-   frames bit for bit; ``make_sharded_render_dp`` over the two cameras
-   too.  K2 with ``y0_px`` against its plain version on the last band of
-   each split (K2 must leave a padded buffer's padded rows as they
-   started; the pixels each writes there are printed), and each band's K2
-   time beside the full frame's;
+   (360-row bands in 368-row buffers) and tp = 3 (240 rows), every shard
+   on this card: the first call captures each shard's CUDA graph (K1 and
+   K2 launch 2 tp times a camera, eagerly and into the graph), a replay
+   launches through no wrapper, and the stacked bands must equal phase
+   3's frames bit for bit at both; ``make_sharded_render_dp`` over the two
+   cameras too.  K2 with ``y0_px`` against its plain version on the last
+   band of each split (K2 must leave a padded buffer's padded rows as
+   they started; the pixels each writes there are printed), and each
+   band's K2 time beside the full frame's;
 14. the application surface, each part with the counters zeroed before
    and read after it: a fresh engine of phase 3's configuration primed
    with ``prime_all``; ``warm_buckets()``, a frame at the start pose (equal
@@ -201,7 +203,21 @@ and times kernels and frames.  Phases:
    for bit, K1 and K4 once a frame), and a serial and a resident engine
    primed alike over ``default_path(96)``, the same orbit at four times
    the keys (stats[3] 0 on every key of both, every resident frame equal
-   to the serial frame of its key bit for bit).
+   to the serial frame of its key bit for bit);
+19. (run right after phase 13, on its pool) the sharded render on the
+   cards present, ``benches/multicard.run``: on every card K1, K2 with
+   ``y0_px``, K3, K4, M1 and M2 launched from card 0's thread, each once
+   on its card and equal to card 0's outputs bit for bit, and the kernel
+   library's current device following ``torch.cuda.device``; on four
+   cards the 2 x 2 mesh (phase 3's static and last moving pose, 360-row
+   bands, the pool replicated on each card) and the dp mesh (the static
+   and three moving poses, one a card), every frame equal to phase 3's at
+   the first call (which captures each card's CUDA graph: K1 and K2
+   twice a card) and at a replay (none through the wrappers; once a card
+   by the profiler), the tp counts all-reduced by NCCL, the batch timed
+   on four cards against one, the gather, the all-reduce and each card's
+   K2 band; on fewer cards the 1 x 1 mesh, and a line saying the
+   four-card layouts were not run.
 
 The script imports the port package and nothing else of the repo; before
 it prints its result it checks that neither jax nor any module of the JAX
@@ -211,8 +227,8 @@ of its bytes over the card's memory rate and its operations over the
 card's float32 rate).  Its last three lines are the JSON object with one
 entry per kernel (K1-K4, and M1 at ``a_base`` and M2 at ``make9``'s 4x5
 form with every probe site each replaces; K2's entry also gives its empty
-floor, its launches on the paths of phases 12-13, its time with an init
-frame and each band's, its wrapper's host us and the production parity
+floor, its launches on the paths of phases 12-13 and 19, its time with
+an init frame and each band's, its wrapper's host us and the production parity
 verdict; K1-K3 give their launches on each part of phase 14, K1-K4 on
 each part of phase 15, K1, K2 and K4 on each part of phase 18, M1 and
 M2 the graph launch floor and their variants within it, K1 and K2 their
@@ -324,6 +340,7 @@ def counters():
 
 
 def reset_counters() -> None:
+    from differential_projection_voxel_renderer_tpu_torch import _build
     from differential_projection_voxel_renderer_tpu_torch.ops import (
         geometry,
         micro,
@@ -331,6 +348,7 @@ def reset_counters() -> None:
         raster_packed,
     )
 
+    _build.card_launches.clear()
     geometry.launches = 0
     geometry.launches_span = 0
     raster.launches = 0
@@ -465,12 +483,15 @@ def main_path(torch):
     ev1.synchronize()
     host_ms = (time.perf_counter() - h0) * 1e3 / N_TIMED
     dev_ms = ev0.elapsed_time(ev1) / N_TIMED
-    moving = []
+    moving, moving_lists, moving_cams = [], [], []
     for i, (pos, target) in enumerate(moving_poses()):
         eng.camera.position = pos
         eng.camera.look_at(target)
         res, st, n = frame(True)
         moving.append(keep(res))
+        moving_lists.append(draw_list(eng))
+        moving_cams.append((eng.camera.view_projection_matrix(),
+                            eng.camera.position.copy()))
         log(f"[3] moving frame {i}: stats={st.tolist()} non-sky={n} "
             f"meshes={len(eng.pool.by_pos)} entry={dict(entry)}")
     moving_list = draw_list(eng)
@@ -488,7 +509,8 @@ def main_path(torch):
     log(f"[3] static frame: {dev_ms:.3f} ms/frame between CUDA events, "
         f"{host_ms:.3f} ms/frame host clock (mean of {N_TIMED})")
     serial = dict(static=static_frames[0], moving=moving,
-                  lists=(static_list, moving_list), cams=cams)
+                  lists=(static_list, moving_list), cams=cams,
+                  moving_lists=moving_lists, moving_cams=moving_cams)
     return (eng, static, launches, dict(static_ms=dev_ms, host_ms=host_ms),
             serial)
 
@@ -987,20 +1009,25 @@ def margin_check(torch, pipeline, hiz, static_cam, uploads, step_kw,
 
 def band_path(torch, eng, serial, card):
     """Phase 13: row bands and the camera batch on the phase-3 engine's
-    pool.  The draw lists of phase 3's static pose and last moving pose
-    (kept as chunk positions) become the batch of dp = 2 cameras.
-    make_sharded_render with tp = 2 (360-row bands padded to 368) and tp =
-    3 (240 rows, 15 tiles each): the counters are zeroed before and read
-    after (K1 and K2 launch tp times a camera), and the stacked bands must
-    equal phase 3's frame of each pose bit for bit (colour and depth).
-    make_sharded_render_dp over the same cameras (the draw lists expanded
-    with every face direction) must equal them too.  Then K2 with y0_px
-    against its plain version on the last band of each split, and each
-    band's K2 time (in runs of 20, and from a CUDA graph) beside the full
-    frame's on the same stream.  Returns (launches {"tp=2", "tp=3", "dp"},
-    {band: (runs ms, graph ms)}, max |depth error| of the band checks)."""
-    import numpy as np
-
+    pool, every shard on this card (a mesh that lists it once a shard).
+    The draw lists of phase 3's static pose and last moving pose (kept as
+    chunk positions) become the batch of dp = 2 cameras
+    (benches/multicard.batch_args).  make_sharded_render with tp = 2
+    (360-row bands padded to 368) and tp = 3 (240 rows, 15 tiles each):
+    the counters are zeroed before and read after its first call (which
+    captures each shard's CUDA graph: K1 and K2 launch 2 tp times a camera,
+    eagerly and into the graph) and a replay (none), and the stacked bands
+    must equal phase 3's frame of each pose bit for bit (colour and depth)
+    at both.  make_sharded_render_dp over the same cameras (the draw lists
+    expanded with every face direction) must equal them too.  Then K2
+    with y0_px against its plain version on the last band of each split,
+    and each band's K2 time (in runs of 20, and from a CUDA graph) beside
+    the full frame's on the same stream.
+    Returns (launches {"tp=2", "tp=3", "dp"}, {band: (runs ms, graph ms)},
+    max |depth error| of the band checks)."""
+    from differential_projection_voxel_renderer_tpu_torch.benches import (
+        multicard,
+    )
     from differential_projection_voxel_renderer_tpu_torch.parallel import (
         sharded_render as sr,
     )
@@ -1010,30 +1037,11 @@ def band_path(torch, eng, serial, card):
     )
     from differential_projection_voxel_renderer_tpu_torch.ops import raster
 
-    cfg = eng.config
-    vcap = cfg.visible_chunks_cap
     refs = [serial["static"], serial["moving"][-1]]
-    visible = np.zeros((2, vcap), np.int32)
-    nvis = np.zeros(2, np.int32)
-    for i, pos in enumerate(serial["lists"]):
-        slots, has = eng.pool.lookup_slots(pos)
-        if not has.all():
-            raise AssertionError("a chunk of phase 3's draw list left the "
-                                 "pool")
-        visible[i, :len(slots)] = slots
-        nvis[i] = len(slots)
-    most = max(int(eng.pool.counts[visible[i, :nvis[i]]].sum())
-               for i in range(2))
-    gather_cap = max(cfg.gather_cap, 1 << (most - 1).bit_length())
-    caps = dict(gather_cap=gather_cap, render_cap=cfg.quads_cap,
-                tile_k_cap=cfg.tile_k_cap)
+    args, caps = multicard.batch_args(eng, serial["lists"], serial["cams"])
+    gather_cap = caps["gather_cap"]
     dev = eng.device
-    vps = torch.from_numpy(np.stack([c[0] for c in serial["cams"]])).to(dev)
-    cps = torch.from_numpy(np.stack([c[1] for c in serial["cams"]])).to(dev)
-    args = (eng.pool.quads, torch.from_numpy(eng.pool.counts).to(dev),
-            torch.from_numpy(eng.pool.positions).to(dev),
-            torch.from_numpy(visible).to(dev),
-            torch.from_numpy(nvis).to(dev), vps, cps)
+    vps, cps = args[5:]
 
     def same(i, color, depth):
         return (torch.equal(color, refs[i][0])
@@ -1042,15 +1050,26 @@ def band_path(torch, eng, serial, card):
 
     launches = {}
     for tp in (2, 3):
-        fn = sr.make_sharded_render((2, tp), width=WIDTH, height=HEIGHT,
-                                    device=dev, **caps)
+        fn = sr.make_sharded_render(
+            sr.make_mesh(2 * tp, devices=[dev] * (2 * tp)), width=WIDTH,
+            height=HEIGHT, **caps)
         torch.cuda.synchronize()
         reset_counters()
         color, depth, count = fn(*args)
         torch.cuda.synchronize()
         launches[f"tp={tp}"] = counters()
-        if launches[f"tp={tp}"] != (2 * tp, 2 * tp, 0, 0):
+        # the first call captures each shard's graph: K1 and K2 launched
+        # twice a shard (the eager step, then into the graph)
+        if launches[f"tp={tp}"] != (4 * tp, 4 * tp, 0, 0):
             raise AssertionError(f"tp={tp}: launches {launches[f'tp={tp}']}")
+        reset_counters()
+        replay = fn(*args)
+        torch.cuda.synchronize()
+        if counters() != (0, 0, 0, 0) or not all(
+                torch.equal(a, b) for a, b in zip(replay, (color, depth,
+                                                           count))):
+            raise AssertionError(f"tp={tp}: a replay launched {counters()} "
+                                 f"through the wrappers or changed a frame")
         for i in range(2):
             if not same(i, color[i], depth[i]):
                 raise AssertionError(f"tp={tp}: camera {i}'s stacked bands "
@@ -1063,25 +1082,18 @@ def band_path(torch, eng, serial, card):
             f"K2={launches[f'tp={tp}'][1]}; counts (bands' sum / tp) "
             f"{count.tolist()} against the frames' "
             f"{[int(r[2][1]) for r in refs]} (no direction mask here)")
-    streams = []
-    ones = torch.ones((vcap, 6), dtype=torch.int32, device=dev)
-    for i in range(2):
-        sl = torch.from_numpy(visible[i]).to(dev)
-        c6 = torch.where(torch.arange(vcap, device=dev)[:, None] < nvis[i],
-                         eng.pool.counts6_dev[sl.long()], 0)
-        streams.append(pipeline._expand_uploads_impl(
-            eng.pool.quads, sl, c6, ones, args[2][sl.long()], gather_cap))
-    fn, n = sr.make_sharded_render_dp(2, width=WIDTH, height=HEIGHT,
+    streams = multicard.dp_streams(eng, args, gather_cap)
+    fn, n = sr.make_sharded_render_dp(sr.make_mesh(2, devices=[dev] * 2),
+                                      width=WIDTH, height=HEIGHT,
                                       render_cap=caps["render_cap"],
-                                      tile_k_cap=caps["tile_k_cap"],
-                                      device=dev)
+                                      tile_k_cap=caps["tile_k_cap"])
     torch.cuda.synchronize()
     reset_counters()
     color, depth, stats = fn(*(torch.stack([s[k] for s in streams])
                                for k in range(3)), vps, cps)
     torch.cuda.synchronize()
     launches["dp"] = counters()
-    if launches["dp"] != (2, 2, 0, 0) or not all(
+    if launches["dp"] != (4, 4, 0, 0) or not all(
             same(i, color[i], depth[i]) for i in range(2)):
         raise AssertionError(f"make_sharded_render_dp differs from phase 3's "
                              f"frames (launches {launches['dp']})")
@@ -1134,6 +1146,30 @@ def band_path(torch, eng, serial, card):
                                      for k, (r, g) in band_ms.items())
         + f"; {card}")
     return launches, band_ms, err
+
+
+def multicard_path(torch, eng, serial):
+    """Phase 19: the sharded render on the cards present,
+    ``benches/multicard.run`` on phase 3's engine (run right after phase
+    13, on the same pool) with phase 3's static pose and its moving poses
+    ``multicard.MOVING_DP`` (the last included), their frames, draw lists
+    and cameras.  On every card K1, K2 (y0_px), K3, K4, M1 and M2 from
+    card 0's thread equal to card 0's; on four cards the 2 x 2 and the dp
+    layouts against phase 3's frames, the launches of K1 and K2 by card,
+    the all-reduced counts and the times of the batch on four cards and on
+    one; on fewer cards the 1 x 1 mesh.  Each checked run zeroes the
+    per-card counts before it and reads them after.  Returns the bench's
+    dict and the phase's seconds."""
+    from differential_projection_voxel_renderer_tpu_torch.benches import (
+        multicard,
+    )
+
+    poses = [(serial["static"], serial["lists"][0], serial["cams"][0])] + [
+        (serial["moving"][i], serial["moving_lists"][i],
+         serial["moving_cams"][i]) for i in multicard.MOVING_DP]
+    t0 = time.perf_counter()
+    res = multicard.run(eng, poses, log=lambda m: log(f"[19] {m}"))
+    return res, time.perf_counter() - t0
 
 
 def fly_path(eng, path, ev, keep_frames=True):
@@ -1454,9 +1490,10 @@ def app_path(torch, eng3, serial, static, card):
         f"{nonsky(color)} non-sky pixels, {secs['entry']:.2f} s")
     for n in (4, 8):
         part = f"dryrun_multichip({n})"
-        timed(part, lambda n=n: graft_entry.dryrun_multichip(n))
+        mesh = timed(part, lambda n=n: graft_entry.dryrun_multichip(n))
         need(part, "+", "+", 0)
-        log(f"[14] {part}: (dp, tp) = {graft_entry.make_mesh(n)}, every check "
+        log(f"[14] {part}: (dp, tp) = {tuple(mesh)} over "
+            f"{[str(d) for d in mesh.flat]}, every check "
             f"passed (the stacked bands equal the single render_step frame "
             f"bit for bit), launches {launches[part]}, {secs[part]:.2f} s")
 
@@ -3214,6 +3251,15 @@ def main() -> int:
     # ---- 13. row bands and the camera batch
     launches13, band_ms, band_err = band_path(torch, eng, serial, card)
 
+    # ---- 19. the sharded render on the cards present (run here, on the
+    # pool phase 13 renders from)
+    multi19, secs19 = multicard_path(torch, eng, serial)
+    main19 = multi19.get("2x2_launches_k1_k2_by_card",
+                         multi19.get("1x1_launches_k1_k2_by_card"))
+    log(f"[19] {multi19['layouts']}; launches of K1 and K2 by card on the "
+        f"sharded render {main19}; {secs19:.1f} s; "
+        + "; ".join(multi19["smi"]))
+
     # ---- 14. the application surface
     launches14, secs14, fps14, stale14, verdict14, flights14 = app_path(
         torch, eng, serial, (uploads, vp0, cp0), card)
@@ -3286,6 +3332,7 @@ def main() -> int:
              launches_app={k: v[0] for k, v in launches14.items()},
              launches_resident={k: v[0] for k, v in launches15.items()},
              launches_binning={k: v[0] for k, v in launches18.items()},
+             launches_multicard={k: v[0] for k, v in main19.items()},
              resident_stream_quads=kern15["shape"],
              resident_bucket=kern15["bucket"],
              resident_max_abs_err=kern15["k1_err"],
@@ -3336,6 +3383,8 @@ def main() -> int:
              production_parity=verdict14,
              launches_resident={k: v[1] for k, v in launches15.items()},
              launches_binning={k: v[1] for k, v in launches18.items()},
+             launches_multicard={k: v[1] for k, v in main19.items()},
+             multicard_band_ms=multi19.get("k2_band_ms"),
              resident_items=kern15["items"],
              resident_tile_k_cap=kern15["tile_k_cap"],
              resident_render_cap=kern15["render_cap"],

@@ -26,7 +26,8 @@ under the same sub-package names:
                    the frame parity gates and self-tests (``parity.py``)
 - ``app``       -- QuadPool, Engine, FrameResult (``engine.py``), the
                    flythrough (``flythrough.py``)
-- ``parallel``  -- row bands and the camera batch (``sharded_render.py``)
+- ``parallel``  -- row bands and the camera batch over a mesh of cards
+                   (``sharded_render.py``)
 - ``graft_entry`` -- the graft entry points ``entry`` and
                    ``dryrun_multichip``; ``examples/render_demo.py`` -- the
                    headless demo

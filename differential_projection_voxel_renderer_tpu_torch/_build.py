@@ -11,10 +11,17 @@ Nothing here runs when the package is imported, so machines without
 Flags: ``sm_90a`` (Hopper), ``-fmad=false`` (no multiply-add contraction:
 the frame must round like the reference's separate multiplies and adds),
 IEEE division and square root, no flush-to-zero, never fast math.
+
+The C entry points take no device: they launch on the calling thread's
+current device.  ``launch`` calls one with that device set to the card its
+tensors are on.  Each wrapper bumps its module's launch count and
+``card_launches`` under ``COUNT_LOCK``, so that the counts stay exact when
+several host threads drive several cards.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import os
 import shutil
@@ -22,6 +29,8 @@ import subprocess
 import tempfile
 import threading
 import time
+
+import torch
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -71,7 +80,15 @@ _SIGNATURES = {
     "dpvr_fill_tiles": (_P,) * 15 + (_P, _P),
     # M2: (in0..7, out0..7, x, params (host int[23]), stream)
     "dpvr_blocked_copy": (_P,) * 16 + (_P, _P, _P),
+    # the library runtime's current device on the calling thread
+    "dpvr_current_device": (),
 }
+
+# every wrapper bumps its launch counts under this lock
+COUNT_LOCK = threading.Lock()
+# launches of each kernel ("K1", "K2", "K3", "K4", "M1", "M2") on each
+# card, by (kernel, card index)
+card_launches: collections.Counter = collections.Counter()
 
 
 def nvcc() -> str:
@@ -196,3 +213,21 @@ def check(err: int, name: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launch."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+
+
+def launch(entry: str, card: int, name: str, *args) -> None:
+    """Call the C entry point ``entry`` with the calling thread's current
+    device set to ``card`` (the index of the card its tensors are on) and
+    restored after, and raise on the cudaError it returns (``name`` in the
+    message); where the thread's device is already ``card``, nothing is
+    switched.  The library's own runtime launches on that device (a null
+    stream handle, PyTorch's default stream, means its default stream), so
+    without the switch a kernel for another card's tensors runs on this
+    thread's card (``benches/multicard.py unguarded_launch``)."""
+    fn = getattr(lib(), entry)
+    if torch.cuda.current_device() == card:
+        err = fn(*args)
+    else:
+        with torch.cuda.device(card):
+            err = fn(*args)
+    check(err, name)

@@ -157,7 +157,9 @@ def graph_ms(fn, calls: int = 30, reps: int = 10) -> float:
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # on the current card's stream (torch.cuda.graph's default capture
+    # stream lies on the card current at its first use)
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(calls):
             fn()
     graph.replay()

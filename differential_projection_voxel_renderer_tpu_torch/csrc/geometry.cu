@@ -38,6 +38,8 @@
 
 #include <string.h>
 
+#include <atomic>
+
 #include <type_traits>
 
 #include "stage_a.cuh"
@@ -182,16 +184,19 @@ __global__ void __launch_bounds__(kK1Threads) project_cull_kernel(
   count_warp(o.counts, n_sub, n_valid);
 }
 
-// The current device's SM count, read once a device.
+// The current device's SM count, read once a device (threads that drive
+// other cards call this at once).
 int sm_count() {
-  static int counts[64];
+  static std::atomic<int> counts[64];
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev < 0 || dev >= 64) return 132;
-  if (counts[dev] == 0)
-    cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount,
-                           dev);
-  return counts[dev] > 0 ? counts[dev] : 132;
+  int n = counts[dev].load(std::memory_order_relaxed);
+  if (n == 0) {
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    counts[dev].store(n, std::memory_order_relaxed);
+  }
+  return n > 0 ? n : 132;
 }
 
 }  // namespace
@@ -252,4 +257,13 @@ extern "C" int dpvr_project_cull(const void* quads, const void* quad_world,
       static_cast<const int*>(skip), gq, width, height, flags, vec, o,
       static_cast<float*>(ndc));
   return (int)cudaGetLastError();
+}
+
+// The CUDA runtime's current device as this library's own (static) runtime
+// sees it on the calling thread, or -1 on an error: it shows whether the
+// device a caller sets through PyTorch is the one these entry points
+// launch on.
+extern "C" int dpvr_current_device() {
+  int dev = -1;
+  return cudaGetDevice(&dev) == cudaSuccess ? dev : -1;
 }

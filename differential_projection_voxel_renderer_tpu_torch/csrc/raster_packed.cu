@@ -61,6 +61,8 @@
 //     every tile of a 720p frame is resident at once.
 // Tensor cores and TMA do not apply, for tile_raster.cuh's reasons.
 
+#include <atomic>
+
 #include "tile_raster.cuh"
 
 namespace {
@@ -362,6 +364,25 @@ raster_packed_kernel(const int* __restrict__ rec, int cap,
   store_pixels(tiles_x, width, D, C, color_out, depth_out);
 }
 
+// Opt raster_packed_kernel into kSmemBytes of dynamic shared memory (over
+// the 48 KiB default) on the current device.  The attribute is per device,
+// so each card sets it on its first call; threads on one card may both set
+// it, which is harmless.
+cudaError_t opt_in_smem() {
+  static std::atomic<bool> done[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 0 && dev < 64 && done[dev].load(std::memory_order_acquire))
+    return cudaSuccess;
+  err = cudaFuncSetAttribute(raster_packed_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kSmemBytes);
+  if (err == cudaSuccess && dev >= 0 && dev < 64)
+    done[dev].store(true, std::memory_order_release);
+  return err;
+}
+
 }  // namespace
 
 // K4: records i32[24, cap] (rows 0-19 read), starts/counts i32[tiles * 5],
@@ -373,9 +394,7 @@ extern "C" int dpvr_rasterize_packed(
     const void* item_bby, const void* item_bbx, const void* octet_zmin,
     int tiles_y, int tiles_x, int height, int width, void* color,
     void* depth, void* stream) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      raster_packed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes);
+  const cudaError_t attr = opt_in_smem();
   if (attr != cudaSuccess) return (int)attr;
   const int n_tiles = tiles_y * tiles_x;
   if (n_tiles > 0) {
@@ -398,9 +417,7 @@ extern "C" int dpvr_rasterize_packed_smem_bytes() { return (int)kSmemBytes; }
 // memory, or -1 on an error.
 extern "C" int dpvr_rasterize_packed_blocks_per_sm() {
   int n = 0;
-  if (cudaFuncSetAttribute(raster_packed_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)kSmemBytes) != cudaSuccess ||
+  if (opt_in_smem() != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &n, raster_packed_kernel, kThreads, kSmemBytes) != cudaSuccess)
     return -1;

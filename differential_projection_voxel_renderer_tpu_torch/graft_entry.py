@@ -1,8 +1,10 @@
 """Graft entry points of the port (counterpart of ``__graft_entry__.py``).
 
 - ``entry()``             -> (forward render step, example tensors)
-- ``dryrun_multichip(n)`` -> the (dp, tp) layout of ``make_mesh(n)`` run on
-                             one device through the sharded entry points
+- ``dryrun_multichip(n)`` -> the (dp, tp) layout of ``make_mesh(n)`` run
+                             through the sharded entry points, its n
+                             entries laid round robin over the cards there
+                             are
 
 Nothing runs at import.  Both run on the card unless given
 ``device="cpu"``.
@@ -11,6 +13,7 @@ Nothing runs at import.  Both run on the card unless given
 from __future__ import annotations
 
 import functools
+import sys
 
 import numpy as np
 import torch
@@ -100,16 +103,17 @@ def entry(device="cuda", *, width: int = 1280, height: int = 720):
     return fn, tuple(args)
 
 
-def dryrun_multichip(n_devices: int, device="cuda") -> None:
-    """Run the (dp, tp) layout of ``make_mesh(n_devices)`` on one device at
-    the reference's dryrun sizes, and check it.
+def dryrun_multichip(n_devices: int, device="cuda"):
+    """Run the (dp, tp) layout of ``make_mesh(n_devices)`` at the
+    reference's dryrun sizes, and check it; returns the mesh.
 
     The reference builds an n-device virtual CPU mesh in a child process
-    and shards the step over it.  The port has no mesh to fake: its
-    ``make_sharded_render`` runs the tp row bands and the dp cameras on
-    one device, each band one ``render_step`` at global pixel NDC, so this
-    checks the decomposition, not a split across cards; a real multi-card
-    split (``torch.distributed``) is a design question for later.
+    and shards the step over it.  The port lays the n entries over the
+    cards there are, round robin (entry k on ``cuda:(k % count)``, through
+    ``make_mesh``'s explicit ``devices=``), so that n = 4 on four cards
+    takes four distinct cards and n = 8 two shards a card; with
+    ``device="cpu"`` every entry is the CPU.  It logs the layout to
+    standard error.
 
     1. ``make_sharded_render``: 128-wide frames, a camera per dp shard,
        gather cap 1024, render cap 512, on a 4-chunk scene.  The
@@ -119,14 +123,23 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
     2. ``make_sharded_render_dp``: the same camera on each of
        ``n_devices`` entries of the batch, 128x64; every entry must be
        bit-identical, and not all sky."""
-    dev = resolve_device(device)
-    dp, tp = make_mesh(n_devices)
+    resolve_device(device)
+    if torch.device(device).type == "cuda":
+        count = torch.cuda.device_count()
+        devices = [f"cuda:{k % count}" for k in range(n_devices)]
+    else:
+        devices = [device] * n_devices
+    mesh = make_mesh(n_devices, devices=devices)
+    dp, tp = mesh
+    dev = mesh.devices[0, 0]
+    print(f"dryrun_multichip({n_devices}): (dp, tp) = ({dp}, {tp}) over "
+          f"{', '.join(map(str, mesh.flat))}", file=sys.stderr, flush=True)
     pool, counts, positions, n_slots, cam = _example_scene(
         pool_slots=16, qcap=512, n_chunks=4)
     width = 128
     height = 8 * tp * max(1, 64 // (8 * tp))
-    step = make_sharded_render((dp, tp), width=width, height=height,
-                               gather_cap=1024, render_cap=512, device=dev)
+    step = make_sharded_render(mesh, width=width, height=height,
+                               gather_cap=1024, render_cap=512)
     b = dp  # one camera per dp shard
     visible = np.zeros((b, 16), np.int32)
     visible[:, :n_slots] = np.arange(n_slots)[None, :]
@@ -171,8 +184,7 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
             qw2[:, a, k:k + c] = positions[s, a] * 32.0
         k += c
     fn2, _ = make_sharded_render_dp(
-        n_devices, width=128, height=64, render_cap=512, tile_k_cap=512,
-        device=dev)
+        mesh, width=128, height=64, render_cap=512, tile_k_cap=512)
     c2, d2, _st2 = fn2(*_tensors(
         dev, stream, qw2, np.full(n_devices, k, np.int32),
         np.repeat(cam.view_projection_matrix()[None], n_devices,
@@ -182,6 +194,7 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
     assert bool((c2 == c2[0]).all()), "DP shards diverged (color)"
     assert bool((d2 == d2[0]).all()), "DP shards diverged (depth)"
     assert int((c2[0] != SKY_I32).sum()) > 0, "mode-2 rendered nothing"
+    return mesh
 
 
 if __name__ == "__main__":

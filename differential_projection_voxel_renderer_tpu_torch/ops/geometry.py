@@ -181,13 +181,15 @@ def project_cull(quads, quad_world, n_quads, view_proj, cam_pos, *,
                  | (QUADS_PER_THREAD.bit_length() - 1) << 2)
     # the raw handle of the current stream: torch.cuda.current_stream()
     # builds a Stream object on every call
-    err = _build.lib().dpvr_project_cull(
+    _build.launch(
+        "dpvr_project_cull", dev.index, "project_cull",
         *args, None if skip is None else skip.data_ptr(), gq, width, height,
         flags, *output_ptrs(out),
         out["ndc"].data_ptr() if span_mode else None,
         torch._C._cuda_getCurrentRawStream(dev.index))
-    _build.check(err, "project_cull")
-    launches += 1
-    if span_mode:
-        launches_span += 1
+    with _build.COUNT_LOCK:
+        launches += 1
+        if span_mode:
+            launches_span += 1
+        _build.card_launches["K1", dev.index] += 1
     return out

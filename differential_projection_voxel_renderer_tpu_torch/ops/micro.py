@@ -305,12 +305,14 @@ def fill_tiles(layout: FillLayout, *, x=None, order=None, starts=None,
         raise ValueError("recs must be int32 [24, cap]")
     outs = fill_outputs(layout, dev)
     # the raw handle of the current stream, as K1's wrapper takes it
-    err = _build.lib().dpvr_fill_tiles(
+    _build.launch(
+        "dpvr_fill_tiles", idx, "fill_tiles",
         outs[0].data_ptr(), outs[1].data_ptr() if len(outs) > 1 else None,
         *ptrs, *_NULLS[:N_EXTRA - len(extra)], layout.c_params,
         torch._C._cuda_getCurrentRawStream(idx))
-    _build.check(err, "fill_tiles")
-    launches_fill += 1
+    with _build.COUNT_LOCK:
+        launches_fill += 1
+        _build.card_launches["M1", idx] += 1
     return outs
 
 
@@ -413,10 +415,12 @@ def blocked_copy(inputs, x, pairs, *, block_rows: int = 64, out=None):
     in_ptrs = [_ptr(t, idx, torch.int32, "input") for t in inputs]
     x_ptr = _ptr(x, idx, torch.int32, "x", 1)
     outs = copy_outputs(in0, len(pairs), out)
-    err = _build.lib().dpvr_blocked_copy(
+    _build.launch(
+        "dpvr_blocked_copy", idx, "blocked_copy",
         *in_ptrs, *_NULLS[len(inputs):], *(o.data_ptr() for o in outs),
         *_NULLS[len(outs):], x_ptr, params,
         torch._C._cuda_getCurrentRawStream(idx))
-    _build.check(err, "blocked_copy")
-    launches_copy += 1
+    with _build.COUNT_LOCK:
+        launches_copy += 1
+        _build.card_launches["M2", idx] += 1
     return outs

@@ -442,11 +442,13 @@ def rasterize_tiles(records, tile_starts, tile_counts, octet_rows,
         None if init_depth is None else init_depth.data_ptr(), int(y0_px))
     stream = torch.cuda.current_stream(dev).cuda_stream
     if next_geom is None:
-        err = _build.lib().dpvr_rasterize_tiles(
+        _build.launch(
+            "dpvr_rasterize_tiles", dev.index, "rasterize_tiles",
             *raster_args, *(None,) * 5, 0, int(backface_culling),
             *(None,) * 6, stream)
-        _build.check(err, "rasterize_tiles")
-        launches += 1
+        with _build.COUNT_LOCK:
+            launches += 1
+            _build.card_launches["K2", dev.index] += 1
         return color, depth
     quads2, qw2, n2, vp2, cp2 = next_geom
     if quads2.device != dev:
@@ -454,9 +456,11 @@ def rasterize_tiles(records, tile_starts, tile_counts, octet_rows,
     n2 = geom_ops.device_i32(n2, dev)
     gin = geom_ops.kernel_args(quads2, qw2, n2, vp2, cp2)
     geom = geom_ops.kernel_outputs(quads2.shape[0], dev)
-    err = _build.lib().dpvr_rasterize_tiles(
+    _build.launch(
+        "dpvr_rasterize_tiles", dev.index, "rasterize_tiles (K3)",
         *raster_args, *gin, quads2.shape[0], int(backface_culling),
         *geom_ops.output_ptrs(geom), stream)
-    _build.check(err, "rasterize_tiles (K3)")
-    launches_geom += 1
+    with _build.COUNT_LOCK:
+        launches_geom += 1
+        _build.card_launches["K3", dev.index] += 1
     return color, depth, geom

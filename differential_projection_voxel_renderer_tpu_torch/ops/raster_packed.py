@@ -298,10 +298,12 @@ def rasterize_packed(records, starts, counts, octet_rows, octet_zmin,
     depth = torch.empty((out_h, width), dtype=torch.float32, device=dev)
     rec, st, cn, bby, zmin = (x.data_ptr() for x in ins)
     bbx = item_bbx.contiguous()
-    err = _build.lib().dpvr_rasterize_packed(
+    _build.launch(
+        "dpvr_rasterize_packed", dev.index, "rasterize_packed",
         rec, cap, st, cn, bby, bbx.data_ptr(), zmin, out_h // tile_h,
         width // 128, height, width, color.data_ptr(), depth.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "rasterize_packed")
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
+        _build.card_launches["K4", dev.index] += 1
     return color, depth

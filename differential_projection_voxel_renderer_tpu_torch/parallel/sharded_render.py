@@ -1,24 +1,42 @@
-"""Row bands and camera batches: the sharded render entry points on one
-card.
+"""Row bands and camera batches over a mesh of cards.
 
 Counterpart of ``differential_projection_voxel_renderer_tpu/parallel/
 sharded_render.py``, which shards a camera batch over the ``dp`` axis and
-framebuffer row bands over the ``tp`` axis of a device mesh.  The port
-keeps the decomposition and its outputs on one card, without a mesh:
+framebuffer row bands over the ``tp`` axis of a device mesh:
 
-- ``make_mesh`` gives the same (dp, tp) factorization of a device count,
-  as two integers;
-- a ``tp`` band is one ``render_step`` on its rows (``band_y0``/
+- ``make_mesh`` lays n devices out as a (dp, tp) ``DeviceMesh`` with the
+  reference's factorization, row-major as JAX's ``Mesh`` lays them: shard
+  (i, t) is device ``i * tp + t``.  By default they are the first n CUDA
+  cards, all distinct; a caller may list the devices itself, the same
+  device several times included (a CPU mesh for the tests, one card for a
+  decomposition on one card);
+- every shard runs on its own card, all at once: its step is captured into
+  a CUDA graph on that card at the first call (``_CardGraph``), and a call
+  copies each shard's inputs in and then replays every card's graph from
+  this one host thread.  The eager step is host-bound (~470 launches a
+  frame), and driven from one host thread a card it was slower than on one
+  card: each torch op releases and retakes the interpreter lock, so four
+  threads hand it over at every op (``benches/multicard.py`` times both).
+  On the CPU the shards run in turn, eagerly.  The scene (pool, counts,
+  positions) is replicated on every device (``replicate`` makes the form a
+  caller keeps across calls) and the camera batch is split over dp;
+- a ``tp`` shard is one ``render_step`` on its rows (``band_y0``/
   ``band_h``: the quads that touch the band, rasterized by one K2 launch
   into a band-sized frame at global pixel NDC), and the bands stacked
   equal the full frame bit for bit;
-- the ``dp`` axis is a loop over the camera batch;
 - the reference's one collective, ``psum(count, "tp") // tp`` of the
-  bands' rasterized counts, is their sum over the bands, divided by tp.
+  bands' rasterized counts, is ``all_reduce_sum`` over each dp row's tp
+  shards -- an NCCL all-reduce in this one process where those are
+  distinct cards, else the plain sum -- then divided by tp on each shard;
+- the outputs are gathered on the mesh's first device by peer copies, as
+  ``np.asarray`` gathers a sharded ``jax.Array``.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from ..ops import projection as proj_ops
@@ -28,11 +46,67 @@ from ..ops.texture import TextureAtlas
 from ..rendering.pipeline import render_step, resolve_device
 
 
-def make_mesh(n_devices: int | None = None) -> tuple[int, int]:
-    """The (dp, tp) factorization of ``n_devices`` (by default the CUDA
-    device count) that the reference's mesh takes: tp gets the larger
-    factor (framebuffer bands are the finer-grained axis)."""
-    n = n_devices or max(1, torch.cuda.device_count())
+class DeviceMesh:
+    """A (dp, tp) mesh: ``devices`` an object array [dp, tp] of indexed
+    ``torch.device``s.  Unpacks as (dp, tp)."""
+
+    def __init__(self, devices: np.ndarray):
+        self.devices = devices
+
+    @property
+    def dp(self) -> int:
+        return self.devices.shape[0]
+
+    @property
+    def tp(self) -> int:
+        return self.devices.shape[1]
+
+    def __iter__(self):
+        return iter(self.devices.shape)
+
+    def __repr__(self) -> str:
+        return (f"DeviceMesh(dp={self.dp}, tp={self.tp}, devices="
+                f"{[str(d) for d in self.flat]})")
+
+    @property
+    def flat(self) -> list[torch.device]:
+        """The devices in mesh order (shard (i, t) at i * tp + t)."""
+        return list(self.devices.reshape(-1))
+
+    @property
+    def distinct(self) -> list[torch.device]:
+        """Each device once, in mesh order."""
+        return list(dict.fromkeys(self.flat))
+
+
+def _indexed(dev) -> torch.device:
+    dev = resolve_device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def make_mesh(n_devices: int | None = None, devices=None) -> DeviceMesh:
+    """The (dp, tp) mesh of ``n_devices`` devices that the reference's
+    ``make_mesh`` takes: tp gets the larger factor (framebuffer bands are
+    the finer-grained axis).  ``devices`` lists the devices (the first
+    ``n_devices`` are taken, all of them by default; one may appear more
+    than once); without it they are the first ``n_devices`` CUDA cards
+    (by default all of them), and asking for more cards than there are
+    raises: the mesh never takes fewer cards or the CPU."""
+    if devices is None:
+        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        n = n_devices or count
+        if n < 1 or n > count:
+            raise RuntimeError(f"a mesh of {n_devices or 'all'} CUDA cards, "
+                               f"and {count} are available")
+        devs = [torch.device("cuda", k) for k in range(n)]
+    else:
+        devs = [_indexed(d) for d in devices]
+        n = n_devices or len(devs)
+        if not 1 <= n <= len(devs):
+            raise ValueError(f"a mesh of {n} devices from {len(devs)} listed")
+        devs = devs[:n]
     dp = 1
     for cand in (4, 3, 2):
         if n % cand == 0 and n // cand > 1:
@@ -41,15 +115,58 @@ def make_mesh(n_devices: int | None = None) -> tuple[int, int]:
     dp = max(1, min(dp, n))
     while n % dp:
         dp -= 1
-    return dp, n // dp
+    grid = np.empty(n, dtype=object)
+    grid[:] = devs
+    return DeviceMesh(grid.reshape(dp, n // dp))
 
 
-def _color_tables(color_tables, device):
+class Replicated:
+    """A tensor with one copy on each distinct device of a mesh: the form
+    of a replicated input that a caller keeps across calls (JAX:
+    ``jax.device_put`` with a replicated sharding), taken as it is."""
+
+    def __init__(self, copies: dict):
+        self.copies = copies
+
+    def on(self, dev: torch.device) -> torch.Tensor:
+        return self.copies[dev]
+
+
+def replicate(mesh: DeviceMesh, x) -> Replicated:
+    """``x`` copied once to each distinct device of ``mesh`` (a device
+    that holds it already keeps it); a ``Replicated`` is returned as it
+    is."""
+    if isinstance(x, Replicated):
+        return x
+    return Replicated({d: x.to(d) for d in mesh.distinct})
+
+
+def all_reduce_sum(counts: list) -> list:
+    """The sum of ``counts`` (one int32 tensor a shard, each on its
+    shard's device, all of one shape) on every shard.  Distinct CUDA cards
+    reduce in place by one NCCL all-reduce in this process
+    (``torch.cuda.nccl.all_reduce``, on each card's current stream); other
+    devices (the CPU, or a card listed twice) take the plain sum, copied
+    to each shard's device."""
+    devs = [c.device for c in counts]
+    if len(counts) == 1:
+        return counts
+    if all(d.type == "cuda" for d in devs) and len(set(devs)) == len(devs):
+        from torch.cuda import nccl
+
+        nccl.all_reduce(counts)
+        return counts
+    total = functools.reduce(torch.add, (c.to(devs[0]) for c in counts))
+    return [total.to(d) for d in devs]
+
+
+def _color_tables(color_tables, devices) -> dict:
     """Shading tables (numpy, ops/shading.build_quad_color_tables; the
-    default atlas when None) as the step's device tables."""
+    default atlas when None) as the step's tables on each device."""
     if color_tables is None:
         color_tables = build_quad_color_tables(TextureAtlas().kernel_tables())
-    return proj_ops.color_table_tensors(color_tables, device)
+    return {d: proj_ops.color_table_tensors(color_tables, d)
+            for d in devices}
 
 
 def _render_one_camera(pool, counts_all, positions, visible_slots,
@@ -89,82 +206,289 @@ def _render_one_camera(pool, counts_all, positions, visible_slots,
     return color, depth, stats[1]
 
 
-def make_sharded_render(mesh: tuple[int, int], *, width: int, height: int,
-                        gather_cap: int = 8192, render_cap: int = 4096,
-                        tile_k_cap: int = 8192, color_tables=None,
-                        span_mode: bool = False, device="cuda"):
-    """The dp x tp render of a camera batch; ``mesh`` = (dp, tp) from
-    ``make_mesh``.  Returns ``fn(pool, counts, positions, visible_slots,
-    n_visible, view_proj, cam_pos)`` over tensors on ``device``:
+class _CardGraph:
+    """``step(*fixed, *inputs)`` on the card ``dev``, replayed from a CUDA
+    graph.  Built at a shard's first call: static copies of ``inputs`` are
+    made on the card, one eager step runs on a side stream (the kernels
+    load, K4 opts in to its shared memory on this card, the device tables
+    are made, as ``rendering/pipeline.make_repeated_step``), and the step
+    is captured over the ``fixed`` tensors (used where they lie, so their
+    addresses must hold: ``matches``) and the static copies.  ``load``
+    copies a call's inputs in, ``replay`` launches the graph; ``out`` is
+    the graph's own memory, overwritten by the next replay."""
 
-    - pool i32[P, QCAP] quad words, counts i32[P], positions i32[P, 3];
-    - visible_slots i32[B, VCAP], n_visible i32[B], view_proj
-      f32[B, 4, 4], cam_pos f32[B, 3], B a multiple of dp;
+    def __init__(self, dev: torch.device, step, fixed, inputs):
+        self.fixed = [(t.data_ptr(), t.shape) for t in fixed]
+        self.shapes = [x.shape for x in inputs]
+        with torch.cuda.device(dev):
+            self.static = [torch.empty(x.shape, dtype=x.dtype, device=dev)
+                           for x in inputs]
+            self.load(inputs)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                step(*fixed, *self.static)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            # capture on this card's stream: torch.cuda.graph's default
+            # capture stream is made once, on the card current at its
+            # first use
+            with torch.cuda.graph(self.graph, stream=side):
+                self.out = step(*fixed, *self.static)
 
-    and it returns color i32[B, H, W], depth f32[B, H, W] (each the tp
-    bands stacked) and i32[B], the sum of the bands' rasterized counts
-    divided by tp (each band counts the quads that touch it).
-    ``tile_k_cap`` is the reference's per-camera binning cap (there fixed
-    at its default, 8192), here a keyword so that a 720p frame fits.
-    ``span_mode`` renders every band in span mode.  ``dp`` changes no
-    frame: every camera is rendered in turn, and it is kept, with its
-    check that it divides B, for parity with the reference's
-    signature."""
-    dp, tp = mesh
-    if height % (tp * 8):
-        raise ValueError("height must split into 8-aligned bands")
-    band_h = height // tp
-    tables = _color_tables(color_tables, resolve_device(device))
+    def matches(self, fixed, inputs) -> bool:
+        return (self.fixed == [(t.data_ptr(), t.shape) for t in fixed]
+                and self.shapes == [x.shape for x in inputs])
 
-    def fn(pool, counts, positions, visible_slots, n_visible, view_proj,
-           cam_pos):
+    def load(self, inputs) -> None:
+        for s, x in zip(self.static, inputs):
+            s.copy_(x)
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+
+class _Shards:
+    """Runs a mesh's shards: ``step(key, *fixed, *inputs)`` for each shard
+    key on its device.  On CUDA devices each shard has its ``_CardGraph``
+    (rebuilt when its fixed tensors or input shapes change): every shard's
+    inputs are copied in first (a copy from another card waits on that
+    card's queue, so none may wait behind a replay), then every graph is
+    replayed, all from the calling thread.  Elsewhere each shard runs its
+    eager step in turn."""
+
+    def __init__(self, step):
+        self.step = step
+        self.graphs: dict = {}
+
+    def run(self, jobs) -> dict:
+        """``jobs``: [(key, device, fixed tensors on the device, inputs on
+        any device)]; returns {key: the step's outputs} (on CUDA, the
+        graphs' memory)."""
+        out = {}
+        ready = []
+        for key, dev, fixed, inputs in jobs:
+            if dev.type != "cuda":
+                out[key] = self.step(key, *fixed,
+                                     *(x.to(dev) for x in inputs))
+                continue
+            g = self.graphs.get(key)
+            if g is not None and g.matches(fixed, inputs):
+                g.load(inputs)
+            else:
+                g = self.graphs[key] = _CardGraph(
+                    dev, functools.partial(self.step, key), fixed, inputs)
+            ready.append((key, g))
+        for key, g in ready:
+            g.replay()
+            out[key] = g.out
+        return out
+
+
+class ShardedRender:
+    """The dp x tp render of a camera batch (``make_sharded_render``).
+    Calling it runs ``bands``, ``reduce`` and ``gather``; the bench times
+    each alone, and ``step`` is a shard's eager step."""
+
+    def __init__(self, mesh: DeviceMesh, *, width: int, height: int,
+                 gather_cap: int, render_cap: int, tile_k_cap: int,
+                 color_tables, span_mode: bool):
+        if height % (mesh.tp * 8):
+            raise ValueError("height must split into 8-aligned bands")
+        self.mesh = mesh
+        self.band_h = height // mesh.tp
+        self.tables = _color_tables(color_tables, mesh.distinct)
+        self.kw = dict(width=width, height=height, gather_cap=gather_cap,
+                       render_cap=render_cap, tile_k_cap=tile_k_cap,
+                       span_mode=span_mode)
+        self.shards = _Shards(self.step)
+        # this function's copies of a scene input that is not replicated,
+        # by (input, device): refilled each call, so the graphs' addresses
+        # hold
+        self._copies: dict = {}
+
+    def step(self, key, pool, counts, positions, visible_slots, n_visible,
+             view_proj, cam_pos):
+        """Shard ``key`` = (i, t)'s eager step on its device: each camera
+        of its dp row on its band.  Returns ([color [band_h, W] a camera],
+        [depth a camera], the bands' counts i32[B / dp])."""
+        dev = pool.device
+        outs = [_render_one_camera(
+            pool, counts, positions, visible_slots[j], n_visible[j],
+            view_proj[j], cam_pos[j], self.tables[dev],
+            band_y0=key[1] * self.band_h, band_h=self.band_h, **self.kw)
+            for j in range(visible_slots.shape[0])]
+        return ([c for c, _, _ in outs], [d for _, d, _ in outs],
+                torch.stack([n for _, _, n in outs]))
+
+    def _scene_on(self, k: int, x, dev: torch.device) -> torch.Tensor:
+        if isinstance(x, Replicated):
+            return x.on(dev)
+        if x.device == dev:
+            return x
+        buf = self._copies.get((k, dev))
+        if buf is None or buf.shape != x.shape or buf.dtype != x.dtype:
+            buf = self._copies[k, dev] = torch.empty(x.shape, dtype=x.dtype,
+                                                     device=dev)
+        return buf.copy_(x)
+
+    def bands(self, pool, counts, positions, visible_slots, n_visible,
+              view_proj, cam_pos) -> dict:
+        """Each shard's outputs on its device, the shards at once:
+        {(i, t): ([color [band_h, W] a camera], [depth a camera], the
+        bands' counts i32[B / dp])}, shard (i, t) rendering cameras
+        i * B / dp .. (i + 1) * B / dp - 1 on rows t * band_h ... On a
+        card they are its graph's memory, valid until the next call."""
         b = visible_slots.shape[0]
+        dp, tp = self.mesh
         if b % dp:
             raise ValueError(f"a batch of {b} cameras over dp = {dp}")
-        colors, depths, totals = [], [], []
-        for i in range(b):
-            bands = [_render_one_camera(
-                pool, counts, positions, visible_slots[i], n_visible[i],
-                view_proj[i], cam_pos[i], tables, width=width,
-                height=height, gather_cap=gather_cap, render_cap=render_cap,
-                band_y0=t * band_h, band_h=band_h, span_mode=span_mode,
-                tile_k_cap=tile_k_cap)
-                for t in range(tp)]
-            colors.append(torch.cat([c for c, _, _ in bands]))
-            depths.append(torch.cat([d for _, d, _ in bands]))
-            totals.append(sum(n for _, _, n in bands) // tp)
-        return torch.stack(colors), torch.stack(depths), torch.stack(totals)
+        per = b // dp
+        scene = (pool, counts, positions)
+        jobs = []
+        for i in range(dp):
+            cams = [x[i * per:(i + 1) * per] for x in (
+                visible_slots, n_visible, view_proj, cam_pos)]
+            for t in range(tp):
+                dev = self.mesh.devices[i, t]
+                fixed = [self._scene_on(k, x, dev)
+                         for k, x in enumerate(scene)]
+                jobs.append(((i, t), dev, fixed, cams))
+        return self.shards.run(jobs)
 
-    return fn
+    def reduce(self, shards: dict) -> None:
+        """``psum(count, "tp") // tp``: each dp row's band counts summed
+        over its tp shards (``all_reduce_sum``) and divided by tp, on every
+        shard, in place of the band counts."""
+        dp, tp = self.mesh
+        for i in range(dp):
+            row = all_reduce_sum([shards[i, t][2] for t in range(tp)])
+            for t in range(tp):
+                shards[i, t] = (*shards[i, t][:2], row[t] // tp)
+
+    def gather(self, shards: dict) -> tuple:
+        """The shards' outputs on the mesh's first device: color
+        i32[B, H, W], depth f32[B, H, W] and each dp row's count, i32[B]."""
+        dp, tp = self.mesh
+        per = len(shards[0, 0][0])
+        dev = self.mesh.devices[0, 0]
+        h, w, bh = self.kw["height"], self.kw["width"], self.band_h
+        color = torch.empty((dp * per, h, w), dtype=torch.int32, device=dev)
+        depth = torch.empty((dp * per, h, w), dtype=torch.float32,
+                            device=dev)
+        count = torch.empty(dp * per, dtype=torch.int32, device=dev)
+        for (i, t), (cs, ds, n) in shards.items():
+            for j, (c, d) in enumerate(zip(cs, ds)):
+                color[i * per + j, t * bh:(t + 1) * bh].copy_(c)
+                depth[i * per + j, t * bh:(t + 1) * bh].copy_(d)
+            if t == 0:
+                count[i * per:(i + 1) * per].copy_(n)
+        return color, depth, count
+
+    def __call__(self, *args) -> tuple:
+        shards = self.bands(*args)
+        self.reduce(shards)
+        return self.gather(shards)
 
 
-def make_sharded_render_dp(mesh_or_n: int | tuple[int, int] | None = None,
-                           *, width: int, height: int,
-                           render_cap: int = 4096, tile_k_cap: int = 8192,
-                           color_tables=None, device="cuda"):
-    """The camera batch, each camera's full frame by the production step
-    (the reference's 1-D dp mesh over every device, one camera a chip).
-    ``mesh_or_n``: a device count, or a (dp, tp) pair whose product is
-    taken (by default the CUDA device count).  Returns (fn, n):
-    ``fn(quads i32[B, GQ], quad_world f32[B, 3, GQ], n_quads i32[B],
-    view_proj f32[B, 4, 4], cam_pos f32[B, 3])``, B a multiple of n,
-    returns color i32[B, H, W], depth f32[B, H, W] and stats i32[B, 6]."""
-    if isinstance(mesh_or_n, tuple):
-        n = mesh_or_n[0] * mesh_or_n[1]
-    else:
-        n = mesh_or_n or max(1, torch.cuda.device_count())
-    tables = _color_tables(color_tables, resolve_device(device))
-    tile_h, tile_w = pick_tile(height, width)
+def make_sharded_render(mesh: DeviceMesh, *, width: int, height: int,
+                        gather_cap: int = 8192, render_cap: int = 4096,
+                        tile_k_cap: int = 8192, color_tables=None,
+                        span_mode: bool = False) -> ShardedRender:
+    """The dp x tp render of a camera batch over ``mesh`` (``make_mesh``).
+    Returns ``fn(pool, counts, positions, visible_slots, n_visible,
+    view_proj, cam_pos)``:
 
-    def fn(quads, quad_world, n_quads, view_proj, cam_pos):
-        b = quads.shape[0]
+    - pool i32[P, QCAP] quad words, counts i32[P], positions i32[P, 3]:
+      replicated (tensors on any device, or ``replicate``'s form, which is
+      not copied again);
+    - visible_slots i32[B, VCAP], n_visible i32[B], view_proj
+      f32[B, 4, 4], cam_pos f32[B, 3], B a multiple of dp: split over dp;
+
+    and it returns, on the mesh's first device, color i32[B, H, W], depth
+    f32[B, H, W] (each the tp bands stacked) and i32[B], the sum of the
+    bands' rasterized counts divided by tp (each band counts the quads
+    that touch it).  On cards each shard's step is replayed from its CUDA
+    graph (the first call, or one with other shapes or another replicated
+    scene, captures it).  ``tile_k_cap`` is the reference's per-camera
+    binning cap (there fixed at its default, 8192), here a keyword so that
+    a 720p frame fits.  ``span_mode`` renders every band in span mode."""
+    return ShardedRender(mesh, width=width, height=height,
+                         gather_cap=gather_cap, render_cap=render_cap,
+                         tile_k_cap=tile_k_cap, color_tables=color_tables,
+                         span_mode=span_mode)
+
+
+class ShardedRenderDP:
+    """The camera batch over a 1-D mesh (``make_sharded_render_dp``).
+    Calling it runs ``frames`` and ``gather``; ``step`` is a device's
+    eager step."""
+
+    def __init__(self, mesh: DeviceMesh, *, width: int, height: int,
+                 render_cap: int, tile_k_cap: int, color_tables):
+        self.devices = mesh.flat
+        self.tables = _color_tables(color_tables, mesh.distinct)
+        tile_h, tile_w = pick_tile(height, width)
+        self.kw = dict(width=width, height=height, tile_h=tile_h,
+                       tile_w=tile_w, render_cap=render_cap,
+                       backface_culling=True, tile_k_cap=tile_k_cap)
+        self.shards = _Shards(self.step)
+
+    def step(self, key, quads, quad_world, n_quads, view_proj, cam_pos):
+        """Device ``key``'s eager step: [(color, depth, stats) a camera]."""
+        tables = self.tables[quads.device]
+        return [render_step(quads[j], quad_world[j], n_quads[j],
+                            view_proj[j], cam_pos[j], color_tables=tables,
+                            **self.kw)
+                for j in range(quads.shape[0])]
+
+    def frames(self, quads, quad_world, n_quads, view_proj,
+               cam_pos) -> list:
+        """Each device's frames on it, the devices at once: [(color, depth,
+        stats) a camera] a device, device k rendering cameras k * B / n ..
+        (k + 1) * B / n - 1; on a card its graph's memory."""
+        b, n = quads.shape[0], len(self.devices)
         if b % n:
             raise ValueError(f"a batch of {b} cameras over {n} devices")
-        outs = [render_step(
-            quads[i], quad_world[i], n_quads[i], view_proj[i], cam_pos[i],
-            color_tables=tables, width=width, height=height, tile_h=tile_h,
-            tile_w=tile_w, render_cap=render_cap, backface_culling=True,
-            tile_k_cap=tile_k_cap) for i in range(b)]
-        return tuple(torch.stack(x) for x in zip(*outs))
+        per = b // n
+        args = (quads, quad_world, n_quads, view_proj, cam_pos)
+        out = self.shards.run([
+            (k, dev, [], [x[k * per:(k + 1) * per] for x in args])
+            for k, dev in enumerate(self.devices)])
+        return [out[k] for k in range(n)]
 
-    return fn, n
+    def gather(self, shards: list) -> tuple:
+        """The frames on the mesh's first device: color i32[B, H, W], depth
+        f32[B, H, W] and stats i32[B, 6]."""
+        frames = [f for s in shards for f in s]
+        outs = tuple(torch.empty((len(frames), *x.shape), dtype=x.dtype,
+                                 device=self.devices[0])
+                     for x in frames[0])
+        for b, frame in enumerate(frames):
+            for out, x in zip(outs, frame):
+                out[b].copy_(x)
+        return outs
+
+    def __call__(self, *args) -> tuple:
+        return self.gather(self.frames(*args))
+
+
+def make_sharded_render_dp(mesh_or_n: DeviceMesh | int | None = None, *,
+                           width: int, height: int, render_cap: int = 4096,
+                           tile_k_cap: int = 8192, color_tables=None):
+    """The camera batch, each camera's full frame by the production step
+    (the reference's 1-D dp mesh over every device, one camera a card).
+    ``mesh_or_n``: a ``DeviceMesh`` (its devices in mesh order), or a
+    count of CUDA cards for ``make_mesh`` (by default all of them).
+    Returns (fn, n): ``fn(quads i32[B, GQ], quad_world f32[B, 3, GQ],
+    n_quads i32[B], view_proj f32[B, 4, 4], cam_pos f32[B, 3])``, B a
+    multiple of the n devices, gives on the first device color
+    i32[B, H, W], depth f32[B, H, W] and stats i32[B, 6].  On cards each
+    device's step is replayed from its CUDA graph, as
+    ``make_sharded_render``'s."""
+    mesh = (mesh_or_n if isinstance(mesh_or_n, DeviceMesh)
+            else make_mesh(mesh_or_n))
+    fn = ShardedRenderDP(mesh, width=width, height=height,
+                         render_cap=render_cap, tile_k_cap=tile_k_cap,
+                         color_tables=color_tables)
+    return fn, len(fn.devices)

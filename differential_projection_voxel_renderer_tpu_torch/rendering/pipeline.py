@@ -1430,7 +1430,10 @@ def make_repeated_step(renderer: Renderer, n_frames: int):
                 render_step(*static[:3], static[3][0], static[4][0], **kw)
             torch.cuda.current_stream(dev).wait_stream(side)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
+            # captured on the renderer's card: torch.cuda.graph's default
+            # capture stream is made once, on the card current at its
+            # first use
+            with torch.cuda.graph(graph, stream=side):
                 out = steps(*static)
             graphs[gq] = (graph, static, out)
         graph.replay()

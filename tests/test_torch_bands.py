@@ -148,14 +148,16 @@ def test_make_mesh_matches_jax():
     assert len(jax.devices()) == 8
     for n in range(1, 9):
         mesh = JS.make_mesh(n)
-        assert TS.make_mesh(n) == (mesh.shape["dp"], mesh.shape["tp"])
-    assert TS.make_mesh(8) == (2, 4)
+        got = TS.make_mesh(n, devices=["cpu"] * 8)
+        assert tuple(got) == (mesh.shape["dp"], mesh.shape["tp"])
+    assert tuple(TS.make_mesh(devices=["cpu"] * 8)) == (2, 4)
 
 
 def test_sharded_render_matches_jax(chunk, jax_bands):
     pool, counts, positions = chunk
     mesh = JS.make_mesh(8)
-    dp, tp = TS.make_mesh(8)
+    tmesh = TS.make_mesh(8, devices=["cpu"] * 8)
+    dp, tp = tmesh
     assert tp == 4 and dp == len(CAMS)
     visible = np.zeros((dp, 8), np.int32)
     nvis = np.ones(dp, np.int32)
@@ -166,9 +168,8 @@ def test_sharded_render_matches_jax(chunk, jax_bands):
         jnp.asarray(pool), jnp.asarray(counts), jnp.asarray(positions),
         jnp.asarray(visible), jnp.asarray(nvis), jnp.asarray(vps),
         jnp.asarray(cps))
-    fn = TS.make_sharded_render((dp, tp), width=W, height=H, gather_cap=GQ,
-                                render_cap=RCAP, tile_k_cap=KCAP,
-                                device="cpu")
+    fn = TS.make_sharded_render(tmesh, width=W, height=H, gather_cap=GQ,
+                                render_cap=RCAP, tile_k_cap=KCAP)
     color, depth, count = fn(
         torch.from_numpy(pool.view(np.int32)), torch.from_numpy(counts),
         torch.from_numpy(positions), torch.from_numpy(visible),
@@ -195,9 +196,9 @@ def test_sharded_render_dp_matches_jax(chunk):
                                           tile_k_cap=KCAP)
     ref = ref_fn(*(jnp.asarray(np.stack([s[k] for s in sc]))
                    for k in range(5)))
-    fn, n = TS.make_sharded_render_dp(8, width=W, height=H,
-                                      render_cap=RCAP, tile_k_cap=KCAP,
-                                      device="cpu")
+    fn, n = TS.make_sharded_render_dp(TS.make_mesh(devices=["cpu"] * 8),
+                                      width=W, height=H, render_cap=RCAP,
+                                      tile_k_cap=KCAP)
     assert n == 8
     got = fn(*(torch.stack([t[k] for _, t in streams]) for k in range(5)))
     assert got[0].shape == (b, H, W)

@@ -7,7 +7,13 @@ without a card) and no JAX, so it runs on a machine that has neither:
 
 (``--noconftest``: tests/conftest.py configures JAX.)  Kernel and twin run
 on the same card, on the same tensors, and must agree bit for bit.  The
-file imports nothing of the JAX package.
+tests marked ``multicard`` also need two or more cards (they skip with
+fewer; ``-m multicard`` runs them alone): every kernel on every card from
+card 0's thread against card 0, K4 on the cards after card 0, the
+launch counts under threads that drive several cards, and the sharded
+batch on the cards (each card's step from its CUDA graph) against the
+same batch on one card, all bit for bit.
+The file imports nothing of the JAX package.
 """
 
 import numpy as np
@@ -16,11 +22,13 @@ import torch
 
 import _torch_streams as TS
 from differential_projection_voxel_renderer_tpu_torch import _build
+from differential_projection_voxel_renderer_tpu_torch import graft_entry
 from differential_projection_voxel_renderer_tpu_torch.benches import (
     common as bench_common,
     micro_fixed,
     micro_fixed2,
     micro_fixed3,
+    multicard,
 )
 from differential_projection_voxel_renderer_tpu_torch.models.camera import (
     Camera,
@@ -31,6 +39,9 @@ from differential_projection_voxel_renderer_tpu_torch.ops import micro
 from differential_projection_voxel_renderer_tpu_torch.ops import projection
 from differential_projection_voxel_renderer_tpu_torch.ops import raster
 from differential_projection_voxel_renderer_tpu_torch.ops import raster_packed
+from differential_projection_voxel_renderer_tpu_torch.parallel import (
+    sharded_render,
+)
 from differential_projection_voxel_renderer_tpu_torch.rendering import parity
 from differential_projection_voxel_renderer_tpu_torch.rendering import pipeline
 
@@ -861,3 +872,136 @@ def test_repeated_step_takes_new_cameras(cuda_device):
     ref2 = pipeline.render_step(*gargs[:3], vps2[3], cams2[3], **kw)
     assert _same(second, ref2) and not torch.equal(second[0], first[0])
     assert _same(run(*gargs[:3], vps, cams), first)
+
+
+@pytest.fixture
+def cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more NVIDIA GPUs")
+    return torch.cuda.device_count()
+
+
+@pytest.mark.cuda
+@pytest.mark.multicard
+@pytest.mark.parametrize("name", sorted(parity.SMALL_SCENES))
+def test_kernels_on_every_card_match_card_0(cards, name):
+    """K1, K2 with y0_px, K3, K4, M1 and M2 launched from this thread
+    (current device card 0) on every card: each once on its card, each
+    equal to card 0's outputs bit for bit, and the kernel library's own
+    runtime on each card inside torch.cuda.device."""
+    args, kw = parity.small_scene(name, "cuda:0")
+    got = multicard.kernel_checks(args, kw, cards, band=(48, 72))
+    assert got["current_device"] == [0, *range(cards)]
+
+
+@pytest.mark.cuda
+@pytest.mark.multicard
+def test_packed_kernel_on_the_other_cards(cards):
+    """K4 (56 KB of dynamic shared memory a block, over the default 48 KB)
+    on every card after card 0, each against its plain version on that
+    card: the shared-memory opt-in is made once a card, not once a
+    process."""
+    args, kw = parity.small_scene("terrain 640x128", "cuda:0")
+    rec = pipeline.render_step(*args, packed_raster=True,
+                               debug_return_records=True, **kw)
+    rkw = dict(height=kw["height"], width=kw["width"])
+    raster_packed.rasterize_packed(*rec, **rkw)
+    for k in range(1, cards):
+        on_k = [x.to(k) for x in rec]
+        c1, d1 = raster_packed.rasterize_packed(*on_k, **rkw)
+        c2, d2 = raster_packed.rasterize_packed_plain(*on_k[:5], **rkw)
+        assert c1.device.index == k
+        assert torch.equal(c1, c2) and torch.equal(d1, d2), k
+
+
+@pytest.mark.cuda
+@pytest.mark.multicard
+def test_launch_counts_exact_under_threads(cards):
+    """A thread a card, each launching K1 on its card 200 times with the
+    interpreter switching threads every microsecond: no launch is lost
+    from the module's count or the count by card."""
+    import sys
+    import threading
+
+    words, qw = _fuzz_stream(4096)
+    vp, cp = _camera_args("far", "cpu")
+    n = 200
+    inputs = [tuple(x.to(k) for x in (
+        words, qw, torch.tensor(4000, dtype=torch.int32), vp, cp))
+        for k in range(cards)]
+    with _build.COUNT_LOCK:
+        before = geometry.launches
+        _build.card_launches.clear()
+
+    def drive(k):
+        torch.cuda.set_device(k)
+        for _ in range(n):
+            geometry.project_cull(*inputs[k], width=256, height=128)
+        torch.cuda.synchronize(k)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=drive, args=(k,))
+                   for k in range(cards)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert geometry.launches - before == n * cards
+    assert dict(_build.card_launches) == {("K1", k): n
+                                          for k in range(cards)}
+
+
+@pytest.mark.cuda
+@pytest.mark.multicard
+def test_sharded_batch_on_cards_matches_one_card(cards):
+    """make_sharded_render on 2 x 2 cards (1 x 2 with two or three cards)
+    at 1280x720 on the graft entry's terrain patch: a camera a dp row, its
+    bands on distinct cards, the pool replicated on each card once and kept
+    across calls.  The first call captures each card's graph (K1 and K2
+    launched twice on each card by their wrappers: the eager step and the
+    capture), a replay launches through no wrapper; the frames and counts
+    of both equal the same batch's on card 0 alone bit for bit."""
+    pool, counts, positions, n_slots, cam = graft_entry._example_scene()
+    other = Camera(np.array([-30.0, 50.0, 80.0], np.float32), 16.0 / 9.0)
+    other.look_at(np.array([0.0, 0.0, 0.0], np.float32))
+    size = 4 if cards >= 4 else 2
+    mesh = sharded_render.make_mesh(size)
+    one = sharded_render.make_mesh(size, devices=["cuda:0"] * size)
+    dp, tp = mesh
+    assert len(set(mesh.flat)) == size
+    visible = np.zeros((dp, 64), np.int32)
+    visible[:, :n_slots] = np.arange(n_slots)
+    cams = [cam, other][:dp]
+    args = [torch.from_numpy(x).to("cuda:0") for x in (
+        pool.view(np.int32), counts, positions, visible,
+        np.full(dp, n_slots, np.int32),
+        np.stack([c.view_projection_matrix() for c in cams]).astype(
+            np.float32),
+        np.stack([c.position for c in cams]).astype(np.float32))]
+    kw = dict(width=1280, height=720, gather_cap=16384, render_cap=8192,
+              tile_k_cap=8192)
+    rep = [sharded_render.replicate(mesh, x) for x in args[:3]]
+    ptrs = {d: t.data_ptr() for d, t in rep[0].copies.items()}
+    assert sorted(d.index for d in ptrs) == list(range(size))
+    fn = sharded_render.make_sharded_render(mesh, **kw)
+    runs = []
+    for _ in range(2):
+        multicard.sync_all()
+        with _build.COUNT_LOCK:
+            _build.card_launches.clear()
+        runs.append([x.clone() for x in fn(*rep, *args[3:])])
+        multicard.sync_all()
+        runs.append(dict(_build.card_launches))
+    assert runs[1] == {(k, c): 2 for k in ("K1", "K2") for c in range(size)}
+    assert runs[3] == {}
+    assert {d: t.data_ptr() for d, t in rep[0].copies.items()} == ptrs
+    want = sharded_render.make_sharded_render(one, **kw)(*args)
+    for got in (runs[0], runs[2]):
+        assert got[0].device.index == 0
+        assert _same_bits(got[:2], want[:2]) and torch.equal(got[2], want[2])
+    assert int((want[0] != raster.SKY_I32).sum()) > 1000

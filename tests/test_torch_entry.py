@@ -105,9 +105,10 @@ def test_entry_matches_jax():
 def test_dryrun_multichip(n):
     """The (dp, tp) layout of make_mesh(n) on the CPU; its checks include
     the stacked bands against the single-camera step, bit for bit."""
-    assert TSR.make_mesh(n) == {1: (1, 1), 2: (1, 2), 4: (2, 2),
-                                8: (2, 4)}[n]
-    TG.dryrun_multichip(n, device="cpu")
+    assert tuple(TSR.make_mesh(n, devices=["cpu"] * n)) == {
+        1: (1, 1), 2: (1, 2), 4: (2, 2), 8: (2, 4)}[n]
+    mesh = TG.dryrun_multichip(n, device="cpu")
+    assert mesh.flat == [torch.device("cpu")] * n
 
 
 def test_entry_points_default_to_the_card():

@@ -282,10 +282,11 @@ def test_sharded_render_span_stacks_to_the_step(scenes):
     pool, counts, positions, n, _ = _example_scene()
     w, h, gc = scenes["terrain"][5]
     vp, cp = scenes["terrain"][3:5]
-    fn = TSR.make_sharded_render((1, 2), width=w, height=h, gather_cap=gc,
+    mesh = TSR.make_mesh(devices=["cpu"] * 2)
+    assert tuple(mesh) == (1, 2)
+    fn = TSR.make_sharded_render(mesh, width=w, height=h, gather_cap=gc,
                                  render_cap=gc, tile_k_cap=2 * gc,
-                                 color_tables=S.TABLES, span_mode=True,
-                                 device="cpu")
+                                 color_tables=S.TABLES, span_mode=True)
     vis = torch.zeros((1, 64), dtype=torch.int32)
     vis[0, :n] = torch.arange(n)
     color, depth, count = fn(
