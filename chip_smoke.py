@@ -119,10 +119,11 @@ and times kernels and frames.  Phases:
    ``parallel/sharded_render.make_sharded_render`` with dp = 2 cameras
    (phase 3's static and last moving pose and draw lists) and tp = 2
    (360-row bands in 368-row buffers) and tp = 3 (240 rows), every shard
-   on this card: the first call captures each shard's CUDA graph (K1 and
-   K2 launch 2 tp times a camera, eagerly and into the graph), a replay
-   launches through no wrapper, and the stacked bands must equal phase
-   3's frames bit for bit at both; ``make_sharded_render_dp`` over the two
+   on this card: the first call runs each shard's step eagerly and
+   captures its CUDA graph, a replay replays it (K1 and K2 count tp
+   launches a camera at each: a graph's launches are counted at each
+   replay), and the stacked bands must equal phase 3's frames bit for bit
+   at both; ``make_sharded_render_dp`` over the two
    cameras too.  K2 with ``y0_px`` against its plain version on the last
    band of each split (K2 must leave a padded buffer's padded rows as
    they started; the pixels each writes there are printed), and each
@@ -185,10 +186,10 @@ and times kernels and frames.  Phases:
    equal to the CPU's frame bit for bit;
 17. the measuring side (the port's ``benches/``): ``rendering/pipeline.
    make_repeated_step`` on phase 3's static stream over 4 cameras, its
-   first call one eager step and 4 captured in a CUDA graph (K1 and K2
-   launched 5 times by their wrappers), its last frame equal to an eager
-   ``render_step`` on the 4th camera bit for bit, a replay launching
-   through no wrapper, and the step's device ms a frame from a 30-step
+   first call the 4 steps eagerly and then captured in a CUDA graph, its
+   second a replay (K1 and K2 counted 4 times at each), its last frame
+   equal to an eager ``render_step`` on the 4th camera bit for bit, and
+   the step's device ms a frame from a 30-step
    graph beside phase 7's device busy; every bench module (bench --quick,
    profile_stages with every stage, micro_project, micro_hiz, micro_sort,
    pipeline_experiment, fly_profile, flythrough_diag, run_benches
@@ -212,12 +213,35 @@ and times kernels and frames.  Phases:
    cards the 2 x 2 mesh (phase 3's static and last moving pose, 360-row
    bands, the pool replicated on each card) and the dp mesh (the static
    and three moving poses, one a card), every frame equal to phase 3's at
-   the first call (which captures each card's CUDA graph: K1 and K2
-   twice a card) and at a replay (none through the wrappers; once a card
-   by the profiler), the tp counts all-reduced by NCCL, the batch timed
-   on four cards against one, the gather, the all-reduce and each card's
+   the first call (each card's step eagerly, then captured in its CUDA
+   graph) and at a replay (K1 and K2 counted once a card at each; once a
+   card by the profiler at the replay), the tp counts all-reduced by
+   NCCL, the batch timed on four cards against one, the gather, the all-reduce and each card's
    K2 band; on fewer cards the 1 x 1 mesh, and a line saying the
-   four-card layouts were not run.
+   four-card layouts were not run;
+20. the serial frame replayed from CUDA graphs (``Renderer`` serves
+   each entry point and gather bucket from one graph,
+   rendering/graphs.py): a fresh engine of phase 3's configuration, the
+   card's reserved memory before and after ``warm_buckets()`` and
+   ``warm_streaming()``; phase 3's camera sequence on it with every graph
+   call also run eagerly on the same inputs, every frame a replay equal
+   to the eager function bit for bit and to phase 3's frame, the static
+   frames held as returned and re-read after the 10 moving ones; the same
+   on the packed, two-pass, temporal and span engines of phases 10, 12
+   and 16; a warmed static and moving frame under
+   ``torch.cuda.set_sync_debug_mode("error")``; static, moving and
+   streaming (fused insert) frames from the graphs and eagerly in turns
+   of 20 (K1 and K2 counted once a frame in every block); 10 static and 10
+   moving frames of each under torch.profiler (cudaGraphLaunch,
+   cudaLaunchKernel and cudaMemcpyAsync calls a frame, device busy, idle
+   share; one graph launch a graph frame).
+
+A CUDA graph's capture counts its kernels into its own tally, which is
+added at each replay (rendering/graphs.py), so every call, eager or
+replayed, counts the launches of one eager call.  ``graphs.calls`` counts
+the captures and the replays: where a check expects a replay (phases 13,
+17, 19 and 20) it also expects no capture, so that a graph captured again
+at every call cannot pass for a replay.
 
 The script imports the port package and nothing else of the repo; before
 it prints its result it checks that neither jax nor any module of the JAX
@@ -340,22 +364,20 @@ def counters():
 
 
 def reset_counters() -> None:
+    """Every launch count to 0 (the ops modules read theirs from
+    ``_build``'s registry)."""
     from differential_projection_voxel_renderer_tpu_torch import _build
-    from differential_projection_voxel_renderer_tpu_torch.ops import (
-        geometry,
-        micro,
-        raster,
-        raster_packed,
+
+    _build.reset_counts()
+
+
+def graph_calls():
+    """The CUDA-graph captures and replays counted so far (a Counter)."""
+    from differential_projection_voxel_renderer_tpu_torch.rendering import (
+        graphs,
     )
 
-    _build.card_launches.clear()
-    geometry.launches = 0
-    geometry.launches_span = 0
-    raster.launches = 0
-    raster.launches_geom = 0
-    raster_packed.launches = 0
-    micro.launches_fill = 0
-    micro.launches_copy = 0
+    return graphs.calls.copy()
 
 
 # ------------------------------------------------------------- main path
@@ -1014,9 +1036,11 @@ def band_path(torch, eng, serial, card):
     chunk positions) become the batch of dp = 2 cameras
     (benches/multicard.batch_args).  make_sharded_render with tp = 2
     (360-row bands padded to 368) and tp = 3 (240 rows, 15 tiles each):
-    the counters are zeroed before and read after its first call (which
-    captures each shard's CUDA graph: K1 and K2 launch 2 tp times a camera,
-    eagerly and into the graph) and a replay (none), and the stacked bands
+    the counters are zeroed before and read after its first call (each
+    shard's step eagerly, then captured into its CUDA graph) and a replay
+    (2 tp replays of the same graph objects, no capture): K1 and K2 launch
+    tp times a camera at each (a capture counts into its own tally, added
+    at each replay), and the stacked bands
     must equal phase 3's frame of each pose bit for bit (colour and depth)
     at both.  make_sharded_render_dp over the same cameras (the draw lists
     expanded with every face direction) must equal them too.  Then K2
@@ -1055,21 +1079,32 @@ def band_path(torch, eng, serial, card):
             height=HEIGHT, **caps)
         torch.cuda.synchronize()
         reset_counters()
+        calls = graph_calls()
         color, depth, count = fn(*args)
         torch.cuda.synchronize()
         launches[f"tp={tp}"] = counters()
-        # the first call captures each shard's graph: K1 and K2 launched
-        # twice a shard (the eager step, then into the graph)
-        if launches[f"tp={tp}"] != (4 * tp, 4 * tp, 0, 0):
-            raise AssertionError(f"tp={tp}: launches {launches[f'tp={tp}']}")
+        # the first call: each shard's eager step, then its capture
+        if (launches[f"tp={tp}"] != (2 * tp, 2 * tp, 0, 0)
+                or graph_calls() - calls != {"captures": 2 * tp}):
+            raise AssertionError(f"tp={tp}: launches {launches[f'tp={tp}']}"
+                                 f", graph calls {graph_calls() - calls}")
+        made = {k: (g, g.graph) for k, g in fn.shards.graphs.items()}
         reset_counters()
+        calls = graph_calls()
         replay = fn(*args)
         torch.cuda.synchronize()
-        if counters() != (0, 0, 0, 0) or not all(
-                torch.equal(a, b) for a, b in zip(replay, (color, depth,
-                                                           count))):
-            raise AssertionError(f"tp={tp}: a replay launched {counters()} "
-                                 f"through the wrappers or changed a frame")
+        # the second call replays the graphs the first captured, and only
+        # those: no capture, the same graph objects
+        if (counters() != (2 * tp, 2 * tp, 0, 0)
+                or graph_calls() - calls != {"replays": 2 * tp}
+                or {k: (g, g.graph) for k, g in fn.shards.graphs.items()}
+                != made or not all(
+                    torch.equal(a, b) for a, b in zip(replay, (color, depth,
+                                                               count)))):
+            raise AssertionError(f"tp={tp}: a replay counted {counters()} "
+                                 f"launches and graph calls "
+                                 f"{graph_calls() - calls}, or changed a "
+                                 f"frame")
         for i in range(2):
             if not same(i, color[i], depth[i]):
                 raise AssertionError(f"tp={tp}: camera {i}'s stacked bands "
@@ -1093,7 +1128,7 @@ def band_path(torch, eng, serial, card):
                                for k in range(3)), vps, cps)
     torch.cuda.synchronize()
     launches["dp"] = counters()
-    if launches["dp"] != (4, 4, 0, 0) or not all(
+    if launches["dp"] != (2, 2, 0, 0) or not all(
             same(i, color[i], depth[i]) for i in range(2)):
         raise AssertionError(f"make_sharded_render_dp differs from phase 3's "
                              f"frames (launches {launches['dp']})")
@@ -2390,12 +2425,14 @@ def bench_path(torch, eng, static, busy7, k2_counts9, card):
 
     - make_repeated_step(renderer, 4) on phase 3's static stream over 4
       cameras (phase 3's static pose and its first three moving poses):
-      the first call runs one eager step and captures 4 (K1 and K2 launch
-      5 times by their wrappers, K3 and K4 never); its last frame equals
-      an eager render_step on the 4th camera bit for bit (colour, depth,
-      stats); a second call replays the graph and launches through no
-      wrapper; the device ms a frame of a 30-step graph over 30 jittered
-      cameras (the median of 10 replays), beside phase 7's device busy.
+      the first call runs the 4 steps eagerly and captures them, a second
+      call replays the graph (one capture, then one replay and no
+      capture); each counts K1 and K2 4 times (a capture counts into its
+      own tally, added at each replay), K3 and K4 never;
+      the last frame of each equals an eager render_step on the 4th camera
+      bit for bit (colour, depth, stats); the device ms a frame of a
+      30-step graph over 30 jittered cameras (the median of 10 replays),
+      beside phase 7's device busy.
     - every bench module of benches/ at its smallest setting in this
       process (BENCH_RUNS: each must return 0 and print its lines), and
       one pass of flythrough_bench in a fresh process.
@@ -2432,19 +2469,27 @@ def bench_path(torch, eng, static, busy7, k2_counts9, card):
     run = pipeline.make_repeated_step(r, 4)
     torch.cuda.synchronize()
     reset_counters()
+    calls = graph_calls()
     out = [t.clone() for t in run(*uploads, vps, cps)]
     torch.cuda.synchronize()
     first = counters()
+    first_calls = graph_calls() - calls
     kw = {k: v for k, v in r._base_step_kw.items() if k != "near_quads"}
     kw.update(render_cap=r.config.quads_cap, tile_k_cap=r.config.tile_k_cap)
     ref = pipeline.render_step(*uploads, vps[3], cps[3], **kw)
     reset_counters()
+    calls = graph_calls()
     again = run(*uploads, vps, cps)
     torch.cuda.synchronize()
     second = counters()
-    if first != (5, 5, 0, 0) or second != (0, 0, 0, 0):
+    second_calls = graph_calls() - calls
+    # the first call captures, the second replays that graph
+    if (first != (4, 4, 0, 0) or second != (4, 4, 0, 0)
+            or first_calls != {"captures": 1}
+            or second_calls != {"replays": 1}):
         raise AssertionError(f"make_repeated_step launches: {first} after "
-                             f"the first call, {second} after the second")
+                             f"the first call, {second} after the second; "
+                             f"graph calls {first_calls}, {second_calls}")
     for name, got in (("first", out), ("replayed", again)):
         if not (same_frame_bits(torch, got, ref)
                 and torch.equal(got[2], ref[2])):
@@ -2455,7 +2500,8 @@ def bench_path(torch, eng, static, busy7, k2_counts9, card):
         raise AssertionError("the 4th and 1st cameras give the same frame")
     log(f"[17] make_repeated_step(4) on phase 3's static stream "
         f"({int(uploads[2])} quads): K1 and K2 launched {first[:2]} by the "
-        f"first call (1 eager step, 4 captured), none by the replay; the "
+        f"first call (4 eager steps, then captured), {second[:2]} by the "
+        f"replay; the "
         f"last frame equals an eager render_step on the 4th camera bit for "
         f"bit (stats {ref[2].tolist()}), first call and replay")
     k = 30
@@ -2646,6 +2692,316 @@ def log_profile(phase: str, what: str, prof, ref_ms: float, card: str):
         log(f"[{phase}]   {ms:.4f} ms/frame  {name}")
     for ms, calls, name in host[:8]:
         log(f"[{phase}]   host {ms:.4f} ms/frame, {calls:.1f} calls  {name}")
+
+
+# ------------------------------------------------------------- frame graphs
+
+
+GRAPH_TURNS, GRAPH_BLOCK = 3, 20
+# phase 20's configurations: phase 3's and those of phases 10, 12 and 16
+GRAPH_CONFIGS = {"serial": {}, "packed": dict(packed_raster=True),
+                 "two-pass": dict(two_pass_near_quads=NEAR_QUADS),
+                 "temporal": dict(temporal_hiz=True),
+                 "span": dict(span_mode=True)}
+
+
+def eager_entry(torch, renderer):
+    """A stand-in for ``renderer._run_graph`` that calls the function
+    eagerly on the inputs where they lie (numpy through pinned memory onto
+    the card), as the entry points did before they ran from graphs."""
+    from differential_projection_voxel_renderer_tpu_torch.ops import (
+        geometry,
+    )
+
+    def to_dev(x):
+        if isinstance(x, torch.Tensor):
+            return x
+        if hasattr(x, "shape") and x.shape:
+            return renderer._upload(x)
+        return geometry.device_i32(x, renderer.device)
+
+    def run_graph(name, cap, fn, fixed, inputs, keep=0):
+        return fn(*fixed, *(to_dev(x) for x in inputs))
+
+    return run_graph
+
+
+def runtime_calls(prof) -> dict:
+    """Calls a frame of the CUDA runtime's launch and copy entries in a
+    ``profile_frames`` result."""
+    names = ("cudaGraphLaunch", "cudaLaunchKernel", "cudaMemcpyAsync",
+             "cudaMemsetAsync")
+    got = {n: 0.0 for n in names}
+    for _, calls, name in prof[5]:
+        for n in names:  # the runtime may name a version: _v10000
+            if name.startswith(n):
+                got[n] += calls
+    return got
+
+
+def frame_kinds(eng) -> dict:
+    """Phase 20's three frame kinds on ``eng`` (settled at the start
+    pose): ``static`` (the camera held), ``moving`` (the camera
+    alternating between the start pose and the first moving pose: a new
+    draw list every frame) and ``streaming`` (``render_fused_insert``
+    re-inserting a visible chunk's own mesh, then the frame of the start
+    pose's draw list).  Each returns its frame."""
+    import numpy as np
+
+    poses = [(np.array(START_POS, np.float32),
+              np.array(START_TARGET, np.float32)), next(moving_poses())]
+    tick = [0]
+
+    def static():
+        return eng.render_frame(dt=0.0)
+
+    def moving():
+        tick[0] += 1
+        pos, target = poses[tick[0] % 2]
+        eng.camera.position = np.array(pos, np.float32)
+        eng.camera.look_at(np.array(target, np.float32))
+        return eng.render_frame(dt=0.0)
+
+    eng.camera.position = poses[0][0].copy()
+    eng.camera.look_at(poses[0][1])
+    eng.render_frame(dt=0.0)
+    pool = eng.pool
+    slots = eng._last_visible_slots[:eng._last_n_visible]
+    slot = [s for s in slots if 0 < pool.counts[s] <= pool.INSERT_MC][0]
+    mesh = pool.quads[slot, :pool.counts[slot]].cpu().numpy().view(
+        np.uint32).copy()
+    draw = (eng._last_visible_slots, eng._last_counts_sel,
+            eng._last_positions_sel, eng.camera.view_projection_matrix(),
+            eng.camera.position.copy())
+    dir_mask = eng._last_dir_mask
+    pos_key = tuple(int(c) for c in pool.positions[slot])
+
+    def streaming():
+        payload = pool.prepare_insert_payload([(pos_key, mesh)])
+        return eng.renderer.render_fused_insert(
+            pool.quads, pool.counts6_dev, *draw, payload,
+            dir_mask=dir_mask)[2:]
+
+    return dict(static=static, moving=moving, streaming=streaming)
+
+
+def graph_path(torch, serial, card):
+    """Phase 20: the serial frame replayed from CUDA graphs.
+
+    - a fresh engine of phase 3's configuration, settled and primed like
+      phase 3's: the card's reserved and allocated memory before and after
+      warm_buckets() and warm_streaming() (every bucket's META5, static and
+      fused-insert graphs; four buckets);
+    - phase 3's camera sequence (3 static frames, the N_MOVING moving
+      frames that stream chunks through the fused insert) on it, every
+      graph call also run eagerly on the same inputs (``EagerTwin``):
+      every frame replays a graph, and each must equal the eager
+      function's outputs bit for bit, and phase 3's frame of its pose; the
+      first 3 frames, held as the engine returned them, re-read after the
+      moving frames and equal to copies taken at the time;
+    - the same flight, warm-ups first, on the packed, two-pass, temporal
+      and span engines of phases 10, 12 and 16, each replay against the
+      eager function;
+    - a warmed static and moving frame under
+      ``torch.cuda.set_sync_debug_mode("error")``;
+    - static, moving (the camera alternating between the start pose and
+      the first moving pose: a new draw list every frame) and streaming
+      frames (``render_fused_insert`` re-inserting a visible chunk's own
+      mesh, then the frame) from the graphs and eagerly
+      (``eager_entry``), in turns of GRAPH_BLOCK frames after one untimed
+      frame, CUDA events and the host clock; each block's K1 and K2
+      launches one a frame;
+    - 10 static and 10 moving frames of each path under torch.profiler,
+      in this process, after every earlier phase's profiler windows:
+      cudaGraphLaunch,
+      cudaLaunchKernel and cudaMemcpyAsync calls a frame, device busy and
+      idle share.
+
+    Returns a dict of the readings."""
+    import numpy as np
+
+    from differential_projection_voxel_renderer_tpu_torch.app.engine import (
+        RenderConfig,
+    )
+    from differential_projection_voxel_renderer_tpu_torch.rendering import (
+        graphs,
+    )
+
+    out = {}
+    mib = 2.0 ** 20
+    eng, _, _ = new_engine(torch)
+    r = eng.renderer
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mem = [(torch.cuda.memory_reserved(), torch.cuda.memory_allocated())]
+    eng.warm_buckets()
+    torch.cuda.synchronize()
+    mem.append((torch.cuda.memory_reserved(), torch.cuda.memory_allocated()))
+    eng.warm_streaming()
+    torch.cuda.synchronize()
+    mem.append((torch.cuda.memory_reserved(), torch.cuda.memory_allocated()))
+    out["memory_mib"] = {k: [round(m[i] / mib, 1) for m in mem]
+                         for i, k in enumerate(("reserved", "allocated"))}
+    out["graphs"] = sorted(r._graphs)
+    log(f"[20] warm_buckets + warm_streaming captured {len(r._graphs)} "
+        f"graphs {out['graphs']}; reserved MiB before / after warm_buckets "
+        f"/ after warm_streaming {out['memory_mib']['reserved']}, allocated "
+        f"{out['memory_mib']['allocated']}; {card}")
+
+    def fly(e, check_serial, held=None):
+        """Phase 3's camera sequence on ``e``: the FrameResults; ``held``
+        takes copies of the static frames as they come."""
+        e.camera.position = np.array(START_POS, np.float32)
+        e.camera.look_at(np.array(START_TARGET, np.float32))
+        frames = []
+        for _ in range(3):
+            frames.append(e.render_frame(dt=0.0))
+            if held is not None:
+                held.append(keep(frames[-1]))
+        for pos, target in moving_poses():
+            e.camera.position = pos
+            e.camera.look_at(target)
+            frames.append(e.render_frame(dt=0.0))
+        if check_serial:
+            refs = [serial["static"]] * 3 + serial["moving"]
+            ok = torch.stack([same_frame(torch, f, ref)
+                              for f, ref in zip(frames, refs)])
+            if not bool(ok.all()):
+                raise AssertionError(f"[20] frames differ from phase 3's: "
+                                     f"{ok.tolist()}")
+        return frames
+
+    def check_replays(mode, twin):
+        twin.close()
+        if not twin.all_replayed_equal():
+            raise AssertionError(f"[20] {mode}: a frame captured or differs "
+                                 f"from the eager function: {twin.calls}")
+        return {f"{k[0]}@{k[1]}": n for k, n in twin.replays().items()}
+
+    twin = graphs.EagerTwin(r)
+    held = []
+    frames = fly(eng, True, held)
+    if not all(same_frame_bits(torch, (f.color, f.depth), h)
+               and torch.equal(f.stats, h[2])
+               for f, h in zip(frames[:3], held)):
+        raise AssertionError("[20] a held frame changed")
+    out["replays"] = {"serial": check_replays("serial", twin)}
+    log(f"[20] serial: phase 3's {len(frames)} frames, every frame a "
+        f"replay equal to its entry point's eager function bit for bit and "
+        f"to phase 3's frame ({out['replays']['serial']}); the 3 static "
+        f"frames as the engine returned them, re-read after the "
+        f"{len(frames) - 3} moving frames, unchanged")
+    del frames, held
+    for mode, flags in GRAPH_CONFIGS.items():
+        if mode == "serial":
+            continue
+        e, _, _ = new_engine(torch, RenderConfig(WIDTH, HEIGHT, **flags))
+        e.warm_buckets()
+        e.warm_streaming()
+        twin = graphs.EagerTwin(e.renderer)
+        fly(e, False)
+        torch.cuda.synchronize()
+        out["replays"][mode] = check_replays(mode, twin)
+        log(f"[20] {mode}: phase 3's camera sequence after the warm-ups, "
+            f"every frame a replay equal to its eager function bit for bit "
+            f"({out['replays'][mode]})")
+        del e, twin
+
+    # no host sync in a warmed frame
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pos, target = next(moving_poses())
+        eng.camera.position = np.array(START_POS, np.float32)
+        eng.camera.look_at(np.array(START_TARGET, np.float32))
+        eng.render_frame(dt=0.0)
+        eng.render_frame(dt=0.0)
+        eng.camera.position = pos
+        eng.camera.look_at(target)
+        eng.render_frame(dt=0.0)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    log("[20] a warmed static and moving frame under "
+        "torch.cuda.set_sync_debug_mode('error'): no host sync")
+
+    # the three frame kinds, from the graphs and eagerly, in turns
+    kinds = frame_kinds(eng)
+    graph_run = r._run_graph
+    paths = dict(graph=graph_run, eager=eager_entry(torch, r))
+    times = {(k, p): [] for k in kinds for p in paths}
+    ref_stream = kinds["streaming"]()
+    last = []
+    for turn in range(GRAPH_TURNS):
+        for k, fn in kinds.items():
+            for p in (("graph", "eager") if turn % 2 == 0
+                      else ("eager", "graph")):
+                r._run_graph = paths[p]
+                fn()  # the block's first frame may expand a new stream
+                torch.cuda.synchronize()
+                reset_counters()
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                h0 = time.perf_counter()
+                ev[0].record()
+                for _ in range(GRAPH_BLOCK):
+                    res = fn()
+                ev[1].record()
+                ev[1].synchronize()
+                host = (time.perf_counter() - h0) * 1e3 / GRAPH_BLOCK
+                got = counters()
+                if got != (GRAPH_BLOCK, GRAPH_BLOCK, 0, 0):
+                    raise AssertionError(f"[20] {k} {p}: launches {got} in "
+                                         f"{GRAPH_BLOCK} frames")
+                times[k, p].append((ev[0].elapsed_time(ev[1]) / GRAPH_BLOCK,
+                                    host))
+                if k == "streaming":
+                    last.append(res)
+    if not all(same_frame_bits(torch, f, ref_stream)
+               and torch.equal(f[2], ref_stream[2]) for f in last):
+        raise AssertionError("[20] a streaming frame differs from the "
+                             "first")
+    out["ms"] = {f"{k} {p}": dict(
+        events=statistics.median(e for e, _ in v),
+        host=statistics.median(h for _, h in v),
+        blocks=[[round(e, 4), round(h, 4)] for e, h in v])
+        for (k, p), v in times.items()}
+    for k in kinds:
+        g, e = out["ms"][f"{k} graph"], out["ms"][f"{k} eager"]
+        log(f"[20] {k} frame, median of {GRAPH_TURNS} blocks of "
+            f"{GRAPH_BLOCK} in turns: graph {g['events']:.3f} ms (CUDA "
+            f"events) / {g['host']:.3f} ms (host), eager {e['events']:.3f} "
+            f"/ {e['host']:.3f} ms; blocks graph {g['blocks']}, eager "
+            f"{e['blocks']}; {card}")
+
+    # where the frames' time goes, in this process, after the earlier
+    # phases' profiler windows and with this phase's dropped engines left
+    # to the collector (the sequence that crashed this process while
+    # CUPTI was torn down after every window: rendering/graphs.py keeps
+    # it set up once a graph is captured)
+    profiles = {}
+    for p in ("graph", "eager"):
+        r._run_graph = paths[p]
+        for k in ("static", "moving"):
+            profiles[f"{k} {p}"] = profile_frames(torch, kinds[k])
+    del r._run_graph
+    out["profile"] = {}
+    for key, prof in profiles.items():
+        ref_ms = out["ms"][key]["events"]
+        log_profile("20", f"{key} frame", prof, ref_ms, card)
+        if prof is None:
+            raise AssertionError(f"[20] {key} frame: the profiler saw no "
+                                 f"device activity")
+        calls = runtime_calls(prof)
+        out["profile"][key] = dict(
+            busy_ms=prof[0], wall_ms=prof[3],
+            idle_share=1 - prof[0] / prof[3],
+            idle_share_unprofiled=1 - prof[0] / ref_ms,
+            activities=prof[2], **calls)
+        log(f"[20] {key} frame: runtime calls a frame {calls}")
+        if key.endswith("graph") and calls["cudaGraphLaunch"] != 1:
+            raise AssertionError(f"[20] {key} frame: "
+                                 f"{calls['cudaGraphLaunch']} graph "
+                                 f"launches a frame")
+    return out
 
 
 # ------------------------------------------------------------- cost probes
@@ -3279,6 +3635,7 @@ def main() -> int:
     # ---- 16. span mode, device meshing, the legacy vertex renderer
     span16 = span_path(torch, card)
     mesh16 = meshing_path(torch, serial, card)
+    serial20 = dict(static=serial["static"], moving=serial["moving"])
     del serial
     legacy16 = legacy_path(torch, card)
     log(f"[16] seconds: the settle batch meshed on the card "
@@ -3301,6 +3658,13 @@ def main() -> int:
     del primed14
     log("[18] seconds: " + ", ".join(f"{k} {v:.3f}"
                                      for k, v in secs18.items()))
+
+    # ---- 20. the serial frame replayed from CUDA graphs
+    t20 = time.perf_counter()
+    graphs20 = graph_path(torch, serial20, card)
+    del serial20
+    log(f"[20] seconds {time.perf_counter() - t20:.1f}; readings "
+        f"{json.dumps(graphs20['ms'])}")
     sites = {k: sorted({r["site"] for r in rows11.values()
                         if r["kernel"] == k}) for k in ("M1", "M2")}
     # (variants within launches x floor + bound, variants) of each probe
@@ -3333,6 +3697,9 @@ def main() -> int:
              launches_resident={k: v[0] for k, v in launches15.items()},
              launches_binning={k: v[0] for k, v in launches18.items()},
              launches_multicard={k: v[0] for k, v in main19.items()},
+             frame_graphs=dict(ms=graphs20["ms"],
+                               profile=graphs20["profile"],
+                               memory_mib=graphs20["memory_mib"]),
              resident_stream_quads=kern15["shape"],
              resident_bucket=kern15["bucket"],
              resident_max_abs_err=kern15["k1_err"],

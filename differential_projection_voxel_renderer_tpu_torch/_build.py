@@ -14,14 +14,15 @@ IEEE division and square root, no flush-to-zero, never fast math.
 
 The C entry points take no device: they launch on the calling thread's
 current device.  ``launch`` calls one with that device set to the card its
-tensors are on.  Each wrapper bumps its module's launch count and
-``card_launches`` under ``COUNT_LOCK``, so that the counts stay exact when
-several host threads drive several cards.
+tensors are on.  Each wrapper counts its launch through ``count``, the one
+registry of launch counts: under ``COUNT_LOCK``, so that the counts stay
+exact when several host threads drive several cards.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import os
 import shutil
@@ -84,11 +85,65 @@ _SIGNATURES = {
     "dpvr_current_device": (),
 }
 
-# every wrapper bumps its launch counts under this lock
+# the launch counts, changed only under this lock: ``counts`` by counter
+# (each kernel, "K1", "K2", "K3", "K4", "M1", "M2", and "K1 span", the
+# span instance's among K1's), ``card_launches`` by (kernel, card index).
+# The ops modules read theirs as attributes (``geometry.launches``).
 COUNT_LOCK = threading.Lock()
-# launches of each kernel ("K1", "K2", "K3", "K4", "M1", "M2") on each
-# card, by (kernel, card index)
+counts: collections.Counter = collections.Counter()
 card_launches: collections.Counter = collections.Counter()
+# the tally a thread counts into instead while it captures a CUDA graph
+_tally = threading.local()
+
+
+def count(kernel: str, card: int, *also: str) -> None:
+    """Count one launch of ``kernel`` on ``card`` (and of the counters
+    ``also``): in the registry, or in the calling thread's capture tally
+    (``counting_into``)."""
+    c, by_card = getattr(_tally, "to", None) or (counts, card_launches)
+    with COUNT_LOCK:
+        c[kernel] += 1
+        for name in also:
+            c[name] += 1
+        by_card[kernel, card] += 1
+
+
+@contextlib.contextmanager
+def counting_into(tally: tuple):
+    """Inside the block, the launches this thread counts go to ``tally``
+    ((by counter, by (kernel, card)), two Counters) and not to the
+    registry: a CUDA graph's capture counts its own launches, which
+    ``add_counts`` adds at each replay."""
+    prev = getattr(_tally, "to", None)
+    _tally.to = tally
+    try:
+        yield tally
+    finally:
+        _tally.to = prev
+
+
+def add_counts(tally: tuple) -> None:
+    with COUNT_LOCK:
+        counts.update(tally[0])
+        card_launches.update(tally[1])
+
+
+def reset_counts() -> None:
+    with COUNT_LOCK:
+        counts.clear()
+        card_launches.clear()
+
+
+def module_counts(table: dict, module: str):
+    """A module ``__getattr__`` that reads the launch counters ``table``
+    ({attribute: counter}) from the registry."""
+
+    def getattr_(name: str) -> int:
+        if name in table:
+            return counts[table[name]]
+        raise AttributeError(f"module {module!r} has no attribute {name!r}")
+
+    return getattr_
 
 
 def nvcc() -> str:

@@ -708,12 +708,12 @@ class Engine:
         self._remesh(list(self.world.chunks.values()))
 
     def warm_buckets(self, pipelined: bool = False) -> None:
-        """Build the kernels and run one frame of every capacity bucket
-        (``Renderer.warm_buckets``), so that a camera whose quad total
-        crosses into another bucket finds its buffers in the caching
-        allocator.  The reference pre-traces jit programs here; the port
-        has none.  ``pipelined`` adds the frames-in-flight steps.  The
-        pool, the caches and every later frame are as without the call."""
+        """Build the kernels and capture every capacity bucket's graphs
+        (``Renderer.warm_buckets``), as the reference pre-traces its jit
+        programs, so that a camera whose quad total crosses into another
+        bucket replays a graph at once.  ``pipelined`` adds the
+        frames-in-flight steps (eager).  The pool, the caches and every
+        later frame are as without the call."""
         self.renderer.warm_buckets(self.pool.quads, self.pool.counts6_dev,
                                    pipelined=pipelined)
 
@@ -724,12 +724,12 @@ class Engine:
         ``fused_insert``) one fused insert+render frame of the current
         draw list's capacity bucket and its neighbours (every bucket before
         a first frame).  The reference compiles these shapes here; the
-        port builds the kernels and lets the caching allocator take the
-        buffers.  Afterwards the throwaway slot's device row and counts
-        mirror, its host tables, the free list, the used mask and the
-        lookup caches are restored exactly, so later slot choices, the
-        upload cache and every later frame are as without the call
-        (``QuadPool.throwaway_entry``)."""
+        port captures the fused frame's graph of each of those buckets
+        (the scatter ladder runs eagerly).  Afterwards the throwaway
+        slot's device row and counts mirror, its host tables, the free
+        list, the used mask and the lookup caches are restored exactly, so
+        later slot choices, the upload cache and every later frame are as
+        without the call (``QuadPool.throwaway_entry``)."""
         with self.pool.throwaway_entry(_THROWAWAY) as slot:
             self._warm_scatter_ladder()
             if self.fused_insert:
@@ -744,11 +744,11 @@ class Engine:
         the camera's cell and its step, the append rider (a zero-count
         batch: nothing blends), the fused scatter + append step and the
         standalone resident-shape scatter (the throwaway entry again).  The
-        reference compiles these programs here; the port builds the
-        kernels and lets the caching allocator take the buffers.  The
-        stream stays as built, and the pool is left as without the call
-        (``QuadPool.throwaway_entry``): slots, rows, counts and their
-        device mirror, free list and lookup caches."""
+        reference compiles these programs here; the port captures the
+        stream's static step (``Renderer.render_prepared``) and runs the
+        rest eagerly.  The stream stays as built, and the pool is left as
+        without the call (``QuadPool.throwaway_entry``): slots, rows,
+        counts and their device mirror, free list and lookup caches."""
         if not self.resident_stream:
             raise RuntimeError("warm_resident needs resident_stream")
         if self.device.type == "cuda":
@@ -1128,7 +1128,9 @@ class Engine:
     def render_frame(self, dt: float = 0.016) -> FrameResult:
         """One serial frame: funnel, then one of the three device entry
         points -- render_fused_insert (a remesh batch rides the frame),
-        render_prepared (draw list unchanged) or render_fused.  With
+        render_prepared (draw list unchanged) or render_fused --, each a
+        replay of the renderer's graph for its gather bucket.  The frame's
+        tensors are its own: later frames never write them.  With
         ``RenderConfig.temporal_hiz`` a frame whose camera and draw list
         are unchanged takes render_prepared_hiz: it culls against the
         previous such frame's pyramid when that frame had the same draw

@@ -25,10 +25,11 @@ On four or more cards:
   static and the last moving pose, two 360-row bands a camera, the scene
   replicated on each card once: each camera's stacked bands equal phase
   3's frame of its pose bit for bit (colour, and depth as int32) at the
-  first call, which captures each card's graph (K1 and K2 launched twice
-  on each card by their wrappers: the eager step and the capture), and at
-  a replay (launched through no wrapper; each card's K1 and K2 by the
-  device index of a ``torch.profiler`` trace), and the all-reduced count
+  first call, which runs each card's step eagerly and captures its graph,
+  and at a replay (each card's K1 and K2 also by the device index of a
+  ``torch.profiler`` trace), K1 and K2 counted once on each card at both
+  (a graph's launches are counted at each replay, rendering/graphs.py),
+  and the all-reduced count
   equal to the bands' sum // tp on both tp cards of each dp row;
 - ``make_sharded_render_dp`` on the four cards, the static pose and the
   three moving poses, one camera a card: each frame equal to phase 3's;
@@ -62,7 +63,7 @@ import torch
 from .. import _build
 from ..ops import geometry, raster, raster_packed
 from ..parallel import sharded_render as sr
-from ..rendering import pipeline
+from ..rendering import graphs, pipeline
 from . import common, micro_fixed2
 
 # phase 3's moving frames (0-based) whose poses join the static pose in
@@ -213,8 +214,7 @@ def kernel_checks(stream, step_kw, cards: int, band: tuple[int, int]
     out0 = None
     launches = {}
     for k in range(cards):
-        with _build.COUNT_LOCK:
-            _build.card_launches.clear()
+        _build.reset_counts()
         got = calls(k)
         torch.cuda.synchronize(k)
         launches[k] = {name: n for (name, card), n
@@ -338,17 +338,25 @@ def kernel_device_counts(fn) -> dict:
     return by_card
 
 
+def replayed_graphs(fn) -> dict:
+    """A sharded render's graphs by shard: (its CapturedCall, its CUDA
+    graph), compared by identity before and after a replay."""
+    return {k: (g, g.graph) for k, g in fn.shards.graphs.items()}
+
+
 def counted(fn, cards: int) -> tuple:
     """``fn()`` with the per-card counts zeroed before and read after:
-    (its result, {card: (K1, K2) launches}, all launches)."""
+    (its result, {card: (K1, K2) launches}, all launches, the CUDA-graph
+    captures and replays it made)."""
     sync_all()
-    with _build.COUNT_LOCK:
-        _build.card_launches.clear()
+    _build.reset_counts()
+    calls = graphs.calls.copy()
     out = fn()
     sync_all()
     got = dict(_build.card_launches)
     return (out, {k: (got.get(("K1", k), 0), got.get(("K2", k), 0))
-                  for k in range(cards)}, sum(got.values()))
+                  for k in range(cards)}, sum(got.values()),
+            graphs.calls - calls)
 
 
 def eager_bands(fn, args, threads=None) -> None:
@@ -408,20 +416,26 @@ def four_cards(eng, poses, args, dargs, caps, step_kw, runs: int,
     batch4 = (*scene, *args[3:])
     refs = [poses[0][0], poses[-1][0]]
 
-    # the first call captures each card's graph: K1 and K2 launched twice
-    # by their wrappers on each card (the eager step, then into the graph)
-    out, per_card, total = counted(lambda: fn4(*batch4), 4)
-    if total != 16 or any(v != (2, 2) for v in per_card.values()):
-        raise AssertionError(f"2x2: first call's launches {per_card}")
+    # the first call runs each card's step eagerly and captures its graph
+    out, per_card, total, calls = counted(lambda: fn4(*batch4), 4)
+    if (total != 8 or any(v != (1, 1) for v in per_card.values())
+            or calls != {"captures": 4}):
+        raise AssertionError(f"2x2: first call's launches {per_card}, "
+                             f"graph calls {calls}")
+    made = replayed_graphs(fn4)
     for i in range(2):
         if not same_frame((out[0][i], out[1][i]), refs[i]):
             raise AssertionError(f"2x2: camera {i}'s stacked bands differ "
                                  f"from phase 3's frame")
-    out2, replay_card, total = counted(lambda: fn4(*batch4), 4)
-    if total or not all(same_frame((out2[0][i], out2[1][i]), refs[i])
-                        for i in range(2)):
-        raise AssertionError(f"2x2: a replay launched {total} kernels "
-                             f"through the wrappers or changed a frame")
+    out2, replay_card, total, calls = counted(lambda: fn4(*batch4), 4)
+    # a replay of the graphs the first call captured, and no capture
+    if (replay_card != per_card or total != 8 or calls != {"replays": 4}
+            or replayed_graphs(fn4) != made or not all(
+                same_frame((out2[0][i], out2[1][i]), refs[i])
+                for i in range(2))):
+        raise AssertionError(f"2x2: a replay counted {replay_card} and "
+                             f"graph calls {calls}, or "
+                             f"changed a frame")
     res["2x2_launches_k1_k2_by_card"] = per_card
     res["2x2_kernels_by_profiler"] = kernel_device_counts(
         lambda: fn4(*batch4))
@@ -432,8 +446,9 @@ def four_cards(eng, poses, args, dargs, caps, step_kw, runs: int,
                              f"{res['2x2_kernels_by_profiler']}")
     log(f"2x2 on cards 0-3: both cameras' stacked bands equal phase 3's "
         f"frames bit for bit, at the capture and at a replay; K1, K2 "
-        f"launches by card at the capture {per_card} (eager + captured), at "
-        f"a replay none; kernels of a replay by the profiler's device index "
+        f"launches by card at the capture {per_card} (the eager step), at a "
+        f"replay {replay_card}; kernels of a replay by the profiler's device "
+        f"index "
         f"{res['2x2_kernels_by_profiler']}")
 
     shards = fn4.bands(*batch4)
@@ -462,8 +477,8 @@ def four_cards(eng, poses, args, dargs, caps, step_kw, runs: int,
     streams = dp_streams(eng, dargs, caps["gather_cap"])
     dbatch = (*(torch.stack([s[k] for s in streams]) for k in range(3)),
               *dargs[5:])
-    dout, dp_card, total = counted(lambda: fnd4(*dbatch), 4)
-    if total != 16 or any(v != (2, 2) for v in dp_card.values()):
+    dout, dp_card, total, _ = counted(lambda: fnd4(*dbatch), 4)
+    if total != 8 or any(v != (1, 1) for v in dp_card.values()):
         raise AssertionError(f"dp: first call's launches {dp_card}")
     for i, p in enumerate(poses):
         if not same_frame((dout[0][i], dout[1][i]), p[0]):
@@ -576,18 +591,28 @@ def run(eng, poses, runs: int = 20, log=log) -> dict:
     if cards < 4:
         fn = sr.make_sharded_render(sr.make_mesh(1), width=step_kw["width"],
                                     height=h, **caps)
-        out, per_card, total = counted(lambda: fn(*args), 1)
-        # the capture: each camera's K1 and K2 eager, then into the graph
-        if total != 8 or per_card[0] != (4, 4):
-            raise AssertionError(f"1x1: launches {per_card}")
+        out, per_card, total, calls = counted(lambda: fn(*args), 1)
+        # the first call: each camera's K1 and K2 eagerly, then captured
+        if total != 4 or per_card[0] != (2, 2) or calls != {"captures": 1}:
+            raise AssertionError(f"1x1: launches {per_card}, graph calls "
+                                 f"{calls}")
+        made = replayed_graphs(fn)
+        # the second replays that graph: the same counts, no capture
+        out2, per_card2, total, calls = counted(lambda: fn(*args), 1)
+        if (total != 4 or per_card2 != per_card or calls != {"replays": 1}
+                or replayed_graphs(fn) != made):
+            raise AssertionError(f"1x1: a replay counted {per_card2} and "
+                                 f"graph calls {calls}")
         res["1x1_launches_k1_k2_by_card"] = per_card
-        for i in range(2):
-            if not same_frame((out[0][i], out[1][i]), two[i][0]):
-                raise AssertionError(f"1x1: camera {i} differs from phase "
-                                     f"3's frame")
+        for got in (out, out2):
+            for i in range(2):
+                if not same_frame((got[0][i], got[1][i]), two[i][0]):
+                    raise AssertionError(f"1x1: camera {i} differs from "
+                                         f"phase 3's frame")
         res["layouts"] = (f"1x1 mesh only: the four-card layouts need four "
                           f"cards and {cards} is present")
-        log(f"1x1 mesh: both cameras equal phase 3's frames bit for bit; "
+        log(f"1x1 mesh: both cameras equal phase 3's frames bit for bit, "
+            f"at the capture and at a replay of the same graph; "
             f"the 2x2 and dp layouts on four cards were not run: {cards} "
             f"card(s) present")
         return res

@@ -22,9 +22,9 @@ from .. import _build
 from . import projection as proj_ops
 
 # launches of the CUDA kernel (not of the twin); ``launches_span`` counts
-# the span instance's among them
-launches = 0
-launches_span = 0
+# the span instance's among them (read from _build's registry)
+__getattr__ = _build.module_counts(
+    {"launches": "K1", "launches_span": "K1 span"}, __name__)
 
 # the kernel's flag bits (csrc/stage_a.cuh kBackface, kSubpixelCulling,
 # kSpan; bits 2-3 are the quads a thread)
@@ -163,7 +163,6 @@ def project_cull(quads, quad_world, n_quads, view_proj, cam_pos, *,
             height=height, backface_culling=backface_culling,
             subpixel_culling=subpixel_culling, skip_quads=skip_quads,
             span_mode=span_mode)
-    global launches, launches_span
     dev = quads.device
     # a Python int becomes a device scalar here, so that it outlives the
     # launch's enqueueing (not the step's case: it passes device scalars)
@@ -187,9 +186,5 @@ def project_cull(quads, quad_world, n_quads, view_proj, cam_pos, *,
         flags, *output_ptrs(out),
         out["ndc"].data_ptr() if span_mode else None,
         torch._C._cuda_getCurrentRawStream(dev.index))
-    with _build.COUNT_LOCK:
-        launches += 1
-        if span_mode:
-            launches_span += 1
-        _build.card_launches["K1", dev.index] += 1
+    _build.count("K1", dev.index, *(("K1 span",) if span_mode else ()))
     return out

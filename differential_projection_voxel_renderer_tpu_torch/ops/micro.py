@@ -51,9 +51,10 @@ FILL_THREADS = 256  # M1's threads a block, one 16-byte vector each
 COPY_THREADS = 128  # M2's threads a block, one 16-byte vector of in0 each
 _NULLS = (None,) * MAX_IO
 
-# launches of the CUDA kernels M1 and M2 (not of their plain versions)
-launches_fill = 0
-launches_copy = 0
+# launches of the CUDA kernels M1 and M2 (not of their plain versions),
+# read from _build's registry
+__getattr__ = _build.module_counts(
+    {"launches_fill": "M1", "launches_copy": "M2"}, __name__)
 
 
 class FillPlan(NamedTuple):
@@ -289,7 +290,6 @@ def fill_tiles(layout: FillLayout, *, x=None, order=None, starts=None,
                                 counts=counts, meta_rows=meta_rows,
                                 meta_zmin=meta_zmin, recs=recs, bidx=bidx,
                                 extra=extra)
-    global launches_fill
     idx = dev.index
     for i in layout.needs:
         if ops[i] is None:
@@ -310,9 +310,7 @@ def fill_tiles(layout: FillLayout, *, x=None, order=None, starts=None,
         outs[0].data_ptr(), outs[1].data_ptr() if len(outs) > 1 else None,
         *ptrs, *_NULLS[:N_EXTRA - len(extra)], layout.c_params,
         torch._C._cuda_getCurrentRawStream(idx))
-    with _build.COUNT_LOCK:
-        launches_fill += 1
-        _build.card_launches["M1", idx] += 1
+    _build.count("M1", idx)
     return outs
 
 
@@ -402,7 +400,6 @@ def blocked_copy(inputs, x, pairs, *, block_rows: int = 64, out=None):
     if not in0.is_cuda:
         return blocked_copy_plain(inputs, x, pairs, block_rows=block_rows,
                                   out=out)
-    global launches_copy
     shape = in0.shape
     if len(shape) != 2 or shape[1] != 128:
         raise ValueError("inputs[0] must be int32 [rows, 128]")
@@ -420,7 +417,5 @@ def blocked_copy(inputs, x, pairs, *, block_rows: int = 64, out=None):
         *in_ptrs, *_NULLS[len(inputs):], *(o.data_ptr() for o in outs),
         *_NULLS[len(outs):], x_ptr, params,
         torch._C._cuda_getCurrentRawStream(idx))
-    with _build.COUNT_LOCK:
-        launches_copy += 1
-        _build.card_launches["M2", idx] += 1
+    _build.count("M2", idx)
     return outs

@@ -34,13 +34,26 @@ FACE_N_AXIS = (0, 0, 1, 1, 2, 2)
 STRADDLE_MARGIN = 1.0 / 4096.0
 
 
+def device_constant(t: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor's copy on ``device``, onto a card through pinned
+    memory and without a host sync (the caching host allocator keeps the
+    pinned buffer until the copy has run): the step's constants are made
+    at their first use, which may be the eager run under
+    ``torch.cuda.set_sync_debug_mode("error")`` before a capture
+    (rendering/graphs.py)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 @functools.lru_cache(maxsize=None)
 def _axis_table(table, device) -> torch.Tensor:
     """``table`` as an i32[8] lookup on ``device``, made once a device: a
     copy from host memory inside the step would wait for the card's queue
     and could not be captured in a CUDA graph."""
-    return torch.tensor(list(table) + [table[5], table[5]], dtype=torch.int32,
-                        device=device)
+    return device_constant(torch.tensor(
+        list(table) + [table[5], table[5]], dtype=torch.int32), device)
 
 
 def as_quad_words(quads) -> torch.Tensor:
@@ -338,7 +351,7 @@ _FLAT_COLORS = torch.from_numpy(BLOCK_COLORS_ARGB.view(np.int32).copy())
 def _flat_colors(device) -> torch.Tensor:
     """``_FLAT_COLORS`` on ``device``, copied once a device (as
     ``_axis_table``)."""
-    return _FLAT_COLORS.to(device)
+    return device_constant(_FLAT_COLORS, device)
 
 
 def span_coefficients(quads, ndc, depth_near, *, width: int, height: int):

@@ -25,8 +25,10 @@ import functools
 import numpy as np
 import torch
 
+from .. import _build
 from ..utils.config import SKY_COLOR
 from . import geometry as geom_ops
+from . import projection as proj_ops
 
 F_FIELDS = (
     "a00", "a01", "a02", "a10", "a11", "a12", "a20", "a21", "a22",
@@ -37,9 +39,10 @@ REC_FIELDS = F_FIELDS + I_FIELDS
 SKY_I32 = int(np.uint32(SKY_COLOR).astype(np.int32))
 U32_MASK = 0xFFFFFFFF
 
-# launches of the CUDA kernels K2 and K3 (not of their plain versions)
-launches = 0
-launches_geom = 0
+# launches of the CUDA kernels K2 and K3 (not of their plain versions),
+# read from _build's registry
+__getattr__ = _build.module_counts(
+    {"launches": "K2", "launches_geom": "K3"}, __name__)
 
 
 def pick_tile(height: int, width: int) -> tuple[int, int]:
@@ -146,7 +149,8 @@ def _class_blocks(shapes, m: int, device):
     n = len(shapes)
     targets = torch.arange(1, width + 1, device=device).repeat(n, 1)
     base = torch.arange(n, device=device)[:, None] * m
-    caps = torch.tensor([cap for cap, _ in shapes], device=device)
+    caps = proj_ops.device_constant(
+        torch.tensor([cap for cap, _ in shapes]), device)
     return targets, base, caps, torch.cat(rows_of), torch.cat(cols)
 
 
@@ -417,9 +421,6 @@ def rasterize_tiles(records, tile_starts, tile_counts, octet_rows,
         return color, depth, geom_ops.project_cull_plain(
             *next_geom, width=width, height=height,
             backface_culling=backface_culling)
-    global launches, launches_geom
-    from .. import _build
-
     _check_records(records, tile_starts, tile_counts, octet_rows,
                    octet_zmin, out_h=out_h, width=width, tile_h=tile_h,
                    tile_w=tile_w)
@@ -446,9 +447,7 @@ def rasterize_tiles(records, tile_starts, tile_counts, octet_rows,
             "dpvr_rasterize_tiles", dev.index, "rasterize_tiles",
             *raster_args, *(None,) * 5, 0, int(backface_culling),
             *(None,) * 6, stream)
-        with _build.COUNT_LOCK:
-            launches += 1
-            _build.card_launches["K2", dev.index] += 1
+        _build.count("K2", dev.index)
         return color, depth
     quads2, qw2, n2, vp2, cp2 = next_geom
     if quads2.device != dev:
@@ -460,7 +459,5 @@ def rasterize_tiles(records, tile_starts, tile_counts, octet_rows,
         "dpvr_rasterize_tiles", dev.index, "rasterize_tiles (K3)",
         *raster_args, *gin, quads2.shape[0], int(backface_culling),
         *geom_ops.output_ptrs(geom), stream)
-    with _build.COUNT_LOCK:
-        launches_geom += 1
-        _build.card_launches["K3", dev.index] += 1
+    _build.count("K3", dev.index)
     return color, depth, geom

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import _build
 from . import raster as raster_ops
 from .raster import (
     SKY_I32,
@@ -39,8 +40,9 @@ BINS_PER_TILE = 5  # wide + 4 buckets
 # multiple of it, so a configuration runs on both packages or on neither
 CHAP_Q = 2048
 
-# launches of the CUDA kernel K4 (not of its plain twin)
-launches = 0
+# launches of the CUDA kernel K4 (not of its plain twin), read from
+# _build's registry
+__getattr__ = _build.module_counts({"launches": "K4"}, __name__)
 
 # The big quads (over more than 2x2 tiles) are binned in the default
 # binning's classes (ops/raster.py BIG_CAP, HUGE_CAP, MAX_TILES_BIG), each
@@ -278,9 +280,6 @@ def rasterize_packed(records, starts, counts, octet_rows, octet_zmin,
         return rasterize_packed_plain(
             records, starts, counts, octet_rows, octet_zmin, height=height,
             width=width, tile_h=tile_h, out_h=out_h)
-    global launches
-    from .. import _build
-
     cap, _ = _check_records(
         records, starts, counts, octet_rows, octet_zmin, out_h=out_h,
         width=width, tile_h=tile_h)
@@ -303,7 +302,5 @@ def rasterize_packed(records, starts, counts, octet_rows, octet_zmin,
         rec, cap, st, cn, bby, bbx.data_ptr(), zmin, out_h // tile_h,
         width // 128, height, width, color.data_ptr(), depth.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    with _build.COUNT_LOCK:
-        launches += 1
-        _build.card_launches["K4", dev.index] += 1
+    _build.count("K4", dev.index)
     return color, depth

@@ -11,12 +11,13 @@ framebuffer row bands over the ``tp`` axis of a device mesh:
   device several times included (a CPU mesh for the tests, one card for a
   decomposition on one card);
 - every shard runs on its own card, all at once: its step is captured into
-  a CUDA graph on that card at the first call (``_CardGraph``), and a call
-  copies each shard's inputs in and then replays every card's graph from
-  this one host thread.  The eager step is host-bound (~470 launches a
-  frame), and driven from one host thread a card it was slower than on one
-  card: each torch op releases and retakes the interpreter lock, so four
-  threads hand it over at every op (``benches/multicard.py`` times both).
+  a CUDA graph on that card at the first call (``rendering/graphs.py
+  CapturedCall``), and a call copies each shard's inputs in and then
+  replays every card's graph from this one host thread.  The eager step
+  is host-bound (~470 launches a frame), and driven from one host thread
+  a card it was slower than on one card: each torch op releases and
+  retakes the interpreter lock, so four threads hand it over at every op
+  (``benches/multicard.py`` times both).
   On the CPU the shards run in turn, eagerly.  The scene (pool, counts,
   positions) is replicated on every device (``replicate`` makes the form a
   caller keeps across calls) and the camera batch is split over dp;
@@ -43,6 +44,7 @@ from ..ops import projection as proj_ops
 from ..ops.raster import pick_tile
 from ..ops.shading import build_quad_color_tables
 from ..ops.texture import TextureAtlas
+from ..rendering.graphs import CapturedCall
 from ..rendering.pipeline import render_step, resolve_device
 
 
@@ -206,56 +208,18 @@ def _render_one_camera(pool, counts_all, positions, visible_slots,
     return color, depth, stats[1]
 
 
-class _CardGraph:
-    """``step(*fixed, *inputs)`` on the card ``dev``, replayed from a CUDA
-    graph.  Built at a shard's first call: static copies of ``inputs`` are
-    made on the card, one eager step runs on a side stream (the kernels
-    load, K4 opts in to its shared memory on this card, the device tables
-    are made, as ``rendering/pipeline.make_repeated_step``), and the step
-    is captured over the ``fixed`` tensors (used where they lie, so their
-    addresses must hold: ``matches``) and the static copies.  ``load``
-    copies a call's inputs in, ``replay`` launches the graph; ``out`` is
-    the graph's own memory, overwritten by the next replay."""
-
-    def __init__(self, dev: torch.device, step, fixed, inputs):
-        self.fixed = [(t.data_ptr(), t.shape) for t in fixed]
-        self.shapes = [x.shape for x in inputs]
-        with torch.cuda.device(dev):
-            self.static = [torch.empty(x.shape, dtype=x.dtype, device=dev)
-                           for x in inputs]
-            self.load(inputs)
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                step(*fixed, *self.static)
-            torch.cuda.current_stream(dev).wait_stream(side)
-            self.graph = torch.cuda.CUDAGraph()
-            # capture on this card's stream: torch.cuda.graph's default
-            # capture stream is made once, on the card current at its
-            # first use
-            with torch.cuda.graph(self.graph, stream=side):
-                self.out = step(*fixed, *self.static)
-
-    def matches(self, fixed, inputs) -> bool:
-        return (self.fixed == [(t.data_ptr(), t.shape) for t in fixed]
-                and self.shapes == [x.shape for x in inputs])
-
-    def load(self, inputs) -> None:
-        for s, x in zip(self.static, inputs):
-            s.copy_(x)
-
-    def replay(self) -> None:
-        self.graph.replay()
-
-
 class _Shards:
     """Runs a mesh's shards: ``step(key, *fixed, *inputs)`` for each shard
-    key on its device.  On CUDA devices each shard has its ``_CardGraph``
-    (rebuilt when its fixed tensors or input shapes change): every shard's
+    key on its device, each from its ``CapturedCall`` (rendering/
+    graphs.py; rebuilt when its fixed tensors or input shapes change): on
+    a card its step runs eagerly at its first call and is captured into a
+    CUDA graph on that card, and a later call replays it.  Every shard's
     inputs are copied in first (a copy from another card waits on that
-    card's queue, so none may wait behind a replay), then every graph is
-    replayed, all from the calling thread.  Elsewhere each shard runs its
-    eager step in turn."""
+    card's queue, so none may wait behind a replay), then every shard runs,
+    all from the calling thread, one replay after another.  A replay's
+    outputs are its graph's own memory, not copied here: ``gather`` copies
+    them to the first device.  On the CPU each shard runs its eager step
+    in turn."""
 
     def __init__(self, step):
         self.step = step
@@ -263,26 +227,19 @@ class _Shards:
 
     def run(self, jobs) -> dict:
         """``jobs``: [(key, device, fixed tensors on the device, inputs on
-        any device)]; returns {key: the step's outputs} (on CUDA, the
-        graphs' memory)."""
-        out = {}
+        any device)]; returns {key: the step's outputs}, on a card the
+        graph's memory, overwritten by the next call."""
         ready = []
         for key, dev, fixed, inputs in jobs:
-            if dev.type != "cuda":
-                out[key] = self.step(key, *fixed,
-                                     *(x.to(dev) for x in inputs))
-                continue
             g = self.graphs.get(key)
-            if g is not None and g.matches(fixed, inputs):
-                g.load(inputs)
-            else:
-                g = self.graphs[key] = _CardGraph(
-                    dev, functools.partial(self.step, key), fixed, inputs)
+            if g is None or not g.matches(fixed, inputs):
+                g = self.graphs[key] = CapturedCall(
+                    functools.partial(self.step, key), fixed, inputs,
+                    device=dev)
+            for i, x in enumerate(inputs):
+                g.load(i, x)
             ready.append((key, g))
-        for key, g in ready:
-            g.replay()
-            out[key] = g.out
-        return out
+        return {key: g.run(copy=False) for key, g in ready}
 
 
 class ShardedRender:
@@ -337,8 +294,8 @@ class ShardedRender:
         """Each shard's outputs on its device, the shards at once:
         {(i, t): ([color [band_h, W] a camera], [depth a camera], the
         bands' counts i32[B / dp])}, shard (i, t) rendering cameras
-        i * B / dp .. (i + 1) * B / dp - 1 on rows t * band_h ... On a
-        card they are its graph's memory, valid until the next call."""
+        i * B / dp .. (i + 1) * B / dp - 1 on rows t * band_h ...  On cards
+        the graphs' own memory, valid until the next call."""
         b = visible_slots.shape[0]
         dp, tp = self.mesh
         if b % dp:
@@ -367,7 +324,8 @@ class ShardedRender:
                 shards[i, t] = (*shards[i, t][:2], row[t] // tp)
 
     def gather(self, shards: dict) -> tuple:
-        """The shards' outputs on the mesh's first device: color
+        """The shards' outputs copied into fresh tensors on the mesh's
+        first device (the one copy out of the graphs' memory): color
         i32[B, H, W], depth f32[B, H, W] and each dp row's count, i32[B]."""
         dp, tp = self.mesh
         per = len(shards[0, 0][0])
@@ -446,7 +404,7 @@ class ShardedRenderDP:
                cam_pos) -> list:
         """Each device's frames on it, the devices at once: [(color, depth,
         stats) a camera] a device, device k rendering cameras k * B / n ..
-        (k + 1) * B / n - 1; on a card its graph's memory."""
+        (k + 1) * B / n - 1."""
         b, n = quads.shape[0], len(self.devices)
         if b % n:
             raise ValueError(f"a batch of {b} cameras over {n} devices")

@@ -53,11 +53,16 @@ frame's step (``_step_camf_append``: the batch expanded from the pool and
 blended into a copy of the stream; ``_step_camf_append_insert`` also
 scatters the batch into the pool first).
 
-PyTorch runs eagerly, so there is no jit and no trace-time knob: the
-capacity buckets only size the tensors.  Capacities are static, so a step
-makes no host sync; ``n_quads``, the counts and the totals stay on the
-device.  Where JAX's immutable arrays forced a copy, the port updates the
-quad pool in place (``apply_insert_payload``).
+One dispatch a frame: where the reference jits each serial entry point
+once a capacity bucket, the ``Renderer`` serves each (entry point, gather
+bucket) from one CUDA graph (rendering/graphs.py), captured at its first
+frame or in ``warm_buckets``: a frame is one upload into the graph's
+static buffers, one replay and the copies of its outputs.  Capacities are
+static, so a step makes no host sync; ``n_quads``, the counts and the
+totals stay on the device.  Where JAX's immutable arrays forced a copy,
+the port updates the quad pool in place (``apply_insert_payload``), also
+inside a graph.  Frames in flight, the resident append steps, the
+11-short fallback and ``prepare_uploads`` run eagerly.
 """
 
 from __future__ import annotations
@@ -67,6 +72,7 @@ import functools
 import numpy as np
 import torch
 
+from . import graphs
 from ..ops import geometry as geom_ops
 from ..ops import hiz as hiz_ops
 from ..ops import projection as proj_ops
@@ -488,8 +494,9 @@ def _expand_uploads_impl(quad_pool, slots_sel, counts6_sel, mask6_sel,
     row_start = (torch.cumsum(counts6_sel, 1) - counts6_sel).reshape(nv * 6)
     starts_flat = torch.cumsum(lens, 0) - lens
     kept = torch.minimum(lens, torch.clamp(gather_cap - starts_flat, min=0))
-    units = torch.arange(nv * 6 + 1, device=dev)
-    units[-1] = nv * 6 - 1
+    # the last unit again at the end (a clamp: an index write of a Python
+    # number would copy it from the host)
+    units = torch.clamp(torch.arange(nv * 6 + 1, device=dev), max=nv * 6 - 1)
     reps = torch.cat([kept, (gather_cap - kept.sum()).reshape(1)])
     unit = torch.repeat_interleave(units, reps, output_size=gather_cap)
     ci = unit // 6
@@ -716,16 +723,14 @@ def _fused_frame_insert(quad_pool, counts6_pool, frame_u, *, vcap: int,
                         gather_cap: int, kp: int, mc: int, **step_kw):
     """Streaming frame: pool scatter (in place), then the META5 expansion
     that may reference the just-inserted meshes, then the step.  Returns
-    (pool, counts6, color, depth, stats)."""
+    (color, depth, stats)."""
     meta_i, cam_f, ins = _split_frame_u(frame_u, vcap)
     apply_insert_payload(quad_pool, counts6_pool, ins, k=kp, mc=mc)
     slots, mask6, positions = _unpack_meta5(meta_i, vcap)
     quads, quad_world, total = _expand_uploads_impl(
         quad_pool, slots, counts6_pool[slots.long()], mask6, positions,
         gather_cap)
-    color, depth, stats = _step_camf(quads, quad_world, total, cam_f,
-                                     **step_kw)
-    return quad_pool, counts6_pool, color, depth, stats
+    return _step_camf(quads, quad_world, total, cam_f, **step_kw)
 
 
 # resident-stream append batch limits (Engine resident mode): chunks per
@@ -880,7 +885,17 @@ class Renderer:
     on one device (reference ``Renderer``, production path only).  With
     ``RenderConfig.two_pass_near_quads`` every serial step is the two-pass
     step; with ``RenderConfig.temporal_hiz`` the engine's static frames go
-    through ``render_prepared_hiz``."""
+    through ``render_prepared_hiz``.
+
+    The serial entry points (``render_fused`` on the META5 path,
+    ``render_prepared``, ``render_prepared_hiz``, ``render_fused_insert``)
+    run from one ``graphs.CapturedCall`` each a gather bucket, as the
+    reference's ``_steps_for`` / ``_hiz_step_for`` / ``_insert_step_for``
+    jit one program each.  A graph is captured at its first frame (or in
+    ``warm_buckets``), again after ``set_shading`` (the colour tables are
+    captured by address) and again when a frame brings other pool tensors
+    than it captured.  Their outputs are copies: a frame a caller holds is
+    never overwritten by a later one."""
 
     INSERT_KP = 16
     INSERT_MC = 512
@@ -914,6 +929,14 @@ class Renderer:
         # with their keywords bound, dropped when the colour tables change
         self._append_steps: dict[int, object] = {}
         self._append_ins_steps: dict[int, object] = {}
+        # the serial entry points' graphs by (entry point, gather cap),
+        # also dropped with the colour tables.  One memory pool holds the
+        # intermediates of them all: safe only because their replays run
+        # one after another on the card's current stream and each replay's
+        # outputs are copied out before the next replay can write there
+        self._graphs: dict[tuple, graphs.CapturedCall] = {}
+        self._graph_pool = (torch.cuda.graph_pool_handle()
+                            if self.device.type == "cuda" else None)
         self._rebuild_tables()
         # capacity buckets: the mid-stage tensors scale with the gather
         # and render caps, so small scenes take a small bucket; the
@@ -938,14 +961,17 @@ class Renderer:
             self._tables_np, self.device)
         self._append_steps.clear()
         self._append_ins_steps.clear()
+        self._graphs.clear()
 
     def set_shading(self, enable: bool) -> None:
         """Runtime toggle, the reference's F key: sets
         ``config.enable_shading`` (the config object the engine shares)
-        and rebuilds the colour tables the step reads.  Everything else
-        stays: the capacity buckets, the camera cache, the device buffers.
-        A frame in flight would be rastered with the new tables, so the
-        toggle raises while one is (flush the pipeline first)."""
+        and rebuilds the colour tables the step reads, dropping every graph
+        (each captured the old tables' address), as the reference re-inits
+        its jitted steps.  Everything else stays: the capacity buckets, the
+        camera cache, the device buffers.  A frame in flight would be
+        rastered with the new tables, so the toggle raises while one is
+        (flush the pipeline first)."""
         if self._pipe_carry is not None or self._pipe_done is not None:
             raise RuntimeError(
                 "set_shading with a frame in flight; call pipeline_flush() "
@@ -967,16 +993,15 @@ class Renderer:
 
     def warm_buckets(self, quad_pool, counts6_pool=None,
                      pipelined: bool = False) -> None:
-        """Run every capacity bucket's entry points once on a one-chunk
-        draw list (pool slot 0, all six directions, an identity camera),
-        the results dropped.  The reference's version pre-traces each
-        bucket's jit programs; the port has none to trace.  Here, on the
-        card, the kernels are built and loaded first (``_build.lib``), and
-        the caching allocator then holds each bucket's buffers, so the
-        first frame of a bucket pays for neither.  With ``counts6_pool``
-        (the pool's device mirror) the META5 path runs, and the 11-short
-        fallback at the largest bucket; else the 11-short path.
-        ``pipelined`` also runs the frames-in-flight steps (kernel K3).
+        """Capture every capacity bucket's graphs on a one-chunk draw list
+        (pool slot 0, all six directions, an identity camera), the results
+        dropped, as the reference compiles each bucket's jit programs: the
+        META5 frame with ``counts6_pool`` (the pool's device mirror; the
+        11-short fallback then runs eagerly at the largest bucket), else
+        the 11-short frame eagerly; the static step; with
+        ``RenderConfig.temporal_hiz`` the temporal step.  ``pipelined``
+        also runs the frames-in-flight steps (kernel K3), eagerly.  On the
+        card the kernels are built and loaded first (``_build.lib``).
         Nothing is written: the pool, the camera cache and the
         frames-in-flight state are as they were, so every later frame is
         what it would be without the call."""
@@ -987,8 +1012,8 @@ class Renderer:
 
             _build.lib()
         vcap = self.config.visible_chunks_cap
-        cam_np = _pack_cam(np.eye(4, dtype=np.float32),
-                           np.zeros(3, np.float32))
+        eye, origin = np.eye(4, dtype=np.float32), np.zeros(3, np.float32)
+        cam_np = _pack_cam(eye, origin)
         cam = self._upload(cam_np)
         meta11 = np.zeros(META_SHORTS * vcap, np.int16)
         meta11[vcap] = 1           # one quad from pool slot 0, dir 0
@@ -996,13 +1021,12 @@ class Renderer:
         meta5 = np.zeros(META5_SHORTS * vcap, np.int16)
         meta5[vcap] = 0x3F         # all six dirs kept (slot 0's counts)
         meta5_t = self._upload(meta5)
-        frame_u = self._upload(np.concatenate([meta5.view(np.int32),
-                                               cam_np.view(np.int32)]))
+        frame_np = np.concatenate([meta5.view(np.int32),
+                                   cam_np.view(np.int32)])
         for cap in self.gather_buckets:
             kw = self._bucket_kw(cap)
             if counts6_pool is not None:
-                _fused_frame5(quad_pool, counts6_pool, frame_u, vcap=vcap,
-                              gather_cap=cap, **kw)
+                self._fused5(quad_pool, counts6_pool, frame_np, cap)
                 slots, mask6, pos = _unpack_meta5(meta5_t, vcap)
                 up = _expand_uploads_impl(
                     quad_pool, slots, counts6_pool[slots.long()], mask6,
@@ -1015,9 +1039,9 @@ class Renderer:
             else:
                 up = _fused_frame(quad_pool, self._upload(meta11), cam,
                                   vcap=vcap, gather_cap=cap, **kw)[3:]
-            _step_camf(*up, cam, **kw)
+            self.render_prepared(up, eye, origin)
             if self.config.temporal_hiz:
-                _step_camf_hiz(*up, cam, self.empty_hiz(), **kw)
+                self.render_prepared_hiz(up, eye, origin, self.empty_hiz())
             if pipelined and counts6_pool is not None:
                 pre, q2, qw2, t2 = _geom_fused5(
                     quad_pool, counts6_pool, meta5_t, cam, vcap=vcap,
@@ -1029,6 +1053,32 @@ class Renderer:
                              t2, cam, pre, vcap=vcap, gather_cap=cap, **kw)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _run_graph(self, name: str, cap: int, fn, fixed, inputs,
+                   keep: int = 0):
+        """``fn(*fixed, *inputs)`` from the graph of entry point ``name`` at
+        gather bucket ``cap``, captured at its first call and again when
+        ``fixed`` is other memory or an input another shape; the first
+        ``keep`` inputs are copied in only when they are not the ones
+        copied last.  Returns fn's outputs as fresh tensors."""
+        g = self._graphs.get((name, cap))
+        if g is None or not g.matches(fixed, inputs):
+            g = self._graphs[name, cap] = graphs.CapturedCall(
+                fn, fixed, inputs, device=self.device, pool=self._graph_pool)
+        for i, x in enumerate(inputs):
+            g.load(i, x, keep=i < keep)
+        return g.run()
+
+    def _fused5(self, quad_pool, counts6_pool, frame_np: np.ndarray,
+                cap: int):
+        """The META5 frame (``_fused_frame5``) of bucket ``cap`` on one
+        upload ``frame_np`` (``_frame_np``): (color, depth, stats)."""
+        vcap = self.config.visible_chunks_cap
+        return self._run_graph(
+            "fused5", cap, functools.partial(
+                _fused_frame5, vcap=vcap, gather_cap=cap,
+                **self._bucket_kw(cap)),
+            (quad_pool, counts6_pool), (frame_np,))
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         """Host array -> device tensor.  On CUDA the copy goes through
@@ -1076,13 +1126,15 @@ class Renderer:
             self._upload(counts6.astype(np.int32)),
             self._upload(mask6.astype(np.int32)), self._upload(pos_a), cap)
 
-    def _frame_u(self, vcap, slots_a, mask6, pos_a, view_proj, cam_pos,
-                 payload=None) -> torch.Tensor:
+    @staticmethod
+    def _frame_np(vcap, slots_a, mask6, pos_a, view_proj, cam_pos,
+                  payload=None) -> np.ndarray:
+        """A META5 frame's one upload: meta | camera | payload, i32."""
         parts = [_pack_meta5(vcap, slots_a, mask6, pos_a).view(np.int32),
                  _pack_cam(view_proj, cam_pos).view(np.int32)]
         if payload is not None:
             parts.append(np.asarray(payload, np.uint32).view(np.int32))
-        return self._upload(np.concatenate(parts))
+        return np.concatenate(parts)
 
     def render_fused(self, quad_pool, visible_slots, counts_sel,
                      positions_sel, view_proj, cam_pos, dir_mask=None,
@@ -1099,10 +1151,10 @@ class Renderer:
         kw = self._bucket_kw(cap)
         legacy_counts = np.asarray(counts_sel).ndim == 1
         if counts6_dev is not None and not truncated and not legacy_counts:
-            color, depth, stats = _fused_frame5(
+            color, depth, stats = self._fused5(
                 quad_pool, counts6_dev,
-                self._frame_u(vcap, slots_a, mask6, pos_a, view_proj,
-                              cam_pos), vcap=vcap, gather_cap=cap, **kw)
+                self._frame_np(vcap, slots_a, mask6, pos_a, view_proj,
+                               cam_pos), cap)
             return color, depth, stats, None
         meta = self._upload(_pack_meta(vcap, slots_a, counts6, mask6, pos_a))
         color, depth, stats, quads, quad_world, total = _fused_frame(
@@ -1122,11 +1174,14 @@ class Renderer:
         return dev
 
     def render_prepared(self, uploads, view_proj, cam_pos):
-        """Step on a cached stream (the static frame)."""
-        quads, quad_world, total = uploads
-        return _step_camf(quads, quad_world, total,
-                          self._cam_dev(view_proj, cam_pos),
-                          **self._bucket_kw(int(quads.shape[0])))
+        """Step on a cached stream (the static frame): (color, depth,
+        stats).  The stream is copied into the graph's buffers only when it
+        is not the one copied last."""
+        cap = int(uploads[0].shape[0])
+        return self._run_graph(
+            "prepared", cap,
+            functools.partial(_step_camf, **self._bucket_kw(cap)), (),
+            (*uploads, _pack_cam(view_proj, cam_pos)), keep=3)
 
     def empty_hiz(self) -> torch.Tensor:
         """+inf seed pyramid f32[ceil(H/8), ceil(W/8)]: culls nothing (the
@@ -1141,10 +1196,11 @@ class Renderer:
         ``hiz1`` culling quads.  Returns (color, depth, stats, the new
         pyramid).  The caller passes a pyramid rendered from the same
         camera, draw list and world, else ``empty_hiz()``."""
-        quads, quad_world, total = uploads
-        return _step_camf_hiz(quads, quad_world, total,
-                              self._cam_dev(view_proj, cam_pos), hiz1,
-                              **self._bucket_kw(int(quads.shape[0])))
+        cap = int(uploads[0].shape[0])
+        return self._run_graph(
+            "hiz", cap,
+            functools.partial(_step_camf_hiz, **self._bucket_kw(cap)), (),
+            (*uploads, _pack_cam(view_proj, cam_pos), hiz1), keep=3)
 
     def render_fused_insert(self, quad_pool, counts6_dev, visible_slots,
                             counts_sel, positions_sel, view_proj, cam_pos,
@@ -1162,12 +1218,15 @@ class Renderer:
         if truncated or np.asarray(counts_sel).ndim == 1:
             return None
         vcap = self.config.visible_chunks_cap
-        return _fused_frame_insert(
-            quad_pool, counts6_dev,
-            self._frame_u(vcap, slots_a, mask6, pos_a, view_proj, cam_pos,
-                          insert_payload),
-            vcap=vcap, gather_cap=cap, kp=self.INSERT_KP, mc=self.INSERT_MC,
-            **self._bucket_kw(cap))
+        color, depth, stats = self._run_graph(
+            "insert", cap, functools.partial(
+                _fused_frame_insert, vcap=vcap, gather_cap=cap,
+                kp=self.INSERT_KP, mc=self.INSERT_MC,
+                **self._bucket_kw(cap)),
+            (quad_pool, counts6_dev),
+            (self._frame_np(vcap, slots_a, mask6, pos_a, view_proj, cam_pos,
+                            insert_payload),))
+        return quad_pool, counts6_dev, color, depth, stats
 
     def _resident_kw(self, gather_cap: int) -> dict:
         kw = self._bucket_kw(gather_cap)
@@ -1370,15 +1429,14 @@ def make_repeated_step(renderer: Renderer, n_frames: int):
     and temporal modes are not applied, as in the reference).  ``run``
     returns the last frame's (color, depth, stats).
 
-    On the card the N steps are captured once, at the first call with a
-    stream of GQ quads, into one CUDA graph over static input buffers;
-    each call copies its inputs into those buffers and replays the graph,
-    so K1 and K2 (K4 with ``packed_raster``, K1's span instance in span
-    mode) launch N times a replay from one host call.  The step makes no
-    host sync, so it captures whole.  The returned tensors are the graph's
-    own memory: the next call overwrites them, so a caller that keeps a
-    frame clones it.  On the CPU ``run`` is a plain loop over
-    ``render_step``."""
+    On the card the N steps run eagerly at the first call with a stream of
+    GQ quads and are captured into one CUDA graph over static input
+    buffers (``graphs.CapturedCall``); each later call copies its inputs
+    into those buffers and replays the graph, so K1 and K2 (K4 with
+    ``packed_raster``, K1's span instance in span mode) launch N times a
+    call from one host call.  The step makes no host sync, so it captures
+    whole.  The returned frame is a copy.  On the CPU ``run`` is a plain
+    loop over ``render_step`` on the same buffers."""
     if n_frames < 1:
         raise ValueError("make_repeated_step needs at least one frame")
     cfg = renderer.config
@@ -1386,7 +1444,7 @@ def make_repeated_step(renderer: Renderer, n_frames: int):
           if k != "near_quads"}
     kw.update(render_cap=cfg.quads_cap, tile_k_cap=cfg.tile_k_cap)
     dev = renderer.device
-    graphs: dict[int, tuple] = {}
+    calls: dict[int, graphs.CapturedCall] = {}
 
     def steps(quads, quad_world, n_quads, vps, cams):
         out = None
@@ -1395,48 +1453,20 @@ def make_repeated_step(renderer: Renderer, n_frames: int):
                               **kw)
         return out
 
-    def cameras(vps, cams):
-        vps = torch.as_tensor(vps, dtype=torch.float32).to(dev)
-        cams = torch.as_tensor(cams, dtype=torch.float32).to(dev)
+    def run(quads, quad_world, n_quads, vps, cams):
+        vps = torch.as_tensor(vps, dtype=torch.float32)
+        cams = torch.as_tensor(cams, dtype=torch.float32)
         if vps.shape != (n_frames, 4, 4) or cams.shape != (n_frames, 3):
             raise ValueError(f"vps must be f32[{n_frames}, 4, 4] and cams "
                              f"f32[{n_frames}, 3]")
-        return vps, cams
-
-    def run(quads, quad_world, n_quads, vps, cams):
-        vps, cams = cameras(vps, cams)
-        if dev.type != "cuda":
-            return steps(quads, quad_world, n_quads, vps.contiguous(),
-                         cams.contiguous())
+        inputs = (quads, quad_world, n_quads, vps, cams)
         gq = quads.shape[0]
-        if gq not in graphs:
-            static = (torch.empty_like(quads), torch.empty_like(quad_world),
-                      torch.empty((), dtype=torch.int32, device=dev),
-                      torch.empty_like(vps), torch.empty_like(cams))
-            graphs[gq] = (None, static, None)
-        graph, static, out = graphs[gq]
-        static[0].copy_(quads)
-        static[1].copy_(quad_world)
-        static[2].copy_(geom_ops.device_i32(n_quads, dev))
-        static[3].copy_(vps)
-        static[4].copy_(cams)
-        if graph is None:
-            # one eager step on a side stream first: the kernels build and
-            # load, K4 sets its shared-memory attribute, the device tables
-            # are made, and the allocator holds the step's buffers
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                render_step(*static[:3], static[3][0], static[4][0], **kw)
-            torch.cuda.current_stream(dev).wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            # captured on the renderer's card: torch.cuda.graph's default
-            # capture stream is made once, on the card current at its
-            # first use
-            with torch.cuda.graph(graph, stream=side):
-                out = steps(*static)
-            graphs[gq] = (graph, static, out)
-        graph.replay()
-        return out
+        call = calls.get(gq)
+        if call is None or not call.matches((), inputs):
+            call = calls[gq] = graphs.CapturedCall(steps, (), inputs,
+                                                   device=dev)
+        for i, x in enumerate(inputs):
+            call.load(i, x)
+        return call.run()
 
     return run

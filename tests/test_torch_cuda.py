@@ -16,6 +16,9 @@ same batch on one card, all bit for bit.
 The file imports nothing of the JAX package.
 """
 
+import contextlib
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -42,6 +45,7 @@ from differential_projection_voxel_renderer_tpu_torch.ops import raster_packed
 from differential_projection_voxel_renderer_tpu_torch.parallel import (
     sharded_render,
 )
+from differential_projection_voxel_renderer_tpu_torch.rendering import graphs
 from differential_projection_voxel_renderer_tpu_torch.rendering import parity
 from differential_projection_voxel_renderer_tpu_torch.rendering import pipeline
 
@@ -841,19 +845,24 @@ def _k1_k2(mode):
 def test_repeated_step_graph_matches_eager(cuda_device, mode):
     """make_repeated_step's CUDA graph of 4 steps: its last frame equals an
     eager render_step on the 4th camera bit for bit; the first call runs
-    one eager step and captures 4 (K1 and K2, or K4, or K1's span instance
-    and K2, launched 5 times by their wrappers), a replay calls no
-    wrapper."""
+    the 4 steps eagerly and captures them, a replay calls no wrapper, and
+    each call counts K1 and K2 (or K4, or K1's span instance and K2) 4
+    times: a capture counts into its own tally, added at each replay."""
     gargs, kw, run, vps, cams = _repeated_setup(cuda_device, mode)
     before = _k1_k2(mode)
-    out = [t.clone() for t in run(*gargs[:3], vps, cams)]
-    assert _k1_k2(mode) == (before[0] + 5, before[1] + 5)
+    calls = graphs.calls.copy()
+    out = run(*gargs[:3], vps, cams)
+    assert _k1_k2(mode) == (before[0] + 4, before[1] + 4)
+    assert graphs.calls - calls == {"captures": 1}
     ref = pipeline.render_step(*gargs[:3], vps[3], cams[3], **kw)
     assert _same(out, ref)
     before = _k1_k2(mode)
-    again = run(*gargs[:3], vps, cams)
-    assert _k1_k2(mode) == before
-    assert _same(again, ref)
+    calls = graphs.calls.copy()
+    with _wrappers_raise():
+        again = run(*gargs[:3], vps, cams)
+    assert _k1_k2(mode) == (before[0] + 4, before[1] + 4)
+    assert graphs.calls - calls == {"replays": 1}
+    assert _same(again, ref) and _same(out, ref)
     assert int((ref[0] != raster.SKY_I32).sum()) > 1000
     first = pipeline.render_step(*gargs[:3], vps[0], cams[0], **kw)
     assert not torch.equal(first[0], ref[0])
@@ -872,6 +881,194 @@ def test_repeated_step_takes_new_cameras(cuda_device):
     ref2 = pipeline.render_step(*gargs[:3], vps2[3], cams2[3], **kw)
     assert _same(second, ref2) and not torch.equal(second[0], first[0])
     assert _same(run(*gargs[:3], vps, cams), first)
+
+
+@contextlib.contextmanager
+def _wrappers_raise():
+    """Every kernel wrapper a frame reaches raises inside the block: a
+    replay runs none of the step's Python."""
+    saved = (geometry.project_cull, raster.rasterize_tiles,
+             raster_packed.rasterize_packed)
+
+    def refuse(*a, **kw):
+        raise AssertionError("a kernel wrapper ran at a replay")
+
+    geometry.project_cull = raster.rasterize_tiles = refuse
+    raster_packed.rasterize_packed = refuse
+    try:
+        yield
+    finally:
+        (geometry.project_cull, raster.rasterize_tiles,
+         raster_packed.rasterize_packed) = saved
+
+
+# the frame-graph tests' engines: 256x128, view distance 3, three gather
+# buckets (16384, 32768, 65536), chunks streamed 4 a frame
+GRAPH_MODES = {"serial": {}, "packed": dict(packed_raster=True),
+               "two-pass": dict(two_pass_near_quads=1024),
+               "temporal": dict(temporal_hiz=True),
+               "span": dict(span_mode=True)}
+GRAPH_POSES = [((0.0, 10.0, 20.0), (0.0, 0.0, -60.0))] * 3 + [
+    ((x, 10.0, 20.0 - x), (x, 0.0, -60.0 - x)) for x in (8.0, 16.0, 24.0)]
+
+
+def _graph_engine(device, mode="serial"):
+    from differential_projection_voxel_renderer_tpu_torch.app import (
+        engine as TE,
+    )
+
+    eng = TE.Engine(TE.RenderConfig(width=256, height=128, gather_cap=65536,
+                                    quads_cap=32768, **GRAPH_MODES[mode]),
+                    TE.WorldConfig(view_distance=3, frustum_culling=True,
+                                   max_chunks_per_frame=4),
+                    pool_slots=512, device=device)
+    assert eng.renderer.gather_buckets == (16384, 32768, 65536)
+    pos, tgt = GRAPH_POSES[0]
+    eng.camera.position = np.array(pos, np.float32)
+    eng.camera.look_at(np.array(tgt, np.float32))
+    while eng.world.update(eng.camera.position):
+        pass
+    eng.prime()
+    return eng
+
+
+def _fly(eng, poses):
+    out = []
+    for pos, tgt in poses:
+        eng.camera.position = np.array(pos, np.float32)
+        eng.camera.look_at(np.array(tgt, np.float32))
+        out.append(eng.render_frame(dt=0.0))
+    return out
+
+
+def _frame_bits(out):
+    return [t.view(torch.int32) if t.dtype == torch.float32 else t
+            for t in out]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(GRAPH_MODES))
+def test_graph_frame_equals_eager_frame(cuda_device, mode):
+    """Every entry point's graph at every gather bucket (warm_buckets and
+    warm_streaming twice: captures, then replays) and the engine's frames
+    (static, moving, streaming) replayed: each replay's outputs equal its
+    function called eagerly on the same inputs, bit for bit."""
+    eng = _graph_engine(cuda_device, mode)
+    twin = graphs.EagerTwin(eng.renderer)
+    for _ in range(2):
+        eng.warm_buckets()
+        eng.warm_streaming()
+    _fly(eng, GRAPH_POSES)
+    torch.cuda.synchronize()
+    twin.close()
+    names = ["fused5", "prepared", "insert"] + (
+        ["hiz"] if mode == "temporal" else [])
+    want = {(n, c) for n in names for c in eng.renderer.gather_buckets}
+    assert set(twin.replays()) == want == set(eng.renderer._graphs)
+    assert all(equal for *_, equal in twin.calls), twin.calls
+
+
+@pytest.mark.cuda
+def test_held_frames_unchanged_after_more_frames(cuda_device):
+    eng = _graph_engine(cuda_device)
+    held = _fly(eng, GRAPH_POSES[:4])
+    copies = [(r.color.clone(), r.depth.clone(), r.stats.clone())
+              for r in held]
+    _fly(eng, GRAPH_POSES[1:4] + GRAPH_POSES[4:][::-1])
+    torch.cuda.synchronize()
+    for r, c in zip(held, copies):
+        assert all(torch.equal(a, b) for a, b in zip(
+            _frame_bits((r.color, r.depth, r.stats)), _frame_bits(c)))
+
+
+@pytest.mark.cuda
+def test_graphs_recapture_after_set_shading_and_a_new_pool(cuda_device):
+    """set_shading drops every graph and the next frame captures anew with
+    the new tables; a frame with other pool tensors captures a graph over
+    them, and renders the frame the first pool renders."""
+    eng = _graph_engine(cuda_device)
+    r = eng.renderer
+    base = _fly(eng, GRAPH_POSES[:2])
+    assert r._graphs
+    eng.toggle_shading()
+    assert r._graphs == {}
+    flat = _fly(eng, GRAPH_POSES[:1])[0]
+    eng.toggle_shading()
+    back = _fly(eng, GRAPH_POSES[:1])[0]
+    assert not torch.equal(flat.color, base[1].color)
+    assert torch.equal(back.color, base[1].color)
+    args = (eng._last_visible_slots, eng._last_counts_sel,
+            eng._last_positions_sel, eng.camera.view_projection_matrix(),
+            eng.camera.position)
+    pool = eng.pool
+    first = [r.render_fused(pool.quads, *args, dir_mask=eng._last_dir_mask,
+                            counts6_dev=pool.counts6_dev)[:3]
+             for _ in range(2)][1]
+    g = r._graphs["fused5", 16384]
+    q2, c2 = pool.quads.clone(), pool.counts6_dev.clone()
+    second = r.render_fused(q2, *args, dir_mask=eng._last_dir_mask,
+                            counts6_dev=c2)[:3]
+    g2 = r._graphs["fused5", 16384]
+    assert g2 is not g and g2.fixed[0] is q2
+    assert all(torch.equal(a, b) for a, b in zip(_frame_bits(first),
+                                                 _frame_bits(second)))
+
+
+@pytest.mark.cuda
+def test_replay_runs_no_wrapper_and_counts_exactly(cuda_device):
+    """After the warm-ups, static, moving and streaming frames replay
+    (one replay a frame, no capture) with every kernel wrapper made to
+    raise, and K1 and K2 still count exactly one launch a frame."""
+    eng = _graph_engine(cuda_device)
+    eng.warm_buckets()
+    eng.warm_streaming()
+    _fly(eng, GRAPH_POSES[:1])
+    torch.cuda.synchronize()
+    before = (geometry.launches, raster.launches)
+    calls = graphs.calls.copy()
+    with _wrappers_raise():
+        frames = _fly(eng, GRAPH_POSES)
+    assert (geometry.launches, raster.launches) == (
+        before[0] + len(frames), before[1] + len(frames))
+    assert graphs.calls - calls == {"replays": len(frames)}
+
+
+@pytest.mark.cuda
+def test_warmed_frame_makes_no_host_sync(cuda_device):
+    eng = _graph_engine(cuda_device)
+    eng.warm_buckets()
+    eng.warm_streaming()
+    _fly(eng, GRAPH_POSES)
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _fly(eng, GRAPH_POSES[:1] * 2 + GRAPH_POSES[4:5])
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+
+
+
+@pytest.mark.cuda
+def test_graphs_survive_profiler_windows(cuda_device):
+    """Graph frames under torch.profiler, in a process of their own
+    (tests/_torch_graph_profile.py): a window after an earlier one, an
+    engine with captured graphs freed by the cyclic collector inside a
+    window, captures inside a window, and moving frames in a last window.
+    Every window must see device activity and the process must end with
+    exit code 0 (a crash ends it with a signal).  With CUPTI torn down
+    after each window (``TEARDOWN_CUPTI=1``) the later windows see no
+    device activity."""
+    import subprocess
+    import sys
+
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "_torch_graph_profile.py")
+    done = subprocess.run([sys.executable, script], capture_output=True,
+                          text=True, timeout=600)
+    assert done.returncode == 0, (done.returncode, done.stdout,
+                                  done.stderr[-3000:])
+    assert done.stdout.split()[-1] == "ok"
 
 
 @pytest.fixture
@@ -962,10 +1159,12 @@ def test_sharded_batch_on_cards_matches_one_card(cards):
     """make_sharded_render on 2 x 2 cards (1 x 2 with two or three cards)
     at 1280x720 on the graft entry's terrain patch: a camera a dp row, its
     bands on distinct cards, the pool replicated on each card once and kept
-    across calls.  The first call captures each card's graph (K1 and K2
-    launched twice on each card by their wrappers: the eager step and the
-    capture), a replay launches through no wrapper; the frames and counts
-    of both equal the same batch's on card 0 alone bit for bit."""
+    across calls.  The first call runs each card's step eagerly and
+    captures its graph; the second replays those graphs (no capture, the
+    same graph objects) with every kernel wrapper made to raise.  Each
+    counts K1 and K2 once on each card (a capture counts into its own
+    tally, added at each replay); the frames and counts of both equal the
+    same batch's on card 0 alone bit for bit."""
     pool, counts, positions, n_slots, cam = graft_entry._example_scene()
     other = Camera(np.array([-30.0, 50.0, 80.0], np.float32), 16.0 / 9.0)
     other.look_at(np.array([0.0, 0.0, 0.0], np.float32))
@@ -989,16 +1188,22 @@ def test_sharded_batch_on_cards_matches_one_card(cards):
     ptrs = {d: t.data_ptr() for d, t in rep[0].copies.items()}
     assert sorted(d.index for d in ptrs) == list(range(size))
     fn = sharded_render.make_sharded_render(mesh, **kw)
-    runs = []
-    for _ in range(2):
+    runs, calls = [], []
+    for replay in (False, True):
         multicard.sync_all()
-        with _build.COUNT_LOCK:
-            _build.card_launches.clear()
-        runs.append([x.clone() for x in fn(*rep, *args[3:])])
+        _build.reset_counts()
+        before = graphs.calls.copy()
+        with _wrappers_raise() if replay else contextlib.nullcontext():
+            runs.append([x.clone() for x in fn(*rep, *args[3:])])
         multicard.sync_all()
         runs.append(dict(_build.card_launches))
-    assert runs[1] == {(k, c): 2 for k in ("K1", "K2") for c in range(size)}
-    assert runs[3] == {}
+        calls.append(graphs.calls - before)
+        if not replay:
+            made = {k: (g, g.graph) for k, g in fn.shards.graphs.items()}
+    assert runs[1] == {(k, c): 1 for k in ("K1", "K2") for c in range(size)}
+    assert runs[3] == runs[1]
+    assert calls == [{"captures": size}, {"replays": size}]
+    assert {k: (g, g.graph) for k, g in fn.shards.graphs.items()} == made
     assert {d: t.data_ptr() for d, t in rep[0].copies.items()} == ptrs
     want = sharded_render.make_sharded_render(one, **kw)(*args)
     for got in (runs[0], runs[2]):
