@@ -1,0 +1,212 @@
+# Frozen copy of differential_projection_voxel_renderer_tpu_torch/models/camera.py
+# at commit 1521963, imports made local; the yardstick keeps it as it
+# is, so that a later change to the program cannot move it.
+"""FPS camera, frustum, and controller.
+
+Pure f32 numpy math matching glam's conventions; the view-projection matrix
+feeds the device-side projection ops directly.
+
+Reference: src/camera/mod.rs
+- Camera (yaw/pitch FPS camera, fov 70deg, near 0.1, far 1000): mod.rs:5-109
+- Frustum (Gribb-Hartmann plane extraction + positive-vertex AABB test):
+  mod.rs:111-183
+- CameraController (6-direction key state): mod.rs:215-263
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from . import mathx
+
+
+@dataclass
+class Camera:
+    position: np.ndarray
+    yaw: float = 0.0
+    pitch: float = 0.0
+    fov: float = float(np.radians(70.0))
+    near: float = 0.1
+    far: float = 1000.0
+    aspect_ratio: float = 16.0 / 9.0
+    move_speed: float = 10.0
+    mouse_sensitivity: float = 0.002
+
+    def __init__(self, position, aspect_ratio: float):
+        self.position = np.asarray(position, dtype=np.float32).copy()
+        self.yaw = 0.0
+        self.pitch = 0.0
+        self.fov = float(np.radians(70.0))
+        self.near = 0.1
+        self.far = 1000.0
+        self.aspect_ratio = float(aspect_ratio)
+        self.move_speed = 10.0
+        self.mouse_sensitivity = 0.002
+
+    # ------------------------------------------------------------- rotation
+    def _rotation(self) -> np.ndarray:
+        """RotY(yaw) @ RotX(pitch) — camera/mod.rs:79-81."""
+        return mathx.rot_y(self.yaw) @ mathx.rot_x(self.pitch)
+
+    def forward(self) -> np.ndarray:
+        return (self._rotation() @ np.array([0, 0, -1], np.float32)).astype(np.float32)
+
+    def right(self) -> np.ndarray:
+        return (self._rotation() @ np.array([1, 0, 0], np.float32)).astype(np.float32)
+
+    def up(self) -> np.ndarray:
+        return (self._rotation() @ np.array([0, 1, 0], np.float32)).astype(np.float32)
+
+    def look_at(self, target, up=(0.0, 1.0, 0.0)) -> None:
+        """Set yaw/pitch so the camera looks at ``target``
+        (camera/mod.rs:35-41; here decomposed analytically)."""
+        f = mathx.normalize(np.asarray(target, np.float32) - self.position)
+        self.pitch = float(np.arcsin(np.clip(f[1], -1.0, 1.0)))
+        self.yaw = float(np.arctan2(-f[0], -f[2]))
+
+    # ------------------------------------------------------------- matrices
+    def _state_key(self):
+        p = self.position
+        return (float(p[0]), float(p[1]), float(p[2]), self.yaw, self.pitch,
+                self.fov, self.aspect_ratio, self.near, self.far)
+
+    def view_matrix(self) -> np.ndarray:
+        fwd = self.forward()
+        up = self.up()
+        return mathx.look_at_rh(self.position, self.position + fwd, up)
+
+    def projection_matrix(self) -> np.ndarray:
+        return mathx.perspective_rh(self.fov, self.aspect_ratio, self.near, self.far)
+
+    def view_projection_matrix(self) -> np.ndarray:
+        """Cached per camera state: the frame loop asks for this several
+        times per frame, and the rebuild (two rotations + look_at + two
+        4x4 matmuls) measured ~1.2 ms/frame of pure numpy overhead.  The
+        returned array is marked read-only (it is shared across calls);
+        copy before mutating."""
+        key = self._state_key()
+        cached = getattr(self, "_vp_cache", None)
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        vp = (self.projection_matrix() @ self.view_matrix()).astype(np.float32)
+        vp.flags.writeable = False
+        self._vp_cache = (key, vp)
+        self._frustum_cache = None
+        return vp
+
+    # ---------------------------------------------------------------- input
+    def rotate(self, mouse_dx: float, mouse_dy: float) -> None:
+        """Mouse-look with pitch clamp (camera/mod.rs:84-91)."""
+        self.yaw += mouse_dx * self.mouse_sensitivity
+        self.pitch -= mouse_dy * self.mouse_sensitivity
+        max_pitch = np.pi / 2 - 0.01
+        self.pitch = float(np.clip(self.pitch, -max_pitch, max_pitch))
+
+    def move_local(self, forward: float, right: float, up: float, dt: float) -> None:
+        """camera/mod.rs:94-97 — vertical motion is world-space +Y."""
+        move = (
+            self.forward() * forward
+            + self.right() * right
+            + np.array([0, 1, 0], np.float32) * up
+        )
+        self.position = (self.position + move * self.move_speed * dt).astype(np.float32)
+
+    def set_aspect_ratio(self, aspect_ratio: float) -> None:
+        self.aspect_ratio = float(aspect_ratio)
+
+    def extract_frustum(self) -> "Frustum":
+        """Cached alongside the view-projection matrix (same state key)."""
+        vp = self.view_projection_matrix()  # refreshes caches on change
+        cached = getattr(self, "_frustum_cache", None)
+        if cached is None:
+            cached = Frustum.from_view_projection(vp)
+            self._frustum_cache = cached
+        return cached
+
+
+@dataclass
+class Frustum:
+    """Six planes (L, R, B, T, N, F) as a [6, 4] f32 array in Hessian normal
+    form, extracted Gribb-Hartmann style (camera/mod.rs:123-149)."""
+
+    planes: np.ndarray  # [6, 4] f32
+
+    # r3 ± rk combinations as one constant matmul (bit-identical to the
+    # stacked adds: the zero-coefficient terms add exact zeros)
+    _GH = np.array([[1, 0, 0, 1], [-1, 0, 0, 1], [0, 1, 0, 1],
+                    [0, -1, 0, 1], [0, 0, 1, 1], [0, 0, -1, 1]], np.float32)
+
+    @staticmethod
+    def from_view_projection(vp: np.ndarray) -> "Frustum":
+        vp = np.asarray(vp, dtype=np.float32)
+        raw = Frustum._GH @ vp
+        lens = np.sqrt((raw[:, :3] * raw[:, :3]).sum(axis=1),
+                       dtype=np.float32)
+        scale = np.where(lens > 1e-4, np.float32(1.0) / lens,
+                         np.float32(1.0))
+        return Frustum(raw * scale[:, None])
+
+    def inside_mins(self, mins: np.ndarray, size: float) -> np.ndarray:
+        """Positive-vertex test for N equal-size axis-aligned cubes given
+        their min corners — ONE [N, 3] @ [3, 6] matmul.
+
+        Algebra: with ``maxs = mins + size``,
+        ``maxs @ max(n,0)^T + mins @ min(n,0)^T
+          == mins @ n^T + size * rowsum(max(n,0))``;
+        the per-plane constant folds into the offset.  (FP note: the
+        refactored sum order can differ from :meth:`intersects_aabb` by an
+        ulp for chunks EXACTLY on a plane; golden-frame tests pass — the
+        test is conservative either way.)"""
+        key = getattr(self, "_mins_key", None)
+        if key != size:
+            n = self.planes[:, :3]
+            self._nT = np.ascontiguousarray(n.T)
+            self._off = (np.float32(size) * np.maximum(n, 0.0).sum(axis=1)
+                         + self.planes[:, 3]).astype(np.float32)
+            self._mins_key = size
+        dist = mins @ self._nT + self._off[None, :]
+        return (dist >= 0.0).all(axis=1)
+
+    def intersects_aabb(self, mins, maxs) -> np.ndarray | bool:
+        """Positive-vertex AABB test (camera/mod.rs:164-183).
+
+        Vectorized: ``mins``/``maxs`` may be [3] or [N, 3]; returns bool or
+        bool[N].  This is the device-friendly form used for whole-world chunk
+        culling in one shot.
+        """
+        mins = np.atleast_2d(np.asarray(mins, np.float32))
+        maxs = np.atleast_2d(np.asarray(maxs, np.float32))
+        n = self.planes[:, :3]  # [6, 3]
+        d = self.planes[:, 3]  # [6]
+        # positive vertex per plane: max where normal > 0 else min.
+        # pv . n  ==  maxs @ max(n,0)^T + mins @ min(n,0)^T — two small
+        # BLAS matmuls instead of [N, 6, 3] temporaries (the where/mul/
+        # reduce form cost ~2.4 ms at 7k chunks, ~25x this form)
+        npos = getattr(self, "_npos", None)
+        if npos is None:
+            npos = np.maximum(n, 0.0).T.copy()
+            self._npos = npos
+            self._nneg = np.minimum(n, 0.0).T.copy()
+        dist = maxs @ npos + mins @ self._nneg + d[None, :]  # [N, 6]
+        inside = (dist >= 0.0).all(axis=1)
+        return inside if inside.shape[0] > 1 else bool(inside[0])
+
+
+class CameraController:
+    """Key-state container (camera/mod.rs:215-263)."""
+
+    def __init__(self):
+        self.forward_pressed = False
+        self.backward_pressed = False
+        self.left_pressed = False
+        self.right_pressed = False
+        self.up_pressed = False
+        self.down_pressed = False
+
+    def update_camera(self, camera: Camera, dt: float) -> None:
+        forward = float(self.forward_pressed) - float(self.backward_pressed)
+        right = float(self.right_pressed) - float(self.left_pressed)
+        up = float(self.up_pressed) - float(self.down_pressed)
+        camera.move_local(forward, right, up, dt)
