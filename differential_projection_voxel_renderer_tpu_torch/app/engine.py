@@ -51,8 +51,8 @@ from ..rendering.pipeline import (
     resident_append_cap,
     resolve_device,
 )
+from ..utils import profiling as prof
 from ..utils.config import CHUNK_SIZE, QUADS_PER_CHUNK_CAP, RenderConfig
-from ..utils.profiling import FUNCTION_COUNTERS
 
 
 def _resident_budget() -> int:
@@ -182,10 +182,11 @@ class QuadPool:
             if len(quads) > self.qcap:
                 self.overflow_drops += len(quads) - self.qcap
             row[:n] = quads[:n]
-        row_t = _words(row).to(self.device)
-        self.quads[slot] = row_t
-        self.counts6_dev[slot] = _c6_of(
-            row_t[None, :], torch.tensor([n], device=self.device))[0]
+        with prof.ENQUEUE:
+            row_t = _words(row).to(self.device)
+            self.quads[slot] = row_t
+            self.counts6_dev[slot] = _c6_of(
+                row_t[None, :], torch.tensor([n], device=self.device))[0]
         self.counts[slot] = n
         self.counts6[slot] = _dir_counts(row[:n])
         self.positions[slot] = key
@@ -211,11 +212,12 @@ class QuadPool:
             self.counts[slot] = int(counts[i])
             self.counts6[slot] = c6[i]
             self.positions[slot] = key
-        slots_t = torch.from_numpy(slots).to(self.device)
-        counts_t = torch.from_numpy(np.asarray(counts, np.int32)).to(
-            self.device)
-        self.quads[slots_t] = quad_rows
-        self.counts6_dev[slots_t] = _c6_of(quad_rows, counts_t)
+        with prof.ENQUEUE:
+            slots_t = torch.from_numpy(slots).to(self.device)
+            counts_t = torch.from_numpy(np.asarray(counts, np.int32)).to(
+                self.device)
+            self.quads[slots_t] = quad_rows
+            self.counts6_dev[slots_t] = _c6_of(quad_rows, counts_t)
         self._dev_cache = None
         self._lookup_cache = None
 
@@ -334,10 +336,12 @@ class QuadPool:
                                 kp: int | None = None,
                                 mc: int | None = None) -> None:
         """Apply a prepared payload with a standalone in-place scatter."""
-        apply_insert_payload(
-            self.quads, self.counts6_dev, _words(payload).to(self.device),
-            k=self.INSERT_KP if kp is None else kp,
-            mc=self.INSERT_MC if mc is None else mc)
+        with prof.ENQUEUE:
+            apply_insert_payload(
+                self.quads, self.counts6_dev,
+                _words(payload).to(self.device),
+                k=self.INSERT_KP if kp is None else kp,
+                mc=self.INSERT_MC if mc is None else mc)
 
     def adopt_device_arrays(self, quads, counts6_dev) -> None:
         """Rebind the device pool tensors after a fused insert+render."""
@@ -493,7 +497,7 @@ class Engine:
         self.occlusion_epsilon = 0.005
         self.log_fps = False
         self.slow_frame_ms = 16.0
-        self._fps_frames = 0
+        self._fps_done = prof.TRACER.completed
         self._fps_t0 = time.perf_counter()
         self._neighbor_offsets = [
             (1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1), (0, 0, -1)
@@ -563,23 +567,25 @@ class Engine:
     def _mesh_list(self, to_mesh, defer: bool = False) -> int:
         if not to_mesh:
             return 0
-        to_mesh = sorted(set(to_mesh))
-        if self.device_meshing and len(to_mesh) >= 4:
-            return self._remesh_device(to_mesh)
-        batch = []
-        for pos in to_mesh:
-            chunk = self.world.chunks.get(pos)
-            if chunk is None:
-                continue
-            batch.append((pos, mesh_chunk(chunk, self.world.chunks)))
-        if defer and self.fused_insert and self._pending_insert is None:
-            # fold the insert into this frame's render call
-            payload = self.pool.prepare_insert_payload(batch)
-            if payload is not None:
-                self._pending_insert = payload
-                return len(to_mesh)
-        self.pool.insert_many(batch)
-        return len(to_mesh)
+        with prof.MESHING:
+            to_mesh = sorted(set(to_mesh))
+            if self.device_meshing and len(to_mesh) >= 4:
+                return self._remesh_device(to_mesh)
+            batch = []
+            for pos in to_mesh:
+                chunk = self.world.chunks.get(pos)
+                if chunk is None:
+                    continue
+                batch.append((pos, mesh_chunk(chunk, self.world.chunks)))
+            prof.CHUNKS_MESHED.add(len(batch))
+            if defer and self.fused_insert and self._pending_insert is None:
+                # fold the insert into this frame's render call
+                payload = self.pool.prepare_insert_payload(batch)
+                if payload is not None:
+                    self._pending_insert = payload
+                    return len(to_mesh)
+            self.pool.insert_many(batch)
+            return len(to_mesh)
 
     def _mesh_list_resident(self, to_mesh) -> None:
         """Resident streaming tail: mesh the batch and queue its pool
@@ -590,32 +596,34 @@ class Engine:
         per-mesh cap, and batches that do not fit its shape, scatter now
         (``insert_many``).  A device-meshed batch lands in the pool at once
         and queues nothing, as the reference's does."""
-        if self.device_meshing and len(to_mesh) >= 4:
-            self._remesh_device(sorted(set(to_mesh)))
-            return
-        batch = []
-        for pos in sorted(set(to_mesh)):
-            chunk = self.world.chunks.get(pos)
-            if chunk is None:
-                continue
-            batch.append((pos, mesh_chunk(chunk, self.world.chunks)))
-        if not batch:
-            return
-        big = [(p, q) for p, q in batch
-               if q is not None and len(q) > RESIDENT_INSERT_MC]
-        if big:
-            self.pool.insert_many(big)
-            bigset = {p for p, _ in big}
-            batch = [(p, q) for p, q in batch if p not in bigset]
-        if batch and self._res_insert is None:
-            payload = self.pool.prepare_insert_payload(
-                batch, kp=RESIDENT_INSERT_KP, mc=RESIDENT_INSERT_MC,
-                fp=RESIDENT_INSERT_FP)
-            if payload is not None:
-                self._res_insert = payload
+        with prof.MESHING:
+            if self.device_meshing and len(to_mesh) >= 4:
+                self._remesh_device(sorted(set(to_mesh)))
                 return
-        if batch:
-            self.pool.insert_many(batch)
+            batch = []
+            for pos in sorted(set(to_mesh)):
+                chunk = self.world.chunks.get(pos)
+                if chunk is None:
+                    continue
+                batch.append((pos, mesh_chunk(chunk, self.world.chunks)))
+            prof.CHUNKS_MESHED.add(len(batch))
+            if not batch:
+                return
+            big = [(p, q) for p, q in batch
+                   if q is not None and len(q) > RESIDENT_INSERT_MC]
+            if big:
+                self.pool.insert_many(big)
+                bigset = {p for p, _ in big}
+                batch = [(p, q) for p, q in batch if p not in bigset]
+            if batch and self._res_insert is None:
+                payload = self.pool.prepare_insert_payload(
+                    batch, kp=RESIDENT_INSERT_KP, mc=RESIDENT_INSERT_MC,
+                    fp=RESIDENT_INSERT_FP)
+                if payload is not None:
+                    self._res_insert = payload
+                    return
+            if batch:
+                self.pool.insert_many(batch)
 
     def _flush_res_insert(self) -> None:
         """Scatter a queued resident payload on its own, before anything
@@ -642,6 +650,7 @@ class Engine:
             if chunk is None:
                 continue
             (uniform if chunk.is_uniform else varied).append((pos, chunk))
+        prof.CHUNKS_MESHED.add(len(varied) + len(uniform))
         self.pool.insert_many([(pos, None) for pos, _ in uniform])
         if not varied:
             return len(to_mesh)
@@ -666,10 +675,11 @@ class Engine:
             part = positions[i:i + 512]
             planes = MD.neighbor_planes_from_batch(blocks_by_pos, part)
             batch = np.stack([blocks_by_pos[p] for p in part])
-            quads, counts, overflow, c6, bucket = (
-                MD.mesh_chunks_device_bucketed(batch, planes,
-                                               qcap=self.pool.qcap,
-                                               device=self.device))
+            with prof.ENQUEUE:
+                quads, counts, overflow, c6, bucket = (
+                    MD.mesh_chunks_device_bucketed(batch, planes,
+                                                   qcap=self.pool.qcap,
+                                                   device=self.device))
             if bucket != len(part):
                 pad = bucket - len(part)
                 part = part + [part[0]] * pad
@@ -844,86 +854,87 @@ class Engine:
         """Host side of a frame: camera/world update, visibility,
         remeshing, culling funnel, draw-list build.  Fills the _last_*
         draw-list arrays and returns (vp, sig, n, n_visible, cam_same)."""
-        cam = self.camera
-        self.controller.update_camera(cam, dt)
-        self.world.update(cam.position)
+        with prof.FUNNEL:
+            cam = self.camera
+            self.controller.update_camera(cam, dt)
+            self.world.update(cam.position)
 
-        vp_now = cam.view_projection_matrix()
-        world_v = self.world.version
-        cam_same = (self._seen_vp is not None
-                    and np.array_equal(self._seen_vp, vp_now))
-        if (cam_same and world_v == self._seen_world_version
-                and self._visible_cache is not None):
-            vis_pos = self._visible_cache
-        else:
-            frustum = cam.extract_frustum()
-            vis_pos = self.world.get_visible_positions(cam.position, frustum)
-            self._visible_cache = vis_pos
-            if not (cam_same and world_v == self._seen_world_version):
-                if self.stale_streaming:
-                    # stale-pool mode: collect the batch now, mesh and
-                    # insert it after the render call (_apply_stale_stash);
-                    # this frame's draw list comes from the pool as it is
-                    self._stale_stash += self._missing_remesh_list(vis_pos)
-                else:
-                    self._remesh_positions(vis_pos)
-                if self.world.unload_version != self._seen_unload_version:
-                    self.pool.retain(self.world.chunks)
-                    self._seen_unload_version = self.world.unload_version
-            self._seen_vp = vp_now.copy()
-            self._seen_world_version = self.world.version
+            vp_now = cam.view_projection_matrix()
+            world_v = self.world.version
+            cam_same = (self._seen_vp is not None
+                        and np.array_equal(self._seen_vp, vp_now))
+            if (cam_same and world_v == self._seen_world_version
+                    and self._visible_cache is not None):
+                vis_pos = self._visible_cache
+            else:
+                frustum = cam.extract_frustum()
+                vis_pos = self.world.get_visible_positions(cam.position,
+                                                           frustum)
+                self._visible_cache = vis_pos
+                if not (cam_same and world_v == self._seen_world_version):
+                    if self.stale_streaming:
+                        # stale-pool mode: collect the batch now, mesh
+                        # and insert it after the render call
+                        # (_apply_stale_stash); this frame's draw list
+                        # comes from the pool as it is
+                        self._stale_stash += self._missing_remesh_list(
+                            vis_pos)
+                    else:
+                        self._remesh_positions(vis_pos)
+                    if self.world.unload_version != self._seen_unload_version:
+                        self.pool.retain(self.world.chunks)
+                        self._seen_unload_version = self.world.unload_version
+                self._seen_vp = vp_now.copy()
+                self._seen_world_version = self.world.version
 
-        slots_all, has = self.pool.lookup_slots(vis_pos)
-        hs = slots_all[has]
-        nz = self.pool.counts[hs] > 0
-        slots = hs[nz]
-        centers = (vis_pos[has][nz].astype(np.float32) * CHUNK_SIZE + 16.0
-                   if len(slots) else np.zeros((0, 3), np.float32))
-        n_visible_meshes = len(slots)
-        vp = cam.view_projection_matrix()
+            slots_all, has = self.pool.lookup_slots(vis_pos)
+            hs = slots_all[has]
+            nz = self.pool.counts[hs] > 0
+            slots = hs[nz]
+            centers = (vis_pos[has][nz].astype(np.float32) * CHUNK_SIZE
+                       + 16.0 if len(slots)
+                       else np.zeros((0, 3), np.float32))
+            n_visible_meshes = len(slots)
+            vp = cam.view_projection_matrix()
 
-        if n_visible_meshes:
-            order = sort_front_to_back(centers, cam.position)
-            slots = slots[order]
-            centers = centers[order]
-            if self.enable_horizon_culling:
-                keep = horizon_cull_mask(centers, cam.position,
-                                         self.horizon_config)
-                FUNCTION_COUNTERS.add("chunks_horizon_culled",
-                                      int((~keep).sum()))
-                slots, centers = slots[keep], centers[keep]
-            if self.enable_occlusion_culling and len(slots):
-                rects, near, _ = project_chunk_rects(
-                    centers, vp, self.config.width, self.config.height)
-                d2 = ((centers - cam.position[None, :]) ** 2).sum(-1)
-                use_occ = d2 >= (CHUNK_SIZE * 2.0) ** 2
-                keep = occlusion_pass(rects, near, use_occ,
-                                      self.config.width, self.config.height,
-                                      epsilon=self.occlusion_epsilon)
-                FUNCTION_COUNTERS.add("chunks_occlusion_culled",
-                                      int((~keep).sum()))
-                slots, centers = slots[keep], centers[keep]
+            if n_visible_meshes:
+                order = sort_front_to_back(centers, cam.position)
+                slots = slots[order]
+                centers = centers[order]
+                if self.enable_horizon_culling:
+                    keep = horizon_cull_mask(centers, cam.position,
+                                             self.horizon_config)
+                    slots, centers = slots[keep], centers[keep]
+                if self.enable_occlusion_culling and len(slots):
+                    rects, near, _ = project_chunk_rects(
+                        centers, vp, self.config.width, self.config.height)
+                    d2 = ((centers - cam.position[None, :]) ** 2).sum(-1)
+                    use_occ = d2 >= (CHUNK_SIZE * 2.0) ** 2
+                    keep = occlusion_pass(
+                        rects, near, use_occ, self.config.width,
+                        self.config.height, epsilon=self.occlusion_epsilon)
+                    slots, centers = slots[keep], centers[keep]
 
-        vcap = self.config.visible_chunks_cap
-        visible_slots = np.zeros(vcap, np.int32)
-        counts_sel = np.zeros((vcap, 6), np.int32)
-        mask_sel = np.ones((vcap, 6), np.int32)
-        positions_sel = np.zeros((vcap, 3), np.int32)
-        n = min(len(slots), vcap)
-        if n:
-            visible_slots[:n] = slots[:n]
-            counts_sel[:n] = self.pool.counts6[slots[:n]]
-            positions_sel[:n] = self.pool.positions[slots[:n]]
-            mask_sel[:n] = self._dir_keep_mask(positions_sel[:n],
-                                               cam.position)
-        self._last_visible_slots = visible_slots
-        self._last_counts_sel = counts_sel
-        self._last_dir_mask = mask_sel
-        self._last_positions_sel = positions_sel
-        self._last_n_visible = n
-        sig = (self.world.version, visible_slots[:n].tobytes(),
-               counts_sel[:n].tobytes(), mask_sel[:n].tobytes())
-        return vp, sig, n, n_visible_meshes, cam_same
+            vcap = self.config.visible_chunks_cap
+            visible_slots = np.zeros(vcap, np.int32)
+            counts_sel = np.zeros((vcap, 6), np.int32)
+            mask_sel = np.ones((vcap, 6), np.int32)
+            positions_sel = np.zeros((vcap, 3), np.int32)
+            n = min(len(slots), vcap)
+            if n:
+                visible_slots[:n] = slots[:n]
+                counts_sel[:n] = self.pool.counts6[slots[:n]]
+                positions_sel[:n] = self.pool.positions[slots[:n]]
+                mask_sel[:n] = self._dir_keep_mask(positions_sel[:n],
+                                                   cam.position)
+            self._last_visible_slots = visible_slots
+            self._last_counts_sel = counts_sel
+            self._last_dir_mask = mask_sel
+            self._last_positions_sel = positions_sel
+            self._last_n_visible = n
+            sig = (self.world.version, visible_slots[:n].tobytes(),
+                   counts_sel[:n].tobytes(), mask_sel[:n].tobytes())
+            return vp, sig, n, n_visible_meshes, cam_same
 
     def _apply_stale_stash(self) -> None:
         """Stale-pool mode: mesh and insert the batch this frame's funnel
@@ -1036,7 +1047,37 @@ class Engine:
         appended, and scattered, when one is queued), then the frame's
         meshing and the append queued for the next frame.  Returns None
         when the scene exceeds the resident caps."""
-        frame_t0 = time.perf_counter()
+        with prof.FUNNEL:
+            if not self._resident_funnel(dt):
+                return None
+        cam = self.camera
+        vp = cam.view_projection_matrix()
+        uploads = (*self._res_uploads, np.int32(self._res_total))
+        with prof.DISPATCH:
+            color, depth, stats = self._resident_dispatch(uploads, vp)
+        if self._stale_stash:
+            # nearest first (they turn visible soonest); the rest carry
+            # over under the budget
+            if len(self._stale_stash) > self.resident_mesh_budget:
+                c = cam.position / np.float32(CHUNK_SIZE)
+                arr = np.asarray(self._stale_stash, np.float32)
+                d2 = ((arr - c[None, :]) ** 2).sum(1)
+                order = np.argsort(d2, kind="stable")
+                self._stale_stash = [self._stale_stash[i] for i in order]
+            batch = self._stale_stash[:self.resident_mesh_budget]
+            self._stale_stash = self._stale_stash[self.resident_mesh_budget:]
+            self._stale_set.difference_update(batch)
+            self._mesh_list_resident(batch)
+            newpos = [pos for pos in batch if pos not in self._res_pos]
+            if newpos:
+                self._queue_append(newpos)
+        return FrameResult(color, depth, stats, self._res_n, self._res_n)
+
+    def _resident_funnel(self, dt: float) -> bool:
+        """The resident frame's host side: camera and world update, the
+        streamed chunks queued for meshing, unloads, and the stream's
+        rebuild when the camera's cell or the pool changed.  False when
+        the scene exceeds the resident caps."""
         cam = self.camera
         self.controller.update_camera(cam, dt)
         self.world.update(cam.position)
@@ -1059,8 +1100,9 @@ class Engine:
             self._flush_res_insert()
             freed = self.pool.retain(self.world.chunks)
             if freed:
-                self.pool.counts6_dev[self.renderer._upload(
-                    np.asarray(freed, np.int64))] = 0
+                with prof.ENQUEUE:
+                    self.pool.counts6_dev[self.renderer._upload(
+                        np.asarray(freed, np.int64))] = 0
             self._seen_unload_version = self.world.unload_version
             self._res_dirty = True
         cell = world_to_chunk_pos(cam.position)
@@ -1075,55 +1117,40 @@ class Engine:
                 if p not in self._stale_set:
                     self._stale_set.add(p)
                     self._stale_stash.append(p)
-            if not self._rebuild_resident(cell):
-                return None
-        vp = cam.view_projection_matrix()
-        uploads = (*self._res_uploads, np.int32(self._res_total))
-        if self._res_pending is not None:
-            # the previous frame's batch rides this step: pool scatter
-            # (when its payload fit the resident shape), append, render
-            ameta, offset, _batch, _nc = self._res_pending
-            self._res_pending = None
-            if self._res_insert is not None:
-                payload = self._res_insert
-                self._res_insert = None
-                color, depth, stats, new_up, pool2, c6b = (
-                    self.renderer.render_prepared_append_insert(
-                        uploads, vp, cam.position, self.pool.quads,
-                        self.pool.counts6_dev, ameta, offset, payload))
-                self.pool.adopt_device_arrays(pool2, c6b)
-                self._res_fused_inserts += 1
-            else:
-                color, depth, stats, new_up = (
-                    self.renderer.render_prepared_append(
-                        uploads, vp, cam.position, self.pool.quads, ameta,
-                        offset))
-            self._res_uploads = new_up
-            self._res_appends += 1
-        else:
+            with prof.ENQUEUE:
+                if not self._rebuild_resident(cell):
+                    return False
+        return True
+
+    def _resident_dispatch(self, uploads, vp):
+        """The resident frame's step: (color, depth, stats)."""
+        cam = self.camera
+        if self._res_pending is None:
             # a remesh-only batch still scatters before the stream's pool
             # rows are read again
             self._flush_res_insert()
-            color, depth, stats = self.renderer.render_prepared(
-                uploads, vp, cam.position)
-        if self._stale_stash:
-            # nearest first (they turn visible soonest); the rest carry
-            # over under the budget
-            if len(self._stale_stash) > self.resident_mesh_budget:
-                c = cam.position / np.float32(CHUNK_SIZE)
-                arr = np.asarray(self._stale_stash, np.float32)
-                d2 = ((arr - c[None, :]) ** 2).sum(1)
-                order = np.argsort(d2, kind="stable")
-                self._stale_stash = [self._stale_stash[i] for i in order]
-            batch = self._stale_stash[:self.resident_mesh_budget]
-            self._stale_stash = self._stale_stash[self.resident_mesh_budget:]
-            self._stale_set.difference_update(batch)
-            self._mesh_list_resident(batch)
-            newpos = [pos for pos in batch if pos not in self._res_pos]
-            if newpos:
-                self._queue_append(newpos)
-        self._frame_bookkeeping(stats, self._res_n, frame_t0)
-        return FrameResult(color, depth, stats, self._res_n, self._res_n)
+            return self.renderer.render_prepared(uploads, vp, cam.position)
+        # the previous frame's batch rides this step: pool scatter (when
+        # its payload fit the resident shape), append, render
+        ameta, offset, _batch, _nc = self._res_pending
+        self._res_pending = None
+        if self._res_insert is not None:
+            payload = self._res_insert
+            self._res_insert = None
+            color, depth, stats, new_up, pool2, c6b = (
+                self.renderer.render_prepared_append_insert(
+                    uploads, vp, cam.position, self.pool.quads,
+                    self.pool.counts6_dev, ameta, offset, payload))
+            self.pool.adopt_device_arrays(pool2, c6b)
+            self._res_fused_inserts += 1
+        else:
+            color, depth, stats, new_up = (
+                self.renderer.render_prepared_append(
+                    uploads, vp, cam.position, self.pool.quads, ameta,
+                    offset))
+        self._res_uploads = new_up
+        self._res_appends += 1
+        return color, depth, stats
 
     def render_frame(self, dt: float = 0.016) -> FrameResult:
         """One serial frame: funnel, then one of the three device entry
@@ -1138,6 +1165,12 @@ class Engine:
         frame is ``_render_frame_resident``'s; when the scene exceeds the
         resident caps the engine leaves resident mode for good and the
         frame goes on as a serial one with the camera already moved."""
+        with prof.FRAME(self.device):
+            out = self._serial_frame(dt)
+        self._frame_bookkeeping(out.rendered_meshes)
+        return out
+
+    def _serial_frame(self, dt: float) -> FrameResult:
         if self.resident_stream:
             out = self._render_frame_resident(dt)
             if out is not None:
@@ -1149,8 +1182,15 @@ class Engine:
             raise RuntimeError(
                 "frames-in-flight pipeline is non-empty; call "
                 "flush_pipeline() before mixing in serial render_frame")
-        frame_t0 = time.perf_counter()
         vp, sig, n, n_visible_meshes, cam_same = self._funnel(dt)
+        with prof.DISPATCH:
+            color, depth, stats = self._dispatch(vp, sig, cam_same)
+        self._apply_stale_stash()
+        return FrameResult(color, depth, stats, n, n_visible_meshes)
+
+    def _dispatch(self, vp, sig, cam_same):
+        """The serial frame's renderer call on the funnel's draw list:
+        (color, depth, stats)."""
         cam = self.camera
         if self._pending_insert is not None:
             payload = self._pending_insert
@@ -1164,9 +1204,7 @@ class Engine:
                 pool2, c6b, color, depth, stats = out
                 self.pool.adopt_device_arrays(pool2, c6b)
                 self._upload_cache = (sig, None)
-                self._apply_stale_stash()
-                self._frame_bookkeeping(stats, n, frame_t0)
-                return FrameResult(color, depth, stats, n, n_visible_meshes)
+                return color, depth, stats
             # fallback layout (truncated draw list): standalone scatter, then
             # the normal render path below
             self.pool.dispatch_insert_payload(payload)
@@ -1193,20 +1231,16 @@ class Engine:
                     self.renderer.render_prepared_hiz(
                         uploads, vp, cam.position, hiz1))
                 self._prev_hiz_sig = tsig
-            else:
-                self._prev_hiz = None
-                color, depth, stats = self.renderer.render_prepared(
-                    uploads, vp, cam.position)
-        else:
-            color, depth, stats, uploads = self.renderer.render_fused(
-                self.pool.quads, self._last_visible_slots,
-                self._last_counts_sel, self._last_positions_sel,
-                vp, cam.position, dir_mask=self._last_dir_mask,
-                counts6_dev=self.pool.counts6_dev)
-            self._upload_cache = (sig, uploads)
-        self._apply_stale_stash()
-        self._frame_bookkeeping(stats, n, frame_t0)
-        return FrameResult(color, depth, stats, n, n_visible_meshes)
+                return color, depth, stats
+            self._prev_hiz = None
+            return self.renderer.render_prepared(uploads, vp, cam.position)
+        color, depth, stats, uploads = self.renderer.render_fused(
+            self.pool.quads, self._last_visible_slots,
+            self._last_counts_sel, self._last_positions_sel,
+            vp, cam.position, dir_mask=self._last_dir_mask,
+            counts6_dev=self.pool.counts6_dev)
+        self._upload_cache = (sig, uploads)
+        return color, depth, stats
 
     def render_frame_pipelined(self, dt: float = 0.016) -> FrameResult | None:
         """Frames-in-flight frame: run this frame's funnel, enter it with
@@ -1216,42 +1250,49 @@ class Engine:
         frame with flush_pipeline().  Every emitted frame equals
         render_frame's for the same camera sequence bit for bit, one frame
         later."""
-        frame_t0 = time.perf_counter()
+        with prof.FRAME(self.device):
+            out = self._pipelined_frame(dt)
+        if out is not None:
+            self._frame_bookkeeping(out.rendered_meshes)
+        return out
+
+    def _pipelined_frame(self, dt: float) -> FrameResult | None:
         vp, sig, n, n_visible_meshes, _cam_same = self._funnel(dt)
         cam = self.camera
         self._prev_hiz = None
-        if self._pending_insert is not None:
-            # the fused insert+render path is serial-only: apply the batch
-            # with the standalone scatter, in place, before the step; the
-            # carried frame's stream is a gathered copy, not a view of the
-            # pool, so the scatter cannot change it
-            self.pool.dispatch_insert_payload(self._pending_insert)
-            self._pending_insert = None
-        if (self._upload_cache is not None
-                and self._upload_cache[0] == sig
-                and self._upload_cache[1] is not None):
-            out = self.renderer.render_prepared_pipelined(
-                self._upload_cache[1], vp, cam.position)
-        else:
-            out, uploads = self.renderer.render_fused_pipelined(
-                self.pool.quads, self._last_visible_slots,
-                self._last_counts_sel, self._last_positions_sel,
-                vp, cam.position, dir_mask=self._last_dir_mask,
-                counts6_dev=self.pool.counts6_dev)
-            self._upload_cache = (sig, uploads)
+        with prof.DISPATCH:
+            if self._pending_insert is not None:
+                # the fused insert+render path is serial-only: apply the
+                # batch with the standalone scatter, in place, before the
+                # step; the carried frame's stream is a gathered copy, not
+                # a view of the pool, so the scatter cannot change it
+                self.pool.dispatch_insert_payload(self._pending_insert)
+                self._pending_insert = None
+            if (self._upload_cache is not None
+                    and self._upload_cache[0] == sig
+                    and self._upload_cache[1] is not None):
+                out = self.renderer.render_prepared_pipelined(
+                    self._upload_cache[1], vp, cam.position)
+            else:
+                out, uploads = self.renderer.render_fused_pipelined(
+                    self.pool.quads, self._last_visible_slots,
+                    self._last_counts_sel, self._last_positions_sel,
+                    vp, cam.position, dir_mask=self._last_dir_mask,
+                    counts6_dev=self.pool.counts6_dev)
+                self._upload_cache = (sig, uploads)
         self._apply_stale_stash()
         self._pipe_meta.append((n, n_visible_meshes))
         if out is None:
             return None
         color, depth, stats = out
         pn, pv = self._pipe_meta.popleft()
-        self._frame_bookkeeping(stats, pn, frame_t0)
         return FrameResult(color, depth, stats, pn, pv)
 
     def flush_pipeline(self) -> FrameResult | None:
         """Drain the frames-in-flight pipeline: render and return the
         pending frame (None when the pipeline is empty)."""
-        out = self.renderer.pipeline_flush()
+        with prof.FRAME(self.device), prof.DISPATCH:
+            out = self.renderer.pipeline_flush()
         if out is None:
             self._pipe_meta.clear()
             return None
@@ -1259,23 +1300,21 @@ class Engine:
         pn, pv = self._pipe_meta.popleft()
         return FrameResult(color, depth, stats, pn, pv)
 
-    def _frame_bookkeeping(self, stats, n, frame_t0) -> None:
-        if FUNCTION_COUNTERS.enabled:
-            st = stats.cpu().numpy()
-            FUNCTION_COUNTERS.add("render_frames")
-            FUNCTION_COUNTERS.add("quads_gathered", int(st[0]))
-            FUNCTION_COUNTERS.add("quads_rasterized", int(st[1]))
-            FUNCTION_COUNTERS.add("quads_culled", int(st[0]) - int(st[1]))
-            FUNCTION_COUNTERS.add("quads_subpixel_culled", int(st[4]))
-        if self.log_fps:
-            self._fps_frames += 1
-            now = time.perf_counter()
-            frame_ms = (now - frame_t0) * 1000.0
-            if frame_ms > self.slow_frame_ms:
-                print(f"slow frame: {frame_ms:.1f} ms (visible={n})")
-            if now - self._fps_t0 >= 1.0:
-                fps = self._fps_frames / (now - self._fps_t0)
-                print(f"FPS: {fps:.1f} | chunks: {self.world.chunk_count()} "
-                      f"| rendered meshes: {n}")
-                self._fps_frames = 0
-                self._fps_t0 = now
+    def _frame_bookkeeping(self, n) -> None:
+        """``log_fps``: a line for a frame whose span (``frame``, host
+        clock) took over ``slow_frame_ms``, and once a second the frames
+        completed a second, counted by the frames' end markers on the card
+        (on the CPU a frame completes with its call)."""
+        if not self.log_fps or not prof.TRACER.enabled:
+            return
+        frame_ms = prof.TRACER.last_frame_ns / 1e6
+        if frame_ms > self.slow_frame_ms:
+            print(f"slow frame: {frame_ms:.1f} ms (visible={n})")
+        now = time.perf_counter()
+        if now - self._fps_t0 >= 1.0:
+            done = prof.TRACER.completed
+            fps = (done - self._fps_done) / (now - self._fps_t0)
+            print(f"FPS: {fps:.1f} | chunks: {self.world.chunk_count()} "
+                  f"| rendered meshes: {n}")
+            self._fps_done = done
+            self._fps_t0 = now

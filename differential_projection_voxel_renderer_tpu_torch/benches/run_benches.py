@@ -4,7 +4,7 @@ The counterpart of ``benches/run_benches.py`` (SURVEY.md section 6):
 
 - meshing:     uniform / terrain / dense / multi-chunk, the host mesher
 - world:       generation sizes and the visibility query
-- microbench:  the funnel counters per voxel pattern
+- microbench:  the host mesher's quads and time per voxel pattern
 - rendering:   the host framebuffer's clear, a single solid chunk at
                256x256 and a 3x3 terrain world at 1280x720, each as one
                CUDA graph of 20 steps (``rendering.pipeline.
@@ -32,8 +32,6 @@ calls in a row.
 from __future__ import annotations
 
 import argparse
-import importlib
-import os
 import sys
 import time
 
@@ -113,13 +111,9 @@ def bench_world():
 
 
 def bench_microbench():
-    """The funnel counters per voxel pattern (the reference's
-    microbench: empty / full / checkerboard / sparse)."""
-    os.environ["DPVR_PROFILING"] = "1"
-    from ..utils import profiling
-
-    importlib.reload(profiling)
-    print("== microbench (funnel counters per pattern) ==")
+    """The host mesher's quads and time per voxel pattern (the
+    reference's microbench: empty / full / checkerboard / sparse)."""
+    print("== microbench (quads and ms per pattern) ==")
     rng = np.random.default_rng(0)
     xyz = np.indices((32, 32, 32)).sum(0)
     patterns = {

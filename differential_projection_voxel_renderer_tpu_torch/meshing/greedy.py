@@ -22,7 +22,6 @@ import numpy as np
 
 from ..models.block_type import BLOCK_TYPE_COUNT
 from ..models.chunk import Chunk
-from ..utils.profiling import FUNCTION_COUNTERS
 from ..utils.config import CHUNK_SIZE
 from . import native_bridge
 from .face_masks import exposed_faces, neighbor_solid_planes, pack_slice_masks
@@ -104,7 +103,6 @@ def mesh_chunk(chunk: Chunk, all_chunks=None) -> np.ndarray | None:
     for uniform chunks (the reference's uniform fast path,
     binary_greedy.rs:87-89) and for empty meshes (:116-120).
     """
-    FUNCTION_COUNTERS.add("mesh_chunk_calls")
     if chunk.is_uniform:
         return None
     native_full = native_bridge.mesh_chunk_full

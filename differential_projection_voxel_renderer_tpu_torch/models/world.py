@@ -19,6 +19,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..utils import profiling as prof
 from ..utils.config import CHUNK_SIZE
 from .camera import Frustum
 from .chunk import Chunk
@@ -85,8 +86,10 @@ class World:
     def get_or_generate_chunk(self, chunk_pos) -> Chunk:
         key = tuple(int(c) for c in chunk_pos)
         if key not in self.chunks:
-            self.chunks[key] = Chunk.generate_terrain(key)
-            self._note_add(key)
+            with prof.WORLD_GENERATE:
+                self.chunks[key] = Chunk.generate_terrain(key)
+                self._note_add(key)
+                prof.CHUNKS_GENERATED.add(1)
         return self.chunks[key]
 
     def contains_chunk(self, position) -> bool:
@@ -123,83 +126,92 @@ class World:
         produced with numpy and filtered by the sphere + membership test
         instead of a triple Python loop.
         """
-        cam = world_to_chunk_pos(camera_position)
-        self.last_camera_chunk = cam
-        vd = self.config.view_distance
-        if self._filled_at == cam:
-            return False  # sphere already filled at this camera chunk
+        with prof.WORLD_UPDATE:
+            cam = world_to_chunk_pos(camera_position)
+            self.last_camera_chunk = cam
+            if self._filled_at == cam:
+                return False  # sphere already filled at this camera chunk
 
-        if (self._missing_at != cam or self._queue_version != self.version
-                or self._missing_queue is None):
-            offs = self._sphere_offsets.get(vd)
-            if offs is None:
-                r = np.arange(-vd, vd + 1, dtype=np.int64)
-                gx, gy, gz = np.meshgrid(r, r, r, indexing="ij")
-                offs = np.stack([gx, gy, gz], axis=-1).reshape(-1, 3)
-                dist_sq = (offs.astype(np.float32) ** 2).sum(-1)
-                offs = offs[dist_sq <= float(vd * vd)]
-                self._sphere_offsets[vd] = offs
-            # Reference iterates x-outer / y / z-inner (world.rs:66-68);
-            # meshgrid(indexing="ij") preserves that order.
-            #
-            # Vectorized missing-scan: a Python membership loop over the
-            # ~7k-candidate sphere cost ~5 ms per streaming frame.  Both
-            # sides pack (x, y, z) into one int64 (21 bits per axis) and
-            # one np.isin finds the missing candidates in reference
-            # order.  The result is QUEUED: it depends only on (camera
-            # chunk, chunk-set version), so subsequent frames in the same
-            # chunk pop their budget instead of rescanning.
-            cand = offs + np.asarray(cam, dtype=np.int64)
-            _, loaded = self._positions_array()
+            if (self._missing_at != cam or self._queue_version != self.version
+                    or self._missing_queue is None):
+                with prof.WORLD_QUEUE:
+                    self._queue_missing(cam)
 
-            def pack(a):
-                m = np.int64(0x1FFFFF)
-                return (((a[:, 0] & m) << 42) | ((a[:, 1] & m) << 21)
-                        | (a[:, 2] & m))
+            queue = self._missing_queue
+            generated = 0
+            # budget floor of 1 preserves the pre-queue semantics (the old
+            # loop generated a chunk BEFORE checking the budget, so even
+            # max_chunks_per_frame <= 0 made progress each frame)
+            budget = max(1, self.config.max_chunks_per_frame)
+            with prof.WORLD_GENERATE:
+                while queue and generated < budget:
+                    pos = queue.popleft()
+                    # paranoia vs pack collisions / ext adds
+                    if pos not in self.chunks:
+                        self.chunks[pos] = Chunk.generate_terrain(pos)
+                        self._note_add(pos)
+                        generated += 1
+                prof.CHUNKS_GENERATED.add(generated)
+            if queue and generated >= budget:
+                self._queue_version = self.version
+                return True
 
-            if len(loaded):
-                missing = ~np.isin(pack(cand), pack(loaded),
-                                   assume_unique=False)
-            else:
-                missing = np.ones(len(cand), dtype=bool)
-            self._missing_queue = collections.deque(
-                map(tuple, cand[missing].tolist()))
-            self._missing_at = cam
-
-        queue = self._missing_queue
-        generated = 0
-        # budget floor of 1 preserves the pre-queue semantics (the old
-        # loop generated a chunk BEFORE checking the budget, so even
-        # max_chunks_per_frame <= 0 made progress each frame)
-        budget = max(1, self.config.max_chunks_per_frame)
-        while queue and generated < budget:
-            pos = queue.popleft()
-            if pos not in self.chunks:  # paranoia vs pack collisions /
-                self.chunks[pos] = Chunk.generate_terrain(pos)  # ext adds
-                self._note_add(pos)
-                generated += 1
-        if queue and generated >= budget:
+            with prof.WORLD_UNLOAD:
+                unload = self.config.view_distance + 2
+                unload_sq = float(unload * unload)
+                before = len(self.chunks)
+                self.chunks = {
+                    pos: c
+                    for pos, c in self.chunks.items()
+                    if float((pos[0] - cam[0]) ** 2 + (pos[1] - cam[1]) ** 2
+                             + (pos[2] - cam[2]) ** 2)
+                    <= unload_sq
+                }
+                if len(self.chunks) != before:
+                    self._invalidate_cache()
+                    self.unload_version += 1
+            if generated == 0:
+                self._filled_at = cam
             self._queue_version = self.version
-            return True
+            return generated > 0
 
-        unload = vd + 2
-        unload_sq = float(unload * unload)
-        before = len(self.chunks)
-        self.chunks = {
-            pos: c
-            for pos, c in self.chunks.items()
-            if float(
-                (pos[0] - cam[0]) ** 2 + (pos[1] - cam[1]) ** 2 + (pos[2] - cam[2]) ** 2
-            )
-            <= unload_sq
-        }
-        if len(self.chunks) != before:
-            self._invalidate_cache()
-            self.unload_version += 1
-        if generated == 0:
-            self._filled_at = cam
-        self._queue_version = self.version
-        return generated > 0
+    def _queue_missing(self, cam) -> None:
+        """Queue the view sphere's missing chunks around chunk ``cam``."""
+        vd = self.config.view_distance
+        offs = self._sphere_offsets.get(vd)
+        if offs is None:
+            r = np.arange(-vd, vd + 1, dtype=np.int64)
+            gx, gy, gz = np.meshgrid(r, r, r, indexing="ij")
+            offs = np.stack([gx, gy, gz], axis=-1).reshape(-1, 3)
+            dist_sq = (offs.astype(np.float32) ** 2).sum(-1)
+            offs = offs[dist_sq <= float(vd * vd)]
+            self._sphere_offsets[vd] = offs
+        # Reference iterates x-outer / y / z-inner (world.rs:66-68);
+        # meshgrid(indexing="ij") preserves that order.
+        #
+        # Vectorized missing-scan: a Python membership loop over the
+        # ~7k-candidate sphere cost ~5 ms per streaming frame.  Both
+        # sides pack (x, y, z) into one int64 (21 bits per axis) and
+        # one np.isin finds the missing candidates in reference
+        # order.  The result is QUEUED: it depends only on (camera
+        # chunk, chunk-set version), so subsequent frames in the same
+        # chunk pop their budget instead of rescanning.
+        cand = offs + np.asarray(cam, dtype=np.int64)
+        _, loaded = self._positions_array()
+
+        def pack(a):
+            m = np.int64(0x1FFFFF)
+            return (((a[:, 0] & m) << 42) | ((a[:, 1] & m) << 21)
+                    | (a[:, 2] & m))
+
+        if len(loaded):
+            missing = ~np.isin(pack(cand), pack(loaded),
+                               assume_unique=False)
+        else:
+            missing = np.ones(len(cand), dtype=bool)
+        self._missing_queue = collections.deque(
+            map(tuple, cand[missing].tolist()))
+        self._missing_at = cam
 
     # ---------------------------------------------------------- visibility
     def _positions_array(self) -> tuple[list[tuple[int, int, int]], np.ndarray]:
@@ -297,10 +309,12 @@ class World:
     # ------------------------------------------------------------- helpers
     def generate_region(self, mins, maxs) -> None:
         """Pre-generate an inclusive region (src/world.rs:159-170)."""
-        for cx in range(int(mins[0]), int(maxs[0]) + 1):
-            for cy in range(int(mins[1]), int(maxs[1]) + 1):
-                for cz in range(int(mins[2]), int(maxs[2]) + 1):
-                    key = (cx, cy, cz)
-                    if key not in self.chunks:
-                        self.chunks[key] = Chunk.generate_terrain(key)
-                        self._note_add(key)
+        with prof.WORLD_GENERATE:
+            for cx in range(int(mins[0]), int(maxs[0]) + 1):
+                for cy in range(int(mins[1]), int(maxs[1]) + 1):
+                    for cz in range(int(mins[2]), int(maxs[2]) + 1):
+                        key = (cx, cy, cz)
+                        if key not in self.chunks:
+                            self.chunks[key] = Chunk.generate_terrain(key)
+                            self._note_add(key)
+                            prof.CHUNKS_GENERATED.add(1)

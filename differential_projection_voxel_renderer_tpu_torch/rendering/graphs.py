@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils import profiling
 
 # captures and replays of every CapturedCall, changed under
 # _build.COUNT_LOCK
@@ -134,11 +135,13 @@ class CapturedCall:
             if tuple(src.shape) != tuple(s.shape) or src.dtype != s.dtype:
                 raise ValueError(f"input {i}: {src.dtype}{list(src.shape)} "
                                  f"for a {s.dtype}{list(s.shape)} buffer")
-            if src.device.type == "cpu" and s.device.type == "cuda":
-                s.copy_(src.pin_memory(), non_blocking=True)
-            else:
-                s.copy_(src)
+            pinned = src.device.type == "cpu" and s.device.type == "cuda"
+            if pinned:
+                src = src.pin_memory()
+            profiling.mark_enqueue()
+            s.copy_(src, non_blocking=pinned)
         else:
+            profiling.mark_enqueue()
             s.fill_(operator.index(x))
         self._kept[i] = x if keep else None
 
@@ -147,14 +150,23 @@ class CapturedCall:
         ``copy=False`` a replay's outputs in the graph's own memory, which
         the next run overwrites (for a caller that copies them itself)."""
         if self.device.type != "cuda":
-            out = self.fn(*self.fixed, *self.static)
-            return _copy_out(out) if copy else out
-        if self.graph is None:
-            return self._capture(copy)
-        self.graph.replay()
-        _build.add_counts(self.launches)
-        _count_call("replays")
-        return _copy_out(self.out) if copy else self.out
+            with profiling.REPLAY:
+                out = self.fn(*self.fixed, *self.static)
+        elif self.graph is None:
+            profiling.mark_enqueue()
+            with profiling.REPLAY:
+                return self._capture(copy)
+        else:
+            profiling.mark_enqueue()
+            with profiling.REPLAY:
+                self.graph.replay()
+                _build.add_counts(self.launches)
+                _count_call("replays")
+            out = self.out
+        if not copy:
+            return out
+        with profiling.COPY_OUT:
+            return _copy_out(out)
 
     def _capture(self, copy: bool):
         # CUPTI torn down at the end of a torch.profiler window and set up

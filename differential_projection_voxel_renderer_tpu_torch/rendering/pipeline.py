@@ -80,6 +80,7 @@ from ..ops import raster as raster_ops
 from ..ops import raster_packed as packed_ops
 from ..ops.shading import build_quad_color_tables
 from ..ops.texture import TextureAtlas
+from ..utils import profiling as prof
 from ..utils.config import RenderConfig
 
 U32 = raster_ops.U32_MASK
@@ -1065,8 +1066,9 @@ class Renderer:
         if g is None or not g.matches(fixed, inputs):
             g = self._graphs[name, cap] = graphs.CapturedCall(
                 fn, fixed, inputs, device=self.device, pool=self._graph_pool)
-        for i, x in enumerate(inputs):
-            g.load(i, x, keep=i < keep)
+        with prof.LOAD:
+            for i, x in enumerate(inputs):
+                g.load(i, x, keep=i < keep)
         return g.run()
 
     def _fused5(self, quad_pool, counts6_pool, frame_np: np.ndarray,
@@ -1087,7 +1089,9 @@ class Renderer:
         t = torch.from_numpy(np.ascontiguousarray(arr))
         if self.device.type != "cuda":
             return t.to(self.device)
-        return t.pin_memory().to(self.device, non_blocking=True)
+        t = t.pin_memory()
+        prof.mark_enqueue()
+        return t.to(self.device, non_blocking=True)
 
     def _prep_meta(self, visible_slots, counts_sel, positions_sel,
                    dir_mask):
@@ -1119,12 +1123,14 @@ class Renderer:
         """Expand the draw list into the device quad stream; cacheable
         while the draw list (with its dir mask) is unchanged.  Returns
         (quads, quad_world, total)."""
-        slots_a, counts6, mask6, pos_a, cap, _ = self._prep_meta(
-            visible_slots, counts_sel, positions_sel, dir_mask)
-        return _expand_uploads_impl(
-            quad_pool, self._upload(slots_a),
-            self._upload(counts6.astype(np.int32)),
-            self._upload(mask6.astype(np.int32)), self._upload(pos_a), cap)
+        with prof.PREPARE:
+            slots_a, counts6, mask6, pos_a, cap, _ = self._prep_meta(
+                visible_slots, counts_sel, positions_sel, dir_mask)
+            return _expand_uploads_impl(
+                quad_pool, self._upload(slots_a),
+                self._upload(counts6.astype(np.int32)),
+                self._upload(mask6.astype(np.int32)), self._upload(pos_a),
+                cap)
 
     @staticmethod
     def _frame_np(vcap, slots_a, mask6, pos_a, view_proj, cam_pos,
@@ -1145,16 +1151,20 @@ class Renderer:
         truncated), else the expanded stream for render_prepared.  Legacy
         [vcap] totals take the 11-short layout: their dir-0 units are not
         the device mirror's per-direction counts."""
-        slots_a, counts6, mask6, pos_a, cap, truncated = self._prep_meta(
-            visible_slots, counts_sel, positions_sel, dir_mask)
         vcap = self.config.visible_chunks_cap
-        kw = self._bucket_kw(cap)
-        legacy_counts = np.asarray(counts_sel).ndim == 1
-        if counts6_dev is not None and not truncated and not legacy_counts:
-            color, depth, stats = self._fused5(
-                quad_pool, counts6_dev,
-                self._frame_np(vcap, slots_a, mask6, pos_a, view_proj,
-                               cam_pos), cap)
+        with prof.PREPARE:
+            slots_a, counts6, mask6, pos_a, cap, truncated = self._prep_meta(
+                visible_slots, counts_sel, positions_sel, dir_mask)
+            kw = self._bucket_kw(cap)
+            legacy_counts = np.asarray(counts_sel).ndim == 1
+            meta5 = (counts6_dev is not None and not truncated
+                     and not legacy_counts)
+            if meta5:
+                frame_np = self._frame_np(vcap, slots_a, mask6, pos_a,
+                                          view_proj, cam_pos)
+        if meta5:
+            color, depth, stats = self._fused5(quad_pool, counts6_dev,
+                                               frame_np, cap)
             return color, depth, stats, None
         meta = self._upload(_pack_meta(vcap, slots_a, counts6, mask6, pos_a))
         color, depth, stats, quads, quad_world, total = _fused_frame(
@@ -1178,15 +1188,18 @@ class Renderer:
         stats).  The stream is copied into the graph's buffers only when it
         is not the one copied last."""
         cap = int(uploads[0].shape[0])
+        with prof.PREPARE:
+            cam = _pack_cam(view_proj, cam_pos)
         return self._run_graph(
             "prepared", cap,
             functools.partial(_step_camf, **self._bucket_kw(cap)), (),
-            (*uploads, _pack_cam(view_proj, cam_pos)), keep=3)
+            (*uploads, cam), keep=3)
 
     def empty_hiz(self) -> torch.Tensor:
         """+inf seed pyramid f32[ceil(H/8), ceil(W/8)]: culls nothing (the
         first static frame's input)."""
         h, w = self.config.height, self.config.width
+        prof.mark_enqueue()
         return torch.full(((h + 7) // 8, (w + 7) // 8), float("inf"),
                           dtype=torch.float32, device=self.device)
 
@@ -1197,10 +1210,12 @@ class Renderer:
         pyramid).  The caller passes a pyramid rendered from the same
         camera, draw list and world, else ``empty_hiz()``."""
         cap = int(uploads[0].shape[0])
+        with prof.PREPARE:
+            cam = _pack_cam(view_proj, cam_pos)
         return self._run_graph(
             "hiz", cap,
             functools.partial(_step_camf_hiz, **self._bucket_kw(cap)), (),
-            (*uploads, _pack_cam(view_proj, cam_pos), hiz1), keep=3)
+            (*uploads, cam, hiz1), keep=3)
 
     def render_fused_insert(self, quad_pool, counts6_dev, visible_slots,
                             counts_sel, positions_sel, view_proj, cam_pos,
@@ -1213,19 +1228,20 @@ class Renderer:
         nothing ran."""
         if insert_payload.shape != (3 * self.INSERT_KP + self.INSERT_FP,):
             raise ValueError(f"insert payload of shape {insert_payload.shape}")
-        slots_a, counts6, mask6, pos_a, cap, truncated = self._prep_meta(
-            visible_slots, counts_sel, positions_sel, dir_mask)
-        if truncated or np.asarray(counts_sel).ndim == 1:
-            return None
         vcap = self.config.visible_chunks_cap
+        with prof.PREPARE:
+            slots_a, counts6, mask6, pos_a, cap, truncated = self._prep_meta(
+                visible_slots, counts_sel, positions_sel, dir_mask)
+            if truncated or np.asarray(counts_sel).ndim == 1:
+                return None
+            frame_np = self._frame_np(vcap, slots_a, mask6, pos_a, view_proj,
+                                      cam_pos, insert_payload)
         color, depth, stats = self._run_graph(
             "insert", cap, functools.partial(
                 _fused_frame_insert, vcap=vcap, gather_cap=cap,
                 kp=self.INSERT_KP, mc=self.INSERT_MC,
                 **self._bucket_kw(cap)),
-            (quad_pool, counts6_dev),
-            (self._frame_np(vcap, slots_a, mask6, pos_a, view_proj, cam_pos,
-                            insert_payload),))
+            (quad_pool, counts6_dev), (frame_np,))
         return quad_pool, counts6_dev, color, depth, stats
 
     def _resident_kw(self, gather_cap: int) -> dict:
@@ -1324,6 +1340,7 @@ class Renderer:
         frame bit for bit.  The carry keeps references to frame N-1's
         stream; nothing writes a stream in place."""
         self._check_pipelined()
+        prof.mark_enqueue()
         quads, quad_world, total = uploads
         cap = int(quads.shape[0])
         cam = self._cam_dev(view_proj, cam_pos)
@@ -1365,6 +1382,7 @@ class Renderer:
             self._pipe_done = (color, depth, stats)
             return out, uploads
         vcap = self.config.visible_chunks_cap
+        prof.mark_enqueue()
         cam = self._cam_dev(view_proj, cam_pos)
         meta = self._upload(_pack_meta5(vcap, slots_a, mask6, pos_a))
         out, carry = self._pipe_drain_if(cap)
@@ -1411,6 +1429,7 @@ class Renderer:
             return None
         self._pipe_carry = None
         cap, up, cam, _pre = carry
+        prof.mark_enqueue()
         return _step_camf(up[0], up[1], up[2], cam, **self._bucket_kw(cap))
 
 

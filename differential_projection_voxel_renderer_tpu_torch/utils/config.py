@@ -155,7 +155,9 @@ class RenderConfig:
     stream_group: int = 5
     row_tree: bool = False
     block_q: int = 1024
-    # Collect per-frame pixel/quad counters (reference FUNCTION_COUNTERS,
-    # src/perf/profiling.rs — compiled out unless --features profiling).
+    # The reference's switch for its per-frame function counters
+    # (src/perf/profiling.rs, compiled out unless --features profiling);
+    # kept as a field, read by nothing: the port's counters are
+    # utils/profiling.py's tracer, switched by DPVR_TRACE.
     profiling: bool = False
 
