@@ -22,15 +22,16 @@ and times kernels and frames.  Phases:
    source's PTX (the rounding contract wants none), and ptxas's registers,
    spills and shared memory of each kernel with the resident blocks an SM
    holds of K2/K3 and K4 (no spills and at least 4 blocks, or it fails),
-   and of K1's three instances (one, two and four quads a thread; no
-   spills, or it fails);
+   and of K1's three instances (one, two and four quads a thread) and
+   tile_meta (no spills, or it fails);
 3. the serial path: world streamed until settled, prime(), 3 static frames
    (render_fused, then render_prepared), 50 timed static frames, then 10
    moving frames that stream chunks (render_fused_insert where the remesh
    batch fits its payload, else render_fused).  The kernels' launch
    counters are zeroed before it and read after it; K1 and K2 must grow on
-   every frame, and the stats must show no overflow.  The static and
-   moving frames are kept for phase 8;
+   every frame, K1, tile_meta (the default binning's stage 5) and K2 must
+   launch once a frame, and the stats must show no overflow.  The static
+   and moving frames are kept for phase 8;
 4. K1 (stage A) vs its twin, bit-exact on all five outputs and both
    counts (subpix_total, valid_count): a fuzzed 131072-quad stream (n
    120000), the real vd12 stream at its bucket, the same with
@@ -40,10 +41,16 @@ and times kernels and frames.  Phases:
 5. K2 (tile raster) vs its twin on the port's own records at 128x128,
    640x128 and 1280x720: full-frame equality, or the boundary-verified
    gate with its mismatch count; and the 128x128 frame on the card vs the
-   same step on the CPU (the twins);
+   same step on the CPU (the twins); tile_meta vs its twin
+   (``tile_metadata_plain``) on the inputs the vd12 static step hands it
+   (``benches/common.meta_inputs``): records, octet rows and octet_zmin
+   bit for bit, one launch counted;
 6. kernel and twin times at the vd12 shapes, median of 20 runs each;
    K1 at 131072 quads and at the vd12 bucket a call, in runs of 20 and
-   from a CUDA graph, with its bound at each;
+   from a CUDA graph, with its bound at each; tile_meta and its twin at
+   the vd12 step a call, in runs of 20 and from a CUDA graph, tile_meta's
+   host us a call and its bound (its inputs read once, its outputs
+   written once);
 7. the static frame's device time under torch.profiler: the card's busy
    time per frame, its idle share and the largest device activities;
 8. frames in flight: a second Engine, settled and primed like the first,
@@ -249,17 +256,20 @@ package was loaded.  Every number printed comes from this run; each
 kernel's bound is computed from this run's inputs (``bound_ms``: the larger
 of its bytes over the card's memory rate and its operations over the
 card's float32 rate).  Its last three lines are the JSON object with one
-entry per kernel (K1-K4, and M1 at ``a_base`` and M2 at ``make9``'s 4x5
-form with every probe site each replaces; K2's entry also gives its empty
-floor, its launches on the paths of phases 12-13 and 19, its time with
-an init frame and each band's, its wrapper's host us and the production parity
-verdict; K1-K3 give their launches on each part of phase 14, K1-K4 on
+entry per kernel (K1-K4, tile_meta, and M1 at ``a_base`` and M2 at
+``make9``'s 4x5 form with every probe site each replaces; K2's entry
+also gives its empty floor, its launches on the paths of phases 12-13
+and 19, its time with an init frame and each band's, its wrapper's host
+us and the production parity verdict; K1-K3 give their launches on
+each part of phase 14, K1-K4 on
 each part of phase 15, K1, K2 and K4 on each part of phase 18, M1 and
 M2 the graph launch floor and their variants within it, K1 and K2 their
 time, plain time and bound at the
 resident shapes, K3 and K4 their device time from a CUDA graph, K1 its
 span instance's launches, error, times, bound, registers and spills and
-K2 its launches on phase 16's span frames), the
+K2 its launches on phase 16's span frames, tile_meta its launches on
+phases 3, 10 and 12, its times and its twin's at the vd12 step, its
+bound, registers and spills), the
 card's name and power limit as nvidia-smi gives them, and ``{"ok": true,
 "device": {...}}``.  Exits non-zero, printing no
 result, when there is no CUDA device or the package is not beside this
@@ -361,6 +371,13 @@ def counters():
 
     return (geometry.launches, raster.launches, raster.launches_geom,
             raster_packed.launches)
+
+
+def meta_launches() -> int:
+    """Launches of tile_meta, the default binning's stage-5 kernel."""
+    from differential_projection_voxel_renderer_tpu_torch.ops import raster
+
+    return raster.launches_meta
 
 
 def reset_counters() -> None:
@@ -522,19 +539,21 @@ def main_path(torch):
     torch.cuda.synchronize()
     launches = counters()
     frames = 3 + N_TIMED + N_MOVING
-    if launches != (frames, frames, 0, 0):
-        raise AssertionError(f"launches {launches} for {frames} frames")
+    meta = meta_launches()
+    if launches != (frames, frames, 0, 0) or meta != frames:
+        raise AssertionError(f"launches {launches}, tile_meta {meta} for "
+                             f"{frames} frames")
     if not entry.get("render_fused_insert"):
         raise AssertionError(f"no frame took render_fused_insert: {entry}")
     log(f"[3] main path: {frames} frames, launches K1={launches[0]} "
-        f"K2={launches[1]}, entry points {entry}")
+        f"tile_meta={meta} K2={launches[1]}, entry points {entry}")
     log(f"[3] static frame: {dev_ms:.3f} ms/frame between CUDA events, "
         f"{host_ms:.3f} ms/frame host clock (mean of {N_TIMED})")
     serial = dict(static=static_frames[0], moving=moving,
                   lists=(static_list, moving_list), cams=cams,
                   moving_lists=moving_lists, moving_cams=moving_cams)
-    return (eng, static, launches, dict(static_ms=dev_ms, host_ms=host_ms),
-            serial)
+    return (eng, static, launches, meta, dict(static_ms=dev_ms,
+                                              host_ms=host_ms), serial)
 
 
 def draw_list(eng):
@@ -708,7 +727,8 @@ def packed_path(torch, serial):
     sequence: 3 static frames, N_TIMED_PIPELINED timed static frames, the
     N_MOVING moving frames.  Every frame must launch K1 and K4 once and
     K2/K3 never, show no overflow, and equal phase 3's serial frame of its
-    pose bit for bit (colour, depth, stats[:2]).  Returns (engine,
+    pose bit for bit (colour, depth, stats[:2]); tile_meta, the default
+    binning's stage 5, never launches.  Returns (engine,
     launches, {"static_ms", "host_ms"}, the first static frame's stats)."""
     from differential_projection_voxel_renderer_tpu_torch.app.engine import (
         RenderConfig,
@@ -774,8 +794,9 @@ def packed_path(torch, serial):
     torch.cuda.synchronize()
     launches = counters()
     frames = 3 + N_TIMED_PIPELINED + N_MOVING
-    if launches != (frames, 0, 0, frames):
-        raise AssertionError(f"launches {launches} for {frames} frames")
+    if launches != (frames, 0, 0, frames) or meta_launches():
+        raise AssertionError(f"launches {launches}, tile_meta "
+                             f"{meta_launches()} for {frames} frames")
     if not entry.get("render_fused_insert"):
         raise AssertionError(f"no frame took render_fused_insert: {entry}")
     log(f"[10] packed path: {frames} frames, each equal to phase 3's serial "
@@ -792,8 +813,9 @@ def occlusion_path(torch, serial_eng, serial, card):
     drive phase 3's camera sequence (3 static frames, the N_MOVING moving
     frames).  The counters are zeroed before each engine's sequence and read
     per frame: a two-pass frame launches K1 once and K2 twice, a temporal
-    frame K1 and K2 once.  Every frame must equal phase 3's serial frame of
-    its pose bit for bit (colour, depth, stats[:2]) and show no overflow.
+    frame K1 and K2 once, each tile_meta as often as K2.  Every frame
+    must equal phase 3's serial frame of its pose bit for bit (colour,
+    depth, stats[:2]) and show no overflow.
     The temporal engine's first static frame takes the plain path and its
     second seeds the pyramid (stats[5] == 0 on both); later static frames
     cull (stats[5] > 0); moving frames never cull.  Then all three engines
@@ -841,7 +863,7 @@ def occlusion_path(torch, serial_eng, serial, card):
                                  f"frame of its pose")
         return st
 
-    launches, culled = {}, {}
+    launches, culled, meta = {}, {}, {}
     for mode, eng in engines.items():
         torch.cuda.synchronize()
         reset_counters()
@@ -863,9 +885,13 @@ def occlusion_path(torch, serial_eng, serial, card):
         torch.cuda.synchronize()
         launches[mode] = counters()
         frames = 3 + N_MOVING
-        if launches[mode] != tuple(w * frames for w in want[mode]):
-            raise AssertionError(f"{mode}: launches {launches[mode]} for "
-                                 f"{frames} frames")
+        # each default-binning step launches tile_meta, then K2
+        meta[mode] = meta_launches()
+        if (launches[mode] != tuple(w * frames for w in want[mode])
+                or meta[mode] != launches[mode][1]):
+            raise AssertionError(f"{mode}: launches {launches[mode]}, "
+                                 f"tile_meta {meta[mode]} for {frames} "
+                                 f"frames")
         if mode == "temporal" and (culled[mode][:2] != [0, 0]
                                    or culled[mode][2] <= 0
                                    or any(moving_culled)):
@@ -2614,6 +2640,25 @@ def k2_compare(torch, raster, parity, rec, h, w, rows=None, **extra):
     return verdict, err, int((c1 != c2).sum()), padded
 
 
+def meta_compare(torch, raster, args, kw):
+    """tile_meta vs its twin on the same inputs: (the kernel's outputs,
+    kept items, the longest tile's items); raises unless records, octet
+    rows and octet_zmin (as int32) are equal bit for bit and the kernel
+    counted one launch."""
+    before = meta_launches()
+    got = raster.tile_metadata(*args, **kw)
+    ref = raster.tile_metadata_plain(*args, **kw)
+    if meta_launches() != before + 1:
+        raise AssertionError(f"tile_meta counted "
+                             f"{meta_launches() - before} launches")
+    for name, a, b in zip(("records", "octet_rows", "octet_zmin"), got, ref):
+        if a.dtype != b.dtype or not torch.equal(
+                a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"tile_meta {name} differs from its twin")
+    starts, counts = args[3], args[4]
+    return got, int(starts[-1] + counts[-1]), int(counts.max())
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -3227,7 +3272,7 @@ def main() -> int:
     for entry, rep in _build.ptxas_report(ptxas_log).items():
         for kernel in ("project_cull_kernel", "raster_kernel",
                        "raster_packed_kernel", "fill_tiles_kernel",
-                       "blocked_copy_kernel"):
+                       "blocked_copy_kernel", "tile_meta_kernel"):
             if f"{len(kernel)}{kernel}" in entry:
                 # K1's instances: one quad a thread (the port's), the two-
                 # and four-quad ones of benches/k1_call.py --variants, and
@@ -3252,10 +3297,11 @@ def main() -> int:
             + (f", {blocks[kernel]} resident blocks an SM "
                f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)"
                if kernel in blocks else ""))
-    if len(ptxas) != 8:
+    if len(ptxas) != 9:
         raise AssertionError(f"ptxas reported {sorted(ptxas)}")
     for kernel in ("project_cull_kernel", "project_cull_kernel<2>",
-                   "project_cull_kernel<4>", "project_cull_kernel<span>"):
+                   "project_cull_kernel<4>", "project_cull_kernel<span>",
+                   "tile_meta_kernel"):
         if ptxas[kernel]["spill_stores"] or ptxas[kernel]["spill_loads"]:
             raise AssertionError(f"{kernel} spills: {ptxas[kernel]}")
     for kernel, n in blocks.items():
@@ -3265,7 +3311,8 @@ def main() -> int:
                                  f"({rep}, {n} blocks)")
 
     # ---- 3. main path
-    eng, (uploads, vp0, cp0), launches, frame, serial = main_path(torch)
+    eng, (uploads, vp0, cp0), launches, meta3, frame, serial = main_path(
+        torch)
 
     # ---- 4. K1 vs twin
     r = eng.renderer
@@ -3325,6 +3372,19 @@ def main() -> int:
     counts = rec720[2]
     log(f"[5] K2 1280x720 vd12: {verdict} ({nmis} colour mismatches); "
         f"{int(counts.sum())} items, max {int(counts.max())} per tile")
+    # tile_meta on the inputs the same step hands it
+    meta_a, meta_kw = common.meta_inputs(lambda: pipeline._step_camf(
+        quads, qw, total, static_cam, **step_kw))
+    meta_out, meta_kept, meta_longest = meta_compare(torch, raster, meta_a,
+                                                     meta_kw)
+    if not all(torch.equal(x, y) for x, y in zip(
+            (rec720[0], rec720[3], rec720[4].view(torch.int32)),
+            (meta_out[0], meta_out[1], meta_out[2].view(torch.int32)))):
+        raise AssertionError("tile_meta differs from the step's own records")
+    log(f"[5] tile_meta 1280x720 vd12 step ({meta_a[1].shape[0]} item "
+        f"slots, {meta_kept} kept, longest tile {meta_longest}): records, "
+        f"octet rows and octet_zmin bit-exact against its twin and equal to "
+        f"the step's; one launch counted")
 
     # ---- 6. kernel and twin times at the vd12 shapes
     k1_t = {}
@@ -3359,6 +3419,22 @@ def main() -> int:
         f"{k2_run:.4f} ms per call (median of 20 runs; {card})")
     log(f"[6] static frame {frame['static_ms']:.3f} ms (CUDA events), "
         f"{frame['host_ms']:.3f} ms host clock; {card}")
+    meta_t = common.measure(lambda: raster.tile_metadata(*meta_a, **meta_kw))
+
+    def meta_plain():
+        return raster.tile_metadata_plain(*meta_a, **meta_kw)
+
+    meta_t.update(plain_ms=median_ms(meta_plain),
+                  plain_graph_ms=common.graph_ms(meta_plain))
+    meta_t["bound_ms"], meta_t["bound_by"] = bound(
+        nbytes(*meta_a, *meta_out), 0)
+    log(f"[6] tile_meta 1280x720 vd12 step: {meta_t['call_ms']:.4f} ms a "
+        f"call, {meta_t['run_ms']:.4f} in runs of 20, "
+        f"{meta_t['graph_ms']:.5f} from a CUDA graph, "
+        f"{meta_t['host_us']:.1f} us of host a call; twin "
+        f"{meta_t['plain_ms']:.4f} ms a call, {meta_t['plain_graph_ms']:.4f} "
+        f"from a CUDA graph; bound {meta_t['bound_ms']:.5f} ms "
+        f"({meta_t['bound_by']}); {card}")
 
     # ---- 7. where a static frame's device time goes
     prof7 = profile_frames(torch, lambda: eng.render_frame(dt=0.0))
@@ -3786,6 +3862,22 @@ def main() -> int:
              split_ms=k4_phase_ms,
              launches_resident={k: v[3] for k, v in launches15.items()},
              launches_binning={k: v[3] for k, v in launches18.items()}),
+        dict(name="tile_meta default binning's stage 5 (tile_metadata)",
+             route="cuda", source=f"{PKG}/csrc/tile_meta.cu",
+             replaces=f"{REF}/rendering/pipeline.py:486",
+             launches=meta3, launches_packed=0,
+             launches_two_pass=launches12["two-pass"][1],
+             launches_temporal=launches12["temporal"][1],
+             max_abs_err=0.0, ms=meta_t["run_ms"],
+             plain_ms=meta_t["plain_ms"], bound_ms=meta_t["bound_ms"],
+             bound_by=meta_t["bound_by"], library_ms=None,
+             call_ms=meta_t["call_ms"], queued_ms=meta_t["queued_ms"],
+             graph_ms=meta_t["graph_ms"],
+             plain_graph_ms=meta_t["plain_graph_ms"],
+             host_us=meta_t["host_us"], item_slots=int(meta_a[1].shape[0]),
+             kept_items=meta_kept, longest_tile=meta_longest,
+             registers=ptxas["tile_meta_kernel"]["registers"],
+             spill_bytes=ptxas["tile_meta_kernel"]["spill_stores"]),
         dict(name="M1 constant tile fill (fill_tiles), at a_base",
              route="cuda", source=f"{PKG}/csrc/micro.cu",
              replaces="benches/micro_fixed2.py:65",

@@ -35,7 +35,8 @@ import torch
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("geometry.cu", "raster.cu", "raster_packed.cu", "micro.cu")
+SOURCES = ("geometry.cu", "raster.cu", "raster_packed.cu", "micro.cu",
+           "tile_meta.cu")
 HEADERS = ("stage_a.cuh", "tile_raster.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 LIB_PATH = os.path.join(BUILD_DIR, "libdpvr_kernels.so")
@@ -71,6 +72,11 @@ _SIGNATURES = {
     #  depth, stream)
     "dpvr_rasterize_packed": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _P, _P, _P),
+    # the default binning's record gather and octet metadata: (all22[22,
+    #  rc], rc, flat, t_of_item, starts, counts, tiles_y, tiles_x, tile_h,
+    #  n_items, records[24, n_items], octet_rows, octet_zmin, stream)
+    "dpvr_tile_meta": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                       _P, _P, _P, _P),
     # resident blocks an SM holds of the K2/K3 and the K4 kernel, and K4's
     # dynamic shared memory a block
     "dpvr_rasterize_tiles_blocks_per_sm": (),
@@ -86,8 +92,9 @@ _SIGNATURES = {
 }
 
 # the launch counts, changed only under this lock: ``counts`` by counter
-# (each kernel, "K1", "K2", "K3", "K4", "M1", "M2", and "K1 span", the
-# span instance's among K1's), ``card_launches`` by (kernel, card index).
+# (each kernel, "K1", "K2", "K3", "K4", "M1", "M2", "tile_meta", and "K1
+# span", the span instance's among K1's), ``card_launches`` by (kernel,
+# card index).
 # The ops modules read theirs as attributes (``geometry.launches``).
 COUNT_LOCK = threading.Lock()
 counts: collections.Counter = collections.Counter()

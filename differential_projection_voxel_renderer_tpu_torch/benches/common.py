@@ -1,6 +1,6 @@
 """What the cost probes share: the originals' frame and sizes, a
-variant's record, the bytes it must move, bit comparison, and timing on
-the card."""
+variant's record, the bytes it must move, bit comparison, timing on the
+card, and the inputs a render step hands its stage-5 kernel."""
 
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..ops import micro
+from ..ops import micro, raster
 from ..rendering.pipeline import resolve_device
 
 # the originals' frame: 736x1280 (720 rows padded to the tile), 16x128
@@ -102,6 +102,32 @@ def same_bits(a, b) -> bool:
     return len(a) == len(b) and all(
         x.shape == y.shape and torch.equal(bits(x), bits(y))
         for x, y in zip(a, b))
+
+
+class _StepStopped(Exception):
+    pass
+
+
+def meta_inputs(run_step) -> tuple:
+    """(positional inputs, keywords) that ``run_step()``, a call of a
+    default-binning render step, hands ``ops.raster.tile_metadata`` (the
+    step's stage 5); the step is stopped there."""
+    seen = {}
+
+    def stop(*a, **kw):
+        seen["in"] = (a, kw)
+        raise _StepStopped
+
+    real, raster.tile_metadata = raster.tile_metadata, stop
+    try:
+        run_step()
+    except _StepStopped:
+        pass
+    finally:
+        raster.tile_metadata = real
+    if "in" not in seen:
+        raise AssertionError("the step did not reach tile_metadata")
+    return seen["in"]
 
 
 def need_card():

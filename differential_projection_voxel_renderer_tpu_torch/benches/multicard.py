@@ -346,8 +346,8 @@ def replayed_graphs(fn) -> dict:
 
 def counted(fn, cards: int) -> tuple:
     """``fn()`` with the per-card counts zeroed before and read after:
-    (its result, {card: (K1, K2) launches}, all launches, the CUDA-graph
-    captures and replays it made)."""
+    (its result, {card: (K1, K2) launches}, all launches (a step's are K1,
+    tile_meta and K2), the CUDA-graph captures and replays it made)."""
     sync_all()
     _build.reset_counts()
     calls = graphs.calls.copy()
@@ -418,7 +418,7 @@ def four_cards(eng, poses, args, dargs, caps, step_kw, runs: int,
 
     # the first call runs each card's step eagerly and captures its graph
     out, per_card, total, calls = counted(lambda: fn4(*batch4), 4)
-    if (total != 8 or any(v != (1, 1) for v in per_card.values())
+    if (total != 12 or any(v != (1, 1) for v in per_card.values())
             or calls != {"captures": 4}):
         raise AssertionError(f"2x2: first call's launches {per_card}, "
                              f"graph calls {calls}")
@@ -429,7 +429,7 @@ def four_cards(eng, poses, args, dargs, caps, step_kw, runs: int,
                                  f"from phase 3's frame")
     out2, replay_card, total, calls = counted(lambda: fn4(*batch4), 4)
     # a replay of the graphs the first call captured, and no capture
-    if (replay_card != per_card or total != 8 or calls != {"replays": 4}
+    if (replay_card != per_card or total != 12 or calls != {"replays": 4}
             or replayed_graphs(fn4) != made or not all(
                 same_frame((out2[0][i], out2[1][i]), refs[i])
                 for i in range(2))):
@@ -478,7 +478,7 @@ def four_cards(eng, poses, args, dargs, caps, step_kw, runs: int,
     dbatch = (*(torch.stack([s[k] for s in streams]) for k in range(3)),
               *dargs[5:])
     dout, dp_card, total, _ = counted(lambda: fnd4(*dbatch), 4)
-    if total != 8 or any(v != (1, 1) for v in dp_card.values()):
+    if total != 12 or any(v != (1, 1) for v in dp_card.values()):
         raise AssertionError(f"dp: first call's launches {dp_card}")
     for i, p in enumerate(poses):
         if not same_frame((dout[0][i], dout[1][i]), p[0]):
@@ -592,14 +592,15 @@ def run(eng, poses, runs: int = 20, log=log) -> dict:
         fn = sr.make_sharded_render(sr.make_mesh(1), width=step_kw["width"],
                                     height=h, **caps)
         out, per_card, total, calls = counted(lambda: fn(*args), 1)
-        # the first call: each camera's K1 and K2 eagerly, then captured
-        if total != 4 or per_card[0] != (2, 2) or calls != {"captures": 1}:
+        # the first call: each camera's K1, tile_meta and K2 eagerly, then
+        # captured
+        if total != 6 or per_card[0] != (2, 2) or calls != {"captures": 1}:
             raise AssertionError(f"1x1: launches {per_card}, graph calls "
                                  f"{calls}")
         made = replayed_graphs(fn)
         # the second replays that graph: the same counts, no capture
         out2, per_card2, total, calls = counted(lambda: fn(*args), 1)
-        if (total != 4 or per_card2 != per_card or calls != {"replays": 1}
+        if (total != 6 or per_card2 != per_card or calls != {"replays": 1}
                 or replayed_graphs(fn) != made):
             raise AssertionError(f"1x1: a replay counted {per_card2} and "
                                  f"graph calls {calls}")

@@ -11,7 +11,8 @@ over K (benches/common.py ``graph_ms``).  The stages, on the benches'
   project   -- stage A on the full gather stream (kernel K1)
   compact   -- + the survivor sort and the multi-row gather
   coeffs    -- + the rasterizer coefficients and the record stacking
-  bin       -- + the tile binning (sort) and the per-octet metadata
+  bin       -- + the tile binning (sort) and stage 5, the record gather
+               and the per-octet metadata (the tile_meta kernel)
   raster    -- K2 alone on the step's records
   raster0   -- K2 with every tile empty (its per-tile fixed cost)
   full      -- the whole step (``rendering.pipeline.render_step``)
@@ -141,13 +142,9 @@ def make_stages(quads, qw, n_quads, *, width: int, height: int, tables,
                 raster_ops.build_tile_lists(
                     tilebox, count_c, (dq4 << 2) | band, dq4 << 2,
                     tiles_y=tiles_y, tiles_x=tiles_x, item_cap=tk))
-            g22 = all22[:, flat.long()]
-            tpy0 = (t_of_item // tiles_x) * TILE_H
-            ly0 = torch.clamp((g22[20] & 0xFFFF) - tpy0, 0, TILE_H - 1)
-            ly1 = torch.clamp((g22[20] >> 16) - tpy0, 0, TILE_H - 1)
-            n_oct = flat.shape[0] // 8
-            rows = (ly0.view(n_oct, 8).amin(1)
-                    | (ly1.view(n_oct, 8).amax(1) << 8))
+            _, rows, _ = raster_ops.tile_metadata(
+                all22, flat, t_of_item, starts, counts, tiles_y=tiles_y,
+                tiles_x=tiles_x, tile_h=TILE_H)
             return rows[:1] + starts[-1] + counts[-1] + ovf
         return f
 

@@ -5,6 +5,11 @@ Counterpart of ``differential_projection_voxel_renderer_tpu/ops/raster.py``:
 - ``build_tile_lists`` bins quads to 16x128 tiles as one flat sorted item
   stream (the reference's u32 keys become int64 with explicit 32-bit
   masks; its manual bisection becomes ``torch.searchsorted``);
+- ``tile_metadata`` turns the binning into K2's inputs (the record gather,
+  the octet row ranges and the suffix-min of near depth) with one kernel,
+  csrc/tile_meta.cu, for CUDA tensors, and its plain twin
+  ``tile_metadata_plain`` (the reference's XLA ops as torch ops) for CPU
+  tensors;
 - the pixel math (``pixel_ndc``, ``eval_bases``, ``eval_row``) and the
   commutative blend rule of ``_blend_one_quad``;
 - ``rasterize_tiles`` launches K2 for CUDA tensors and runs its plain twin
@@ -39,10 +44,11 @@ REC_FIELDS = F_FIELDS + I_FIELDS
 SKY_I32 = int(np.uint32(SKY_COLOR).astype(np.int32))
 U32_MASK = 0xFFFFFFFF
 
-# launches of the CUDA kernels K2 and K3 (not of their plain versions),
-# read from _build's registry
+# launches of the CUDA kernels K2, K3 and tile_meta (not of their plain
+# versions), read from _build's registry
 __getattr__ = _build.module_counts(
-    {"launches": "K2", "launches_geom": "K3"}, __name__)
+    {"launches": "K2", "launches_geom": "K3", "launches_meta": "tile_meta"},
+    __name__)
 
 
 def pick_tile(height: int, width: int) -> tuple[int, int]:
@@ -258,6 +264,110 @@ def build_tile_lists(tilebox, count, order6, order6_dy1, *, tiles_y: int,
     items = torch.where(mask, head & ((1 << shift) - 1), 0).to(torch.int32)
     t_of_item = torch.where(mask, head >> shift_t, 0).to(torch.int32)
     return items, t_of_item, kept_start, counts, overflow
+
+
+# ---------------------------------------------------------------- metadata
+
+
+def u32_as_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 holding a u32 bit pattern -> int32 with the same bits."""
+    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
+
+
+def tile_metadata_plain(all22, flat, t_of_item, tile_starts, tile_counts, *,
+                        tiles_y: int, tiles_x: int, tile_h: int):
+    """Plain PyTorch twin of the tile_meta kernel (``tile_metadata``)."""
+    dev = all22.device
+    i32 = torch.int32
+    g22 = all22[:, flat.long()]
+
+    # covered tile-local row range per item -> per-octet bounds
+    tpy0 = (t_of_item // tiles_x) * tile_h
+    bby_g = g22[20]
+    ly0 = torch.clamp((bby_g & 0xFFFF) - tpy0, 0, tile_h - 1)
+    ly1 = torch.clamp((bby_g >> 16) - tpy0, 0, tile_h - 1)
+    n_items = flat.shape[0]
+    n_oct = n_items // 8
+    octet_rows = (ly0.view(n_oct, 8).amin(1)
+                  | (ly1.view(n_oct, 8).amax(1) << 8))
+    # suffix-min of near depth to the end of each tile's segment as one
+    # reverse cummin over a packed (tile, order-mapped depth) u32 key; the
+    # depth is floor-quantized by the tile bits, a lower bound, so the
+    # occlusion break stays conservative
+    n_kept = tile_starts[-1] + tile_counts[-1]
+    bits_t = max(1, (tiles_y * tiles_x).bit_length())
+    dn_u = g22[21].long() & U32_MASK
+    omap = dn_u ^ torch.where((dn_u >> 31) != 0, U32_MASK, 1 << 31)
+    packed_key = (((t_of_item.long() << (32 - bits_t)) | (omap >> bits_t))
+                  & U32_MASK)
+    packed_key = torch.where(
+        torch.arange(n_items, device=dev) < n_kept, packed_key, U32_MASK)
+    sfx = torch.cummin(packed_key.flip(0), 0).values.flip(0)
+    zq = (sfx << bits_t) & U32_MASK
+    zbits = torch.where((zq >> 31) != 0, zq ^ (1 << 31), ~zq & U32_MASK)
+    octet_zmin = u32_as_i32(zbits).view(torch.float32).view(n_oct, 8)[:, 0]
+    records = torch.cat([g22, torch.zeros((2, n_items), dtype=i32,
+                                          device=dev)])
+    return records, octet_rows, octet_zmin
+
+
+def tile_metadata(all22, flat, t_of_item, tile_starts, tile_counts, *,
+                  tiles_y: int, tiles_x: int, tile_h: int):
+    """The tile raster's inputs from the default binning (the step's stage
+    5): ``all22`` i32[22, rc], the per-quad rows that cross the binning
+    (the 16 blend fields' bits, the four colour/mask words, bby, near depth
+    bits), gathered by ``build_tile_lists``' items ``flat`` i32[n_items]
+    (n_items a multiple of 8) with their tiles ``t_of_item`` and the tiles'
+    segments ``tile_starts``/``tile_counts`` i32[tiles_y * tiles_x].
+
+    Returns (records i32[24, n_items]: the gathered rows, then two zero
+    rows; octet_rows i32[n_items / 8]: each aligned group of 8 items' least
+    first and greatest last covered row, local to each item's own tile
+    (r0 | r1 << 8); octet_zmin f32[n_items / 8]: the least near depth from
+    each group's first item to the end of its tile's segment, its order-
+    mapped bits floor-quantized by the tile id's bit length; past the kept
+    items, that quantization of the key U32).
+
+    CUDA tensors go to the tile_meta kernel (csrc/tile_meta.cu, one launch
+    counted as ``launches_meta``), which raises on inputs it does not take;
+    CPU tensors to ``tile_metadata_plain``.  The two agree bit for bit."""
+    if all22.device.type != "cuda":
+        return tile_metadata_plain(
+            all22, flat, t_of_item, tile_starts, tile_counts,
+            tiles_y=tiles_y, tiles_x=tiles_x, tile_h=tile_h)
+    dev = all22.device
+    n_tiles = tiles_y * tiles_x
+    ins = (all22, flat, t_of_item, tile_starts, tile_counts)
+    if any(x.dtype != torch.int32 or x.device != dev or not x.is_contiguous()
+           for x in ins):
+        raise ValueError("tile_metadata: inputs must be contiguous int32 "
+                         "tensors on one device")
+    n_items = flat.shape[0]
+    if (all22.dim() != 2 or all22.shape[0] != 22 or all22.shape[1] < 1
+            or flat.dim() != 1 or t_of_item.shape != flat.shape
+            or n_items % 8):
+        raise ValueError("tile_metadata: all22 must be i32[22, rc] and "
+                         "flat/t_of_item i32[n_items], n_items % 8 == 0")
+    if (min(tiles_y, tiles_x, tile_h) < 1
+            or tile_starts.shape != (n_tiles,)
+            or tile_counts.shape != (n_tiles,)):
+        raise ValueError("tile_metadata: tile_starts/tile_counts must be "
+                         "i32[tiles_y * tiles_x]")
+    n_oct = n_items // 8
+    # one buffer for the three outputs
+    out = torch.empty(24 * n_items + 2 * n_oct, dtype=torch.int32,
+                      device=dev)
+    records = out[:24 * n_items].view(24, n_items)
+    octet_rows = out[24 * n_items:24 * n_items + n_oct]
+    octet_zmin = out[24 * n_items + n_oct:].view(torch.float32)
+    _build.launch(
+        "dpvr_tile_meta", dev.index, "tile_metadata", all22.data_ptr(),
+        all22.shape[1], flat.data_ptr(), t_of_item.data_ptr(),
+        tile_starts.data_ptr(), tile_counts.data_ptr(), tiles_y, tiles_x,
+        tile_h, n_items, records.data_ptr(), octet_rows.data_ptr(),
+        octet_zmin.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _build.count("tile_meta", dev.index)
+    return records, octet_rows, octet_zmin
 
 
 # ---------------------------------------------------------------- K2

@@ -13,8 +13,11 @@ Counterpart of the production branch of
                 metadata into one i32[22, rc] array
 4. bin       -- ops/raster.build_tile_lists, order "42" (4 bits of
                 log-quantized near depth, 2 bits of covered-row band)
-5. metadata  -- per-octet row ranges and the packed-key suffix-min of near
-                depth (the occlusion-break key)
+5. metadata  -- the record gather, per-octet row ranges and the suffix-min
+                of near depth to the end of each tile's segment (the
+                occlusion-break key): one kernel on the card,
+                csrc/tile_meta.cu (ops/raster.tile_metadata), whose plain
+                twin ``tile_metadata_plain`` runs on the CPU
 6. raster    -- kernel K2 (ops/raster.rasterize_tiles), then the crop
 
 Frames in flight (``Renderer.render_*_pipelined``): a step renders frame
@@ -84,11 +87,6 @@ from ..utils import profiling as prof
 from ..utils.config import RenderConfig
 
 U32 = raster_ops.U32_MASK
-
-
-def _to_i32(x: torch.Tensor) -> torch.Tensor:
-    """int64 holding a u32 bit pattern -> int32 with the same bits."""
-    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
 
 
 def resolve_device(device) -> torch.device:
@@ -297,35 +295,11 @@ def render_step(quads, quad_world, n_quads, view_proj, cam_pos, *,
         raster_ops.build_tile_lists(
             tilebox, count_c, (dq4 << 2) | band, dq4 << 2, tiles_y=tiles_y,
             tiles_x=tiles_x, item_cap=tile_k_cap, valid=valid_c))
-    g22 = all22[:, flat.long()]
-
-    # covered tile-local row range per item -> per-octet bounds
-    tpy0 = (t_of_item // tiles_x) * tile_h
-    bby_g = g22[20]
-    ly0 = torch.clamp((bby_g & 0xFFFF) - tpy0, 0, tile_h - 1)
-    ly1 = torch.clamp((bby_g >> 16) - tpy0, 0, tile_h - 1)
-    n_items = flat.shape[0]
-    n_oct = n_items // 8
-    octet_rows = (ly0.view(n_oct, 8).amin(1)
-                  | (ly1.view(n_oct, 8).amax(1) << 8))
-    # suffix-min of near depth to the end of each tile's segment as one
-    # reverse cummin over a packed (tile, order-mapped depth) u32 key; the
-    # depth is floor-quantized by the tile bits, a lower bound, so the
-    # occlusion break stays conservative
-    n_kept = tile_starts[-1] + tile_counts[-1]
-    bits_t = max(1, (tiles_y * tiles_x).bit_length())
-    dn_u = g22[21].long() & U32
-    omap = dn_u ^ torch.where((dn_u >> 31) != 0, U32, 1 << 31)
-    packed_key = (((t_of_item.long() << (32 - bits_t)) | (omap >> bits_t))
-                  & U32)
-    packed_key = torch.where(
-        torch.arange(n_items, device=dev) < n_kept, packed_key, U32)
-    sfx = torch.cummin(packed_key.flip(0), 0).values.flip(0)
-    zq = (sfx << bits_t) & U32
-    zbits = torch.where((zq >> 31) != 0, zq ^ (1 << 31), ~zq & U32)
-    octet_zmin = _to_i32(zbits).view(torch.float32).view(n_oct, 8)[:, 0]
-    records = torch.cat([g22, torch.zeros((2, n_items), dtype=i32,
-                                          device=dev)])
+    # the record gather, each octet's row range and the suffix-min of near
+    # depth to the end of its tile's segment (the occlusion-break key)
+    records, octet_rows, octet_zmin = raster_ops.tile_metadata(
+        all22, flat, t_of_item, tile_starts, tile_counts, tiles_y=tiles_y,
+        tiles_x=tiles_x, tile_h=tile_h)
     if debug_return_records:
         return records, tile_starts, tile_counts, octet_rows, octet_zmin
     if init_color is not None and out_h != bh:
@@ -377,7 +351,7 @@ def _segmented_suffix_min(seg, vals):
     low = torch.cummin(((seg.long() << 32) | omap).flip(0),
                        0).values.flip(0) & U32
     fbits = torch.where((low >> 31) != 0, low ^ (1 << 31), ~low & U32)
-    return _to_i32(fbits).view(torch.float32)
+    return raster_ops.u32_as_i32(fbits).view(torch.float32)
 
 
 def _packed_tail(f_full, i_full, bbx_c, bby_c, count_c, *, height: int,

@@ -147,3 +147,48 @@ def octet_break_stream(seed=11):
     return ((rec, starts, counts, orows, ozmin),
             dict(height=height, width=width, tile_h=16, tile_w=128,
                  out_h=height), brk, int(starts[1]))
+
+
+def tile_meta_stream(seed, tiles_y, tiles_x, rc, n_items, long_tile=0,
+                     n_kept=None):
+    """A binned item stream as ``raster.build_tile_lists`` leaves it, built
+    by hand for ``raster.tile_metadata``: (all22 i32[22, rc], flat,
+    t_of_item i32[n_items], tile_starts, tile_counts i32[T]) and its
+    keyword arguments (16-row tiles).  ``n_kept`` kept items (default: n_items
+    less 5, so not a multiple of 8) over the row-major tiles, a third of
+    the tiles empty and tile ``T // 2`` holding ``long_tile`` of them (if
+    any);
+    the slots past n_kept hold item 0 in tile 0.  Each quad's rows: random
+    words, screen rows (bby) that may start above and end below any tile,
+    and near depths that include +-0, +-inf, negative values and NaN."""
+    rng = np.random.default_rng(seed)
+    n_tiles = tiles_y * tiles_x
+    n_kept = n_items - 5 if n_kept is None else n_kept
+    weights = rng.random(n_tiles) * (rng.random(n_tiles) > 1 / 3)
+    if long_tile:
+        weights[n_tiles // 2] = 0.0
+    weights[0] = max(weights[0], 0.1)
+    rest = n_kept - long_tile
+    counts = np.floor(weights / weights.sum() * rest).astype(np.int64)
+    counts[0] += rest - counts.sum()
+    if long_tile:
+        counts[n_tiles // 2] = long_tile
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    t_of_item = np.zeros(n_items, np.int32)
+    t_of_item[:n_kept] = np.repeat(np.arange(n_tiles), counts)
+    flat = np.zeros(n_items, np.int32)
+    flat[:n_kept] = rng.integers(0, rc, n_kept)
+    all22 = rng.integers(-2**31, 2**31, (22, rc), dtype=np.int64).astype(
+        np.int32)
+    y0 = rng.integers(-8, tiles_y * 16 + 8, rc)
+    y1 = y0 + rng.integers(0, 40, rc)
+    all22[20] = np.clip(y0, 0, None) | (np.clip(y1, 0, 2**15 - 1) << 16)
+    near = rng.uniform(-2.0, 2.0, rc).astype(np.float32)
+    special = np.float32([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-40, -1e-40])
+    pick = rng.random(rc) < 0.05
+    near[pick] = rng.choice(special, int(pick.sum()))
+    all22[21] = near.view(np.int32)
+    ins = tuple(torch.from_numpy(np.ascontiguousarray(x)) for x in (
+        all22, flat, t_of_item, starts.astype(np.int32),
+        counts.astype(np.int32)))
+    return ins, dict(tiles_y=tiles_y, tiles_x=tiles_x, tile_h=16)

@@ -301,6 +301,78 @@ def test_render_step_on_card_matches_cpu(cuda_device, name):
                         d2.numpy(), rec[0].numpy())
 
 
+def _meta_inputs(args, kw):
+    """The inputs render_step hands ``raster.tile_metadata`` (its stage
+    5), the step stopped there."""
+    return bench_common.meta_inputs(lambda: pipeline.render_step(*args, **kw))
+
+
+def _meta_case(case, device):
+    """tile_metadata's inputs for ``case``: a small scene's step, its span
+    step and a row band of it; a fuzz stream of the vd12 caps at 1280x720
+    (gather 131072, render cap 65536, items 131072); a hand-built stream
+    (tests/_torch_streams.py tile_meta_stream) with a tile of 5000 items,
+    empty tiles, octets across tiles and 131067 kept items."""
+    if case in parity.SMALL_SCENES:
+        return _meta_inputs(*parity.small_scene(case, device))
+    if case == "constructed":
+        ins, kw = TS.tile_meta_stream(3, 45, 10, 65536, 131072, 5000)
+        return tuple(x.to(device) for x in ins), kw
+    args, kw = parity.small_scene("terrain 640x128", device)
+    if case == "span":
+        return _meta_inputs(args, dict(kw, span_mode=True))
+    if case == "band":
+        return _meta_inputs(args,
+                            dict(kw, band_y0=40, band_h=50))
+    assert case == "vd12 720p"
+    words, qw = _fuzz_stream(131072, seed=19, max_size=8)
+    vp, cp = _camera_args("far", device, aspect=16 / 9)
+    n = torch.tensor(120000, dtype=torch.int32, device=device)
+    return _meta_inputs(
+        (words.to(device), qw.to(device), n, vp, cp),
+        dict(kw, width=1280, height=720, render_cap=65536,
+             tile_k_cap=131072))
+
+
+META_CASES = sorted(parity.SMALL_SCENES) + ["band", "constructed", "span",
+                                            "vd12 720p"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", META_CASES)
+def test_tile_meta_kernel_matches_twin(cuda_device, case):
+    """The tile_meta kernel against tile_metadata_plain on the same card
+    and inputs: records, octet rows and octet_zmin (as int32) bit for bit,
+    the unused slots past the kept items included; one launch counted."""
+    a, kw = _meta_case(case, cuda_device)
+    starts, counts = a[3], a[4]
+    n_kept = int(starts[-1] + counts[-1])
+    assert 0 < n_kept and int(counts.max()) > 8
+    before = raster.launches_meta
+    got = raster.tile_metadata(*a, **kw)
+    torch.cuda.synchronize()
+    assert raster.launches_meta == before + 1
+    want = raster.tile_metadata_plain(*a, **kw)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[2].view(torch.int32), want[2].view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_tile_meta_kernel_refuses_what_it_does_not_take(cuda_device):
+    ins, kw = TS.tile_meta_stream(3, 4, 5, 256, 1024)
+    ins = [x.to(cuda_device) for x in ins]
+    bad = {"odd items": (ins[0], ins[1][:-4], ins[2][:-4], *ins[3:]),
+           "int64": (ins[0].long(), *ins[1:]),
+           "strided": (ins[0][:, ::2], *ins[1:]),
+           "21 rows": (ins[0][:21], *ins[1:]),
+           "on the CPU": (ins[0], ins[1].cpu(), *ins[2:]),
+           "tiles": (*ins[:3], ins[3][:-1], ins[4][:-1])}
+    for name, b in bad.items():
+        with pytest.raises(ValueError):
+            raster.tile_metadata(*b, **kw)
+
+
 def _resident_append_frame(device):
     """A resident streaming frame on ``device``: the fuzz chunk's stream,
     the mono fuzz chunk scattered, appended and rendered in one step
@@ -888,17 +960,17 @@ def _wrappers_raise():
     """Every kernel wrapper a frame reaches raises inside the block: a
     replay runs none of the step's Python."""
     saved = (geometry.project_cull, raster.rasterize_tiles,
-             raster_packed.rasterize_packed)
+             raster.tile_metadata, raster_packed.rasterize_packed)
 
     def refuse(*a, **kw):
         raise AssertionError("a kernel wrapper ran at a replay")
 
     geometry.project_cull = raster.rasterize_tiles = refuse
-    raster_packed.rasterize_packed = refuse
+    raster.tile_metadata = raster_packed.rasterize_packed = refuse
     try:
         yield
     finally:
-        (geometry.project_cull, raster.rasterize_tiles,
+        (geometry.project_cull, raster.rasterize_tiles, raster.tile_metadata,
          raster_packed.rasterize_packed) = saved
 
 
@@ -1018,18 +1090,20 @@ def test_graphs_recapture_after_set_shading_and_a_new_pool(cuda_device):
 def test_replay_runs_no_wrapper_and_counts_exactly(cuda_device):
     """After the warm-ups, static, moving and streaming frames replay
     (one replay a frame, no capture) with every kernel wrapper made to
-    raise, and K1 and K2 still count exactly one launch a frame."""
+    raise, and K1, tile_meta and K2 still count exactly one launch a
+    frame."""
     eng = _graph_engine(cuda_device)
     eng.warm_buckets()
     eng.warm_streaming()
     _fly(eng, GRAPH_POSES[:1])
     torch.cuda.synchronize()
-    before = (geometry.launches, raster.launches)
+    before = (geometry.launches, raster.launches_meta, raster.launches)
     calls = graphs.calls.copy()
     with _wrappers_raise():
         frames = _fly(eng, GRAPH_POSES)
-    assert (geometry.launches, raster.launches) == (
-        before[0] + len(frames), before[1] + len(frames))
+    assert (geometry.launches, raster.launches_meta, raster.launches) == (
+        before[0] + len(frames), before[1] + len(frames),
+        before[2] + len(frames))
     assert graphs.calls - calls == {"replays": len(frames)}
 
 
@@ -1162,9 +1236,9 @@ def test_sharded_batch_on_cards_matches_one_card(cards):
     across calls.  The first call runs each card's step eagerly and
     captures its graph; the second replays those graphs (no capture, the
     same graph objects) with every kernel wrapper made to raise.  Each
-    counts K1 and K2 once on each card (a capture counts into its own
-    tally, added at each replay); the frames and counts of both equal the
-    same batch's on card 0 alone bit for bit."""
+    counts K1, tile_meta and K2 once on each card (a capture counts into
+    its own tally, added at each replay); the frames and counts of both
+    equal the same batch's on card 0 alone bit for bit."""
     pool, counts, positions, n_slots, cam = graft_entry._example_scene()
     other = Camera(np.array([-30.0, 50.0, 80.0], np.float32), 16.0 / 9.0)
     other.look_at(np.array([0.0, 0.0, 0.0], np.float32))
@@ -1200,7 +1274,8 @@ def test_sharded_batch_on_cards_matches_one_card(cards):
         calls.append(graphs.calls - before)
         if not replay:
             made = {k: (g, g.graph) for k, g in fn.shards.graphs.items()}
-    assert runs[1] == {(k, c): 1 for k in ("K1", "K2") for c in range(size)}
+    assert runs[1] == {(k, c): 1 for k in ("K1", "tile_meta", "K2")
+                       for c in range(size)}
     assert runs[3] == runs[1]
     assert calls == [{"captures": size}, {"replays": size}]
     assert {k: (g, g.graph) for k, g in fn.shards.graphs.items()} == made

@@ -353,7 +353,8 @@ def test_modules_read_their_counts_from_the_registry():
 
     names = {(geometry, "launches"): "K1", (geometry, "launches_span"):
              "K1 span", (raster, "launches"): "K2", (raster, "launches_geom"):
-             "K3", (raster_packed, "launches"): "K4",
+             "K3", (raster, "launches_meta"): "tile_meta",
+             (raster_packed, "launches"): "K4",
              (micro, "launches_fill"): "M1", (micro, "launches_copy"): "M2"}
     with _build.COUNT_LOCK:
         saved = (_build.counts.copy(), _build.card_launches.copy())
