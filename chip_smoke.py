@@ -224,8 +224,11 @@ and times kernels and frames.  Phases:
    graph) and at a replay (K1 and K2 counted once a card at each; once a
    card by the profiler at the replay), the tp counts all-reduced by
    NCCL, the batch timed on four cards against one, the gather, the all-reduce and each card's
-   K2 band; on fewer cards the 1 x 1 mesh, and a line saying the
-   four-card layouts were not run;
+   K2 band, and ``Engine.render_views`` on the four cards (two views a
+   call, static and across a chunk boundary, each equal to
+   ``render_frame``'s frame, the pool's replicas following it); on fewer
+   cards the 1 x 1 mesh, and a line saying the four-card layouts were not
+   run;
 20. the serial frame replayed from CUDA graphs (``Renderer`` serves
    each entry point and gather bucket from one graph,
    rendering/graphs.py): a fresh engine of phase 3's configuration, the
@@ -401,11 +404,12 @@ def graph_calls():
 
 
 def new_engine(torch, config=None, prime_all=False, pool_slots=4096,
-               resident=False, device_meshing=False):
+               resident=False, device_meshing=False, mesh_cards=None):
     """An Engine on the card at the headline scene (``config``, by default
     RenderConfig(WIDTH, HEIGHT); in the resident superset stream mode with
-    ``resident``, meshing on the card with ``device_meshing``), its world
-    settled and primed at the start pose (every loaded chunk meshed with
+    ``resident``, meshing on the card with ``device_meshing``, the views
+    of a mesh of ``mesh_cards`` cards with it), its world settled and
+    primed at the start pose (every loaded chunk meshed with
     ``prime_all``): (engine, world seconds, prime seconds, the card
     synchronised)."""
     import numpy as np
@@ -420,7 +424,7 @@ def new_engine(torch, config=None, prime_all=False, pool_slots=4096,
     eng = Engine(config or RenderConfig(WIDTH, HEIGHT),
                  WorldConfig(view_distance=VIEW_DISTANCE),
                  pool_slots=pool_slots, resident_stream=resident,
-                 device_meshing=device_meshing)
+                 device_meshing=device_meshing, mesh_cards=mesh_cards)
     eng.camera.position = np.array(START_POS, np.float32)
     eng.camera.look_at(np.array(START_TARGET, np.float32))
     while eng.world.update(eng.camera.position):
@@ -506,7 +510,7 @@ def main_path(torch):
     for f in static_frames[1:]:
         if not all(torch.equal(a, b) for a, b in zip(f, static_frames[0])):
             raise AssertionError("the static frames differ")
-    static_list = draw_list(eng)
+    static_list = eng.draw_list()
     cams = [(eng.camera.view_projection_matrix(), eng.camera.position.copy())]
     # the static draw list's stream and camera, for the kernel checks
     static = (eng._upload_cache[1], eng.camera.view_projection_matrix(),
@@ -528,12 +532,12 @@ def main_path(torch):
         eng.camera.look_at(target)
         res, st, n = frame(True)
         moving.append(keep(res))
-        moving_lists.append(draw_list(eng))
+        moving_lists.append(eng.draw_list())
         moving_cams.append((eng.camera.view_projection_matrix(),
                             eng.camera.position.copy()))
         log(f"[3] moving frame {i}: stats={st.tolist()} non-sky={n} "
             f"meshes={len(eng.pool.by_pos)} entry={dict(entry)}")
-    moving_list = draw_list(eng)
+    moving_list = eng.draw_list()
     cams.append((eng.camera.view_projection_matrix(),
                  eng.camera.position.copy()))
     torch.cuda.synchronize()
@@ -554,13 +558,6 @@ def main_path(torch):
                   moving_lists=moving_lists, moving_cams=moving_cams)
     return (eng, static, launches, meta, dict(static_ms=dev_ms,
                                               host_ms=host_ms), serial)
-
-
-def draw_list(eng):
-    """The chunk positions of the frame just rendered, front to back (its
-    draw list, as positions: pool slots may be reused later)."""
-    n = eng._last_n_visible
-    return eng.pool.positions[eng._last_visible_slots[:n]].copy()
 
 
 def same_frame(torch, res, ref):

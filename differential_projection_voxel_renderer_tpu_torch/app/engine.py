@@ -8,12 +8,14 @@ on its serial path (``render_frame``, also with
 ``flush_pipeline``), in the one-frame-stale pool mode
 (``stale_streaming``, ``DPVR_STALE_POOL=1``) and in the resident superset
 stream mode (``resident_stream``, ``DPVR_RESIDENT=1``), with the runtime
-toggles, ``prime_all`` and the warm-ups.  The host logic (streaming,
-remeshing, the culling funnel, draw-list build, the pool's host
-bookkeeping) is carried
-over as it is, on the port's own copies of the host layers (``models``,
-``meshing``, ``ops/culling.py``, ``ops/occlusion.py``, ``utils``); only
-the device calls change.  Every device tensor lives on the ``device`` the
+toggles, ``prime_all`` and the warm-ups; and, on an engine built with
+``mesh_cards``, several views of the scene a call over a mesh of cards
+(``render_views``: each view through the funnel, all of them in one
+sharded render, parallel/sharded_render.py ``ViewsRender``).  The host
+logic (streaming, remeshing, the culling funnel, draw-list build, the
+pool's host bookkeeping) is carried over as it is, on the port's own
+copies of the host layers (``models``, ``meshing``, ``ops/culling.py``,
+``ops/occlusion.py``, ``utils``); only the device calls change.  Every device tensor lives on the ``device`` the
 engine was built with, the card unless the caller asks for the CPU.  With
 ``device_meshing`` a remesh batch of 4 chunks or more is meshed on the
 device (ops/meshing_device.py) and its rows scattered into the pool there.
@@ -39,6 +41,7 @@ from ..ops.culling import (
     sort_front_to_back,
 )
 from ..ops.occlusion import occlusion_pass, project_chunk_rects
+from ..parallel.sharded_render import ViewsRender, make_mesh
 from ..rendering.pipeline import (
     RESIDENT_APPEND_VCAP,
     RESIDENT_INSERT_FP,
@@ -73,7 +76,8 @@ _THROWAWAY = (10**6, 10**6, 10**6)
 
 # RenderConfig and WorldConfig are re-exported: a caller of the port builds
 # an Engine naming this package only
-__all__ = ["Engine", "FrameResult", "QuadPool", "RenderConfig", "WorldConfig"]
+__all__ = ["DrawList", "Engine", "FrameResult", "QuadPool", "RenderConfig",
+           "ViewsResult", "WorldConfig"]
 
 
 def _dir_counts(quads: np.ndarray) -> np.ndarray:
@@ -94,7 +98,9 @@ def _words(a: np.ndarray) -> torch.Tensor:
 class QuadPool:
     """Device mesh cache: packed quads per chunk slot (int32 words) plus a
     device mirror of the per-direction counts (``counts6_dev``), kept in
-    step by every device scatter.  Host bookkeeping as in the reference."""
+    step by every device scatter.  Host bookkeeping as in the reference.
+    Where ``written`` is a set (an engine with views sets it), every write
+    of a slot's device row adds the slot to it (``take_written``)."""
 
     # the fused insert+render payload shape (rendering/pipeline.Renderer)
     INSERT_KP = Renderer.INSERT_KP
@@ -122,6 +128,17 @@ class QuadPool:
         self._used = np.zeros(slots, bool)
         self._lookup_cache: tuple | None = None
         self._dev_cache: torch.Tensor | None = None  # positions on device
+        self.written: set[int] | None = None
+
+    def _wrote(self, slots) -> None:
+        if self.written is not None:
+            self.written.update(int(s) for s in slots)
+
+    def take_written(self) -> set[int]:
+        """The slots whose device rows were written since the last call
+        (``written`` must be a set), and ``written`` emptied."""
+        got, self.written = self.written, set()
+        return got
 
     def device_tables(self) -> torch.Tensor:
         """The slot positions i32[S, 3] on the pool's device, copied again
@@ -187,6 +204,7 @@ class QuadPool:
             self.quads[slot] = row_t
             self.counts6_dev[slot] = _c6_of(
                 row_t[None, :], torch.tensor([n], device=self.device))[0]
+        self._wrote((slot,))
         self.counts[slot] = n
         self.counts6[slot] = _dir_counts(row[:n])
         self.positions[slot] = key
@@ -218,6 +236,7 @@ class QuadPool:
                 self.device)
             self.quads[slots_t] = quad_rows
             self.counts6_dev[slots_t] = _c6_of(quad_rows, counts_t)
+        self._wrote(slots)
         self._dev_cache = None
         self._lookup_cache = None
 
@@ -258,6 +277,7 @@ class QuadPool:
             counts[i] = n
             self.counts[slot] = n
             self.positions[slot] = key
+        self._wrote(slots)
         starts = np.cumsum(counts) - counts
         total = int(counts.sum())
         mc = 512 if counts.max(initial=0) <= 512 else self.qcap
@@ -317,6 +337,7 @@ class QuadPool:
             counts[i] = n
             self.counts[slot] = n
             self.positions[slot] = key
+        self._wrote(slots[:k])
         slots[k:] = slots[0]
         counts[k:] = counts[0]
         starts = np.zeros(kp, np.int64)
@@ -397,6 +418,7 @@ class QuadPool:
              self._dev_cache, self.overflow_drops) = saved
             self.quads[slot] = row
             self.counts6_dev[slot] = c6_dev
+            self._wrote((slot,))
 
     @staticmethod
     def _pack_keys(pos: np.ndarray) -> np.ndarray:
@@ -437,6 +459,31 @@ class FrameResult:
         return np.array(self.depth.cpu())
 
 
+@dataclass
+class DrawList:
+    """A funnel's draw list (``Engine.draw_list``): the visible meshed
+    chunks front to back, padded to the renderer's ``visible_chunks_cap``
+    (the first ``n`` rows hold chunks)."""
+
+    slots: np.ndarray      # i32[vcap] pool slots
+    counts6: np.ndarray    # i32[vcap, 6] quads by face direction
+    dir_mask: np.ndarray   # i32[vcap, 6] face directions kept
+    positions: np.ndarray  # i32[vcap, 3] chunk positions
+    n: int
+
+
+@dataclass
+class ViewsResult:
+    """``Engine.render_views``' views, on the engine's device."""
+
+    color: torch.Tensor    # int32[B, H, W] ARGB bits
+    depth: torch.Tensor    # f32[B, H, W]
+    stats: torch.Tensor    # i32[B, 6]: gathered, the bands' reduced count
+    #                        (psum // tp), overflow and bin_overflow summed
+    #                        over the bands, subpixel_culled, hiz_culled
+    reduced: torch.Tensor  # i32[B, tp]: the reduced count on each tp card
+
+
 class Engine:
     """Owns world + camera + mesh pool + renderer; drives frames."""
 
@@ -445,7 +492,8 @@ class Engine:
                  pool_slots: int = 4096,
                  horizon_config: HorizonCullingConfig | None = None,
                  device_meshing: bool = False,
-                 resident_stream: bool | None = None, *, device="cuda"):
+                 resident_stream: bool | None = None, *, device="cuda",
+                 mesh_cards: int | None = None):
         # mesh remesh batches of 4 chunks or more on the device
         # (ops/meshing_device.py, byte-identical to the host mesher)
         self.device_meshing = device_meshing
@@ -526,6 +574,20 @@ class Engine:
             bool(int(os.environ.get("DPVR_STALE_POOL", "0") or "0"))
             or self.resident_stream)  # resident appends land one frame late
         self._stale_stash: list = []
+        # render_views: the (dp, tp) mesh of ``mesh_cards`` devices (the
+        # first CUDA cards, card 0 the engine's; on the CPU the engine's
+        # device listed that many times) and its render, made at first use
+        self.mesh = None
+        if mesh_cards:
+            self.mesh = make_mesh(mesh_cards, devices=(
+                None if self.device.type == "cuda"
+                else [self.device] * mesh_cards))
+            if self.mesh.devices[0, 0] != torch.empty(
+                    0, device=self.device).device:
+                raise ValueError(f"the mesh {self.mesh} does not start at "
+                                 f"the engine's device {self.device}")
+        self._views: ViewsRender | None = None
+        self._hold_world = False  # a view after the first: no world update
 
     # ------------------------------------------------------------- meshing
     def _remesh(self, visible_chunks) -> int:
@@ -857,7 +919,8 @@ class Engine:
         with prof.FUNNEL:
             cam = self.camera
             self.controller.update_camera(cam, dt)
-            self.world.update(cam.position)
+            if not self._hold_world:
+                self.world.update(cam.position)
 
             vp_now = cam.view_projection_matrix()
             world_v = self.world.version
@@ -1299,6 +1362,91 @@ class Engine:
         color, depth, stats = out
         pn, pv = self._pipe_meta.popleft()
         return FrameResult(color, depth, stats, pn, pv)
+
+    # ----------------------------------------------------------- views
+    def draw_list(self) -> DrawList:
+        """The draw list of the last funnel (the last frame's, or the last
+        view's): its arrays, which later funnels do not write."""
+        return DrawList(self._last_visible_slots, self._last_counts_sel,
+                        self._last_dir_mask, self._last_positions_sel,
+                        int(self._last_n_visible))
+
+    def _views_render(self) -> ViewsRender:
+        """The mesh's render of views, made at its first use; from then on
+        the pool notes the slots it writes, which the render's replicas
+        take at each call (``ViewsRender.follow``)."""
+        if self.mesh is None:
+            raise RuntimeError("render_views needs an engine built with "
+                               "mesh_cards")
+        if self._views is None:
+            self._views = ViewsRender(self.mesh, self.renderer)
+            self.pool.written = set()
+        return self._views
+
+    def warm_views(self, views: int | None = None) -> None:
+        """Every one-time cost of ``render_views`` with ``views`` views a
+        call (by default the mesh's dp), in a fixed order: the pool's
+        replicas on the other cards (peer copies), each dp row's NCCL
+        communicator, then each gather bucket's graph on every card
+        (``ViewsRender.warm``), on a one-chunk draw list with an identity
+        camera.  The pool, the caches and every later frame are as
+        without the call."""
+        render = self._views_render()
+        vcap = self.config.visible_chunks_cap
+        c6 = np.zeros((vcap, 6), np.int32)
+        c6[0] = self.pool.counts6[0]
+        one = DrawList(np.zeros(vcap, np.int32), c6,
+                       np.ones((vcap, 6), np.int32),
+                       np.zeros((vcap, 3), np.int32), 1)
+        eye, origin = np.eye(4, dtype=np.float32), np.zeros(3, np.float32)
+        frames, _, _ = self.renderer.pack_views(
+            [(one, eye, origin)] * (views or self.mesh.dp))
+        self.pool.take_written()
+        render.warm(self.pool.quads, frames)
+
+    def render_views(self, poses, dt: float = 0.016) -> ViewsResult:
+        """One call of ``len(poses)`` views, a multiple of the mesh's dp:
+        each pose ``(position, yaw, pitch)`` in turn set on the camera and
+        run through the funnel (``dt`` handed to the first alone; the
+        world updates at the first view's position only, and a remesh
+        batch lands in the pool by the standalone scatter), then every
+        view rendered by one sharded call over the mesh
+        (``ViewsRender``): shard (i, t) renders the views of dp row i on
+        row band t from its card's replica of the pool.  The camera is left
+        at the last pose.  Returns fresh tensors on the engine's device,
+        which later calls never write; each view's frame is
+        ``render_frame``'s at its pose bit for bit."""
+        render = self._views_render()
+        if self.resident_stream:
+            raise RuntimeError("render_views runs the frustum draw list, "
+                               "not the resident stream")
+        if not poses or len(poses) % self.mesh.dp:
+            raise ValueError(f"{len(poses)} views over dp = {self.mesh.dp}")
+        cam = self.camera
+        views = []
+        with prof.FRAME(self.device):
+            for k, (position, yaw, pitch) in enumerate(poses):
+                cam.position = np.array(position, np.float32)
+                cam.yaw, cam.pitch = float(yaw), float(pitch)
+                self._hold_world = k > 0
+                try:
+                    vp = self._funnel(dt if k == 0 else 0.0)[0]
+                finally:
+                    self._hold_world = False
+                if self._pending_insert is not None:
+                    self.pool.dispatch_insert_payload(self._pending_insert)
+                    self._pending_insert = None
+                views.append((self.draw_list(), vp, cam.position.copy()))
+            with prof.VIEWS_PACK:
+                frames, cap, quads = self.renderer.pack_views(views)
+            prof.VIEWS.add(len(views))
+            prof.VIEW_QUADS.add(quads)
+            with prof.VIEWS_DISPATCH:
+                color, depth, stats, reduced = render(
+                    self.pool.quads, self.pool.take_written(), frames, cap)
+            self._apply_stale_stash()
+        self._frame_bookkeeping(sum(dl.n for dl, _, _ in views))
+        return ViewsResult(color, depth, stats, reduced)
 
     def _frame_bookkeeping(self, n) -> None:
         """``log_fps``: a line for a frame whose span (``frame``, host

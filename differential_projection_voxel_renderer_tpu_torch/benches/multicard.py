@@ -31,6 +31,10 @@ On four or more cards:
   (a graph's launches are counted at each replay, rendering/graphs.py),
   and the all-reduced count
   equal to the bands' sum // tp on both tp cards of each dp row;
+- ``Engine.render_views`` on ``make_mesh(4)`` (``views_entry``): two
+  views a call, static and moving across a chunk boundary, each view
+  equal to ``render_frame``'s frame of its pose bit for bit, the pool's
+  replicas following it;
 - ``make_sharded_render_dp`` on the four cards, the static pose and the
   three moving poses, one camera a card: each frame equal to phase 3's;
 - times, host clock around a call and the synchronisation of every card,
@@ -50,6 +54,7 @@ says that the four-card layouts were not run.  It prints one JSON line
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import statistics
@@ -72,6 +77,9 @@ from . import common, micro_fixed2
 MOVING_DP = (3, 6, 9)
 # the probes' variants of M1 and M2 checked on each card (chip_smoke.py's)
 M1_LABEL, M2_LABEL = "a_base", "solo10_4x5"
+# the views check's moving calls: 2 world units a call from the start pose
+# (z = 20) to z = -4, across the chunk boundary at z = 0
+VIEWS_MOVING = 12
 
 
 def log(msg: str) -> None:
@@ -108,7 +116,7 @@ def phase3_poses(smoke):
     def frame():
         r = eng.render_frame(dt=0.0)
         return ((r.color.clone(), r.depth.clone(), r.stats.clone()),
-                smoke.draw_list(eng),
+                eng.draw_list(),
                 (eng.camera.view_projection_matrix(),
                  eng.camera.position.copy()))
 
@@ -124,24 +132,15 @@ def phase3_poses(smoke):
 
 def batch_args(eng, lists, cams) -> tuple[tuple, dict]:
     """The sharded render's inputs for the cameras ``cams`` ((view_proj,
-    cam_pos) each) with draw lists ``lists`` (chunk positions) on
-    ``eng``'s pool, on its device: ((pool, counts, positions, visible
-    slots, n_visible, view_proj, cam_pos), its caps: gather_cap the
-    largest list's quads rounded up to a power of two (at least the
-    engine's), render_cap and tile_k_cap the engine's)."""
+    cam_pos) each) with draw lists ``lists`` (``Engine.draw_list``'s, of
+    frames rendered on ``eng``'s pool) on its device: ((pool, counts,
+    positions, visible slots, n_visible, view_proj, cam_pos), its caps:
+    gather_cap the largest list's quads rounded up to a power of two (at
+    least the engine's), render_cap and tile_k_cap the engine's)."""
     cfg = eng.config
-    vcap = cfg.visible_chunks_cap
-    b = len(lists)
-    visible = np.zeros((b, vcap), np.int32)
-    nvis = np.zeros(b, np.int32)
-    for i, pos in enumerate(lists):
-        slots, has = eng.pool.lookup_slots(pos)
-        if not has.all():
-            raise AssertionError("a chunk of a draw list left the pool")
-        visible[i, :len(slots)] = slots
-        nvis[i] = len(slots)
-    most = max(int(eng.pool.counts[visible[i, :nvis[i]]].sum())
-               for i in range(b))
+    visible = np.stack([dl.slots for dl in lists]).astype(np.int32)
+    nvis = np.array([dl.n for dl in lists], np.int32)
+    most = max(int(eng.pool.counts[dl.slots[:dl.n]].sum()) for dl in lists)
     caps = dict(gather_cap=max(cfg.gather_cap, 1 << (most - 1).bit_length()),
                 render_cap=cfg.quads_cap, tile_k_cap=cfg.tile_k_cap)
     dev = eng.device
@@ -396,6 +395,77 @@ def in_turns(fns: dict, runs: int) -> dict:
     return times
 
 
+def views_entry(smoke, cards: int, log=log) -> dict:
+    """``Engine.render_views`` on ``make_mesh(cards)`` (2 x 2 on four
+    cards) against ``render_frame``: a views engine and a serial engine of
+    phase 3's configuration (``smoke.new_engine``), each settled and primed
+    at the start pose; the views engine's ``warm_views`` captures every
+    bucket on every card.  Then two views a call, back to back (the second
+    yaw + pi): the static start pose, and ``VIEWS_MOVING`` poses creeping
+    from it across the chunk boundary at z = 0, so that chunks stream in,
+    mesh and land in the pool between calls.  The serial engine renders
+    each view at the same pose, in the same order (its world updates at a
+    call's first view only, as the views engine's): every view's stacked
+    bands equal its frame bit for bit (colour, depth as int32) with its
+    stream length, no cap drops, the reduced count alike on both tp cards,
+    no call after ``warm_views`` captures, and after the moving calls each
+    card's replica of the pool equals the pool.  Returns the readings."""
+    ev = smoke.new_engine(torch, mesh_cards=cards)[0]
+    es = smoke.new_engine(torch)[0]
+    before = graphs.calls.copy()
+    ev.warm_views(2)
+    warm = graphs.calls - before
+    start = np.array(smoke.START_POS, np.float32)
+    ev.camera.look_at(np.array(smoke.START_TARGET, np.float32))
+    yaw, pitch = ev.camera.yaw, ev.camera.pitch
+    calls = [start] + [start - np.array([0.0, 0.0, 2.0 * (i + 1)],
+                                        np.float32)
+                       for i in range(VIEWS_MOVING)]
+    res = dict(warm_graph_calls=dict(warm), calls=[])
+    # the views calls' own graph calls (the serial engine captures its own)
+    made = collections.Counter()
+    for i, pos in enumerate(calls):
+        views = [(pos, yaw + 0.01 * i, pitch),
+                 (pos, yaw + 0.01 * i + np.pi, pitch)]
+        before = graphs.calls.copy()
+        got = ev.render_views(views)
+        made += graphs.calls - before
+        for k, (p, y, pt) in enumerate(views):
+            es.camera.position = np.array(p, np.float32)
+            es.camera.yaw, es.camera.pitch = y, pt
+            es._hold_world = k > 0
+            f = es.render_frame(dt=0.0)
+            es._hold_world = False
+            if not (same_frame((got.color[k], got.depth[k]), (f.color,
+                                                              f.depth))
+                    and int(got.stats[k, 0]) == int(f.stats[0])
+                    and got.stats[k, 2:4].tolist() == [0, 0]
+                    and len(set(got.reduced[k].tolist())) == 1):
+                raise AssertionError(f"views: call {i} view {k} differs from "
+                                     f"render_frame at its pose")
+        res["calls"].append(dict(z=float(pos[2]), stats=got.stats.tolist(),
+                                 reduced=got.reduced.tolist(),
+                                 meshes=len(ev.pool.by_pos)))
+    if made.get("captures") or warm.get("captures", 0) < 1:
+        raise AssertionError(f"views: graph calls at warm_views {warm}, in "
+                             f"the calls {made}")
+    render = ev._views_render()
+    sync_all()
+    for d, rep in render._replicas.items():
+        if not torch.equal(rep, ev.pool.quads.to(d)):
+            raise AssertionError(f"views: the replica on {d} differs from "
+                                 f"the pool")
+    res["replicas_equal_pool"] = sorted(str(d) for d in render._replicas)
+    res["calls_graph_calls"] = dict(made)
+    log(f"views on {render.mesh}: {len(calls)} calls of two views (the "
+        f"static start pose, then z down to {float(calls[-1][2])}), every "
+        f"view's stacked bands equal render_frame's frame bit for bit; "
+        f"{warm.get('captures')} captures in warm_views, none after; the "
+        f"pool grew to {len(ev.pool.by_pos)} meshes and every replica "
+        f"equals it")
+    return res
+
+
 def four_cards(eng, poses, args, dargs, caps, step_kw, runs: int,
                log=log) -> dict:
     """The 2 x 2 and the dp layouts on cards 0-3 (see the module's
@@ -619,7 +689,10 @@ def run(eng, poses, runs: int = 20, log=log) -> dict:
         return res
     res.update(four_cards(eng, poses, args, dargs, caps, step_kw, runs,
                           log))
-    res["layouts"] = "2x2 and dp on cards 0-3"
+    import chip_smoke
+
+    res["views"] = views_entry(chip_smoke, 4, log)
+    res["layouts"] = "2x2 and dp on cards 0-3, and Engine.render_views"
     return res
 
 

@@ -30,7 +30,12 @@ framebuffer row bands over the ``tp`` axis of a device mesh:
   shards -- an NCCL all-reduce in this one process where those are
   distinct cards, else the plain sum -- then divided by tp on each shard;
 - the outputs are gathered on the mesh's first device by peer copies, as
-  ``np.asarray`` gathers a sharded ``jax.Array``.
+  ``np.asarray`` gathers a sharded ``jax.Array``;
+- ``ViewsRender`` is the same layout on the engine's own path
+  (``Engine.render_views``): each view's draw list from the engine's
+  funnel, the serial path's expansion and step on each band, one graph a
+  (gather bucket, shard), and the pool's replicas following the engine's
+  pool.
 """
 
 from __future__ import annotations
@@ -45,7 +50,9 @@ from ..ops.raster import pick_tile
 from ..ops.shading import build_quad_color_tables
 from ..ops.texture import TextureAtlas
 from ..rendering.graphs import CapturedCall
-from ..rendering.pipeline import render_step, resolve_device
+from ..rendering.pipeline import (render_step, resolve_device,
+                                  views_band_frame)
+from ..utils import profiling as prof
 
 
 class DeviceMesh:
@@ -208,6 +215,37 @@ def _render_one_camera(pool, counts_all, positions, visible_slots,
     return color, depth, stats[1]
 
 
+def _reduce_rows(mesh: DeviceMesh, shards: dict) -> None:
+    """``psum(count, "tp") // tp``: each dp row's band counts (a shard's
+    outputs' third item) summed over its tp shards (``all_reduce_sum``)
+    and divided by tp, on every shard, in place of the band counts."""
+    dp, tp = mesh
+    for i in range(dp):
+        row = all_reduce_sum([shards[i, t][2] for t in range(tp)])
+        for t in range(tp):
+            s = shards[i, t]
+            shards[i, t] = (*s[:2], row[t] // tp, *s[3:])
+
+
+def _stack_bands(mesh: DeviceMesh, shards: dict, height: int,
+                 width: int) -> tuple:
+    """The shards' bands (a shard's outputs' first two items: [color] and
+    [depth] a camera) stacked into fresh tensors on the mesh's first
+    device by peer copies: color i32[B, H, W], depth f32[B, H, W]."""
+    per = len(shards[0, 0][0])
+    bh = height // mesh.tp
+    dev = mesh.devices[0, 0]
+    color = torch.empty((mesh.dp * per, height, width), dtype=torch.int32,
+                        device=dev)
+    depth = torch.empty((mesh.dp * per, height, width), dtype=torch.float32,
+                        device=dev)
+    for (i, t), (cs, ds, *_) in shards.items():
+        for j, (c, d) in enumerate(zip(cs, ds)):
+            color[i * per + j, t * bh:(t + 1) * bh].copy_(c)
+            depth[i * per + j, t * bh:(t + 1) * bh].copy_(d)
+    return color, depth
+
+
 class _Shards:
     """Runs a mesh's shards: ``step(key, *fixed, *inputs)`` for each shard
     key on its device, each from its ``CapturedCall`` (rendering/
@@ -229,6 +267,12 @@ class _Shards:
         """``jobs``: [(key, device, fixed tensors on the device, inputs on
         any device)]; returns {key: the step's outputs}, on a card the
         graph's memory, overwritten by the next call."""
+        return self.replay(self.load(jobs))
+
+    def load(self, jobs) -> list:
+        """Every job's inputs copied into its graph's buffers (the graph
+        made where there is none for its fixed tensors and input shapes):
+        [(key, graph)] for ``replay``."""
         ready = []
         for key, dev, fixed, inputs in jobs:
             g = self.graphs.get(key)
@@ -239,6 +283,10 @@ class _Shards:
             for i, x in enumerate(inputs):
                 g.load(i, x)
             ready.append((key, g))
+        return ready
+
+    @staticmethod
+    def replay(ready) -> dict:
         return {key: g.run(copy=False) for key, g in ready}
 
 
@@ -317,28 +365,18 @@ class ShardedRender:
         """``psum(count, "tp") // tp``: each dp row's band counts summed
         over its tp shards (``all_reduce_sum``) and divided by tp, on every
         shard, in place of the band counts."""
-        dp, tp = self.mesh
-        for i in range(dp):
-            row = all_reduce_sum([shards[i, t][2] for t in range(tp)])
-            for t in range(tp):
-                shards[i, t] = (*shards[i, t][:2], row[t] // tp)
+        _reduce_rows(self.mesh, shards)
 
     def gather(self, shards: dict) -> tuple:
         """The shards' outputs copied into fresh tensors on the mesh's
         first device (the one copy out of the graphs' memory): color
         i32[B, H, W], depth f32[B, H, W] and each dp row's count, i32[B]."""
-        dp, tp = self.mesh
         per = len(shards[0, 0][0])
-        dev = self.mesh.devices[0, 0]
-        h, w, bh = self.kw["height"], self.kw["width"], self.band_h
-        color = torch.empty((dp * per, h, w), dtype=torch.int32, device=dev)
-        depth = torch.empty((dp * per, h, w), dtype=torch.float32,
-                            device=dev)
-        count = torch.empty(dp * per, dtype=torch.int32, device=dev)
-        for (i, t), (cs, ds, n) in shards.items():
-            for j, (c, d) in enumerate(zip(cs, ds)):
-                color[i * per + j, t * bh:(t + 1) * bh].copy_(c)
-                depth[i * per + j, t * bh:(t + 1) * bh].copy_(d)
+        color, depth = _stack_bands(self.mesh, shards, self.kw["height"],
+                                    self.kw["width"])
+        count = torch.empty(self.mesh.dp * per, dtype=torch.int32,
+                            device=color.device)
+        for (i, t), (_, _, n) in shards.items():
             if t == 0:
                 count[i * per:(i + 1) * per].copy_(n)
         return color, depth, count
@@ -375,6 +413,177 @@ def make_sharded_render(mesh: DeviceMesh, *, width: int, height: int,
                          gather_cap=gather_cap, render_cap=render_cap,
                          tile_k_cap=tile_k_cap, color_tables=color_tables,
                          span_mode=span_mode)
+
+
+class ViewsRender:
+    """The sharded render of the engine's views (``Engine.render_views``):
+    a batch of B views over a (dp, tp) mesh, each view's draw list from
+    the engine's own funnel, shard (i, t) rendering views i * B / dp ..
+    (i + 1) * B / dp - 1 on rows t * band_h ..  Its step is the serial
+    path's on a band: each view's draw list and face-direction masks are
+    expanded as ``render_fused`` expands them, then ``render_step`` runs
+    with ``band_y0``/``band_h`` (``pipeline.views_band_frame``), so the
+    stacked bands of a view are ``render_frame``'s frame of its pose bit
+    for bit.  Its shards (``_Shards``), its all-reduce and its gather of
+    the bands are the ``ShardedRender``'s.
+
+    Its graphs are one a (gather bucket, shard): a call takes the bucket
+    of its largest stream from the renderer's ladder, and ``warm``
+    captures every bucket on every card in a fixed order, so that no call
+    after it captures.  The pool is the engine's on the mesh's first
+    device and a replica on each other card (``follow``), brought up to
+    date before the shards run: the rows written since the last call, or
+    the whole pool when the engine's pool tensor is another.  Everything
+    is issued from the calling thread.  A card's replay, its all-reduce
+    and its copy into the first card are issued in that order on its
+    current stream (a copy between cards runs on the source card's
+    stream, after a barrier with the destination's), so a later call's
+    replay never writes memory that an earlier call's copy still reads,
+    however many calls are in flight."""
+
+    def __init__(self, mesh: DeviceMesh, renderer):
+        cfg = renderer.config
+        if cfg.packed_raster or cfg.two_pass_near_quads or cfg.temporal_hiz:
+            raise ValueError("the views render runs the default binning's "
+                             "single pass: a row band runs with neither the "
+                             "packed raster nor an exact-occlusion pass")
+        if cfg.height % (mesh.tp * 8):
+            raise ValueError("height must split into 8-aligned bands")
+        self.mesh = mesh
+        self.band_h = cfg.height // mesh.tp
+        self.renderer = renderer
+        self._tables_of = renderer._tables_np
+        self.tables = _color_tables(self._tables_of, mesh.distinct)
+        self.shards = _Shards(self.step)
+        self._replicas: dict = {}
+        self._source = None      # (data_ptr, shape) the replicas copied
+
+    def _check_tables(self) -> None:
+        """After ``set_shading`` the renderer holds other colour tables:
+        take them, and drop every graph (each captured the old ones)."""
+        if self.renderer._tables_np is not self._tables_of:
+            self._tables_of = self.renderer._tables_np
+            self.tables = _color_tables(self._tables_of, self.mesh.distinct)
+            self.shards.graphs.clear()
+
+    def follow(self, pool: torch.Tensor, written) -> None:
+        """Bring the replicas of ``pool`` (the engine's pool, on the mesh's
+        first device) up to date: the rows ``written`` (slots), or every
+        row where the replicas copied another tensor or ``written`` is
+        None.  A replica keeps its memory (its graphs read it by address)
+        unless the pool's shape changes."""
+        src = (pool.data_ptr(), tuple(pool.shape))
+        full = written is None or src != self._source
+        idx = None
+        for dev in self.mesh.distinct:
+            if dev == pool.device:
+                continue
+            rep = self._replicas.get(dev)
+            if rep is None or rep.shape != pool.shape:
+                self._replicas[dev] = pool.to(dev)
+            elif full:
+                rep.copy_(pool)
+            elif written:
+                if idx is None:
+                    idx = torch.tensor(sorted(written), dtype=torch.long)
+                    rows = pool.index_select(0, idx.to(pool.device))
+                rep.index_copy_(0, idx.to(dev), rows.to(dev))
+        self._source = src
+
+    def _pool_on(self, dev: torch.device, pool: torch.Tensor):
+        return pool if dev == pool.device else self._replicas[dev]
+
+    def _step_kw(self, cap: int) -> dict:
+        kw = self.renderer._bucket_kw(cap)
+        for k in ("color_tables", "near_quads", "packed_raster"):
+            kw.pop(k)
+        return kw
+
+    def step(self, key, pool, frames):
+        """Shard ``key`` = (gather cap, i, t)'s eager step on its device:
+        each view of its dp row on its band.  Returns ([color [band_h, W]
+        a view], [depth a view], the bands' counts i32[B / dp], stats
+        i32[B / dp, 6])."""
+        cap, _, t = key
+        kw = self._step_kw(cap)
+        outs = [views_band_frame(
+            pool, frames[j], vcap=self.renderer.config.visible_chunks_cap,
+            gather_cap=cap, band_y0=t * self.band_h, band_h=self.band_h,
+            color_tables=self.tables[pool.device], **kw)
+            for j in range(frames.shape[0])]
+        stats = torch.stack([s for _, _, s in outs])
+        return ([c for c, _, _ in outs], [d for _, d, _ in outs],
+                stats[:, 1].clone(), stats)
+
+    def _jobs(self, pool, frames: np.ndarray, cap: int) -> list:
+        """``_Shards``' jobs of a call: shard (i, t) keyed (cap, i, t),
+        on its replica of the pool, with its dp row's views."""
+        b = frames.shape[0]
+        dp, tp = self.mesh
+        if b % dp:
+            raise ValueError(f"a batch of {b} views over dp = {dp}")
+        per = b // dp
+        return [((cap, i, t), self.mesh.devices[i, t],
+                 [self._pool_on(self.mesh.devices[i, t], pool)],
+                 [frames[i * per:(i + 1) * per]])
+                for i in range(dp) for t in range(tp)]
+
+    def reduce(self, shards: dict) -> None:
+        """``psum(count, "tp") // tp`` of each view's band counts, as
+        ``ShardedRender.reduce``."""
+        _reduce_rows(self.mesh, shards)
+
+    def gather(self, shards: dict) -> tuple:
+        """The shards' outputs copied into fresh tensors on the mesh's
+        first device: color i32[B, H, W], depth f32[B, H, W], stats
+        i32[B, 6] (band 0's, with stats[1] the reduced count and stats[2]
+        and stats[3] summed over the bands) and the reduced count as each
+        tp card holds it, i32[B, tp]."""
+        per = len(shards[0, 0][0])
+        cfg = self.renderer.config
+        color, depth = _stack_bands(self.mesh, shards, cfg.height, cfg.width)
+        dev, b, tp = color.device, color.shape[0], self.mesh.tp
+        band = torch.empty((tp, b, 6), dtype=torch.int32, device=dev)
+        reduced = torch.empty((tp, b), dtype=torch.int32, device=dev)
+        for (i, t), (_, _, n, st) in shards.items():
+            band[t, i * per:(i + 1) * per].copy_(st)
+            reduced[t, i * per:(i + 1) * per].copy_(n)
+        stats = band[0].clone()
+        stats[:, 1] = reduced[0]
+        stats[:, 2:4] = band[:, :, 2:4].sum(0)
+        return color, depth, stats, reduced.T.contiguous()
+
+    def __call__(self, pool, written, frames: np.ndarray, cap: int) -> tuple:
+        """The views ``frames`` (``Renderer.pack_views``) at gather cap
+        ``cap`` on ``pool`` with its rows ``written`` since the last call
+        (``follow``): ``gather``'s outputs."""
+        self._check_tables()
+        with prof.VIEWS_LOAD:
+            self.follow(pool, written)
+            ready = self.shards.load(self._jobs(pool, frames, cap))
+        with prof.VIEWS_REPLAY:
+            shards = {k[1:]: out
+                      for k, out in self.shards.replay(ready).items()}
+        with prof.VIEWS_REDUCE:
+            self.reduce(shards)
+        with prof.VIEWS_GATHER:
+            return self.gather(shards)
+
+    def warm(self, pool, frames: np.ndarray) -> None:
+        """Every one-time cost, in a fixed order: the replicas (the peer
+        copies from the first card), each dp row's all-reduce (its NCCL
+        communicator), then each gather bucket's graph on every shard,
+        the buckets in the renderer's order, on ``frames`` (a batch of the
+        size the calls will bring)."""
+        self.follow(pool, None)
+        for row in self.mesh.devices:
+            all_reduce_sum([torch.zeros(1, dtype=torch.int32, device=d)
+                            for d in row])
+        for cap in self.renderer.gather_buckets:
+            self(pool, (), frames, cap)
+        for d in self.mesh.distinct:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
 
 class ShardedRenderDP:

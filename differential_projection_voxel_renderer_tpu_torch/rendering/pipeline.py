@@ -708,6 +708,26 @@ def _fused_frame_insert(quad_pool, counts6_pool, frame_u, *, vcap: int,
     return _step_camf(quads, quad_world, total, cam_f, **step_kw)
 
 
+def _views_meta_words(vcap: int) -> int:
+    """i32 words of a view's 11-short draw list (``Renderer.pack_views``)."""
+    return (META_SHORTS * vcap + 1) // 2
+
+
+def views_band_frame(quad_pool, frame_u, *, vcap: int, gather_cap: int,
+                     band_y0: int, band_h: int, **step_kw):
+    """One view's row band (``Engine.render_views``): the view's one upload
+    (``Renderer.pack_views``: its 11-short draw list, then its camera)
+    expanded as ``render_fused`` expands a draw list, then the step on the
+    ``band_h`` rows from ``band_y0``.  Returns (color, depth [band_h, W],
+    stats i32[6]; stats[1] counts the quads that touch the band)."""
+    n_meta = _views_meta_words(vcap)
+    meta_i = frame_u[:n_meta].view(torch.int16)[:META_SHORTS * vcap]
+    cam_f = frame_u[n_meta:n_meta + 19].view(torch.float32)
+    return _fused_frame(quad_pool, meta_i, cam_f, vcap=vcap,
+                        gather_cap=gather_cap, band_y0=band_y0,
+                        band_h=band_h, **step_kw)[:3]
+
+
 # resident-stream append batch limits (Engine resident mode): chunks per
 # append and quads per append.  A streaming frame inserts <=
 # max_chunks_per_frame (16) new chunks plus remeshed neighbours; batches
@@ -1105,6 +1125,28 @@ class Renderer:
                 self._upload(counts6.astype(np.int32)),
                 self._upload(mask6.astype(np.int32)), self._upload(pos_a),
                 cap)
+
+    def pack_views(self, views) -> tuple[np.ndarray, int, int]:
+        """The uploads of a batch of views (``Engine.render_views``):
+        ``views`` [(draw list (app/engine.DrawList), view_proj, cam_pos)].
+        Each draw list is normalized as ``render_fused`` normalizes it
+        (``_prep_meta``); the batch takes the gather bucket of its largest
+        stream.  Returns (i32[B, L]: a view's 11-short draw list and its
+        camera a row, the gather cap, the quads of all the views'
+        streams)."""
+        vcap = self.config.visible_chunks_cap
+        n_meta = _views_meta_words(vcap)
+        frames = np.zeros((len(views), n_meta + 19), np.int32)
+        cap = quads = 0
+        for b, (dl, view_proj, cam_pos) in enumerate(views):
+            slots_a, counts6, mask6, pos_a, c, _ = self._prep_meta(
+                dl.slots, dl.counts6, dl.positions, dl.dir_mask)
+            cap = max(cap, c)
+            quads += int((counts6 * mask6).sum())
+            meta = _pack_meta(vcap, slots_a, counts6, mask6, pos_a)
+            frames[b, :n_meta].view(np.int16)[:meta.size] = meta
+            frames[b, n_meta:] = _pack_cam(view_proj, cam_pos).view(np.int32)
+        return frames, cap, quads
 
     @staticmethod
     def _frame_np(vcap, slots_a, mask6, pos_a, view_proj, cam_pos,

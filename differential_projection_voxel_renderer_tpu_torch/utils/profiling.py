@@ -33,8 +33,23 @@ The frame path runs on one thread: spans of other threads would tangle.
         replay           the graph's replay (on the CPU: its function)
         copy_out         the clone of its outputs
 
+and on the views path (``Engine.render_views``, one frame a call):
+
+    frame
+      funnel             once a view (its children as above)
+      views_pack         the views' draw lists and cameras packed
+      views_dispatch     the sharded render (parallel/sharded_render.py)
+        views_load       the pool replicas brought up to date, each
+                         shard's inputs copied in
+        views_replay     every shard's graph replayed (each replay also
+                         under its own ``replay``)
+        views_reduce     the band counts all-reduced over each dp row
+        views_gather     the bands and stats copied onto the first card
+
 Counters: ``CHUNKS_MESHED.add(n)`` and ``CHUNKS_GENERATED.add(n)`` add to
-the open frame's count; they read no device tensor.
+the open frame's count, as do ``VIEWS`` (the views of a views call) and
+``VIEW_QUADS`` (the quads of their streams, counted on the host); they
+read no device tensor.
 
 The card's clock.  In every ``MARK_EVERY``-th frame on a CUDA device
 (a timing event costs the host 3-7 us to record or read on the card's
@@ -81,13 +96,18 @@ ENABLED = os.environ.get("DPVR_TRACE", "1") != "0"
 
 SPAN_NAMES = ("frame", "funnel", "world_update", "world_queue",
               "world_generate", "world_unload", "meshing", "dispatch",
-              "prepare", "load", "replay", "copy_out")
+              "prepare", "load", "replay", "copy_out", "views_pack",
+              "views_dispatch", "views_load", "views_replay", "views_reduce",
+              "views_gather")
 PARENT = {"frame": None, "funnel": "frame", "world_update": "funnel",
           "world_queue": "world_update", "world_generate": "world_update",
           "world_unload": "world_update", "meshing": "funnel",
           "dispatch": "frame", "prepare": "dispatch", "load": "dispatch",
-          "replay": "dispatch", "copy_out": "dispatch"}
-COUNTER_NAMES = ("chunks_meshed", "chunks_generated")
+          "replay": "dispatch", "copy_out": "dispatch",
+          "views_pack": "frame", "views_dispatch": "frame",
+          "views_load": "views_dispatch", "views_replay": "views_dispatch",
+          "views_reduce": "views_dispatch", "views_gather": "views_dispatch"}
+COUNTER_NAMES = ("chunks_meshed", "chunks_generated", "views", "view_quads")
 IDLE_NAMES = ("idle", "idle_funnel", "idle_dispatch")
 
 HOLD = 1 << 15          # frames held
@@ -512,16 +532,21 @@ NOOP = _Noop()
 if ENABLED:
     (_FRAME_ID, FUNNEL, WORLD_UPDATE, WORLD_QUEUE, WORLD_GENERATE,
      WORLD_UNLOAD, MESHING, _DISPATCH_ID, PREPARE, LOAD, REPLAY,
-     COPY_OUT) = (_Span(i) for i in range(_NS))
+     COPY_OUT, VIEWS_PACK, _VIEWS_DISPATCH_ID, VIEWS_LOAD, VIEWS_REPLAY,
+     VIEWS_REDUCE, VIEWS_GATHER) = (_Span(i) for i in range(_NS))
     FRAME = _Frame()
     DISPATCH = _Dispatch(SPAN_NAMES.index("dispatch"))
+    VIEWS_DISPATCH = _Dispatch(SPAN_NAMES.index("views_dispatch"))
     ENQUEUE = _Enqueue()
-    CHUNKS_MESHED, CHUNKS_GENERATED = _Counter(0), _Counter(1)
+    CHUNKS_MESHED, CHUNKS_GENERATED, VIEWS, VIEW_QUADS = (
+        _Counter(i) for i in range(_NC))
     mark_enqueue = TRACER.mark_enqueue
 else:
     (FRAME, FUNNEL, WORLD_UPDATE, WORLD_QUEUE, WORLD_GENERATE, WORLD_UNLOAD,
-     MESHING, DISPATCH, PREPARE, LOAD, REPLAY, COPY_OUT, ENQUEUE,
-     CHUNKS_MESHED, CHUNKS_GENERATED, mark_enqueue) = (NOOP,) * 16
+     MESHING, DISPATCH, PREPARE, LOAD, REPLAY, COPY_OUT, VIEWS_PACK,
+     VIEWS_DISPATCH, VIEWS_LOAD, VIEWS_REPLAY, VIEWS_REDUCE, VIEWS_GATHER,
+     ENQUEUE, CHUNKS_MESHED, CHUNKS_GENERATED, VIEWS, VIEW_QUADS,
+     mark_enqueue) = (NOOP,) * 24
 
 
 @contextlib.contextmanager

@@ -1285,3 +1285,61 @@ def test_sharded_batch_on_cards_matches_one_card(cards):
         assert got[0].device.index == 0
         assert _same_bits(got[:2], want[:2]) and torch.equal(got[2], want[2])
     assert int((want[0] != raster.SKY_I32).sum()) > 1000
+
+
+def _views_engine(mesh_cards=None):
+    from differential_projection_voxel_renderer_tpu_torch.app import (
+        engine as TE)
+
+    eng = TE.Engine(TE.RenderConfig(width=1280, height=720, gather_cap=65536,
+                                    quads_cap=32768, tile_k_cap=65536),
+                    TE.WorldConfig(view_distance=4, frustum_culling=True,
+                                   max_chunks_per_frame=8),
+                    pool_slots=2048, device="cuda", mesh_cards=mesh_cards)
+    eng.camera.position = np.array([0.0, 10.0, 20.0], np.float32)
+    while eng.world.update(eng.camera.position):
+        pass
+    eng.prime_all()
+    return eng
+
+
+@pytest.mark.cuda
+@pytest.mark.multicard
+def test_views_on_cards_equal_render_frame(cards):
+    """``Engine.render_views`` on ``make_mesh(4)`` (2 x 2; on two or three
+    cards ``make_mesh(2)``, 1 x 2) at 1280x720: two views a call back to
+    back, at the start pose and then creeping across the chunk boundary at
+    z = 0 (chunks stream in and mesh between calls).  Every view's stacked
+    bands equal ``render_frame``'s frame of its pose on a serial engine
+    bit for bit, with its stream length; no call after ``warm_views``
+    captures a graph; and each card's replica of the pool equals the pool
+    after the moving calls."""
+    n = 4 if cards >= 4 else 2
+    ev, es = _views_engine(n), _views_engine()
+    ev.warm_views(2)
+    captures = 0
+    for i, z in enumerate((20.0, 12.0, 4.0, -4.0, -12.0)):
+        views = [((0.0, 10.0, z), 0.2 + 0.01 * i, -0.12),
+                 ((0.0, 10.0, z), 0.2 + 0.01 * i + np.pi, -0.12)]
+        before = graphs.calls["captures"]
+        got = ev.render_views(views)
+        captures += graphs.calls["captures"] - before
+        for k, (p, y, pt) in enumerate(views):
+            es.camera.position = np.array(p, np.float32)
+            es.camera.yaw, es.camera.pitch = y, pt
+            es._hold_world = k > 0
+            f = es.render_frame(dt=0.0)
+            es._hold_world = False
+            assert got.color.device.index == 0
+            assert _same_bits((got.color[k], got.depth[k]),
+                              (f.color, f.depth)), (i, k)
+            assert int(got.stats[k, 0]) == int(f.stats[0])
+            assert got.stats[k, 2:4].tolist() == [0, 0]
+            assert len(set(got.reduced[k].tolist())) == 1
+    assert captures == 0
+    assert any(p[2] < 0 for p in ev.pool.by_pos)
+    multicard.sync_all()
+    render = ev._views_render()
+    assert sorted(d.index for d in render._replicas) == list(range(1, n))
+    for d, rep in render._replicas.items():
+        assert torch.equal(rep, ev.pool.quads.to(d)), d
