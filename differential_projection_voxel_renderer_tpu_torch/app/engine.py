@@ -32,6 +32,7 @@ from dataclasses import dataclass, replace as dc_replace
 import numpy as np
 import torch
 
+from ..meshing import native_bridge
 from ..meshing.greedy import mesh_chunk
 from ..models.camera import Camera, CameraController
 from ..models.world import World, WorldConfig, world_to_chunk_pos
@@ -427,14 +428,20 @@ class QuadPool:
         return (((p[:, 0] + b) << 42) | ((p[:, 1] + b) << 21)
                 | (p[:, 2] + b))
 
-    def lookup_slots(self, pos: np.ndarray):
-        """Vectorized pos -> slot join: (slots i32[N], has bool[N])."""
+    def lookup_table(self):
+        """(keys i64[U], slots i32[U]): the used slots' positions packed
+        21 bits an axis (``_pack_keys``), sorted, and their slots; built
+        again after a mutation, which drops it."""
         if self._lookup_cache is None:
             used = np.nonzero(self._used)[0].astype(np.int32)
             keys = self._pack_keys(self.positions[used])
             o = np.argsort(keys)
             self._lookup_cache = (keys[o], used[o])
-        pk, ps = self._lookup_cache
+        return self._lookup_cache
+
+    def lookup_slots(self, pos: np.ndarray):
+        """Vectorized pos -> slot join: (slots i32[N], has bool[N])."""
+        pk, ps = self.lookup_table()
         q = self._pack_keys(pos)
         if len(pk) == 0 or len(q) == 0:
             return (np.zeros(len(q), np.int32), np.zeros(len(q), bool))
@@ -554,6 +561,9 @@ class Engine:
         self._seen_unload_version = -1
         self._seen_vp = None
         self._visible_cache = None
+        # the native funnel's slot of each world table row (world version,
+        # pool lookup table, i32[n]; -2 where not yet found)
+        self._join = None
         self._upload_cache = None
         # temporal_hiz: the last static frame's max pyramid and its
         # (draw-list signature, view-projection bytes) identity
@@ -611,7 +621,13 @@ class Engine:
         _, has = self.pool.lookup_slots(vis_pos)
         if has.all():
             return []
-        missing = np.asarray(vis_pos[~has], np.int64)
+        return self._remesh_list_of(np.asarray(vis_pos[~has], np.int64))
+
+    def _remesh_list_of(self, missing: np.ndarray) -> list:
+        """The chunks ``missing`` i64[M, 3] (visible, no pool slot) plus
+        their loaded, meshed neighbors."""
+        if not len(missing):
+            return []
         offs = np.asarray(self._neighbor_offsets, np.int64)
         nbrs = (missing[:, None, :] + offs[None, :, :]).reshape(-1, 3)
         _, nb_meshed = self.pool.lookup_slots(nbrs)
@@ -915,89 +931,178 @@ class Engine:
     def _funnel(self, dt: float):
         """Host side of a frame: camera/world update, visibility,
         remeshing, culling funnel, draw-list build.  Fills the _last_*
-        draw-list arrays and returns (vp, sig, n, n_visible, cam_same)."""
+        draw-list arrays, new ones every call, and returns (vp, sig, n,
+        n_visible, cam_same).  The draw list comes from the native pass
+        (``_funnel_native``) where the native library is built and the
+        occlusion pass is off, else from its numpy twin
+        (``_funnel_numpy``); the two give the same arrays bit for bit."""
         with prof.FUNNEL:
             cam = self.camera
             self.controller.update_camera(cam, dt)
             if not self._hold_world:
                 self.world.update(cam.position)
-
-            vp_now = cam.view_projection_matrix()
-            world_v = self.world.version
-            cam_same = (self._seen_vp is not None
-                        and np.array_equal(self._seen_vp, vp_now))
-            if (cam_same and world_v == self._seen_world_version
-                    and self._visible_cache is not None):
-                vis_pos = self._visible_cache
+            if (self.enable_occlusion_culling
+                    or native_bridge.funnel_pass is None):
+                n_visible_meshes, cam_same = self._funnel_numpy()
             else:
-                frustum = cam.extract_frustum()
-                vis_pos = self.world.get_visible_positions(cam.position,
-                                                           frustum)
-                self._visible_cache = vis_pos
-                if not (cam_same and world_v == self._seen_world_version):
-                    if self.stale_streaming:
-                        # stale-pool mode: collect the batch now, mesh
-                        # and insert it after the render call
-                        # (_apply_stale_stash); this frame's draw list
-                        # comes from the pool as it is
-                        self._stale_stash += self._missing_remesh_list(
-                            vis_pos)
-                    else:
-                        self._remesh_positions(vis_pos)
-                    if self.world.unload_version != self._seen_unload_version:
-                        self.pool.retain(self.world.chunks)
-                        self._seen_unload_version = self.world.unload_version
-                self._seen_vp = vp_now.copy()
-                self._seen_world_version = self.world.version
+                n_visible_meshes, cam_same = self._funnel_native()
+            n = self._last_n_visible
+            sig = (self.world.version,
+                   self._last_visible_slots[:n].tobytes(),
+                   self._last_counts_sel[:n].tobytes(),
+                   self._last_dir_mask[:n].tobytes())
+            return (cam.view_projection_matrix(), sig, n, n_visible_meshes,
+                    cam_same)
 
-            slots_all, has = self.pool.lookup_slots(vis_pos)
-            hs = slots_all[has]
-            nz = self.pool.counts[hs] > 0
-            slots = hs[nz]
-            centers = (vis_pos[has][nz].astype(np.float32) * CHUNK_SIZE
-                       + 16.0 if len(slots)
-                       else np.zeros((0, 3), np.float32))
-            n_visible_meshes = len(slots)
-            vp = cam.view_projection_matrix()
+    def _view_state(self):
+        """(view-projection, cam_same, cached): whether the camera's matrix
+        is the last visibility query's, and whether that query's result
+        still holds (the same matrix and world)."""
+        vp_now = self.camera.view_projection_matrix()
+        cam_same = (self._seen_vp is not None
+                    and np.array_equal(self._seen_vp, vp_now))
+        cached = (cam_same and self.world.version == self._seen_world_version
+                  and self._visible_cache is not None)
+        return vp_now, cam_same, cached
 
-            if n_visible_meshes:
-                order = sort_front_to_back(centers, cam.position)
-                slots = slots[order]
-                centers = centers[order]
-                if self.enable_horizon_culling:
-                    keep = horizon_cull_mask(centers, cam.position,
-                                             self.horizon_config)
-                    slots, centers = slots[keep], centers[keep]
-                if self.enable_occlusion_culling and len(slots):
-                    rects, near, _ = project_chunk_rects(
-                        centers, vp, self.config.width, self.config.height)
-                    d2 = ((centers - cam.position[None, :]) ** 2).sum(-1)
-                    use_occ = d2 >= (CHUNK_SIZE * 2.0) ** 2
-                    keep = occlusion_pass(
-                        rects, near, use_occ, self.config.width,
-                        self.config.height, epsilon=self.occlusion_epsilon)
-                    slots, centers = slots[keep], centers[keep]
+    def _pool_follows(self, remesh: list) -> None:
+        """After a new camera or world: mesh ``remesh`` (the visible chunks
+        with no mesh and their meshed neighbours) into the pool, or in
+        stale-pool mode stash it for after the render call, where this
+        frame's draw list comes from the pool as it is
+        (_apply_stale_stash); after an unload the pool keeps only loaded
+        chunks."""
+        if self.stale_streaming:
+            self._stale_stash += remesh
+        else:
+            self._mesh_list(remesh, defer=True)
+        if self.world.unload_version != self._seen_unload_version:
+            self.pool.retain(self.world.chunks)
+            self._seen_unload_version = self.world.unload_version
 
-            vcap = self.config.visible_chunks_cap
-            visible_slots = np.zeros(vcap, np.int32)
-            counts_sel = np.zeros((vcap, 6), np.int32)
-            mask_sel = np.ones((vcap, 6), np.int32)
-            positions_sel = np.zeros((vcap, 3), np.int32)
-            n = min(len(slots), vcap)
-            if n:
-                visible_slots[:n] = slots[:n]
-                counts_sel[:n] = self.pool.counts6[slots[:n]]
-                positions_sel[:n] = self.pool.positions[slots[:n]]
-                mask_sel[:n] = self._dir_keep_mask(positions_sel[:n],
-                                                   cam.position)
-            self._last_visible_slots = visible_slots
-            self._last_counts_sel = counts_sel
-            self._last_dir_mask = mask_sel
-            self._last_positions_sel = positions_sel
-            self._last_n_visible = n
-            sig = (self.world.version, visible_slots[:n].tobytes(),
-                   counts_sel[:n].tobytes(), mask_sel[:n].tobytes())
-            return vp, sig, n, n_visible_meshes, cam_same
+    def _funnel_numpy(self):
+        """The funnel's visibility and draw-list stage in numpy, the native
+        pass's twin: fills the _last_* arrays and returns (n_visible,
+        cam_same)."""
+        cam = self.camera
+        vp_now, cam_same, cached = self._view_state()
+        if cached:
+            vis_pos = self._visible_cache
+        else:
+            world_v = self.world.version
+            frustum = cam.extract_frustum()
+            vis_pos = self.world.get_visible_positions(cam.position,
+                                                       frustum)
+            self._visible_cache = vis_pos
+            if not (cam_same and world_v == self._seen_world_version):
+                self._pool_follows(self._missing_remesh_list(vis_pos))
+            self._seen_vp = vp_now.copy()
+            self._seen_world_version = self.world.version
+
+        slots_all, has = self.pool.lookup_slots(vis_pos)
+        hs = slots_all[has]
+        nz = self.pool.counts[hs] > 0
+        slots = hs[nz]
+        centers = (vis_pos[has][nz].astype(np.float32) * CHUNK_SIZE
+                   + 16.0 if len(slots)
+                   else np.zeros((0, 3), np.float32))
+        n_visible_meshes = len(slots)
+        vp = cam.view_projection_matrix()
+
+        if n_visible_meshes:
+            order = sort_front_to_back(centers, cam.position)
+            slots = slots[order]
+            centers = centers[order]
+            if self.enable_horizon_culling:
+                keep = horizon_cull_mask(centers, cam.position,
+                                         self.horizon_config)
+                slots, centers = slots[keep], centers[keep]
+            if self.enable_occlusion_culling and len(slots):
+                rects, near, _ = project_chunk_rects(
+                    centers, vp, self.config.width, self.config.height)
+                d2 = ((centers - cam.position[None, :]) ** 2).sum(-1)
+                use_occ = d2 >= (CHUNK_SIZE * 2.0) ** 2
+                keep = occlusion_pass(
+                    rects, near, use_occ, self.config.width,
+                    self.config.height, epsilon=self.occlusion_epsilon)
+                slots, centers = slots[keep], centers[keep]
+
+        vcap = self.config.visible_chunks_cap
+        visible_slots = np.zeros(vcap, np.int32)
+        counts_sel = np.zeros((vcap, 6), np.int32)
+        mask_sel = np.ones((vcap, 6), np.int32)
+        positions_sel = np.zeros((vcap, 3), np.int32)
+        n = min(len(slots), vcap)
+        if n:
+            visible_slots[:n] = slots[:n]
+            counts_sel[:n] = self.pool.counts6[slots[:n]]
+            positions_sel[:n] = self.pool.positions[slots[:n]]
+            mask_sel[:n] = self._dir_keep_mask(positions_sel[:n],
+                                               cam.position)
+        self._last_visible_slots = visible_slots
+        self._last_counts_sel = counts_sel
+        self._last_dir_mask = mask_sel
+        self._last_positions_sel = positions_sel
+        self._last_n_visible = n
+        return n_visible_meshes, cam_same
+
+    def _funnel_native(self):
+        """The funnel's visibility and draw-list stage as one native pass
+        (``native_bridge.funnel_pass``) over the world's chunk table, or
+        over the cached visible chunks while camera and world stand still:
+        fills the _last_* arrays and returns (n_visible, cam_same).  The
+        frustum test takes numpy's product of the chunks' corners with the
+        plane normals, as ``Frustum.inside_mins`` does.  A frame that
+        meshes or unloads runs the pass again over its visible chunks,
+        once the pool has changed.  Counts ``funnel_native``."""
+        prof.FUNNEL_NATIVE.add(1)
+        cam = self.camera
+        vp_now, cam_same, cached = self._view_state()
+        if cached:
+            out = self._draw_pass(self._visible_cache)
+        else:
+            world_v = self.world.version
+            table, mins = self.world.visibility_table()
+            dots = off = None
+            if self.world.config.frustum_culling:
+                n_t, off = cam.extract_frustum().plane_terms(
+                    float(CHUNK_SIZE))
+                dots = mins @ n_t
+            lookup = self.pool.lookup_table()
+            join = self._join
+            if join is None or join[0] != world_v or join[1] is not lookup:
+                # each table row's slot, found as the rows turn visible
+                join = self._join = (world_v, lookup,
+                                     np.full(len(table), -2, np.int32))
+            out = self._draw_pass(table, dots, off,
+                                  self.world.config.view_distance ** 2,
+                                  join[2])
+            self._visible_cache = out[0]
+            if not (cam_same and world_v == self._seen_world_version):
+                self._pool_follows(self._remesh_list_of(out[1]))
+                if self.pool.lookup_table() is not lookup:
+                    out = self._draw_pass(out[0])
+            self._seen_vp = vp_now.copy()
+            self._seen_world_version = self.world.version
+        (_, _, n_visible_meshes, n, self._last_visible_slots,
+         self._last_counts_sel, self._last_dir_mask,
+         self._last_positions_sel) = out
+        self._last_n_visible = n
+        return n_visible_meshes, cam_same
+
+    def _draw_pass(self, table, dots=None, off=None, vd2: int = -1,
+                   join=None):
+        """``native_bridge.funnel_pass`` over the chunks ``table`` on the
+        pool as it is, with the engine's switches (the frustum and sphere
+        tests, and the rows' slots, only where given)."""
+        cfg, pool = self.config, self.pool
+        return native_bridge.funnel_pass(
+            table, dots, off, vd2, pool.lookup_table(), join, pool.counts,
+            pool.counts6, pool.positions,
+            np.asarray(self.camera.position, np.float32),
+            self.horizon_config if self.enable_horizon_culling else None,
+            cfg.backface_culling and not cfg.span_mode,
+            cfg.visible_chunks_cap)
 
     def _apply_stale_stash(self) -> None:
         """Stale-pool mode: mesh and insert the batch this frame's funnel

@@ -33,7 +33,7 @@ RENDERER_CALLS = ("render_prepared", "render_fused", "render_fused_insert",
 POOL_CALLS = ("insert_many", "prepare_insert_payload",
               "dispatch_insert_payload")
 ENGINE_CALLS = ("_funnel", "_mesh_list", "_mesh_list_resident",
-                "_rebuild_resident", "_queue_append", "_missing_remesh_list")
+                "_rebuild_resident", "_queue_append", "_remesh_list_of")
 
 
 def wrap_calls(eng) -> tuple[dict, dict]:

@@ -7,6 +7,8 @@ package, a directory that is not versioned, and exposes:
 
 - ``greedy_mesh_masks(masks) -> packed quads`` — the hot host-side mesher
 - ``horizon_cull(...)`` / ``occlusion_pass(...)`` — sequential culling passes
+- ``funnel_pass`` — the frame funnel from the chunk table to the draw list
+  (``FunnelPass``), offered only where its sort keys equal numpy's
 
 The library is compiled into a temporary file and renamed into place, so
 processes that build at once never load a half-written library.  Every
@@ -112,6 +114,20 @@ def _build_and_load() -> ctypes.CDLL | None:
                 ctypes.c_float,
                 ctypes.c_void_p,
             ]
+            lib.funnel_sort_keys.restype = None
+            lib.funnel_sort_keys.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                ctypes.c_void_p,
+            ]
+            lib.funnel_pass.restype = None
+            lib.funnel_pass.argtypes = (
+                [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_int64]
+                + [ctypes.c_void_p] * 4 + [ctypes.c_float] * 3
+                + [ctypes.c_int32, ctypes.c_int32] + [ctypes.c_float] * 3
+                + [ctypes.c_int32, ctypes.c_int64, ctypes.c_void_p,
+                   ctypes.c_void_p])
             lib.perlin_table_twin.restype = None
             lib.perlin_table_twin.argtypes = [ctypes.c_uint32,
                                               ctypes.c_void_p]
@@ -248,3 +264,114 @@ def occlusion_pass_native(rects, depths, use_occ, screen_w, screen_h,
         keep.ctypes.data_as(ctypes.c_void_p),
     )
     return keep
+
+
+class FunnelPass:
+    """The frame funnel's draw-list stage in one native call
+    (``funnel_pass`` in native/src/greedy_mesh.cpp; app/engine.py
+    ``Engine._funnel_native``, whose numpy twin is ``_funnel_numpy``):
+    the view-sphere and frustum keep over a chunk table, the join to the
+    pool's slots, the visible chunks with no slot, the non-empty filter,
+    the stable front-to-back order, the horizon cull, the cut at the draw
+    list's rows, and the rows of slots, counts, direction masks and
+    positions."""
+
+    def __init__(self, lib):
+        self._fn = lib.funnel_pass
+        # the last array passed in each place that keeps its array from
+        # call to call (the pool's tables and lookup, the rows' slots),
+        # with its address; the array is held, so its address stays its
+        # own
+        self._held = [(None, 0)] * 6
+
+    def _addr(self, i: int, a, dtype, shape) -> int:
+        held, ptr = self._held[i]
+        if a is not held or a.shape != shape:
+            ptr = _ptr(a, dtype, shape)
+            self._held[i] = (a, ptr)
+        return ptr
+
+    def __call__(self, table, dots, off, vd2: int, lookup, join, counts,
+                 counts6, positions, cam, horizon, dir_mask: bool,
+                 vcap: int):
+        """``table`` i64[n, 3]; ``dots`` f32[n, 6] and ``off`` f32[6], or
+        None: no frustum test; ``vd2`` the squared view distance around
+        the camera's chunk (< 0: no sphere test); ``lookup`` the pool's
+        (sorted packed keys i64, slots i32); ``join`` i32[n] or None: each
+        row's slot, -1 where it has none, -2 where not yet known, which
+        the pass finds and writes (valid while table and pool stand
+        still); the pool's ``counts`` i32[S], ``counts6`` i32[S, 6] and
+        ``positions`` i32[S, 3]; ``cam`` f32[3]; ``horizon`` a
+        HorizonCullingConfig or None (no horizon cull).  Returns (visible
+        i64[V, 3], missing i64[M, 3], n_meshed, n, slots i32[vcap],
+        counts6 i32[vcap, 6], dir_mask i32[vcap, 6], positions
+        i32[vcap, 3]): views of one new buffer (the pass keeps no state
+        of its own between calls)."""
+        n, s = len(table), len(counts)
+        # the outputs, then the four sizes
+        out = np.empty(6 * n + 8 * vcap + 4, np.int64)
+        p = out.ctypes.data
+        keys, key_slots = lookup
+        hz = horizon
+        self._fn(
+            _ptr(table, np.int64, (n, 3)), n,
+            None if dots is None else _ptr(dots, np.float32, (n, 6)),
+            None if dots is None else _ptr(off, np.float32, (6,)), vd2,
+            self._addr(0, keys, np.int64, (len(keys),)),
+            self._addr(1, key_slots, np.int32, (len(keys),)), len(keys),
+            None if join is None else self._addr(2, join, np.int32, (n,)),
+            self._addr(3, counts, np.int32, (s,)),
+            self._addr(4, counts6, np.int32, (s, 6)),
+            self._addr(5, positions, np.int32, (s, 3)),
+            float(cam[0]), float(cam[1]), float(cam[2]),
+            hz is not None, hz.bins if hz else 0,
+            hz.base_margin if hz else 0.0,
+            hz.margin_dist_factor if hz else 0.0,
+            hz.min_dist_chunks if hz else 0.0, dir_mask, vcap,
+            p, p + 8 * (6 * n + 8 * vcap))
+        nv, nm, n_meshed, k = out[-4:].tolist()
+        rows = out[6 * n:-4].view(np.int32)
+        return (out[:3 * nv].reshape(nv, 3),
+                out[3 * n:3 * (n + nm)].reshape(nm, 3), n_meshed, k,
+                rows[:vcap], rows[vcap:7 * vcap].reshape(vcap, 6),
+                rows[7 * vcap:13 * vcap].reshape(vcap, 6),
+                rows[13 * vcap:].reshape(vcap, 3))
+
+
+def _ptr(a, dtype, shape) -> int:
+    """The address of ``a``'s data, which must be a contiguous ``dtype``
+    array of ``shape``."""
+    if (a.dtype != dtype or a.shape != shape
+            or not a.flags.c_contiguous):
+        raise ValueError(f"expected a contiguous {np.dtype(dtype)}{shape} "
+                         f"array, got {a.dtype}{a.shape}")
+    return a.ctypes.data
+
+
+def _sort_keys_match(lib) -> bool:
+    """Whether the pass's front-to-back keys equal numpy's float32
+    ``(d * d).sum(-1)`` (ops/culling.py sort_front_to_back) bit for bit,
+    on a fixed sample of centres and cameras."""
+    rng = np.random.default_rng(12345)
+    for n in (1, 3, 8, 100, 4096):
+        c = (rng.integers(-40, 40, (n, 3)) * 32 + 16).astype(np.float32)
+        cam = rng.uniform(-300.0, 300.0, 3).astype(np.float32)
+        got = np.empty(n, np.float32)
+        lib.funnel_sort_keys(c.ctypes.data, n, cam.ctypes.data,
+                             got.ctypes.data)
+        d = c - cam[None, :]
+        if not np.array_equal(got.view(np.int32),
+                              (d * d).sum(-1).view(np.int32)):
+            return False
+    return True
+
+
+def _funnel_pass():
+    lib = _build_and_load()
+    if lib is None or not _sort_keys_match(lib):
+        return None
+    return FunnelPass(lib)
+
+
+# None where the library is not built or its keys differ from numpy's
+funnel_pass = _funnel_pass()

@@ -156,6 +156,14 @@ class Frustum:
         refactored sum order can differ from :meth:`intersects_aabb` by an
         ulp for chunks EXACTLY on a plane; golden-frame tests pass — the
         test is conservative either way.)"""
+        n_t, off = self.plane_terms(size)
+        dist = mins @ n_t + off[None, :]
+        return (dist >= 0.0).all(axis=1)
+
+    def plane_terms(self, size: float) -> tuple[np.ndarray, np.ndarray]:
+        """(normals^T f32[3, 6], offsets f32[6]) of :meth:`inside_mins`
+        for cubes of ``size``: a cube is inside where ``mins @ normals^T +
+        offsets`` is >= 0 for all six planes (cached for the last size)."""
         key = getattr(self, "_mins_key", None)
         if key != size:
             n = self.planes[:, :3]
@@ -163,8 +171,7 @@ class Frustum:
             self._off = (np.float32(size) * np.maximum(n, 0.0).sum(axis=1)
                          + self.planes[:, 3]).astype(np.float32)
             self._mins_key = size
-        dist = mins @ self._nT + self._off[None, :]
-        return (dist >= 0.0).all(axis=1)
+        return self._nT, self._off
 
     def intersects_aabb(self, mins, maxs) -> np.ndarray | bool:
         """Positive-vertex AABB test (camera/mod.rs:164-183).

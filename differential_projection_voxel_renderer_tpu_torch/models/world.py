@@ -238,6 +238,13 @@ class World:
         keys, arr, n, minsf = self._pos_cache
         return minsf[:n]
 
+    def visibility_table(self) -> tuple[np.ndarray, np.ndarray]:
+        """(positions i64[n, 3], AABB min corners f32[n, 3]) of the loaded
+        chunks in table order, the cached arrays that
+        :meth:`get_visible_positions` tests."""
+        _, pos = self._positions_array()
+        return pos, self._mins_f32()
+
     def drain_added(self) -> list:
         """Positions streamed in since the last drain (``track_added``
         must be on — the resident engine's incremental remesh scan; the

@@ -9,11 +9,15 @@
 //
 // Also hosts the sequential culling passes that are order-dependent and
 // therefore host-side: horizon culling (src/rendering/culling.rs:40-119)
-// and the chunk occlusion pre-pass (src/rendering/occlusion.rs:60-154).
+// and the chunk occlusion pre-pass (src/rendering/occlusion.rs:60-154),
+// and the frame funnel's draw-list stage, which runs the horizon cull
+// (funnel_pass).
 
+#include <algorithm>
 #include <cstdint>
 #include <cstring>
 #include <cmath>
+#include <vector>
 
 extern "C" {
 
@@ -263,6 +267,158 @@ void occlusion_pass(const int32_t* rects, const float* depths,
         }
         keep[i] = occluded ? 0 : 1;
     }
+}
+
+// Squared distance of a mesh centre from the camera, the key of the
+// front-to-back order: ops/culling.py sort_front_to_back's float32
+// (d * d).sum(-1), whose reduction adds the three terms left to right.
+static inline float sort_key(const float* c, const float* cam) {
+    const float dx = c[0] - cam[0];
+    const float dy = c[1] - cam[1];
+    const float dz = c[2] - cam[2];
+    return (dx * dx + dy * dy) + dz * dz;
+}
+
+// The keys of n centres f32[n][3] into out f32[n] (meshing/native_bridge.py
+// checks them against numpy's before it offers funnel_pass).
+void funnel_sort_keys(const float* centers, int64_t n, const float* cam,
+                      float* out) {
+    for (int64_t i = 0; i < n; ++i) out[i] = sort_key(centers + 3 * i, cam);
+}
+
+// The frame funnel from the chunk table to the draw list, in one pass
+// (app/engine.py Engine._funnel_native; its numpy twin is
+// Engine._funnel_numpy, equal bit for bit):
+//   table:   i64[n][3] chunk positions (the world's table order)
+//   dots:    f32[n][6] each chunk's min corner dotted with the six plane
+//            normals (numpy's product, Frustum.plane_terms), or null: no
+//            frustum test; off: f32[6] the planes' offsets for a 32-cube
+//   vd2:     the squared view distance around the camera's chunk, < 0:
+//            no sphere test
+//   keys, key_slots, n_keys: the pool's used positions packed 21 bits an
+//            axis, sorted, and their slots (QuadPool.lookup_table)
+//   join:    i32[n] or null: each table row's slot, -1 where it has none,
+//            -2 where not yet known (found from the keys and written)
+//   counts i32[S], counts6 i32[S][6], positions i32[S][3]: the pool's
+//            host tables
+//   cam_x, cam_y, cam_z: the camera position
+//   horizon: nonzero: the horizon cull with bins .. min_dist_chunks
+//   dir_mask: nonzero: the face-direction keep mask, else all ones
+//   vcap:    the draw list's rows
+// Writes into out, in this order: vis i64[n][3] (the chunks kept, table
+// order), missing i64[n][3] (those with no pool slot), and all vcap rows
+// of slots i32[vcap], counts6 i32[vcap][6], dir masks i32[vcap][6] and
+// positions i32[vcap][3] (rows past the list 0, masks 1); and sizes
+// i64[4]: the chunks kept, missing, meshed (non-empty, before the
+// horizon cull), and the draw list's length.
+void funnel_pass(const int64_t* table, int64_t n, const float* dots,
+                 const float* off, int64_t vd2, const int64_t* keys,
+                 const int32_t* key_slots, int64_t n_keys, int32_t* join,
+                 const int32_t* counts, const int32_t* counts6,
+                 const int32_t* positions, float cam_x, float cam_y,
+                 float cam_z, int32_t horizon, int32_t bins,
+                 float base_margin, float margin_dist_factor,
+                 float min_dist_chunks, int32_t dir_mask, int64_t vcap,
+                 uint8_t* out, int64_t* sizes) {
+    const float chunk_size = 32.0f;
+    const float cam[3] = {cam_x, cam_y, cam_z};
+    // the camera's chunk, models/world.py world_to_chunk_pos (the division
+    // by a power of two is exact)
+    int64_t cam_chunk[3];
+    for (int a = 0; a < 3; ++a)
+        cam_chunk[a] = (int64_t)std::floor(cam[a] / chunk_size);
+    int64_t* vis = (int64_t*)out;
+    int64_t* missing = vis + 3 * n;
+    int32_t* slots_out = (int32_t*)(missing + 3 * n);
+    int32_t* counts6_out = slots_out + vcap;
+    int32_t* mask_out = counts6_out + 6 * vcap;
+    int32_t* positions_out = mask_out + 6 * vcap;
+    std::vector<int32_t> slots;
+    std::vector<float> centers;
+    slots.reserve(vcap);
+    centers.reserve(3 * vcap);
+    const int64_t b = int64_t(1) << 20;
+    int64_t n_vis = 0, n_missing = 0;
+    for (int64_t i = 0; i < n; ++i) {
+        const int64_t* p = table + 3 * i;
+        if (vd2 >= 0) {
+            const int64_t dx = p[0] - cam_chunk[0];
+            const int64_t dy = p[1] - cam_chunk[1];
+            const int64_t dz = p[2] - cam_chunk[2];
+            if (dx * dx + dy * dy + dz * dz > vd2) continue;
+        }
+        if (dots) {
+            const float* d = dots + 6 * i;
+            bool inside = true;
+            for (int k = 0; k < 6; ++k) inside &= (d[k] + off[k]) >= 0.0f;
+            if (!inside) continue;
+        }
+        std::memcpy(vis + 3 * n_vis, p, 3 * sizeof(int64_t));
+        ++n_vis;
+        int32_t s = join ? join[i] : -2;
+        if (s == -2) {
+            const int64_t q =
+                ((p[0] + b) << 42) | ((p[1] + b) << 21) | (p[2] + b);
+            const int64_t* at = std::lower_bound(keys, keys + n_keys, q);
+            s = (at == keys + n_keys || *at != q) ? -1 : key_slots[at - keys];
+            if (join) join[i] = s;
+        }
+        if (s < 0) {
+            std::memcpy(missing + 3 * n_missing, p, 3 * sizeof(int64_t));
+            ++n_missing;
+            continue;
+        }
+        if (counts[s] <= 0) continue;
+        slots.push_back(s);
+        for (int a = 0; a < 3; ++a)
+            centers.push_back((float)p[a] * chunk_size + 16.0f);
+    }
+    const int64_t m = (int64_t)slots.size();
+    std::vector<float> key(m), sorted(3 * m);
+    std::vector<int64_t> order(m);
+    for (int64_t i = 0; i < m; ++i) {
+        key[i] = sort_key(&centers[3 * i], cam);
+        order[i] = i;
+    }
+    const float* kp = key.data();
+    std::stable_sort(order.begin(), order.end(),
+                     [kp](int64_t x, int64_t y) { return kp[x] < kp[y]; });
+    for (int64_t i = 0; i < m; ++i)
+        std::memcpy(&sorted[3 * i], &centers[3 * order[i]], 3 * sizeof(float));
+    std::vector<uint8_t> keep(m, 1);
+    if (horizon && m)
+        horizon_cull(sorted.data(), m, cam, bins, base_margin,
+                     margin_dist_factor, min_dist_chunks, chunk_size,
+                     keep.data());
+    int64_t r = 0;
+    for (int64_t i = 0; i < m && r < vcap; ++i) {
+        if (!keep[i]) continue;
+        const int32_t s = slots[order[i]];
+        slots_out[r] = s;
+        std::memcpy(counts6_out + 6 * r, counts6 + 6 * (int64_t)s,
+                    6 * sizeof(int32_t));
+        const int32_t* ps = positions + 3 * (int64_t)s;
+        std::memcpy(positions_out + 3 * r, ps, 3 * sizeof(int32_t));
+        int32_t* mk = mask_out + 6 * r;
+        for (int a = 0; a < 3; ++a) {
+            const float lo = (float)ps[a] * chunk_size;
+            mk[2 * a] = dir_mask ? (int32_t)(cam[a] > lo + 1.0f) : 1;
+            mk[2 * a + 1] = dir_mask ? (int32_t)(cam[a] < lo + 31.0f) : 1;
+        }
+        ++r;
+    }
+    for (int64_t i = r; i < vcap; ++i) {
+        slots_out[i] = 0;
+        for (int k = 0; k < 6; ++k) {
+            counts6_out[6 * i + k] = 0;
+            mask_out[6 * i + k] = 1;
+        }
+        for (int a = 0; a < 3; ++a) positions_out[3 * i + a] = 0;
+    }
+    sizes[0] = n_vis;
+    sizes[1] = n_missing;
+    sizes[2] = m;
+    sizes[3] = r;
 }
 
 }  // extern "C"

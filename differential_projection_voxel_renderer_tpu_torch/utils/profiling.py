@@ -47,9 +47,10 @@ and on the views path (``Engine.render_views``, one frame a call):
         views_gather     the bands and stats copied onto the first card
 
 Counters: ``CHUNKS_MESHED.add(n)`` and ``CHUNKS_GENERATED.add(n)`` add to
-the open frame's count, as do ``VIEWS`` (the views of a views call) and
-``VIEW_QUADS`` (the quads of their streams, counted on the host); they
-read no device tensor.
+the open frame's count, as do ``VIEWS`` (the views of a views call),
+``VIEW_QUADS`` (the quads of their streams, counted on the host) and
+``FUNNEL_NATIVE`` (the funnels whose draw list came from the native pass,
+``Engine._funnel_native``); they read no device tensor.
 
 The card's clock.  In every ``MARK_EVERY``-th frame on a CUDA device
 (a timing event costs the host 3-7 us to record or read on the card's
@@ -107,7 +108,8 @@ PARENT = {"frame": None, "funnel": "frame", "world_update": "funnel",
           "views_pack": "frame", "views_dispatch": "frame",
           "views_load": "views_dispatch", "views_replay": "views_dispatch",
           "views_reduce": "views_dispatch", "views_gather": "views_dispatch"}
-COUNTER_NAMES = ("chunks_meshed", "chunks_generated", "views", "view_quads")
+COUNTER_NAMES = ("chunks_meshed", "chunks_generated", "views", "view_quads",
+                 "funnel_native")
 IDLE_NAMES = ("idle", "idle_funnel", "idle_dispatch")
 
 HOLD = 1 << 15          # frames held
@@ -538,7 +540,7 @@ if ENABLED:
     DISPATCH = _Dispatch(SPAN_NAMES.index("dispatch"))
     VIEWS_DISPATCH = _Dispatch(SPAN_NAMES.index("views_dispatch"))
     ENQUEUE = _Enqueue()
-    CHUNKS_MESHED, CHUNKS_GENERATED, VIEWS, VIEW_QUADS = (
+    CHUNKS_MESHED, CHUNKS_GENERATED, VIEWS, VIEW_QUADS, FUNNEL_NATIVE = (
         _Counter(i) for i in range(_NC))
     mark_enqueue = TRACER.mark_enqueue
 else:
@@ -546,7 +548,7 @@ else:
      MESHING, DISPATCH, PREPARE, LOAD, REPLAY, COPY_OUT, VIEWS_PACK,
      VIEWS_DISPATCH, VIEWS_LOAD, VIEWS_REPLAY, VIEWS_REDUCE, VIEWS_GATHER,
      ENQUEUE, CHUNKS_MESHED, CHUNKS_GENERATED, VIEWS, VIEW_QUADS,
-     mark_enqueue) = (NOOP,) * 24
+     FUNNEL_NATIVE, mark_enqueue) = (NOOP,) * 25
 
 
 @contextlib.contextmanager
