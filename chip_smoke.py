@@ -1277,10 +1277,8 @@ class Parts:
 
 def pool_snapshot(torch, pool):
     """Everything of a QuadPool that a later frame or slot choice reads:
-    device rows and counts mirror (copies), host tables, free list, used
-    mask."""
-    return dict(quads=pool.quads.clone(), c6=pool.counts6_dev.clone(),
-                counts=pool.counts.copy(), counts6=pool.counts6.copy(),
+    device rows (a copy), host tables, free list, used mask."""
+    return dict(quads=pool.quads.clone(), counts=pool.counts.copy(), counts6=pool.counts6.copy(),
                 positions=pool.positions.copy(), by_pos=dict(pool.by_pos),
                 free=list(pool._free), used=pool._used.copy(),
                 drops=pool.overflow_drops)
@@ -1297,7 +1295,7 @@ def same_pool_snapshot(torch, a, b) -> bool:
 
 def shared_chunks_equal(torch, pa, pb) -> tuple[int, int]:
     """(chunks in both pools, of them those with the same rows up to their
-    count, host counts and device counts mirror)."""
+    count and host counts)."""
     import numpy as np
 
     keys = sorted(set(pa.by_pos) & set(pb.by_pos))
@@ -1309,15 +1307,13 @@ def shared_chunks_equal(torch, pa, pb) -> tuple[int, int]:
     live = torch.arange(pa.qcap, device=dev)[None, :] < n[:, None]
     rows = (torch.where(live, pa.quads[ia], 0)
             == torch.where(live, pb.quads[ib], 0)).all(1)
-    mirror = (pa.counts6_dev[ia] == pb.counts6_dev[ib]).all(1)
     host = torch.from_numpy((pa.counts6[sa] == pb.counts6[sb]).all(1)).to(dev)
-    return len(keys), int((rows & mirror & host).sum())
+    return len(keys), int((rows & host).sum())
 
 
 def same_pool_content(torch, pa, pb) -> bool:
     """The two pools hold the same chunks with the same rows (up to each
-    chunk's count), host counts and device counts mirror; slot numbers may
-    differ."""
+    chunk's count) and host counts; slot numbers may differ."""
     if set(pa.by_pos) != set(pb.by_pos):
         return False
     shared, equal = shared_chunks_equal(torch, pa, pb)
@@ -1331,7 +1327,7 @@ def app_path(torch, eng3, serial, static, card):
     - a fresh engine of phase 3's configuration, settled and primed with
       prime_all: warm_buckets(), one frame at the start pose (equal to
       phase 3's static frame bit for bit: colour, depth, stats), then
-      warm_streaming() (the pool unchanged, rows and mirror included);
+      warm_streaming() (the pool unchanged, rows and host tables);
     - run_flythrough over default_path(FLY_KEYS) on it, frames a second by
       CUDA events and by the host clock; K1 and K2 once a frame;
     - the same keys on a second engine with stale_streaming (warmed with
@@ -1588,7 +1584,7 @@ def resident_path(torch, serial, flights, card):
     read after it.
 
     - A resident engine primed with prime_all: warm_resident (the pool
-      unchanged, rows and mirror included), the start pose's frame (equal
+      unchanged, rows and host tables), the start pose's frame (equal
       to phase 3's static frame bit for bit), then default_path(FLY_KEYS):
       every frame equal to phase 14's primed serial flight bit for bit
       (colour and depth; the stats count the superset stream), no
@@ -1786,7 +1782,7 @@ def resident_path(torch, serial, flights, card):
         f"{held.stats.tolist()} against {ref.stats.tolist()}); every chunk "
         f"of the serial pool ({len(ser.pool.by_pos)}) in the resident pool "
         f"({len(st.pool.by_pos)}); {equal} of the {shared} shared chunks "
-        f"with equal rows, host counts and counts mirror")
+        f"with equal rows and host counts")
     del st, ser, flights, held, ref
 
     # K1 and K2 at the resident shapes, on the primed engine's last stream
@@ -2232,7 +2228,7 @@ def meshing_path(torch, serial, card):
     engines settled and primed with prime_all, one meshing on the host and
     one with device_meshing=True (the settle batch meshed on the card; the
     seconds of each are printed); their pools hold the same chunks with the
-    same rows, counts, counts6 and counts6_dev; both drive phase 3's
+    same rows, counts and counts6; both drive phase 3's
     camera sequence, and every frame of the device-meshed engine must
     equal the host-meshed engine's bit for bit (colour, depth, stats) and
     phase 3's (colour, depth, stats[:2]).  Returns the seconds."""
@@ -2249,7 +2245,7 @@ def meshing_path(torch, serial, card):
     log(f"[16] prime_all of the settled world ({len(dev.pool.by_pos)} "
         f"chunks): host mesher {hp:.3f} s, device meshing {dp:.3f} s (worlds "
         f"settled in {hw:.2f} / {dw:.2f} s); the pools hold the same "
-        f"chunks with equal rows, counts, counts6 and counts6_dev; "
+        f"chunks with equal rows, counts and counts6; "
         f"overflow_drops host {host.pool.overflow_drops}, device "
         f"{dev.pool.overflow_drops}; {card}")
     batches = []
@@ -2820,9 +2816,8 @@ def frame_kinds(eng) -> dict:
 
     def streaming():
         payload = pool.prepare_insert_payload([(pos_key, mesh)])
-        return eng.renderer.render_fused_insert(
-            pool.quads, pool.counts6_dev, *draw, payload,
-            dir_mask=dir_mask)[2:]
+        return eng.renderer.render_fused_insert(pool.quads, *draw, payload,
+                                                dir_mask=dir_mask)
 
     return dict(static=static, moving=moving, streaming=streaming)
 
@@ -2832,7 +2827,7 @@ def graph_path(torch, serial, card):
 
     - a fresh engine of phase 3's configuration, settled and primed like
       phase 3's: the card's reserved and allocated memory before and after
-      warm_buckets() and warm_streaming() (every bucket's META5, static and
+      warm_buckets() and warm_streaming() (every bucket's fused, static and
       fused-insert graphs; four buckets);
     - phase 3's camera sequence (3 static frames, the N_MOVING moving
       frames that stream chunks through the fused insert) on it, every

@@ -49,7 +49,6 @@ from ..rendering.pipeline import (
     RESIDENT_INSERT_KP,
     RESIDENT_INSERT_MC,
     Renderer,
-    _c6_of,
     apply_insert_payload,
     pack_append_meta,
     resident_append_cap,
@@ -97,9 +96,9 @@ def _words(a: np.ndarray) -> torch.Tensor:
 
 
 class QuadPool:
-    """Device mesh cache: packed quads per chunk slot (int32 words) plus a
-    device mirror of the per-direction counts (``counts6_dev``), kept in
-    step by every device scatter.  Host bookkeeping as in the reference.
+    """Device mesh cache: packed quads per chunk slot (int32 words); the
+    counts stay on the host (``counts``, ``counts6``), the one source of
+    every draw list's counts.  Host bookkeeping as in the reference.
     Where ``written`` is a set (an engine with views sets it), every write
     of a slot's device row adds the slot to it (``take_written``)."""
 
@@ -118,8 +117,6 @@ class QuadPool:
         self.qcap = qcap
         self.quads = torch.zeros((slots, qcap), dtype=torch.int32,
                                  device=self.device)
-        self.counts6_dev = torch.zeros((slots, 6), dtype=torch.int32,
-                                       device=self.device)
         self.counts = np.zeros(slots, np.int32)
         self.counts6 = np.zeros((slots, 6), np.int32)
         self.positions = np.zeros((slots, 3), np.int32)
@@ -168,8 +165,6 @@ class QuadPool:
         pool = cls(slots, qcap, device=device)
         pool.quads = _words(quads).to(pool.device)
         pool.counts6 = np.array(counts6, np.int32)
-        pool.counts6_dev = torch.from_numpy(pool.counts6.copy()).to(
-            pool.device)
         pool.counts = pool.counts6.sum(axis=1).astype(np.int32)
         pool.positions = np.array(positions, np.int32)
         pool.by_pos = {tuple(int(c) for c in k): int(s)
@@ -201,10 +196,7 @@ class QuadPool:
                 self.overflow_drops += len(quads) - self.qcap
             row[:n] = quads[:n]
         with prof.ENQUEUE:
-            row_t = _words(row).to(self.device)
-            self.quads[slot] = row_t
-            self.counts6_dev[slot] = _c6_of(
-                row_t[None, :], torch.tensor([n], device=self.device))[0]
+            self.quads[slot] = _words(row).to(self.device)
         self._wrote((slot,))
         self.counts[slot] = n
         self.counts6[slot] = _dir_counts(row[:n])
@@ -216,9 +208,9 @@ class QuadPool:
         """Batched insert of device-resident quad rows (device meshing): the
         host tables take ``counts`` and the per-direction ``c6`` (from the
         meshing call's metadata, not from the rows), then one device
-        scatter of the rows i32[k, qcap] and of their counts6 mirror.  A
-        position may repeat only with identical rows (the bucket padding),
-        so the duplicate-index write is deterministic."""
+        scatter of the rows i32[k, qcap].  A position may repeat only with
+        identical rows (the bucket padding), so the duplicate-index write is
+        deterministic."""
         k = len(positions)
         if tuple(quad_rows.shape) != (k, self.qcap):
             raise ValueError(f"quad rows of shape {tuple(quad_rows.shape)} "
@@ -232,14 +224,56 @@ class QuadPool:
             self.counts6[slot] = c6[i]
             self.positions[slot] = key
         with prof.ENQUEUE:
-            slots_t = torch.from_numpy(slots).to(self.device)
-            counts_t = torch.from_numpy(np.asarray(counts, np.int32)).to(
-                self.device)
-            self.quads[slots_t] = quad_rows
-            self.counts6_dev[slots_t] = _c6_of(quad_rows, counts_t)
+            self.quads[torch.from_numpy(slots).to(self.device)] = quad_rows
         self._wrote(slots)
         self._dev_cache = None
         self._lookup_cache = None
+
+    def _payload(self, items, kp: int, fp: int | None = None
+                 ) -> np.ndarray:
+        """Host bookkeeping of ``items`` [(pos, quads-or-None), ...] and
+        their u32 payload [slots | starts | counts | flat quads], ``kp``
+        entries (padding: copies of entry 0) and ``fp`` flat words (None:
+        the total's power of two, at least 2048).  A mesh past ``qcap``
+        keeps its first ``qcap`` quads, the rest counted in
+        ``overflow_drops``."""
+        k = len(items)
+        slots = np.zeros(kp, np.int32)
+        counts = np.zeros(kp, np.int32)
+        parts = []
+        for i, (pos, quads) in enumerate(items):
+            key = tuple(int(c) for c in pos)
+            slot = self._slot_for(key)
+            n = 0
+            if quads is not None:
+                n = min(len(quads), self.qcap)
+                if len(quads) > self.qcap:
+                    self.overflow_drops += len(quads) - self.qcap
+                parts.append(np.asarray(quads[:n], np.uint32))
+                self.counts6[slot] = _dir_counts(parts[-1])
+            else:
+                self.counts6[slot] = 0
+            slots[i] = slot
+            counts[i] = n
+            self.counts[slot] = n
+            self.positions[slot] = key
+        self._wrote(slots[:k])
+        slots[k:] = slots[0]
+        counts[k:] = counts[0]
+        starts = np.zeros(kp, np.int64)
+        starts[:k] = np.cumsum(counts[:k]) - counts[:k]
+        total = int(counts[:k].sum())
+        if fp is None:
+            fp = 1 << max(11, (max(total, 1) - 1).bit_length())
+        packed = np.zeros(3 * kp + fp, np.uint32)
+        packed[:kp] = slots.astype(np.uint32)
+        packed[kp:2 * kp] = starts.astype(np.uint32)
+        packed[2 * kp:3 * kp] = counts.astype(np.uint32)
+        if total:
+            packed[3 * kp:3 * kp + total] = np.concatenate(parts)
+        self._dev_cache = None
+        self._lookup_cache = None
+        return packed
 
     def insert_many(self, items) -> None:
         """Batched insert of [(pos, quads-or-None), ...] as one flat
@@ -259,47 +293,10 @@ class QuadPool:
                 self.insert_many(small)
             items = wide
         k = len(items)
-        slots = np.zeros(k, np.int32)
-        counts = np.zeros(k, np.int32)
-        parts = []
-        for i, (pos, quads) in enumerate(items):
-            key = tuple(int(c) for c in pos)
-            slot = self._slot_for(key)
-            n = 0
-            if quads is not None:
-                n = min(len(quads), self.qcap)
-                if len(quads) > self.qcap:
-                    self.overflow_drops += len(quads) - self.qcap
-                parts.append(np.asarray(quads[:n], np.uint32))
-                self.counts6[slot] = _dir_counts(parts[-1])
-            else:
-                self.counts6[slot] = 0
-            slots[i] = slot
-            counts[i] = n
-            self.counts[slot] = n
-            self.positions[slot] = key
-        self._wrote(slots)
-        starts = np.cumsum(counts) - counts
-        total = int(counts.sum())
-        mc = 512 if counts.max(initial=0) <= 512 else self.qcap
         kp = 16 if k <= 16 else (64 if k <= 64 else 512)
-        if kp != k:  # pad with idempotent duplicates of entry 0
-            slots = np.concatenate([slots, np.full(kp - k, slots[0],
-                                                   np.int32)])
-            starts = np.concatenate([starts, np.full(kp - k, starts[0],
-                                                     np.int64)])
-            counts = np.concatenate([counts, np.full(kp - k, counts[0],
-                                                     np.int32)])
-        fp = 1 << max(11, (max(total, 1) - 1).bit_length())
-        packed = np.zeros(3 * kp + fp, np.uint32)
-        packed[:kp] = slots.astype(np.uint32)
-        packed[kp:2 * kp] = starts.astype(np.uint32)
-        packed[2 * kp:3 * kp] = counts.astype(np.uint32)
-        if total:
-            packed[3 * kp:3 * kp + total] = np.concatenate(parts)
+        packed = self._payload(items, kp)
+        mc = 512 if packed[2 * kp:3 * kp].max() <= 512 else self.qcap
         self.dispatch_insert_payload(packed, kp=kp, mc=mc)
-        self._dev_cache = None
-        self._lookup_cache = None
 
     def prepare_insert_payload(self, items, kp: int | None = None,
                                mc: int | None = None,
@@ -317,42 +314,9 @@ class QuadPool:
             return None
         if any(it[1] is not None and len(it[1]) > mc for it in items):
             return None
-        total = sum(len(q) for _, q in items if q is not None)
-        if total > fp:
+        if sum(len(q) for _, q in items if q is not None) > fp:
             return None
-        k = len(items)
-        slots = np.zeros(kp, np.int32)
-        counts = np.zeros(kp, np.int32)
-        parts = []
-        for i, (pos, quads) in enumerate(items):
-            key = tuple(int(c) for c in pos)
-            slot = self._slot_for(key)
-            n = 0
-            if quads is not None:
-                n = len(quads)
-                parts.append(np.asarray(quads, np.uint32))
-                self.counts6[slot] = _dir_counts(parts[-1])
-            else:
-                self.counts6[slot] = 0
-            slots[i] = slot
-            counts[i] = n
-            self.counts[slot] = n
-            self.positions[slot] = key
-        self._wrote(slots[:k])
-        slots[k:] = slots[0]
-        counts[k:] = counts[0]
-        starts = np.zeros(kp, np.int64)
-        starts[:k] = np.cumsum(counts[:k]) - counts[:k]
-        starts[k:] = starts[0]
-        packed = np.zeros(3 * kp + fp, np.uint32)
-        packed[:kp] = slots.astype(np.uint32)
-        packed[kp:2 * kp] = starts.astype(np.uint32)
-        packed[2 * kp:3 * kp] = counts.astype(np.uint32)
-        if total:
-            packed[3 * kp:3 * kp + total] = np.concatenate(parts)
-        self._dev_cache = None
-        self._lookup_cache = None
-        return packed
+        return self._payload(items, kp, fp)
 
     def dispatch_insert_payload(self, payload: np.ndarray,
                                 kp: int | None = None,
@@ -360,15 +324,9 @@ class QuadPool:
         """Apply a prepared payload with a standalone in-place scatter."""
         with prof.ENQUEUE:
             apply_insert_payload(
-                self.quads, self.counts6_dev,
-                _words(payload).to(self.device),
+                self.quads, _words(payload).to(self.device),
                 k=self.INSERT_KP if kp is None else kp,
                 mc=self.INSERT_MC if mc is None else mc)
-
-    def adopt_device_arrays(self, quads, counts6_dev) -> None:
-        """Rebind the device pool tensors after a fused insert+render."""
-        self.quads = quads
-        self.counts6_dev = counts6_dev
 
     def remove(self, pos) -> None:
         key = tuple(int(c) for c in pos)
@@ -398,15 +356,15 @@ class QuadPool:
         """A warm-up's throwaway entry: inside the block ``pos`` may be
         inserted, scattered and removed; the block yields the slot it takes
         (the next free one).  Afterwards the entry is gone and that slot's
-        device row and counts mirror, the host tables, the free list, the
-        used mask, the lookup caches and the overflow count are as before,
-        so later slot choices and frames are as without the block."""
+        device row, the host tables, the free list, the used mask, the
+        lookup caches and the overflow count are as before, so later slot
+        choices and frames are as without the block."""
         key = tuple(int(c) for c in pos)
         if key in self.by_pos or not self._free:
             raise RuntimeError("a throwaway pool entry needs a free slot and "
                                "no entry at its position")
         slot = self._free[-1]
-        saved = (self.quads[slot].clone(), self.counts6_dev[slot].clone(),
+        saved = (self.quads[slot].clone(),
                  int(self.counts[slot]), self.counts6[slot].copy(),
                  self.positions[slot].copy(), list(self._free),
                  self._lookup_cache, self._dev_cache, self.overflow_drops)
@@ -414,11 +372,10 @@ class QuadPool:
             yield slot
         finally:
             self.remove(key)
-            (row, c6_dev, self.counts[slot], self.counts6[slot],
+            (row, self.counts[slot], self.counts6[slot],
              self.positions[slot], self._free, self._lookup_cache,
              self._dev_cache, self.overflow_drops) = saved
             self.quads[slot] = row
-            self.counts6_dev[slot] = c6_dev
             self._wrote((slot,))
 
     @staticmethod
@@ -705,8 +662,8 @@ class Engine:
 
     def _flush_res_insert(self) -> None:
         """Scatter a queued resident payload on its own, before anything
-        outside the fused step reads the device pool (rebuilds, unloads,
-        frames without an append)."""
+        outside the fused step reads the device pool (rebuilds, frames
+        without an append)."""
         if self._res_insert is not None:
             self.pool.dispatch_insert_payload(
                 self._res_insert, kp=RESIDENT_INSERT_KP,
@@ -802,8 +759,7 @@ class Engine:
         bucket replays a graph at once.  ``pipelined`` adds the
         frames-in-flight steps (eager).  The pool, the caches and every
         later frame are as without the call."""
-        self.renderer.warm_buckets(self.pool.quads, self.pool.counts6_dev,
-                                   pipelined=pipelined)
+        self.renderer.warm_buckets(self.pool.quads, pipelined=pipelined)
 
     def warm_streaming(self) -> None:
         """Run the streaming path's device calls once ahead of the frame
@@ -814,10 +770,10 @@ class Engine:
         a first frame).  The reference compiles these shapes here; the
         port captures the fused frame's graph of each of those buckets
         (the scatter ladder runs eagerly).  Afterwards the throwaway
-        slot's device row and counts mirror, its host tables, the free
-        list, the used mask and the lookup caches are restored exactly, so
-        later slot choices, the upload cache and every later frame are as
-        without the call (``QuadPool.throwaway_entry``)."""
+        slot's device row, its host tables, the free list, the used mask
+        and the lookup caches are restored exactly, so later slot choices,
+        the upload cache and every later frame are as without the call
+        (``QuadPool.throwaway_entry``)."""
         with self.pool.throwaway_entry(_THROWAWAY) as slot:
             self._warm_scatter_ladder()
             if self.fused_insert:
@@ -836,7 +792,7 @@ class Engine:
         stream's static step (``Renderer.render_prepared``) and runs the
         rest eagerly.  The stream stays as built, and the pool is left as
         without the call (``QuadPool.throwaway_entry``): slots, rows,
-        counts and their device mirror, free list and lookup caches."""
+        counts, free list and lookup caches."""
         if not self.resident_stream:
             raise RuntimeError("warm_resident needs resident_stream")
         if self.device.type == "cuda":
@@ -860,10 +816,9 @@ class Engine:
                 payload = self.pool.prepare_insert_payload(
                     item, kp=RESIDENT_INSERT_KP, mc=RESIDENT_INSERT_MC,
                     fp=RESIDENT_INSERT_FP)
-                *_, pool2, c6b = self.renderer.render_prepared_append_insert(
+                self.renderer.render_prepared_append_insert(
                     uploads, vp, self.camera.position, self.pool.quads,
-                    self.pool.counts6_dev, zmeta, 0, payload)
-                self.pool.adopt_device_arrays(pool2, c6b)
+                    zmeta, 0, payload)
                 self.pool.dispatch_insert_payload(
                     self.pool.prepare_insert_payload(
                         item, kp=RESIDENT_INSERT_KP, mc=RESIDENT_INSERT_MC,
@@ -883,34 +838,21 @@ class Engine:
 
     def _warm_fused_insert(self, slot: int) -> None:
         """One fused insert+render frame a bucket (the current draw list's
-        and its neighbours, or all before a first frame), its payload the
-        throwaway entry at ``slot``."""
+        and its neighbours, or all before a first frame)
+        (``Renderer.warm_fused_insert``): the draw list is the throwaway
+        entry at ``slot`` alone, its payload that entry's mesh."""
         pool = self.pool
         payload = pool.prepare_insert_payload(
             [(_THROWAWAY, np.zeros(4, np.uint32))])
         assert payload is not None and pool.by_pos[_THROWAWAY] == slot
-        vcap = self.config.visible_chunks_cap
-        vs = np.zeros(vcap, np.int32)
-        vs[0] = slot
-        ps = np.zeros((vcap, 3), np.int32)
-        vp = np.eye(4, dtype=np.float32)
-        campos = np.zeros(3, np.float32)
         buckets = list(self.renderer.gather_buckets)
         if self._upload_cache is not None:
             total = int((self._last_counts_sel * self._last_dir_mask).sum())
             cur = self.renderer.bucket_for(total)
             i = buckets.index(cur) if cur in buckets else 0
             buckets = buckets[max(0, i - 1):i + 2]
-        for cap in buckets:
-            cs = np.zeros((vcap, 6), np.int32)
-            # the host count only picks the bucket: META5 reads the device
-            # mirror
-            cs[0, 0] = cap - 1
-            out = self.renderer.render_fused_insert(
-                pool.quads, pool.counts6_dev, vs, cs, ps, vp, campos,
-                payload)
-            assert out is not None
-            pool.adopt_device_arrays(out[0], out[1])
+        self.renderer.warm_fused_insert(pool.quads, slot, pool.counts6[slot],
+                                        payload, buckets)
 
     def _dir_keep_mask(self, positions, cam_pos) -> np.ndarray:
         """Per-chunk face-direction keep mask [n, 6]: 0 where every quad of
@@ -1261,16 +1203,7 @@ class Engine:
                         self._stale_stash.append(p)
             self._seen_world_version = self.world.version
         if self.world.unload_version != self._seen_unload_version:
-            # deliberate divergence: the queued payload scatters before
-            # retain frees slots, and the freed slots' counts mirror rows
-            # are zeroed, so the mirror always equals the host counts (the
-            # reference retains first and leaves freed slots' rows)
-            self._flush_res_insert()
-            freed = self.pool.retain(self.world.chunks)
-            if freed:
-                with prof.ENQUEUE:
-                    self.pool.counts6_dev[self.renderer._upload(
-                        np.asarray(freed, np.int64))] = 0
+            self.pool.retain(self.world.chunks)
             self._seen_unload_version = self.world.unload_version
             self._res_dirty = True
         cell = world_to_chunk_pos(cam.position)
@@ -1305,11 +1238,10 @@ class Engine:
         if self._res_insert is not None:
             payload = self._res_insert
             self._res_insert = None
-            color, depth, stats, new_up, pool2, c6b = (
+            color, depth, stats, new_up = (
                 self.renderer.render_prepared_append_insert(
-                    uploads, vp, cam.position, self.pool.quads,
-                    self.pool.counts6_dev, ameta, offset, payload))
-            self.pool.adopt_device_arrays(pool2, c6b)
+                    uploads, vp, cam.position, self.pool.quads, ameta,
+                    offset, payload))
             self._res_fused_inserts += 1
         else:
             color, depth, stats, new_up = (
@@ -1345,8 +1277,7 @@ class Engine:
                 return out
             self.resident_stream = False
             dt = 0.0
-        if (self.renderer._pipe_carry is not None
-                or self.renderer._pipe_done is not None):
+        if self.renderer._pipe_carry is not None:
             raise RuntimeError(
                 "frames-in-flight pipeline is non-empty; call "
                 "flush_pipeline() before mixing in serial render_frame")
@@ -1364,23 +1295,16 @@ class Engine:
             payload = self._pending_insert
             self._pending_insert = None
             out = self.renderer.render_fused_insert(
-                self.pool.quads, self.pool.counts6_dev,
-                self._last_visible_slots, self._last_counts_sel,
-                self._last_positions_sel, vp, cam.position, payload,
-                dir_mask=self._last_dir_mask)
-            if out is not None:
-                pool2, c6b, color, depth, stats = out
-                self.pool.adopt_device_arrays(pool2, c6b)
-                self._upload_cache = (sig, None)
-                return color, depth, stats
-            # fallback layout (truncated draw list): standalone scatter, then
-            # the normal render path below
-            self.pool.dispatch_insert_payload(payload)
+                self.pool.quads, self._last_visible_slots,
+                self._last_counts_sel, self._last_positions_sel, vp,
+                cam.position, payload, dir_mask=self._last_dir_mask)
+            self._upload_cache = (sig, None)
+            return out
         if self._upload_cache is not None and self._upload_cache[0] == sig:
             uploads = self._upload_cache[1]
             if uploads is None:
-                # the draw list settled after streaming frames (whose fused
-                # calls do not keep the expanded stream): expand once
+                # the draw list settled after changing (the fused calls do
+                # not keep the expanded stream): expand once
                 uploads = self.renderer.prepare_uploads(
                     self.pool.quads, self._last_visible_slots,
                     self._last_counts_sel, self._last_positions_sel,
@@ -1402,13 +1326,12 @@ class Engine:
                 return color, depth, stats
             self._prev_hiz = None
             return self.renderer.render_prepared(uploads, vp, cam.position)
-        color, depth, stats, uploads = self.renderer.render_fused(
+        out = self.renderer.render_fused(
             self.pool.quads, self._last_visible_slots,
             self._last_counts_sel, self._last_positions_sel,
-            vp, cam.position, dir_mask=self._last_dir_mask,
-            counts6_dev=self.pool.counts6_dev)
-        self._upload_cache = (sig, uploads)
-        return color, depth, stats
+            vp, cam.position, dir_mask=self._last_dir_mask)
+        self._upload_cache = (sig, None)
+        return out
 
     def render_frame_pipelined(self, dt: float = 0.016) -> FrameResult | None:
         """Frames-in-flight frame: run this frame's funnel, enter it with
@@ -1445,8 +1368,7 @@ class Engine:
                 out, uploads = self.renderer.render_fused_pipelined(
                     self.pool.quads, self._last_visible_slots,
                     self._last_counts_sel, self._last_positions_sel,
-                    vp, cam.position, dir_mask=self._last_dir_mask,
-                    counts6_dev=self.pool.counts6_dev)
+                    vp, cam.position, dir_mask=self._last_dir_mask)
                 self._upload_cache = (sig, uploads)
         self._apply_stale_stash()
         self._pipe_meta.append((n, n_visible_meshes))

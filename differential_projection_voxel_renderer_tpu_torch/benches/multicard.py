@@ -160,11 +160,12 @@ def dp_streams(eng, args, gather_cap: int) -> list:
     dev = pool_q.device
     vcap = visible.shape[1]
     ones = torch.ones((vcap, 6), dtype=torch.int32, device=dev)
+    counts6 = torch.from_numpy(eng.pool.counts6).to(dev)
     out = []
     for i in range(visible.shape[0]):
         sl = visible[i].long()
         c6 = torch.where(torch.arange(vcap, device=dev)[:, None] < nvis[i],
-                         eng.pool.counts6_dev[sl], 0)
+                         counts6[sl], 0)
         out.append(pipeline._expand_uploads_impl(
             pool_q, visible[i], c6, ones, positions[sl], gather_cap))
     return out

@@ -92,8 +92,9 @@ class CapturedCall:
     the call's buffers.  Its outputs are the run's.  Then ``fn`` is
     captured on that stream (``torch.cuda.graph``'s default capture stream
     lies on the card current at its first use), into ``pool`` (a
-    ``torch.cuda.graph_pool_handle()``; a private pool by default).  Later
-    runs replay the graph on the card's current stream and copy its
+    ``torch.cuda.graph_pool_handle()``; a private pool by default) and
+    instantiated, the captured graph kept (``keep_graph``).  Later runs
+    replay the graph on the card's current stream and copy its
     outputs out.  A failed capture raises; nothing falls back to eager.
 
     On the CPU ``run`` calls ``fn`` eagerly on the static buffers and
@@ -186,7 +187,12 @@ class CapturedCall:
                     first = self.fn(*self.fixed, *self.static)
                 finally:
                     torch.cuda.set_sync_debug_mode(mode)
-            graph = torch.cuda.CUDAGraph()
+            # keep the captured graph beside its executable one: with it
+            # destroyed at instantiation (torch's default), a launch under a
+            # profiler window, after graphs were made and freed with CUPTI
+            # set up, could segfault inside the driver, called from CUPTI's
+            # launch callback (CUPTI holds the node handles it saw created)
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
             tally = (collections.Counter(), collections.Counter())
             # no cyclic garbage collection while capturing: a graph freed
             # from a reference cycle (an engine dropped earlier) is
@@ -200,6 +206,7 @@ class CapturedCall:
             finally:
                 if gc_on:
                     gc.enable()
+            graph.instantiate()
             cur.wait_stream(side)
             result = _copy_out(first) if copy else first
             # the eager outputs were made on the side stream: their memory

@@ -383,7 +383,7 @@ def _check_streaming_gate(size, ref, out, pool_s, pool_f, poss):
     for pos in poss:
         ss, sf = pool_s.by_pos[pos], pool_f.by_pos[pos]
         assert torch.equal(pool_s.quads[ss], pool_f.quads[sf]), pos
-        assert torch.equal(pool_s.counts6_dev[ss], pool_f.counts6_dev[sf]), pos
+        assert (pool_s.counts6[ss] == pool_f.counts6[sf]).all(), pos
 
 
 def run_fused_insert_selftest(*, device="cuda", seed=42, size=128,
@@ -404,12 +404,9 @@ def run_fused_insert_selftest(*, device="cuda", seed=42, size=128,
     pool_f.insert_many([(pos_a, quads_a)])
     payload = pool_f.prepare_insert_payload([(pos_b, quads_b)])
     assert payload is not None
-    out = renderer.render_fused_insert(
-        pool_f.quads, pool_f.counts6_dev, *draw_list(pool_f, (pos_a, pos_b)),
+    frame = renderer.render_fused_insert(
+        pool_f.quads, *draw_list(pool_f, (pos_a, pos_b)),
         cam.view_projection_matrix(), cam.position, payload)
-    assert out is not None, "fused-insert frame fell back"
-    pool2, c6b, *frame = out
-    pool_f.adopt_device_arrays(pool2, c6b)
     _check_streaming_gate(size, ref, frame, pool_s, pool_f, (pos_a, pos_b))
     return "exact"
 
@@ -445,11 +442,10 @@ def run_resident_append_selftest(*, device="cuda", seed=42, size=128,
                              pool_f.counts6[[slot_b]],
                              pool_f.positions[[slot_b]])
     offset = int(total_a)
-    *frame, _up, pool2, c6b = renderer.render_prepared_append_insert(
+    *frame, _up = renderer.render_prepared_append_insert(
         (q_a, w_a, np.int32(offset + len(quads_b))),
-        cam.view_projection_matrix(), cam.position, pool_f.quads,
-        pool_f.counts6_dev, ameta, offset, payload)
-    pool_f.adopt_device_arrays(pool2, c6b)
+        cam.view_projection_matrix(), cam.position, pool_f.quads, ameta,
+        offset, payload)
     _check_streaming_gate(size, ref, frame, pool_s, pool_f, (pos_a, pos_b))
     return "exact"
 

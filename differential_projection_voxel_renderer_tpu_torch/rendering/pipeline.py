@@ -64,8 +64,8 @@ static buffers, one replay and the copies of its outputs.  Capacities are
 static, so a step makes no host sync; ``n_quads``, the counts and the
 totals stay on the device.  Where JAX's immutable arrays forced a copy,
 the port updates the quad pool in place (``apply_insert_payload``), also
-inside a graph.  Frames in flight, the resident append steps, the
-11-short fallback and ``prepare_uploads`` run eagerly.
+inside a graph.  Frames in flight, the resident append steps and
+``prepare_uploads`` run eagerly.
 """
 
 from __future__ import annotations
@@ -509,22 +509,11 @@ def _truncate_units(counts6, mask6, cap):
     return c6u.reshape(counts6.shape), int(keep.sum())
 
 
-def _c6_of(vals, counts):
-    """Per-face-direction histogram i32[k, 6] of packed quad rows."""
-    k, mc = vals.shape
-    j = torch.arange(mc, device=vals.device)[None, :]
-    d = (vals >> 29) & 7
-    ok = j < counts[:, None]
-    return torch.stack([((d == i) & ok).sum(1) for i in range(6)],
-                       dim=1).to(torch.int32)
-
-
-def apply_insert_payload(pool, c6pool, packed, *, k: int, mc: int):
+def apply_insert_payload(pool, packed, *, k: int, mc: int):
     """Rebuild [k, mc] rows from the flat payload (slots | starts | counts
     header, then the quad words, all i32 bits) and scatter them into the
-    pool and its counts6 mirror IN PLACE.  Padding entries duplicate entry
-    0 with identical rows, so the duplicate-index write is harmless.
-    Returns (pool, c6pool)."""
+    pool IN PLACE.  Padding entries duplicate entry 0 with identical rows,
+    so the duplicate-index write is harmless."""
     slots = packed[:k].long()
     starts = packed[k:2 * k].long()
     counts = packed[2 * k:3 * k]
@@ -536,13 +525,9 @@ def apply_insert_payload(pool, c6pool, packed, *, k: int, mc: int):
                        device=pool.device)
     full[:, :mc] = vals
     pool[slots] = full
-    c6pool[slots] = _c6_of(vals, counts)
-    return pool, c6pool
 
 
 META_SHORTS = 11   # slots | counts6 | dir-mask bits | positions, per chunk
-META5_SHORTS = 5   # slots | dir-mask bits | positions (counts6 from the
-                   # pool's device mirror, QuadPool.counts6_dev)
 
 
 def _pack_cam(view_proj, cam_pos) -> np.ndarray:
@@ -588,30 +573,35 @@ def _unpack_meta(meta_i, vcap: int):
             meta_i[8 * vcap:11 * vcap].reshape(vcap, 3))
 
 
-def _pack_meta5(vcap, slots, mask6, positions) -> np.ndarray:
-    meta = np.zeros(META5_SHORTS * vcap, np.int16)
-    n = len(slots)
-    meta[:n] = np.asarray(slots, np.int16)
-    meta[vcap:vcap + n] = _pack_mask_bits(mask6, n)
-    p = np.zeros((vcap, 3), np.int16)
-    p[:n] = np.asarray(positions[:n], np.int16)
-    meta[2 * vcap:5 * vcap] = p.ravel()
-    return meta
+def _pack_frame(vcap, slots, counts6, mask6, positions, view_proj,
+                cam_pos, payload=None) -> np.ndarray:
+    """A draw list's one i32 upload: its 11-short meta (``_pack_meta``,
+    padded to whole words) | the camera (19 f32 bits) | ``payload`` (u32
+    bits), if any."""
+    meta = _pack_meta(vcap, slots, counts6, mask6, positions)
+    meta = np.append(meta, np.zeros(meta.size % 2, np.int16))
+    parts = [meta.view(np.int32),
+             _pack_cam(view_proj, cam_pos).view(np.int32)]
+    if payload is not None:
+        parts.append(np.asarray(payload, np.uint32).view(np.int32))
+    return np.concatenate(parts)
 
 
-def _unpack_meta5(meta_i, vcap: int):
-    """META5 int16 meta -> (slots, mask6, positions), int32."""
-    meta_i = meta_i.to(torch.int32)
-    return (meta_i[:vcap], _mask6_of_bits(meta_i[vcap:2 * vcap]),
-            meta_i[2 * vcap:5 * vcap].reshape(vcap, 3))
-
-
-def _split_frame_u(frame_u, vcap: int):
-    """One i32 upload [META5 int16 pairs | camera f32 bits | rest]."""
-    n_meta = (META5_SHORTS * vcap) // 2
-    meta_i = frame_u[:n_meta].view(torch.int16)
+def _split_frame(frame_u, vcap: int):
+    """A ``_pack_frame`` upload on the device -> (meta i16[11 vcap], camera
+    f32[19], the rest)."""
+    n_meta = (META_SHORTS * vcap + 1) // 2
+    meta_i = frame_u[:n_meta].view(torch.int16)[:META_SHORTS * vcap]
     cam_f = frame_u[n_meta:n_meta + 19].view(torch.float32)
     return meta_i, cam_f, frame_u[n_meta + 19:]
+
+
+def _expand_meta(quad_pool, meta_i, *, vcap: int, gather_cap: int):
+    """The 11-short draw list ``meta_i`` expanded from the pool: (quads,
+    quad_world, total)."""
+    slots, counts6, mask6, positions = _unpack_meta(meta_i, vcap)
+    return _expand_uploads_impl(quad_pool, slots, counts6, mask6, positions,
+                                gather_cap)
 
 
 def _two_pass_step(quads, quad_world, n_quads, view_proj, cam_pos, *,
@@ -670,62 +660,36 @@ def _step_camf_hiz(quads, quad_world, n_quads, cam_f, hiz1, *,
     return color, depth, stats, hiz_ops.build_max_pyramid(depth)
 
 
-def _fused_frame(quad_pool, meta_i, cam_f, *, vcap: int, gather_cap: int,
+def _fused_frame(quad_pool, frame_u, *, vcap: int, gather_cap: int,
                  **step_kw):
-    """11-short draw list: expansion + step; also returns the expanded
-    stream so the caller can cache it."""
-    slots, counts6, mask6, positions = _unpack_meta(meta_i, vcap)
-    quads, quad_world, total = _expand_uploads_impl(
-        quad_pool, slots, counts6, mask6, positions, gather_cap)
-    color, depth, stats = _step_camf(quads, quad_world, total, cam_f,
-                                     **step_kw)
-    return color, depth, stats, quads, quad_world, total
-
-
-def _fused_frame5(quad_pool, counts6_pool, frame_u, *, vcap: int,
-                  gather_cap: int, **step_kw):
-    """META5 draw list (counts from the pool's device mirror) + camera in
-    one upload: expansion + step."""
-    meta_i, cam_f, _ = _split_frame_u(frame_u, vcap)
-    slots, mask6, positions = _unpack_meta5(meta_i, vcap)
-    quads, quad_world, total = _expand_uploads_impl(
-        quad_pool, slots, counts6_pool[slots.long()], mask6, positions,
-        gather_cap)
+    """A changed draw list's frame from its one upload (``_pack_frame``):
+    expansion + step.  Returns (color, depth, stats)."""
+    meta_i, cam_f, _ = _split_frame(frame_u, vcap)
+    quads, quad_world, total = _expand_meta(quad_pool, meta_i, vcap=vcap,
+                                            gather_cap=gather_cap)
     return _step_camf(quads, quad_world, total, cam_f, **step_kw)
 
 
-def _fused_frame_insert(quad_pool, counts6_pool, frame_u, *, vcap: int,
-                        gather_cap: int, kp: int, mc: int, **step_kw):
-    """Streaming frame: pool scatter (in place), then the META5 expansion
-    that may reference the just-inserted meshes, then the step.  Returns
-    (color, depth, stats)."""
-    meta_i, cam_f, ins = _split_frame_u(frame_u, vcap)
-    apply_insert_payload(quad_pool, counts6_pool, ins, k=kp, mc=mc)
-    slots, mask6, positions = _unpack_meta5(meta_i, vcap)
-    quads, quad_world, total = _expand_uploads_impl(
-        quad_pool, slots, counts6_pool[slots.long()], mask6, positions,
-        gather_cap)
-    return _step_camf(quads, quad_world, total, cam_f, **step_kw)
-
-
-def _views_meta_words(vcap: int) -> int:
-    """i32 words of a view's 11-short draw list (``Renderer.pack_views``)."""
-    return (META_SHORTS * vcap + 1) // 2
+def _fused_frame_insert(quad_pool, frame_u, *, vcap: int, gather_cap: int,
+                        kp: int, mc: int, **step_kw):
+    """Streaming frame: the upload's insert payload scattered into the pool
+    (in place), then ``_fused_frame``, whose expansion may reference the
+    just-inserted meshes.  Returns (color, depth, stats)."""
+    apply_insert_payload(quad_pool, _split_frame(frame_u, vcap)[2], k=kp,
+                         mc=mc)
+    return _fused_frame(quad_pool, frame_u, vcap=vcap, gather_cap=gather_cap,
+                        **step_kw)
 
 
 def views_band_frame(quad_pool, frame_u, *, vcap: int, gather_cap: int,
                      band_y0: int, band_h: int, **step_kw):
-    """One view's row band (``Engine.render_views``): the view's one upload
-    (``Renderer.pack_views``: its 11-short draw list, then its camera)
-    expanded as ``render_fused`` expands a draw list, then the step on the
-    ``band_h`` rows from ``band_y0``.  Returns (color, depth [band_h, W],
-    stats i32[6]; stats[1] counts the quads that touch the band)."""
-    n_meta = _views_meta_words(vcap)
-    meta_i = frame_u[:n_meta].view(torch.int16)[:META_SHORTS * vcap]
-    cam_f = frame_u[n_meta:n_meta + 19].view(torch.float32)
-    return _fused_frame(quad_pool, meta_i, cam_f, vcap=vcap,
-                        gather_cap=gather_cap, band_y0=band_y0,
-                        band_h=band_h, **step_kw)[:3]
+    """One view's row band (``Engine.render_views``): the view's upload
+    (``Renderer.pack_views``) expanded as ``render_fused`` expands a draw
+    list, then the step on the ``band_h`` rows from ``band_y0``.  Returns
+    (color, depth [band_h, W], stats i32[6]; stats[1] counts the quads
+    that touch the band)."""
+    return _fused_frame(quad_pool, frame_u, vcap=vcap, gather_cap=gather_cap,
+                        band_y0=band_y0, band_h=band_h, **step_kw)
 
 
 # resident-stream append batch limits (Engine resident mode): chunks per
@@ -801,22 +765,22 @@ def _step_camf_append(quads, quad_world, n_quads, cam_f, quad_pool,
 
 
 def _step_camf_append_insert(quads, quad_world, n_quads, frame_i,
-                             quad_pool, c6pool, *, append_cap: int, kp: int,
-                             mc: int, **step_kw):
+                             quad_pool, *, append_cap: int, kp: int, mc: int,
+                             **step_kw):
     """Resident-stream streaming frame with the batch's pool scatter (the
     reference's ``_step_camf_append_insert``): ``frame_i`` i32[10 VC + 20 +
     3 kp + fp] = ameta (``pack_append_meta``) | camera (19 f32 bits) |
     offset | insert payload (``QuadPool.prepare_insert_payload``, u32
-    bits).  The payload scatters into the pool and its counts mirror in
-    place (``apply_insert_payload``), then the batch is appended from the
+    bits).  The payload scatters into the pool in place
+    (``apply_insert_payload``), then the batch is appended from the
     scattered pool and the frame renders as ``_step_camf_append``.
-    Returns (color, depth, stats, quads2, quad_world2, pool, c6pool)."""
+    Returns (color, depth, stats, quads2, quad_world2)."""
     na = 10 * RESIDENT_APPEND_VCAP
-    apply_insert_payload(quad_pool, c6pool, frame_i[na + 20:], k=kp, mc=mc)
+    apply_insert_payload(quad_pool, frame_i[na + 20:], k=kp, mc=mc)
     return _step_camf_append(
         quads, quad_world, n_quads, frame_i[na:na + 19].view(torch.float32),
         quad_pool, frame_i[:na], frame_i[na + 19], append_cap=append_cap,
-        **step_kw) + (quad_pool, c6pool)
+        **step_kw)
 
 
 def _geom_stage(quads, quad_world, n_quads, view_proj, cam_pos, *,
@@ -848,30 +812,26 @@ def _pipe_step_camf(quads_p, qw_p, n_p, cam_p, pre_p, quads_c, qw_c, n_c,
                        next_geom=(quads_c, qw_c, n_c, vp_c, cp_c), **step_kw)
 
 
-def _pipe_fused5(quad_pool, counts6_pool, meta_i, cam_c, quads_p, qw_p, n_p,
-                 cam_p, pre_p, *, vcap: int, gather_cap: int, **step_kw):
-    """Frames-in-flight step with the CURRENT frame's draw-list expansion
-    (META5): expansion(N) + render(N-1) + stage A(N).  Returns (color,
-    depth, stats, pre_c, quads_c, qw_c, total_c)."""
-    slots, mask6, positions = _unpack_meta5(meta_i, vcap)
-    quads_c, qw_c, total_c = _expand_uploads_impl(
-        quad_pool, slots, counts6_pool[slots.long()], mask6, positions,
-        gather_cap)
+def _pipe_fused(quad_pool, meta_i, cam_c, quads_p, qw_p, n_p, cam_p, pre_p,
+                *, vcap: int, gather_cap: int, **step_kw):
+    """Frames-in-flight step with the CURRENT frame's draw-list expansion:
+    expansion(N) + render(N-1) + stage A(N).  Returns (color, depth,
+    stats, pre_c, quads_c, qw_c, total_c)."""
+    quads_c, qw_c, total_c = _expand_meta(quad_pool, meta_i, vcap=vcap,
+                                          gather_cap=gather_cap)
     color, depth, stats, pre_c = _pipe_step_camf(
         quads_p, qw_p, n_p, cam_p, pre_p, quads_c, qw_c, total_c, cam_c,
         **step_kw)
     return color, depth, stats, pre_c, quads_c, qw_c, total_c
 
 
-def _geom_fused5(quad_pool, counts6_pool, meta_i, cam_f, *, vcap: int,
-                 gather_cap: int, **geom_kw):
+def _geom_fused(quad_pool, meta_i, cam_f, *, vcap: int, gather_cap: int,
+                **geom_kw):
     """Draw-list expansion + stage A only: seeds the pipeline when the
     draw list changed and no frame is carried.  Returns (pre, quads, qw,
     total)."""
-    slots, mask6, positions = _unpack_meta5(meta_i, vcap)
-    quads, qw, total = _expand_uploads_impl(
-        quad_pool, slots, counts6_pool[slots.long()], mask6, positions,
-        gather_cap)
+    quads, qw, total = _expand_meta(quad_pool, meta_i, vcap=vcap,
+                                    gather_cap=gather_cap)
     return _geom_camf(quads, qw, total, cam_f, **geom_kw), quads, qw, total
 
 
@@ -882,8 +842,8 @@ class Renderer:
     step; with ``RenderConfig.temporal_hiz`` the engine's static frames go
     through ``render_prepared_hiz``.
 
-    The serial entry points (``render_fused`` on the META5 path,
-    ``render_prepared``, ``render_prepared_hiz``, ``render_fused_insert``)
+    The serial entry points (``render_fused``, ``render_prepared``,
+    ``render_prepared_hiz``, ``render_fused_insert``)
     run from one ``graphs.CapturedCall`` each a gather bucket, as the
     reference's ``_steps_for`` / ``_hiz_step_for`` / ``_insert_step_for``
     jit one program each.  A graph is captured at its first frame (or in
@@ -942,8 +902,6 @@ class Renderer:
             sorted(c for c in cands if c >= 16384)) or (cfg.gather_cap,)
         self._cam_cache: tuple | None = None
         self._pipe_carry: tuple | None = None  # (cap, uploads, cam_f, pre)
-        self._pipe_done: tuple | None = None   # serially rendered result
-        #                                        awaiting emission
 
     def _rebuild_tables(self) -> None:
         """The colour tables of ``config``'s shading and texture flags, on
@@ -967,7 +925,7 @@ class Renderer:
         camera cache, the device buffers.  A frame in flight would be
         rastered with the new tables, so the toggle raises while one is
         (flush the pipeline first)."""
-        if self._pipe_carry is not None or self._pipe_done is not None:
+        if self._pipe_carry is not None:
             raise RuntimeError(
                 "set_shading with a frame in flight; call pipeline_flush() "
                 "first")
@@ -986,20 +944,16 @@ class Renderer:
                 return c
         return self.gather_buckets[-1]
 
-    def warm_buckets(self, quad_pool, counts6_pool=None,
-                     pipelined: bool = False) -> None:
+    def warm_buckets(self, quad_pool, pipelined: bool = False) -> None:
         """Capture every capacity bucket's graphs on a one-chunk draw list
-        (pool slot 0, all six directions, an identity camera), the results
+        (one quad of pool slot 0, an identity camera), the results
         dropped, as the reference compiles each bucket's jit programs: the
-        META5 frame with ``counts6_pool`` (the pool's device mirror; the
-        11-short fallback then runs eagerly at the largest bucket), else
-        the 11-short frame eagerly; the static step; with
-        ``RenderConfig.temporal_hiz`` the temporal step.  ``pipelined``
-        also runs the frames-in-flight steps (kernel K3), eagerly.  On the
-        card the kernels are built and loaded first (``_build.lib``).
-        Nothing is written: the pool, the camera cache and the
-        frames-in-flight state are as they were, so every later frame is
-        what it would be without the call."""
+        fused frame, the static step and with ``RenderConfig.temporal_hiz``
+        the temporal step.  ``pipelined`` also runs the frames-in-flight
+        steps (kernel K3), eagerly.  On the card the kernels are built and
+        loaded first (``_build.lib``).  Nothing is written: the pool, the
+        camera cache and the frames-in-flight state are as they were, so
+        every later frame is what it would be without the call."""
         if pipelined:
             self._check_pipelined()
         if self.device.type == "cuda":
@@ -1008,44 +962,28 @@ class Renderer:
             _build.lib()
         vcap = self.config.visible_chunks_cap
         eye, origin = np.eye(4, dtype=np.float32), np.zeros(3, np.float32)
-        cam_np = _pack_cam(eye, origin)
-        cam = self._upload(cam_np)
-        meta11 = np.zeros(META_SHORTS * vcap, np.int16)
-        meta11[vcap] = 1           # one quad from pool slot 0, dir 0
-        meta11[7 * vcap] = 0x3F    # all six dirs kept
-        meta5 = np.zeros(META5_SHORTS * vcap, np.int16)
-        meta5[vcap] = 0x3F         # all six dirs kept (slot 0's counts)
-        meta5_t = self._upload(meta5)
-        frame_np = np.concatenate([meta5.view(np.int32),
-                                   cam_np.view(np.int32)])
+        one = np.zeros((1, 6), np.int32)
+        one[0, 0] = 1
+        frame_np = _pack_frame(vcap, np.zeros(1, np.int32), one,
+                               np.ones((1, 6), np.int32),
+                               np.zeros((1, 3), np.int32), eye, origin)
+        meta, cam, _ = _split_frame(self._upload(frame_np), vcap)
         for cap in self.gather_buckets:
-            kw = self._bucket_kw(cap)
-            if counts6_pool is not None:
-                self._fused5(quad_pool, counts6_pool, frame_np, cap)
-                slots, mask6, pos = _unpack_meta5(meta5_t, vcap)
-                up = _expand_uploads_impl(
-                    quad_pool, slots, counts6_pool[slots.long()], mask6,
-                    pos, cap)
-                if cap == self.gather_buckets[-1]:
-                    # the 11-short fallback of a truncated draw list, which
-                    # only the largest bucket takes
-                    _fused_frame(quad_pool, self._upload(meta11), cam,
-                                 vcap=vcap, gather_cap=cap, **kw)
-            else:
-                up = _fused_frame(quad_pool, self._upload(meta11), cam,
-                                  vcap=vcap, gather_cap=cap, **kw)[3:]
+            self._fused(quad_pool, frame_np, cap)
+            up = _expand_meta(quad_pool, meta, vcap=vcap, gather_cap=cap)
             self.render_prepared(up, eye, origin)
             if self.config.temporal_hiz:
                 self.render_prepared_hiz(up, eye, origin, self.empty_hiz())
-            if pipelined and counts6_pool is not None:
-                pre, q2, qw2, t2 = _geom_fused5(
-                    quad_pool, counts6_pool, meta5_t, cam, vcap=vcap,
-                    gather_cap=cap, **self._geom_kw())
+            if pipelined:
+                pre, q2, qw2, t2 = _geom_fused(
+                    quad_pool, meta, cam, vcap=vcap, gather_cap=cap,
+                    **self._geom_kw())
                 _geom_camf(q2, qw2, t2, cam, **self._geom_kw())
+                kw = self._bucket_kw(cap)
                 _pipe_step_camf(q2, qw2, t2, cam, pre, q2, qw2, t2, cam,
                                 **kw)
-                _pipe_fused5(quad_pool, counts6_pool, meta5_t, cam, q2, qw2,
-                             t2, cam, pre, vcap=vcap, gather_cap=cap, **kw)
+                _pipe_fused(quad_pool, meta, cam, q2, qw2, t2, cam, pre,
+                            vcap=vcap, gather_cap=cap, **kw)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -1065,16 +1003,42 @@ class Renderer:
                 g.load(i, x, keep=i < keep)
         return g.run()
 
-    def _fused5(self, quad_pool, counts6_pool, frame_np: np.ndarray,
-                cap: int):
-        """The META5 frame (``_fused_frame5``) of bucket ``cap`` on one
-        upload ``frame_np`` (``_frame_np``): (color, depth, stats)."""
-        vcap = self.config.visible_chunks_cap
+    def _fused(self, quad_pool, frame_np: np.ndarray, cap: int):
+        """The frame of a changed draw list from its one upload
+        ``frame_np`` (``_pack_frame``) at gather bucket ``cap``, from graph
+        "fused" (``_fused_frame``).  Returns (color, depth, stats)."""
         return self._run_graph(
-            "fused5", cap, functools.partial(
-                _fused_frame5, vcap=vcap, gather_cap=cap,
+            "fused", cap, functools.partial(
+                _fused_frame, vcap=self.config.visible_chunks_cap,
+                gather_cap=cap, **self._bucket_kw(cap)),
+            (quad_pool,), (frame_np,))
+
+    def _fused_insert(self, quad_pool, frame_np: np.ndarray, cap: int):
+        """``_fused`` with the upload's insert payload scattered into
+        ``quad_pool`` first, from graph "insert" (``_fused_frame_insert``).
+        Returns (color, depth, stats)."""
+        return self._run_graph(
+            "insert", cap, functools.partial(
+                _fused_frame_insert, vcap=self.config.visible_chunks_cap,
+                gather_cap=cap, kp=self.INSERT_KP, mc=self.INSERT_MC,
                 **self._bucket_kw(cap)),
-            (quad_pool, counts6_pool), (frame_np,))
+            (quad_pool,), (frame_np,))
+
+    def warm_fused_insert(self, quad_pool, slot: int, counts6, payload,
+                          buckets) -> None:
+        """Capture the fused insert frame's graph at each gather bucket of
+        ``buckets`` on a one-chunk draw list: pool slot ``slot`` with its
+        per-direction ``counts6``, all six directions kept, an identity
+        camera; ``payload`` (QuadPool.prepare_insert_payload) scatters into
+        ``quad_pool`` as a streaming frame's does.  The results are
+        dropped."""
+        frame_np = _pack_frame(
+            self.config.visible_chunks_cap, np.array([slot], np.int32),
+            np.asarray(counts6, np.int32).reshape(1, 6),
+            np.ones((1, 6), np.int32), np.zeros((1, 3), np.int32),
+            np.eye(4, dtype=np.float32), np.zeros(3, np.float32), payload)
+        for cap in buckets:
+            self._fused_insert(quad_pool, frame_np, cap)
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         """Host array -> device tensor.  On CUDA the copy goes through
@@ -1091,18 +1055,15 @@ class Renderer:
                    dir_mask):
         """Draw-list normalization shared by every entry point (reference
         ``Renderer._prep_meta``): ``counts_sel`` is [vcap, 6] per-direction
-        counts or legacy [vcap] totals.  Returns (slots, counts6, mask6,
-        positions, cap, truncated)."""
+        counts or legacy [vcap] totals, which become one dir-0 unit a
+        chunk; a list past the largest bucket loses its suffix units'
+        quads.  Returns (slots, counts6, mask6, positions, cap, total)."""
         counts6 = _normalize_counts6(counts_sel)
         mask6 = (np.ones_like(counts6) if dir_mask is None
                  else np.asarray(dir_mask, np.int64))
-        # padding rows (all-zero host counts) get a zero mask: META5 reads
-        # counts from the device mirror, where slot 0 is a live chunk
-        mask6 = mask6 * (counts6.sum(axis=1, keepdims=True) > 0)
         total = int((counts6 * mask6).sum())
         cap = self.bucket_for(total)
-        truncated = total > cap
-        if truncated:
+        if total > cap:
             counts6, total = _truncate_units(counts6, mask6, cap)
         slots_a = np.asarray(visible_slots, np.int32)
         pos_a = np.asarray(positions_sel, np.int32)
@@ -1110,83 +1071,59 @@ class Renderer:
             raise ValueError(
                 "draw-list meta exceeds int16 range (pool slot > 32767 "
                 "or |chunk grid coord| > 32767)")
-        return slots_a, counts6, mask6, pos_a, cap, truncated
+        return slots_a, counts6, mask6, pos_a, cap, total
+
+    def _frame_of(self, visible_slots, counts_sel, positions_sel, dir_mask,
+                  view_proj, cam_pos, payload=None):
+        """A draw list's one upload (``_pack_frame``) and its gather
+        bucket: (i32 array, cap, total)."""
+        slots_a, counts6, mask6, pos_a, cap, total = self._prep_meta(
+            visible_slots, counts_sel, positions_sel, dir_mask)
+        return (_pack_frame(self.config.visible_chunks_cap, slots_a, counts6,
+                            mask6, pos_a, view_proj, cam_pos, payload),
+                cap, total)
 
     def prepare_uploads(self, quad_pool, visible_slots, counts_sel,
                         positions_sel, dir_mask=None):
-        """Expand the draw list into the device quad stream; cacheable
-        while the draw list (with its dir mask) is unchanged.  Returns
-        (quads, quad_world, total)."""
+        """Expand the draw list into the device quad stream from its
+        11-short meta, one upload (the meta of ``render_fused``'s);
+        cacheable while the draw list (with its dir mask) is unchanged.
+        Returns (quads, quad_world, total)."""
+        vcap = self.config.visible_chunks_cap
         with prof.PREPARE:
             slots_a, counts6, mask6, pos_a, cap, _ = self._prep_meta(
                 visible_slots, counts_sel, positions_sel, dir_mask)
-            return _expand_uploads_impl(
-                quad_pool, self._upload(slots_a),
-                self._upload(counts6.astype(np.int32)),
-                self._upload(mask6.astype(np.int32)), self._upload(pos_a),
-                cap)
+            meta = self._upload(_pack_meta(vcap, slots_a, counts6, mask6,
+                                           pos_a))
+            return _expand_meta(quad_pool, meta, vcap=vcap, gather_cap=cap)
 
     def pack_views(self, views) -> tuple[np.ndarray, int, int]:
         """The uploads of a batch of views (``Engine.render_views``):
         ``views`` [(draw list (app/engine.DrawList), view_proj, cam_pos)].
-        Each draw list is normalized as ``render_fused`` normalizes it
-        (``_prep_meta``); the batch takes the gather bucket of its largest
-        stream.  Returns (i32[B, L]: a view's 11-short draw list and its
-        camera a row, the gather cap, the quads of all the views'
+        Each view's row is its ``render_fused`` upload (``_pack_frame``);
+        the batch takes the gather bucket of its largest stream.  Returns
+        (i32[B, L], the gather cap, the quads of all the views'
         streams)."""
-        vcap = self.config.visible_chunks_cap
-        n_meta = _views_meta_words(vcap)
-        frames = np.zeros((len(views), n_meta + 19), np.int32)
-        cap = quads = 0
-        for b, (dl, view_proj, cam_pos) in enumerate(views):
-            slots_a, counts6, mask6, pos_a, c, _ = self._prep_meta(
-                dl.slots, dl.counts6, dl.positions, dl.dir_mask)
-            cap = max(cap, c)
-            quads += int((counts6 * mask6).sum())
-            meta = _pack_meta(vcap, slots_a, counts6, mask6, pos_a)
-            frames[b, :n_meta].view(np.int16)[:meta.size] = meta
-            frames[b, n_meta:] = _pack_cam(view_proj, cam_pos).view(np.int32)
-        return frames, cap, quads
-
-    @staticmethod
-    def _frame_np(vcap, slots_a, mask6, pos_a, view_proj, cam_pos,
-                  payload=None) -> np.ndarray:
-        """A META5 frame's one upload: meta | camera | payload, i32."""
-        parts = [_pack_meta5(vcap, slots_a, mask6, pos_a).view(np.int32),
-                 _pack_cam(view_proj, cam_pos).view(np.int32)]
-        if payload is not None:
-            parts.append(np.asarray(payload, np.uint32).view(np.int32))
-        return np.concatenate(parts)
+        rows, cap, quads = [], 0, 0
+        for dl, view_proj, cam_pos in views:
+            row, c, total = self._frame_of(dl.slots, dl.counts6,
+                                           dl.positions, dl.dir_mask,
+                                           view_proj, cam_pos)
+            rows.append(row)
+            cap, quads = max(cap, c), quads + total
+        return np.stack(rows), cap, quads
 
     def render_fused(self, quad_pool, visible_slots, counts_sel,
-                     positions_sel, view_proj, cam_pos, dir_mask=None,
-                     counts6_dev=None):
-        """Draw-list expansion + step (the draw-list-changed frame).
-        Returns (color, depth, stats, uploads); ``uploads`` is None on the
-        META5 path (``counts6_dev`` given, per-direction counts, not
-        truncated), else the expanded stream for render_prepared.  Legacy
-        [vcap] totals take the 11-short layout: their dir-0 units are not
-        the device mirror's per-direction counts."""
-        vcap = self.config.visible_chunks_cap
+                     positions_sel, view_proj, cam_pos, dir_mask=None):
+        """Draw-list expansion + step (the draw-list-changed frame) from
+        one upload and the graph of its bucket: (color, depth, stats).  The
+        expanded stream is not kept (``prepare_uploads`` makes it for the
+        static frames)."""
         with prof.PREPARE:
-            slots_a, counts6, mask6, pos_a, cap, truncated = self._prep_meta(
-                visible_slots, counts_sel, positions_sel, dir_mask)
-            kw = self._bucket_kw(cap)
-            legacy_counts = np.asarray(counts_sel).ndim == 1
-            meta5 = (counts6_dev is not None and not truncated
-                     and not legacy_counts)
-            if meta5:
-                frame_np = self._frame_np(vcap, slots_a, mask6, pos_a,
-                                          view_proj, cam_pos)
-        if meta5:
-            color, depth, stats = self._fused5(quad_pool, counts6_dev,
-                                               frame_np, cap)
-            return color, depth, stats, None
-        meta = self._upload(_pack_meta(vcap, slots_a, counts6, mask6, pos_a))
-        color, depth, stats, quads, quad_world, total = _fused_frame(
-            quad_pool, meta, self._cam_dev(view_proj, cam_pos), vcap=vcap,
-            gather_cap=cap, **kw)
-        return color, depth, stats, (quads, quad_world, total)
+            frame_np, cap, _ = self._frame_of(visible_slots, counts_sel,
+                                              positions_sel, dir_mask,
+                                              view_proj, cam_pos)
+        return self._fused(quad_pool, frame_np, cap)
 
     def _cam_dev(self, view_proj, cam_pos):
         """Device copy of the packed camera, cached while it holds."""
@@ -1233,32 +1170,19 @@ class Renderer:
             functools.partial(_step_camf_hiz, **self._bucket_kw(cap)), (),
             (*uploads, cam, hiz1), keep=3)
 
-    def render_fused_insert(self, quad_pool, counts6_dev, visible_slots,
-                            counts_sel, positions_sel, view_proj, cam_pos,
+    def render_fused_insert(self, quad_pool, visible_slots, counts_sel,
+                            positions_sel, view_proj, cam_pos,
                             insert_payload, dir_mask=None):
         """Streaming frame: mesh insert + expansion + step with one upload
-        (QuadPool.prepare_insert_payload gives ``insert_payload``).  Returns
-        (pool, counts6, color, depth, stats) -- the pool tensors are
-        updated in place -- or None when the frame needs a fallback layout
-        (a truncated draw list or legacy [vcap] totals), in which case
-        nothing ran."""
+        (QuadPool.prepare_insert_payload gives ``insert_payload``).  The
+        pool is updated in place.  Returns (color, depth, stats)."""
         if insert_payload.shape != (3 * self.INSERT_KP + self.INSERT_FP,):
             raise ValueError(f"insert payload of shape {insert_payload.shape}")
-        vcap = self.config.visible_chunks_cap
         with prof.PREPARE:
-            slots_a, counts6, mask6, pos_a, cap, truncated = self._prep_meta(
-                visible_slots, counts_sel, positions_sel, dir_mask)
-            if truncated or np.asarray(counts_sel).ndim == 1:
-                return None
-            frame_np = self._frame_np(vcap, slots_a, mask6, pos_a, view_proj,
-                                      cam_pos, insert_payload)
-        color, depth, stats = self._run_graph(
-            "insert", cap, functools.partial(
-                _fused_frame_insert, vcap=vcap, gather_cap=cap,
-                kp=self.INSERT_KP, mc=self.INSERT_MC,
-                **self._bucket_kw(cap)),
-            (quad_pool, counts6_dev), (frame_np,))
-        return quad_pool, counts6_dev, color, depth, stats
+            frame_np, cap, _ = self._frame_of(
+                visible_slots, counts_sel, positions_sel, dir_mask,
+                view_proj, cam_pos, insert_payload)
+        return self._fused_insert(quad_pool, frame_np, cap)
 
     def _resident_kw(self, gather_cap: int) -> dict:
         kw = self._bucket_kw(gather_cap)
@@ -1300,15 +1224,13 @@ class Renderer:
         return got
 
     def render_prepared_append_insert(self, uploads, view_proj, cam_pos,
-                                      quad_pool, counts6_dev,
-                                      ameta: np.ndarray, offset: int,
-                                      payload: np.ndarray):
+                                      quad_pool, ameta: np.ndarray,
+                                      offset: int, payload: np.ndarray):
         """Resident-stream streaming frame with the batch's pool scatter,
         one upload (``_step_camf_append_insert``); ``payload`` from
         QuadPool.prepare_insert_payload at the resident shape
-        (RESIDENT_INSERT_KP/_MC/_FP).  Returns (color, depth, stats,
-        (quads2, quad_world2), pool, counts6): the pool tensors are updated
-        in place and returned for ``QuadPool.adopt_device_arrays``."""
+        (RESIDENT_INSERT_KP/_MC/_FP).  The pool is updated in place.
+        Returns (color, depth, stats, (quads2, quad_world2))."""
         quads, qw, total = uploads
         step = self._append_ins_step_for(int(quads.shape[0]))
         frame_i = np.concatenate([
@@ -1316,9 +1238,9 @@ class Renderer:
             _pack_cam(view_proj, cam_pos).view(np.int32),
             np.asarray([offset], np.int32),
             np.asarray(payload, np.uint32).view(np.int32)])
-        color, depth, stats, q2, w2, pool2, c6b = step(
-            quads, qw, total, self._upload(frame_i), quad_pool, counts6_dev)
-        return color, depth, stats, (q2, w2), pool2, c6b
+        color, depth, stats, q2, w2 = step(
+            quads, qw, total, self._upload(frame_i), quad_pool)
+        return color, depth, stats, (q2, w2)
 
     def render(self, quad_pool, visible_slots, counts_sel, positions_sel,
                view_proj, cam_pos):
@@ -1374,72 +1296,48 @@ class Renderer:
 
     def render_fused_pipelined(self, quad_pool, visible_slots, counts_sel,
                                positions_sel, view_proj, cam_pos,
-                               dir_mask=None, counts6_dev=None):
+                               dir_mask=None):
         """Pipelined render with the CURRENT frame's draw-list expansion in
-        the same step (the moving/streaming path; META5).  Returns
-        (result_or_None, uploads): ``result`` is the OLDEST pending frame's
-        (color, depth, stats) and ``uploads`` frame N's expanded stream.  A
-        truncated draw list, legacy [vcap] totals or a missing counts6
-        mirror renders serially (render_fused) after draining the pipeline;
-        a done-queue keeps the emission order."""
+        the same step (the moving/streaming path), from one upload.
+        Returns (result_or_None, uploads): ``result`` is the OLDEST pending
+        frame's (color, depth, stats) and ``uploads`` frame N's expanded
+        stream."""
         self._check_pipelined()
-        slots_a, _, mask6, pos_a, cap, truncated = self._prep_meta(
-            visible_slots, counts_sel, positions_sel, dir_mask)
-        if (counts6_dev is None or truncated
-                or np.asarray(counts_sel).ndim == 1):
-            out = self.pipeline_flush()
-            color, depth, stats, uploads = self.render_fused(
-                quad_pool, visible_slots, counts_sel, positions_sel,
-                view_proj, cam_pos, dir_mask=dir_mask,
-                counts6_dev=counts6_dev)
-            if out is None:
-                return (color, depth, stats), uploads
-            # the pipeline held a frame: emit it now, queue the serial one
-            self._pipe_done = (color, depth, stats)
-            return out, uploads
         vcap = self.config.visible_chunks_cap
+        frame_np, cap, _ = self._frame_of(visible_slots, counts_sel,
+                                          positions_sel, dir_mask,
+                                          view_proj, cam_pos)
         prof.mark_enqueue()
-        cam = self._cam_dev(view_proj, cam_pos)
-        meta = self._upload(_pack_meta5(vcap, slots_a, mask6, pos_a))
+        meta, cam, _ = _split_frame(self._upload(frame_np), vcap)
         out, carry = self._pipe_drain_if(cap)
         if carry is None:
-            pre, quads, qw, total = _geom_fused5(
-                quad_pool, counts6_dev, meta, cam, vcap=vcap, gather_cap=cap,
+            pre, quads, qw, total = _geom_fused(
+                quad_pool, meta, cam, vcap=vcap, gather_cap=cap,
                 **self._geom_kw())
             uploads = (quads, qw, total)
             self._pipe_carry = (cap, uploads, cam, pre)
             return out, uploads
         _, up_p, cam_p, pre_p = carry
-        color, depth, stats, pre_c, quads, qw, total = _pipe_fused5(
-            quad_pool, counts6_dev, meta, cam, up_p[0], up_p[1], up_p[2],
-            cam_p, pre_p, vcap=vcap, gather_cap=cap, **self._bucket_kw(cap))
+        color, depth, stats, pre_c, quads, qw, total = _pipe_fused(
+            quad_pool, meta, cam, up_p[0], up_p[1], up_p[2], cam_p, pre_p,
+            vcap=vcap, gather_cap=cap, **self._bucket_kw(cap))
         uploads = (quads, qw, total)
         self._pipe_carry = (cap, uploads, cam, pre_c)
         return (color, depth, stats), uploads
 
     def _pipe_drain_if(self, cap: int):
-        """Emit a done-queue entry or drain a carry of another bucket.
-        Returns (result_or_None, carry_or_None): ``carry`` is usable for a
-        pipelined step at ``cap``; ``result`` must be emitted first."""
-        done = self._pipe_done
-        self._pipe_done = None
+        """Drain a carry of another bucket.  Returns (result_or_None,
+        carry_or_None): ``carry`` is usable for a pipelined step at
+        ``cap``; ``result`` must be emitted first."""
         carry = self._pipe_carry
-        if done is not None:
-            # the done-queue is only ever filled with an empty carry
-            assert carry is None, "done-queue entry beside a live carry"
-            return done, None
         if carry is not None and carry[0] != cap:
             return self.pipeline_flush(), None
         return None, carry
 
     def pipeline_flush(self):
-        """Drain the frames-in-flight state: emit the done-queue entry or
-        render the carried frame serially (its stage A runs again: the same
-        math, the same frame).  Returns (color, depth, stats) or None."""
-        done = self._pipe_done
-        self._pipe_done = None
-        if done is not None:
-            return done
+        """Drain the frames-in-flight state: render the carried frame
+        serially (its stage A runs again: the same math, the same frame).
+        Returns (color, depth, stats) or None."""
         carry = self._pipe_carry
         if carry is None:
             return None

@@ -22,6 +22,10 @@ Each window counts the device activities the profiler saw.  Prints
 activity (with CUPTI torn down after each window, as torch.profiler does
 by default, later windows over graph frames see none, and the process
 can crash: rendering/graphs.py keeps CUPTI set up once it captures).
+With each captured graph destroyed at its instantiation, the ``moving``
+window's first replays of engine A's "fused" graphs could segfault
+inside the driver, from CUPTI's launch callback: rendering/graphs.py
+keeps the captured graphs.
 """
 
 import gc

@@ -202,13 +202,13 @@ def draw_list(eng):
 
 
 def pool_tables(pool):
-    """A pool's slot map, host counts and device rows and counts mirror,
-    as numpy copies (either package)."""
-    quads, c6 = pool.quads, pool.counts6_dev
+    """A pool's slot map, host counts and device rows, as numpy copies
+    (either package)."""
+    quads = pool.quads
     if isinstance(quads, torch.Tensor):
-        quads, c6 = quads.numpy().view(np.uint32), c6.numpy()
+        quads = quads.numpy().view(np.uint32)
     return (dict(pool.by_pos), pool.counts.copy(), pool.counts6.copy(),
-            np.array(c6), np.array(quads))
+            np.array(quads))
 
 
 def assert_same_pool_tables(a, b):

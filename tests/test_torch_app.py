@@ -93,8 +93,8 @@ def _primed(eng):
 def pool_state(pool):
     """Everything a later frame or slot choice of a port pool reads."""
     lc = pool._lookup_cache
-    return dict(quads=pool.quads.clone(), c6_dev=pool.counts6_dev.clone(),
-                counts=pool.counts.copy(), counts6=pool.counts6.copy(),
+    return dict(quads=pool.quads.clone(), counts=pool.counts.copy(),
+                counts6=pool.counts6.copy(),
                 positions=pool.positions.copy(), by_pos=dict(pool.by_pos),
                 free=list(pool._free), used=pool._used.copy(),
                 drops=pool.overflow_drops,
@@ -248,7 +248,7 @@ def test_warm_buckets_changes_nothing(app):
 
 
 def test_warm_streaming_changes_nothing(app):
-    """The throwaway entry's slot, its device row and counts mirror, the
+    """The throwaway entry's slot, its device row and host counts, the
     free list, the used mask and the lookup cache are restored exactly;
     the upload and camera caches are untouched; the first streaming frame
     equals that of an engine that never warmed, bit for bit."""

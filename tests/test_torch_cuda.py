@@ -405,18 +405,18 @@ def _resident_append_frame(device):
     offset = int(stream[2])
     cam = Camera(np.array([32.0, 44.0, 56.0], np.float32), 5.0)
     cam.look_at(np.array([32.0, 8.0, 16.0], np.float32))
-    color, depth, stats, (q2, w2), p2, c6 = r.render_prepared_append_insert(
+    color, depth, stats, (q2, w2) = r.render_prepared_append_insert(
         (stream[0], stream[1], np.int32(offset + len(quads_b))),
-        cam.view_projection_matrix(), cam.position, pool.quads,
-        pool.counts6_dev, ameta, offset, payload)
-    return [t.cpu() for t in (color, depth, stats, q2, w2, p2, c6)]
+        cam.view_projection_matrix(), cam.position, pool.quads, ameta,
+        offset, payload)
+    return [t.cpu() for t in (color, depth, stats, q2, w2, pool.quads)]
 
 
 @pytest.mark.cuda
 def test_resident_append_frame_matches_plain(cuda_device):
     """A resident append frame with its fused scatter through K1 and K2 on
     the card against the same step on the CPU (their plain versions): the
-    appended stream, the pool and its counts mirror bit for bit, stats
+    appended stream and the pool bit for bit, stats
     equal, the frame exact; and the resident self-test on the card."""
     before = (geometry.launches, raster.launches)
     got = _resident_append_frame(cuda_device)
@@ -1033,7 +1033,7 @@ def test_graph_frame_equals_eager_frame(cuda_device, mode):
     _fly(eng, GRAPH_POSES)
     torch.cuda.synchronize()
     twin.close()
-    names = ["fused5", "prepared", "insert"] + (
+    names = ["fused", "prepared", "insert"] + (
         ["hiz"] if mode == "temporal" else [])
     want = {(n, c) for n in names for c in eng.renderer.gather_buckets}
     assert set(twin.replays()) == want == set(eng.renderer._graphs)
@@ -1073,14 +1073,12 @@ def test_graphs_recapture_after_set_shading_and_a_new_pool(cuda_device):
             eng._last_positions_sel, eng.camera.view_projection_matrix(),
             eng.camera.position)
     pool = eng.pool
-    first = [r.render_fused(pool.quads, *args, dir_mask=eng._last_dir_mask,
-                            counts6_dev=pool.counts6_dev)[:3]
+    first = [r.render_fused(pool.quads, *args, dir_mask=eng._last_dir_mask)
              for _ in range(2)][1]
-    g = r._graphs["fused5", 16384]
-    q2, c2 = pool.quads.clone(), pool.counts6_dev.clone()
-    second = r.render_fused(q2, *args, dir_mask=eng._last_dir_mask,
-                            counts6_dev=c2)[:3]
-    g2 = r._graphs["fused5", 16384]
+    g = r._graphs["fused", 16384]
+    q2 = pool.quads.clone()
+    second = r.render_fused(q2, *args, dir_mask=eng._last_dir_mask)
+    g2 = r._graphs["fused", 16384]
     assert g2 is not g and g2.fixed[0] is q2
     assert all(torch.equal(a, b) for a, b in zip(_frame_bits(first),
                                                  _frame_bits(second)))
@@ -1143,6 +1141,22 @@ def test_graphs_survive_profiler_windows(cuda_device):
     assert done.returncode == 0, (done.returncode, done.stdout,
                                   done.stderr[-3000:])
     assert done.stdout.split()[-1] == "ok"
+
+
+@pytest.mark.cuda
+def test_captured_call_keeps_its_graph(cuda_device):
+    """A CapturedCall keeps the graph it captured beside the executable
+    graph (``keep_graph``), whose handles CUPTI may read at a launch under
+    a later profiler window; replays still serve new inputs."""
+    call = graphs.CapturedCall(lambda x: (x * 2.0,), (),
+                               (torch.ones(8, device=cuda_device),),
+                               device=cuda_device)
+    for v in (1.0, 3.0):
+        call.load(0, torch.full((8,), v, device=cuda_device))
+        (out,) = call.run()
+        assert torch.equal(out, torch.full((8,), 2.0 * v,
+                                           device=cuda_device))
+    assert call.graph.raw_cuda_graph() != 0
 
 
 @pytest.fixture

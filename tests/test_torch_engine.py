@@ -151,7 +151,7 @@ def test_pool_round_trip_from_numpy(runs):
     jeng, teng, frames, _ = runs
     jp = jeng.pool
     pool = TE.QuadPool.from_numpy(np.asarray(jp.quads),
-                                  np.asarray(jp.counts6_dev), jp.positions,
+                                  jp.counts6, jp.positions,
                                   jp.by_pos, device="cpu")
     np.testing.assert_array_equal(pool.quads.numpy().view(np.uint32),
                                   np.asarray(jp.quads))
@@ -171,6 +171,68 @@ def test_pool_round_trip_from_numpy(runs):
     np.testing.assert_array_equal(color.numpy().view(np.uint32), got[0])
     np.testing.assert_array_equal(depth.numpy(), got[1])
     np.testing.assert_array_equal(stats.numpy(), got[2])
+
+
+def test_truncated_streaming_frame_takes_the_fused_insert(monkeypatch):
+    """A streaming frame whose draw list is past the largest gather bucket
+    (truncated, gather cap 2048) takes the fused insert from its graph,
+    with no standalone scatter, and gives the frame and pool of the
+    standalone scatter followed by the expanded stream's step
+    (``apply_insert_payload``, ``prepare_uploads``, ``render_prepared``)
+    bit for bit."""
+    eng = TE.Engine(TE.RenderConfig(width=128, height=64, gather_cap=2048,
+                                    quads_cap=2048),
+                    TE.WorldConfig(view_distance=3, frustum_culling=True,
+                                   max_chunks_per_frame=4),
+                    pool_slots=256, device="cpu")
+    r, pool = eng.renderer, eng.pool
+    assert r.gather_buckets == (2048,)
+    _pose(eng, ((0.0, 10.0, 20.0), (0.0, 0.0, -60.0)))
+    while eng.world.update(eng.camera.position):
+        pass
+    eng.prime()
+    eng.render_frame(dt=0.0)
+    events = []
+
+    def spy(obj, name, fn=None):
+        real = getattr(obj, name)
+
+        def call(*a, **k):
+            events.append((name, fn(*a) if fn else a[0]))
+            return real(*a, **k)
+        monkeypatch.setattr(obj, name, call)
+
+    spy(r, "_run_graph")
+    spy(pool, "dispatch_insert_payload")
+    spy(r, "render_fused_insert", lambda quads, *a: (quads.clone(), a))
+    checked = 0
+    for x in (16.0, 24.0):
+        _pose(eng, ((x, 10.0, 20.0 - x), (x, 0.0, -60.0 - x)))
+        events.clear()
+        res = eng.render_frame(dt=0.0)
+        dl = (eng._last_visible_slots, eng._last_counts_sel,
+              eng._last_positions_sel)
+        if [e[0] for e in events[:1]] != ["render_fused_insert"]:
+            continue
+        assert int((dl[1] * eng._last_dir_mask).sum()) > 2048
+        # one graph call and no standalone scatter
+        assert [e[0] for e in events[1:]] == ["_run_graph"], events
+        assert events[1][1] == "insert"
+        monkeypatch.undo()
+        before, (*_, vp, cp, payload) = events[0][1]
+        TPL.apply_insert_payload(before,
+                                 torch.from_numpy(payload.view(np.int32)),
+                                 k=r.INSERT_KP, mc=r.INSERT_MC)
+        assert torch.equal(before, pool.quads)
+        want = r.render_prepared(r.prepare_uploads(
+            before, *dl, dir_mask=eng._last_dir_mask), vp, cp)
+        for a, b in zip(want, (res.color, res.depth, res.stats)):
+            assert torch.equal(a, b)
+        checked += 1
+        spy(r, "_run_graph")
+        spy(pool, "dispatch_insert_payload")
+        spy(r, "render_fused_insert", lambda quads, *a: (quads.clone(), a))
+    assert checked
 
 
 @pytest.mark.parametrize("flag", ["span_mode", "packed_raster",

@@ -129,14 +129,14 @@ def test_flight_took_every_graph_entry_point(flight):
     temporal static frames (the pyramid seeded, then culling), the turned
     camera on the same draw list, streaming frames, the held pose."""
     names = [f[4][0] for f in flight]
-    assert names[:6] == ["fused5", "hiz", "hiz", "hiz", "hiz", "prepared"]
+    assert names[:6] == ["fused", "hiz", "hiz", "hiz", "hiz", "prepared"]
     assert "insert" in names[6:10], names
     assert names[-2:] == ["hiz", "hiz"], names
     culls = [int(f[1][2][5]) > 0 for f in flight]
     assert culls[2] and culls[-1] and not culls[1] and not culls[5]
 
 
-def _pool_and_mirror():
+def _engine_at_p0():
     eng = TE.Engine(**_configs(TE.RenderConfig, TE.WorldConfig),
                     device="cpu")
     _pose(eng, P0)
@@ -149,26 +149,25 @@ def _pool_and_mirror():
 
 def test_one_graph_per_entry_point_and_bucket():
     """warm_buckets makes one graph per (entry point, gather bucket) --
-    the META5 frame, the static step and the temporal step of each of the
+    the fused frame, the static step and the temporal step of each of the
     three buckets -- and a second warm_buckets reuses every one of them."""
     r = TPL.Renderer(TE.RenderConfig(width=W, height=H, gather_cap=65536,
                                      quads_cap=8192, temporal_hiz=True),
                      device="cpu")
     assert r.gather_buckets == (16384, 32768, 65536)
     pool = torch.zeros((4, 512), dtype=torch.int32)
-    c6 = torch.zeros((4, 6), dtype=torch.int32)
-    r.warm_buckets(pool, c6)
-    assert set(r._graphs) == {(n, c) for n in ("fused5", "prepared", "hiz")
+    r.warm_buckets(pool)
+    assert set(r._graphs) == {(n, c) for n in ("fused", "prepared", "hiz")
                               for c in r.gather_buckets}
     made = dict(r._graphs)
-    r.warm_buckets(pool, c6)
+    r.warm_buckets(pool)
     assert all(r._graphs[k] is g for k, g in made.items())
     assert len(r._graphs) == len(made)
     assert r._cam_cache is None
 
 
 def test_set_shading_drops_every_graph():
-    eng = _pool_and_mirror()
+    eng = _engine_at_p0()
     r = eng.renderer
     assert r._graphs
     tables = r._bucket_kw(16384)["color_tables"]
@@ -183,25 +182,22 @@ def test_new_pool_tensors_rebuild_the_graph():
     """A frame with other pool tensors than the graph captured gets a new
     graph over them, and renders the same frame; the first pool again
     rebuilds again."""
-    eng = _pool_and_mirror()
+    eng = _engine_at_p0()
     r, pool = eng.renderer, eng.pool
     args = (eng._last_visible_slots, eng._last_counts_sel,
             eng._last_positions_sel, eng.camera.view_projection_matrix(),
             eng.camera.position)
-    first = r.render_fused(pool.quads, *args, dir_mask=eng._last_dir_mask,
-                           counts6_dev=pool.counts6_dev)
-    g = r._graphs["fused5", 16384]
-    assert g.fixed[0] is pool.quads
-    q2, c2 = pool.quads.clone(), pool.counts6_dev.clone()
-    second = r.render_fused(q2, *args, dir_mask=eng._last_dir_mask,
-                            counts6_dev=c2)
-    g2 = r._graphs["fused5", 16384]
-    assert g2 is not g and g2.fixed[0] is q2 and g2.fixed[1] is c2
-    for a, b in zip(first[:3], second[:3]):
+    first = r.render_fused(pool.quads, *args, dir_mask=eng._last_dir_mask)
+    g = r._graphs["fused", 16384]
+    assert len(g.fixed) == 1 and g.fixed[0] is pool.quads
+    q2 = pool.quads.clone()
+    second = r.render_fused(q2, *args, dir_mask=eng._last_dir_mask)
+    g2 = r._graphs["fused", 16384]
+    assert g2 is not g and g2.fixed[0] is q2
+    for a, b in zip(first, second):
         assert torch.equal(a, b)
-    r.render_fused(pool.quads, *args, dir_mask=eng._last_dir_mask,
-                   counts6_dev=pool.counts6_dev)
-    assert r._graphs["fused5", 16384].fixed[0] is pool.quads
+    r.render_fused(pool.quads, *args, dir_mask=eng._last_dir_mask)
+    assert r._graphs["fused", 16384].fixed[0] is pool.quads
 
 
 def _storages(ts):
@@ -211,7 +207,7 @@ def _storages(ts):
 def test_outputs_share_no_storage_with_the_graph():
     """A frame's tensors share storage with no static buffer, no fixed
     tensor and no other frame's tensors."""
-    eng = _pool_and_mirror()
+    eng = _engine_at_p0()
     frames = [eng.render_frame(dt=0.0) for _ in range(3)]
     owned = set()
     for g in eng.renderer._graphs.values():
@@ -228,7 +224,7 @@ def test_static_stream_copied_only_when_it_changes():
     """render_prepared copies its stream into the graph only when it is
     not the stream copied last (that one is kept referenced); the camera
     goes in every frame."""
-    eng = _pool_and_mirror()
+    eng = _engine_at_p0()
     r = eng.renderer
     uploads = r.prepare_uploads(eng.pool.quads, eng._last_visible_slots,
                                 eng._last_counts_sel,
@@ -392,7 +388,7 @@ def test_captured_call_run_without_copy():
 def test_eager_twin_records_and_closes():
     """EagerTwin records each graph call with its eager outputs and gives
     the renderer its method back."""
-    eng = _pool_and_mirror()
+    eng = _engine_at_p0()
     r = eng.renderer
     twin = graphs.EagerTwin(r, keep_eager=True)
     assert "_run_graph" in vars(r)

@@ -98,8 +98,8 @@ def test_expand_uploads_matches_jax(gather_cap):
 
 
 def test_apply_insert_payload_matches_jax():
-    """Flat-payload scatter into the pool and its counts6 mirror, padding
-    entries duplicating entry 0 (QuadPool.prepare_insert_payload)."""
+    """Flat-payload scatter into the pool, in place, padding entries
+    duplicating entry 0 (QuadPool.prepare_insert_payload)."""
     rng = np.random.default_rng(3)
     k, mc, fp, qcap = 16, 512, 2048, 1024
     pool = rng.integers(0, 2**32, (32, qcap), dtype=np.uint64).astype(
@@ -118,44 +118,41 @@ def test_apply_insert_payload_matches_jax():
     total = int(counts[:n].sum())
     packed[3 * k:3 * k + total] = rng.integers(0, 2**32, total,
                                                dtype=np.uint64)
-    ref_pool, ref_c6 = JPL.apply_insert_payload(
+    ref_pool, _ = JPL.apply_insert_payload(
         jnp.asarray(pool), jnp.asarray(c6), jnp.asarray(packed), k=k, mc=mc)
     t_pool = torch.from_numpy(pool.view(np.int32).copy())
-    t_c6 = torch.from_numpy(c6.copy())
-    TPL.apply_insert_payload(t_pool, t_c6,
-                             torch.from_numpy(packed.view(np.int32)),
-                             k=k, mc=mc)
+    assert TPL.apply_insert_payload(
+        t_pool, torch.from_numpy(packed.view(np.int32)), k=k, mc=mc) is None
     np.testing.assert_array_equal(np.asarray(ref_pool).view(np.int32),
                                   t_pool.numpy())
-    np.testing.assert_array_equal(np.asarray(ref_c6), t_c6.numpy())
 
 
-def test_draw_list_uploads_unpack_like_jax():
-    """META5 (+ camera) and the 11-short meta decode to the JAX values."""
+@pytest.mark.parametrize("vcap,payload", [(64, 0), (63, 40)])
+def test_draw_list_uploads_unpack_like_jax(vcap, payload):
+    """A draw list's one upload (``_pack_frame``: the 11-short meta, a
+    zero short when it is odd, the camera, the payload) holds the JAX
+    package's meta (``_pack_meta``) and camera; split on the device
+    (``_split_frame``) it decodes to the JAX values (``_unpack_meta``)."""
     rng = np.random.default_rng(11)
-    vcap, n = 64, 40
+    n = 40
     _, slots, counts6, mask6, positions = _draw_list(rng, 100, 8, n, 9)
     vp = rng.normal(size=(4, 4)).astype(np.float32)
     cp = rng.normal(size=3).astype(np.float32)
-    frame_u = np.concatenate([
-        JPL._pack_meta5(vcap, slots, mask6, positions).view(np.uint32),
-        JPL._pack_cam(vp, cp).view(np.uint32)])
-    np.testing.assert_array_equal(
-        frame_u.view(np.int32),
-        np.concatenate([TPL._pack_meta5(vcap, slots, mask6, positions)
-                        .view(np.int32), TPL._pack_cam(vp, cp)
-                        .view(np.int32)]))
-    meta_t, cam_t, _ = TPL._split_frame_u(
-        torch.from_numpy(frame_u.view(np.int32)), vcap)
-    n_meta = (JPL.META5_SHORTS * vcap) // 2
-    ref5 = JPL._unpack_meta5(
-        jnp.asarray(frame_u[:n_meta]).view(jnp.int16).reshape(-1), vcap)
-    for r, g in zip(ref5, TPL._unpack_meta5(meta_t, vcap)):
-        np.testing.assert_array_equal(np.asarray(r), g.numpy())
-    np.testing.assert_array_equal(cam_t.numpy()[:16], vp.ravel())
+    ins = rng.integers(0, 2**32, payload, dtype=np.uint64).astype(np.uint32)
+    frame = TPL._pack_frame(vcap, slots, counts6, mask6, positions, vp, cp,
+                            ins if payload else None)
     meta11 = JPL._pack_meta(vcap, slots, counts6, mask6, positions)
+    words = (11 * vcap + 1) // 2
+    assert frame.dtype == np.int32
+    assert frame.shape == (words + 19 + payload,)
     np.testing.assert_array_equal(
-        meta11, TPL._pack_meta(vcap, slots, counts6, mask6, positions))
+        frame[:words].view(np.int16),
+        np.concatenate([meta11, np.zeros(vcap % 2, np.int16)]))
+    np.testing.assert_array_equal(frame[words:words + 19],
+                                  JPL._pack_cam(vp, cp).view(np.int32))
+    meta_t, cam_t, rest = TPL._split_frame(torch.from_numpy(frame), vcap)
     for r, g in zip(JPL._unpack_meta(jnp.asarray(meta11), vcap),
-                    TPL._unpack_meta(torch.from_numpy(meta11), vcap)):
+                    TPL._unpack_meta(meta_t, vcap)):
         np.testing.assert_array_equal(np.asarray(r), g.numpy())
+    np.testing.assert_array_equal(cam_t.numpy(), JPL._pack_cam(vp, cp))
+    np.testing.assert_array_equal(rest.numpy().view(np.uint32), ins)

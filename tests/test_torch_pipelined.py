@@ -349,21 +349,40 @@ def test_bucket_switch_drains_in_order(fuzz_renderer):
     assert int(serial[1][2][1]) > int(serial[0][2][1]) > 0
 
 
-def test_serial_fallback_keeps_order(fuzz_renderer):
-    """render_fused_pipelined without the counts6 mirror renders serially:
-    the carried frame comes out first, the serial frame waits in the done
-    queue."""
+def test_serial_fallback_keeps_order(fuzz_renderer, monkeypatch):
+    """Draw lists past the largest bucket (truncated) and legacy [vcap]
+    totals stay in flight in render_fused_pipelined: the second list of a
+    bucket rides the first one's step (``_pipe_fused``), a bucket switch
+    drains the carried frame, and every frame comes out once, in order,
+    equal to render_fused's bit for bit."""
     renderer, pool, draw_list, sizes, cam = fuzz_renderer
     vp, cp = cam.view_projection_matrix(), cam.position
-    lists = [draw_list(n) for n in sizes]
-    serial = [renderer.render_fused(pool, *dl, vp, cp)[:3] for dl in lists]
-    up0 = renderer.prepare_uploads(pool, *lists[0])
-    assert renderer.render_prepared_pipelined(up0, vp, cp) is None
-    first, uploads = renderer.render_fused_pipelined(pool, *lists[1], vp, cp)
-    assert uploads is not None
-    second = renderer.pipeline_flush()
+    per = int(draw_list(1)[1][0, 0])
+    n_trunc = renderer.gather_buckets[-1] // per + 1
+
+    def legacy(n):
+        slots, counts, positions = draw_list(n)
+        return slots, counts.sum(axis=1), positions
+
+    lists = [draw_list(n_trunc), draw_list(n_trunc + 1), legacy(sizes[1]),
+             legacy(sizes[1] + 1)]
+    serial = [renderer.render_fused(pool, *dl, vp, cp) for dl in lists]
+    assert int(serial[1][2][0]) == renderer.gather_buckets[-1]
+    riders = []
+    real = TPL._pipe_fused
+    monkeypatch.setattr(TPL, "_pipe_fused",
+                        lambda *a, **k: riders.append(1) or real(*a, **k))
+    out = []
+    for i, dl in enumerate(lists):
+        got, uploads = renderer.render_fused_pipelined(pool, *dl, vp, cp)
+        assert (got is None) == (i == 0)
+        assert int(uploads[0].shape[0]) == (
+            renderer.gather_buckets[-1] if i < 2 else 32768)
+        out += [got] if got is not None else []
+    out.append(renderer.pipeline_flush())
     assert renderer.pipeline_flush() is None
-    for want, got in zip(serial, (first, second)):
+    assert len(riders) == 2 and len(out) == len(serial)
+    for want, got in zip(serial, out):
         for a, b in zip(want, got):
             assert torch.equal(a, b)
 

@@ -8,11 +8,12 @@
   against the JAX steps at 256x128, at a mid-stream offset, at an offset
   whose window runs past the stream's end (the window start clamps as
   ``jax.lax.dynamic_slice`` clamps it) and with an empty batch: the
-  returned streams, pool and counts mirror equal bit for bit, and the
-  stats too.  The JAX steps run their jnp path (its Pallas kernels in
-  interpret mode would cost this file half a minute of tracing), whose
-  XLA:CPU program contracts multiply-adds, so frames go through the gates
-  below (with depth within 4 ulps where the colours agree).
+  returned streams and the pool equal bit for bit, the reference's counts
+  mirror equal to the port's host counts, and the stats too.  The JAX
+  steps run their jnp path (its Pallas kernels in interpret mode would
+  cost this file half a minute of tracing), whose XLA:CPU program
+  contracts multiply-adds, so frames go through the gates below (with
+  depth within 4 ulps where the colours agree).
 - A JAX and a port resident engine fly the streaming path of
   tests/test_engine.py's resident cases (8 of its moving frames), then
   settle (the camera held until the stash drains, a frame, then
@@ -45,11 +46,10 @@
   boxes give with a huge cap that drops nothing, default and packed.  On
   views among the terrain's chunks the port's boxes and the reference's
   give the same frame bit for bit, with fewer items.
-- The deliberate divergences from the reference: ``DPVR_RES_BUDGET``
+- The deliberate divergence from the reference: ``DPVR_RES_BUDGET``
   is clamped to at least 1 and falls back to RESIDENT_INSERT_KP when it is
-  not an integer; an unload scatters a queued payload before freeing slots
-  and zeroes the freed slots' counts mirror, so the mirror equals the host
-  counts (the reference's does not).
+  not an integer.  The port keeps no device counts mirror, so an unload
+  that meets a queued payload leaves the pools of both packages equal.
 """
 
 import numpy as np
@@ -262,7 +262,7 @@ def test_step_camf_append_insert_matches_jax(step_scene, case):
             kp=TPL.RESIDENT_INSERT_KP, mc=TPL.RESIDENT_INSERT_MC,
             fp=TPL.RESIDENT_INSERT_FP)
     pool0 = tpool.quads.numpy().view(np.uint32).copy()
-    c60 = tpool.counts6_dev.numpy().copy()
+    c60 = tpool.counts6.copy()
     frame_i = np.concatenate([
         ameta, TPL._pack_cam(cam.view_projection_matrix(),
                              cam.position).view(np.int32),
@@ -275,15 +275,17 @@ def test_step_camf_append_insert_matches_jax(step_scene, case):
     quads_in = torch.from_numpy(stream.view(np.int32).copy())
     tout = TPL._step_camf_append_insert(
         quads_in, torch.from_numpy(qw.copy()), n, torch.from_numpy(frame_i),
-        tpool.quads, tpool.counts6_dev, kp=TPL.RESIDENT_INSERT_KP,
-        mc=TPL.RESIDENT_INSERT_MC, **_torch_kw())
-    assert tout[5] is tpool.quads and tout[6] is tpool.counts6_dev
-    for i in (3, 5):
-        np.testing.assert_array_equal(np.asarray(jout[i]),
-                                      tout[i].numpy().view(np.uint32))
-    for i in (4, 6):
-        np.testing.assert_array_equal(np.asarray(jout[i]), tout[i].numpy())
-    np.testing.assert_array_equal(tout[6].numpy(), tpool.counts6)
+        tpool.quads, kp=TPL.RESIDENT_INSERT_KP, mc=TPL.RESIDENT_INSERT_MC,
+        **_torch_kw())
+    assert len(tout) == 5
+    np.testing.assert_array_equal(np.asarray(jout[3]),
+                                  tout[3].numpy().view(np.uint32))
+    np.testing.assert_array_equal(np.asarray(jout[4]), tout[4].numpy())
+    # the pool updated in place; the reference's counts mirror after its
+    # scatter is the port's host counts
+    np.testing.assert_array_equal(np.asarray(jout[5]),
+                                  tpool.quads.numpy().view(np.uint32))
+    np.testing.assert_array_equal(np.asarray(jout[6]), tpool.counts6)
     _assert_same_frames(jout, tout, n, frame_i[640:659].view(np.float32))
     _assert_appended(step_scene, case, tout[3].numpy(), tout[4].numpy(),
                      quads_in)
@@ -320,9 +322,7 @@ def _fly(eng, poses, port):
     """Render ``poses`` ((position offset, yaw step) a frame, None to hold
     the camera) and record each frame: (frame tuple, late batch, resident
     state, port raster records, whether an unload met a queued payload,
-    whether the counts mirror equals the host counts on every slot but
-    those of the payload queued for the next frame, whose host counts are
-    already new)."""
+    the pool by chunk: ``_pool_by_chunk``)."""
     calls = []
     for name in ("_mesh_list", "_mesh_list_resident"):
         orig = getattr(eng, name)
@@ -341,19 +341,24 @@ def _fly(eng, poses, port):
         unload = eng.world.unload_version
         queued = eng._res_insert is not None
         res = eng.render_frame(dt=0.0)
-        c6 = eng.pool.counts6_dev
-        c6 = c6.numpy() if port else np.array(c6)
-        host = eng.pool.counts6.copy()
-        if eng._res_insert is not None:
-            q = eng._res_insert[:TPL.RESIDENT_INSERT_KP].astype(np.int64)
-            c6[q] = host[q] = 0
         out.append((S.frame_tuple(res),
                     sorted({tuple(p) for c in calls[k0:] for p in c}),
                     S.resident_state(eng),
                     S.resident_records(eng) if port else None,
                     queued and eng.world.unload_version != unload,
-                    np.array_equal(c6, host)))
+                    _pool_by_chunk(eng.pool)))
     return out
+
+
+def _pool_by_chunk(pool):
+    """{chunk position: (host counts6, device row up to its count as
+    bytes)} of a pool (either package)."""
+    quads = pool.quads
+    quads = (quads.numpy().view(np.uint32) if isinstance(quads, torch.Tensor)
+             else np.asarray(quads))
+    return {pos: (pool.counts6[s].tolist(),
+                  quads[s, :pool.counts[s]].tobytes())
+            for pos, s in pool.by_pos.items()}
 
 
 def _streaming_poses():
@@ -423,8 +428,6 @@ def test_streaming_flight_appends_and_settles(streaming):
         np.testing.assert_array_equal(appended[0], rebuilt[0])
         np.testing.assert_array_equal(appended[1], rebuilt[1])
     assert tf[-1][2]["total"] <= port["appended"]
-    # freed slots keep the reference's counts mirror rows (the port zeroes
-    # them, test_unload_with_a_queued_payload_keeps_the_mirror)
     a, b = jax_["pool"], port["pool"]
     assert a[0] == b[0]
     live = np.array(sorted(a[0].values()))
@@ -433,18 +436,18 @@ def test_streaming_flight_appends_and_settles(streaming):
 
 
 def test_unload_with_a_queued_payload_keeps_the_mirror(streaming):
-    """Deliberate divergence (ADVICE.md, engine.py:1197): on an unload the
-    port scatters the queued payload before retain frees slots and zeroes
-    the freed slots' counts mirror rows, so after every frame of the flight
-    the mirror equals the host counts (but for the next frame's payload).
-    The reference retains first and keeps the freed slots' rows: its
-    mirror differs from its host counts after unloads that met a queued
-    payload, until the slots are reused."""
+    """Unloads that met a queued payload, on the same frames in both
+    packages: after every frame of the flight each pooled chunk's host
+    counts and device row (up to its count) are the reference's.  The port
+    keeps no device counts mirror (the host counts are the one source of
+    counts), so the order of the payload's scatter and the slots' release
+    is the reference's and nothing needs mending after it."""
     jf, tf = streaming["jax"]["frames"], streaming["port"]["frames"]
     hits = [i for i, f in enumerate(tf) if f[4]]
     assert hits and hits == [i for i, f in enumerate(jf) if f[4]]
-    assert all(f[5] for f in tf)
-    assert not all(jf[i][5] for i in hits)
+    assert len(jf) == len(tf)
+    for a, b in zip(jf, tf):
+        assert a[5] == b[5]
 
 
 @pytest.mark.parametrize("value,port,jax_", [
@@ -492,7 +495,7 @@ def test_resident_mode_reads_its_environment_switch(monkeypatch, value,
 
 def test_warm_resident_changes_nothing_later(streaming):
     """warm_resident runs every resident device call once and leaves the
-    pool (rows, counts mirror, host tables, free list, lookup cache) as it
+    pool (rows, host tables, free list, lookup cache) as it
     was, with the stream as built; the flight's first frames after it (a
     rebuild, an append with its fused scatter) equal the unwarmed port
     engine's of the streaming flight bit for bit, streams included."""

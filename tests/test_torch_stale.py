@@ -13,8 +13,7 @@ tests/test_torch_app.py (depth within 32 ulps where the colours agree:
 the JAX jnp path's planar-depth coefficients; every colour mismatch
 proven), against the port's raster records taken before the frame's late
 batch lands.  A settle frame with the camera held drains the stash in
-both, and the pools end identical: slots, rows, counts and the device
-counts mirror.
+both, and the pools end identical: slots, rows and counts.
 """
 
 import numpy as np
