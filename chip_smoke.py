@@ -2745,14 +2745,15 @@ GRAPH_CONFIGS = {"serial": {}, "packed": dict(packed_raster=True),
 
 def eager_entry(torch, renderer):
     """A stand-in for ``renderer._run_graph`` that calls the function
-    eagerly on the inputs where they lie (numpy through pinned memory onto
-    the card), as the entry points did before they ran from graphs."""
+    eagerly on the inputs where they lie (host inputs, the renderer's
+    pinned-ring slots or numpy, copied onto the card), as the entry points
+    did before they ran from graphs."""
     from differential_projection_voxel_renderer_tpu_torch.ops import (
         geometry,
     )
 
     def to_dev(x):
-        if isinstance(x, torch.Tensor):
+        if isinstance(x, torch.Tensor) and x.device.type != "cpu":
             return x
         if hasattr(x, "shape") and x.shape:
             return renderer._upload(x)

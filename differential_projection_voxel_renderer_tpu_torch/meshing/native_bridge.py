@@ -9,6 +9,8 @@ package, a directory that is not versioned, and exposes:
 - ``horizon_cull(...)`` / ``occlusion_pass(...)`` — sequential culling passes
 - ``funnel_pass`` — the frame funnel from the chunk table to the draw list
   (``FunnelPass``), offered only where its sort keys equal numpy's
+- ``pack_frame`` — a draw list's one upload written into a caller's
+  buffer (``FramePacker``)
 
 The library is compiled into a temporary file and renamed into place, so
 processes that build at once never load a half-written library.  Every
@@ -128,6 +130,12 @@ def _build_and_load() -> ctypes.CDLL | None:
                 + [ctypes.c_int32, ctypes.c_int32] + [ctypes.c_float] * 3
                 + [ctypes.c_int32, ctypes.c_int64, ctypes.c_void_p,
                    ctypes.c_void_p])
+            lib.pack_frame.restype = ctypes.c_int64
+            lib.pack_frame.argtypes = (
+                [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                 ctypes.c_int64] + [ctypes.c_void_p] * 3
+                + [ctypes.c_int64, ctypes.c_void_p])
             lib.perlin_table_twin.restype = None
             lib.perlin_table_twin.argtypes = [ctypes.c_uint32,
                                               ctypes.c_void_p]
@@ -375,3 +383,95 @@ def _funnel_pass():
 
 # None where the library is not built or its keys differ from numpy's
 funnel_pass = _funnel_pass()
+
+
+# pack_frame's return where a slot or a coordinate lies outside int16
+_OUT_OF_RANGE = -(1 << 63)
+
+
+class FramePacker:
+    """A draw list's one host-to-device upload in one native call
+    (``pack_frame`` in native/src/greedy_mesh.cpp; rendering/pipeline.py
+    ``Renderer._pack_into``, whose numpy twin is ``_pack_frame``), written
+    into a buffer the caller gives: the renderer's pinned ring."""
+
+    def __init__(self, lib):
+        self._fn = lib.pack_frame
+
+    def __call__(self, out, vcap: int, slots, counts, dir_mask, positions,
+                 view_proj=None, cam_pos=None, payload=None) -> int:
+        """Writes into ``out`` (a contiguous i32 array) ``_pack_frame``'s
+        words: the 11-short meta of ``vcap`` rows from ``slots`` [rows],
+        ``counts`` [rows, 6] by face direction or [rows] totals (one
+        direction-0 unit a chunk), ``dir_mask`` [rows, 6] or None (every
+        direction kept) and ``positions`` [rows, 3] (integers, taken as
+        i32); then the camera, ``view_proj`` f32[4, 4] and ``cam_pos``
+        f32[3], where given; then ``payload`` (u32), where given.  Returns
+        the quads of the kept directions; raises ValueError where a slot
+        or a coordinate lies outside int16, as ``Renderer._prep_meta``
+        does."""
+        slots = np.ascontiguousarray(slots, np.int32)
+        counts = np.ascontiguousarray(counts, np.int32)
+        positions = np.ascontiguousarray(positions, np.int32)
+        rows = len(slots)
+        per_dir = counts.ndim == 2
+        fits = (slots.ndim == 1 and rows <= vcap
+                and counts.shape == ((rows, 6) if per_dir else (rows,))
+                and positions.shape == (rows, 3))
+        mask_p = vp_p = cp_p = pl_p = None
+        if dir_mask is not None:
+            dir_mask = np.ascontiguousarray(dir_mask, np.int32)
+            fits = fits and dir_mask.shape == (rows, 6)
+            mask_p = dir_mask.ctypes.data
+        words, n_pl = (11 * vcap + 1) // 2, 0
+        if view_proj is not None:
+            view_proj, cam_pos = _camera(view_proj, cam_pos)
+            vp_p, cp_p = view_proj.ctypes.data, cam_pos.ctypes.data
+            words += 19
+        if payload is not None:
+            payload = np.ascontiguousarray(payload, np.uint32)
+            pl_p, n_pl = payload.ctypes.data, payload.size
+            words += n_pl
+        if not fits:
+            raise ValueError(
+                f"a draw list of {rows} rows in {vcap}: slots "
+                f"{slots.shape}, counts {counts.shape}, positions "
+                f"{positions.shape}, mask "
+                f"{None if dir_mask is None else dir_mask.shape}")
+        total = self._fn(slots.ctypes.data, counts.ctypes.data, per_dir,
+                         mask_p, positions.ctypes.data, rows, vcap, vp_p,
+                         cp_p, pl_p, n_pl, _out(out, words))
+        if total == _OUT_OF_RANGE:
+            raise ValueError(
+                "draw-list meta exceeds int16 range (pool slot > 32767 "
+                "or |chunk grid coord| > 32767)")
+        return total
+
+
+def _camera(view_proj, cam_pos):
+    """The camera as contiguous f32[4, 4] and f32[3]."""
+    view_proj = np.ascontiguousarray(view_proj, np.float32)
+    cam_pos = np.ascontiguousarray(cam_pos, np.float32)
+    if view_proj.shape != (4, 4) or cam_pos.shape != (3,):
+        raise ValueError(f"a camera of {view_proj.shape} and "
+                         f"{cam_pos.shape}")
+    return view_proj, cam_pos
+
+
+def _out(out, words: int) -> int:
+    """The address of ``out``, a contiguous i32 array of ``words`` or
+    more."""
+    if (out.dtype != np.int32 or out.ndim != 1 or out.size < words
+            or not out.flags.c_contiguous):
+        raise ValueError(f"an upload of {words} i32 words into "
+                         f"{out.dtype}{out.shape}")
+    return out.ctypes.data
+
+
+def _frame_packer():
+    lib = _build_and_load()
+    return None if lib is None else FramePacker(lib)
+
+
+# None where the library is not built
+pack_frame = _frame_packer()

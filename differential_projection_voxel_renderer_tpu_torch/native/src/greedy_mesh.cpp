@@ -11,7 +11,7 @@
 // therefore host-side: horizon culling (src/rendering/culling.rs:40-119)
 // and the chunk occlusion pre-pass (src/rendering/occlusion.rs:60-154),
 // and the frame funnel's draw-list stage, which runs the horizon cull
-// (funnel_pass).
+// (funnel_pass), and the packing of a frame's upload (pack_frame).
 
 #include <algorithm>
 #include <cstdint>
@@ -419,6 +419,64 @@ void funnel_pass(const int64_t* table, int64_t n, const float* dots,
     sizes[1] = n_missing;
     sizes[2] = m;
     sizes[3] = r;
+}
+
+// A draw list's one host-to-device upload, written where the caller says
+// (rendering/pipeline.py Renderer._frame_of; its numpy twin is
+// _pack_frame, equal word for word):
+//   slots:     i32[rows] pool slots
+//   counts:    i32[rows][6] quads by face direction, or with per_dir 0
+//              i32[rows] totals (one direction-0 unit a chunk)
+//   mask:      i32[rows][6] face directions kept, or null: all kept
+//   positions: i32[rows][3] chunk positions
+//   vcap:      the draw list's rows in the upload (rows <= vcap)
+//   view_proj, cam_pos: f32[16], f32[3], or null: no camera
+//   payload:   payload_words u32 (the insert payload), or null
+// Writes into out: the 11-short meta over vcap rows (slots, counts6, the
+// mask's six bits, positions, each as int16; rows past `rows` zero),
+// padded with a zero short to whole words, then the camera's 19 floats,
+// then the payload.  Returns the quads of the kept directions, or
+// PACK_OUT_OF_RANGE where a slot or a coordinate lies outside int16.
+static const int64_t PACK_OUT_OF_RANGE = INT64_MIN;
+
+int64_t pack_frame(const int32_t* slots, const int32_t* counts,
+                   int32_t per_dir, const int32_t* mask,
+                   const int32_t* positions, int64_t rows, int64_t vcap,
+                   const float* view_proj, const float* cam_pos,
+                   const uint32_t* payload, int64_t payload_words,
+                   int32_t* out) {
+    const int64_t n_meta = (11 * vcap + 1) / 2;
+    int16_t* meta = (int16_t*)out;
+    std::memset(out, 0, n_meta * sizeof(int32_t));
+    int64_t total = 0;
+    for (int64_t r = 0; r < rows; ++r) {
+        const int32_t* p = positions + 3 * r;
+        if (slots[r] > 32767) return PACK_OUT_OF_RANGE;
+        for (int a = 0; a < 3; ++a)
+            if (p[a] > 32767 || p[a] < -32767) return PACK_OUT_OF_RANGE;
+        meta[r] = (int16_t)slots[r];
+        int64_t bits = 0;
+        for (int d = 0; d < 6; ++d) {
+            const int64_t c = per_dir ? counts[6 * r + d]
+                                      : (d ? 0 : counts[r]);
+            const int32_t m = mask ? mask[6 * r + d] : 1;
+            meta[vcap + 6 * r + d] = (int16_t)c;
+            // numpy's int16 shift, then its sum
+            bits += (int16_t)((int16_t)m << d);
+            total += c * m;
+        }
+        meta[7 * vcap + r] = (int16_t)bits;
+        for (int a = 0; a < 3; ++a)
+            meta[8 * vcap + 3 * r + a] = (int16_t)p[a];
+    }
+    int32_t* w = out + n_meta;
+    if (view_proj) {
+        std::memcpy(w, view_proj, 16 * sizeof(float));
+        std::memcpy(w + 16, cam_pos, 3 * sizeof(float));
+        w += 19;
+    }
+    if (payload) std::memcpy(w, payload, payload_words * sizeof(uint32_t));
+    return total;
 }
 
 }  // extern "C"

@@ -515,7 +515,7 @@ class ViewsRender:
         return ([c for c, _, _ in outs], [d for _, d, _ in outs],
                 stats[:, 1].clone(), stats)
 
-    def _jobs(self, pool, frames: np.ndarray, cap: int) -> list:
+    def _jobs(self, pool, frames, cap: int) -> list:
         """``_Shards``' jobs of a call: shard (i, t) keyed (cap, i, t),
         on its replica of the pool, with its dp row's views."""
         b = frames.shape[0]
@@ -553,14 +553,16 @@ class ViewsRender:
         stats[:, 2:4] = band[:, :, 2:4].sum(0)
         return color, depth, stats, reduced.T.contiguous()
 
-    def __call__(self, pool, written, frames: np.ndarray, cap: int) -> tuple:
-        """The views ``frames`` (``Renderer.pack_views``) at gather cap
-        ``cap`` on ``pool`` with its rows ``written`` since the last call
+    def __call__(self, pool, written, frames, cap: int) -> tuple:
+        """The views ``frames`` (``Renderer.pack_views``: on the card a
+        slot of the renderer's pinned ring) at gather cap ``cap`` on
+        ``pool`` with its rows ``written`` since the last call
         (``follow``): ``gather``'s outputs."""
         self._check_tables()
         with prof.VIEWS_LOAD:
             self.follow(pool, written)
             ready = self.shards.load(self._jobs(pool, frames, cap))
+            self.renderer.copied(frames, self.mesh.distinct)
         with prof.VIEWS_REPLAY:
             shards = {k[1:]: out
                       for k, out in self.shards.replay(ready).items()}
@@ -569,7 +571,7 @@ class ViewsRender:
         with prof.VIEWS_GATHER:
             return self.gather(shards)
 
-    def warm(self, pool, frames: np.ndarray) -> None:
+    def warm(self, pool, frames) -> None:
         """Every one-time cost, in a fixed order: the replicas (the peer
         copies from the first card), each dp row's all-reduce (its NCCL
         communicator), then each gather bucket's graph on every shard,

@@ -4,7 +4,9 @@ per-bucket jitted entry points, which run a frame as one dispatch.
 ``CapturedCall`` holds one function's graph on one device.  Its callers:
 the ``Renderer``'s serial entry points (rendering/pipeline.py, one graph
 an entry point and gather bucket), ``make_repeated_step`` and the sharded
-render's shards (parallel/sharded_render.py).
+render's shards (parallel/sharded_render.py).  ``PinnedRing`` holds the
+pinned host buffers that the ``Renderer``'s uploads are written into and
+copied from, reused in turn.
 
 A kernel wrapper counts a launch when its Python runs: at an eager call
 and while a capture records it, never at a replay.  So a capture counts
@@ -121,12 +123,16 @@ class CapturedCall:
                 and [_spec(x) for x in inputs] == self._specs)
 
     def load(self, i: int, x, keep: bool = False) -> None:
-        """Copy ``x`` into static input ``i``: a tensor on any device, a
-        numpy array (through a fresh pinned buffer onto the card: the
-        caching host allocator keeps it until the copy has run) or an
-        integer.  With ``keep`` the copy is skipped when ``x`` is the input
-        copied there last, and a reference to ``x`` is kept, so that its
-        memory cannot be reused by another tensor meanwhile."""
+        """Copy ``x`` into static input ``i``: a tensor on any device (a
+        host tensor in pinned memory, a ``PinnedRing`` slot, is copied
+        from where it lies; the caller keeps it unwritten until the copy
+        has run), a numpy array or other host tensor (through a fresh
+        pinned buffer onto the card: the caching host allocator keeps it
+        until the copy has run) or an integer.  A copy from the host onto
+        the card does not block the host.  With ``keep`` the copy is
+        skipped when ``x`` is the input copied there last, and a reference
+        to ``x`` is kept, so that its memory cannot be reused by another
+        tensor meanwhile."""
         s = self.static[i]
         if keep and _same(self._kept[i], x):
             return
@@ -136,11 +142,11 @@ class CapturedCall:
             if tuple(src.shape) != tuple(s.shape) or src.dtype != s.dtype:
                 raise ValueError(f"input {i}: {src.dtype}{list(src.shape)} "
                                  f"for a {s.dtype}{list(s.shape)} buffer")
-            pinned = src.device.type == "cpu" and s.device.type == "cuda"
-            if pinned:
+            from_host = src.device.type == "cpu" and s.device.type == "cuda"
+            if from_host and not (src is x and src.is_pinned()):
                 src = src.pin_memory()
             profiling.mark_enqueue()
-            s.copy_(src, non_blocking=pinned)
+            s.copy_(src, non_blocking=from_host)
         else:
             profiling.mark_enqueue()
             s.fill_(operator.index(x))
@@ -217,10 +223,93 @@ class CapturedCall:
         return result
 
 
+class PinnedRing:
+    """Pinned host buffers for a device's uploads, reused in turn: the
+    ``Renderer`` writes each upload of a draw list or a camera into a slot
+    (``take``) and copies it onto the card from there without blocking
+    the host (``CapturedCall.load``, ``Renderer._upload``;
+    parallel/sharded_render.py ``ViewsRender`` copies one slot onto each
+    of its cards).  Such a copy runs when the card reaches it in its
+    stream, so a slot is written again only once its copies have run:
+    ``copied`` records an event, on each card's current stream, on the
+    slot that holds the tensor copied, once its copies are enqueued, and
+    ``take`` waits for the slot's events (``query``, then ``synchronize``
+    where one has not completed; with a ring longer than the uploads of
+    the frames in flight, it has).  So the host runs at most a ring's
+    slots of uploads ahead of the card.  A slot is pinned at its first
+    use, ``words`` i32 words or more, and again where a later upload is
+    larger."""
+
+    def __init__(self, slots: int, words: int):
+        self.words = words
+        # a slot's views by length: (pinned i32 tensor, its numpy view)
+        self._views = [{} for _ in range(slots)]
+        self._events = [{} for _ in range(slots)]  # card index: event
+        self._slot_of: dict = {}  # a slot's host address: the slot
+        self._streams: dict = {}  # card index: its current stream, kept
+        self._k = -1
+
+    def take(self, words: int):
+        """The next slot's first ``words`` words, once every copy from it
+        has run: (pinned i32 tensor, its numpy view)."""
+        self._k = k = (self._k + 1) % len(self._views)
+        for e in self._events[k].values():
+            if not e.query():
+                e.synchronize()
+        views = self._views[k]
+        got = views.get(words)
+        if got is None:
+            whole = views.get(None)
+            if whole is None or whole[1].size < words:
+                t = torch.empty(max(words, self.words), dtype=torch.int32,
+                                pin_memory=True)
+                if whole is not None:
+                    del self._slot_of[whole[0].data_ptr()]
+                views.clear()
+                whole = views[None] = (t, t.numpy())
+                self._slot_of[t.data_ptr()] = k
+            got = views[words] = (whole[0][:words], whole[1][:words])
+        return got
+
+    def copied(self, x, devices) -> None:
+        """The copies of ``x`` onto ``devices`` (torch.device cards) are
+        enqueued, on their current streams: where ``x`` is a host tensor
+        in a slot (a view of what ``take`` gave), record that slot's
+        events there."""
+        if not isinstance(x, torch.Tensor) or x.device.type != "cpu":
+            return
+        k = self._slot_of.get(x.untyped_storage().data_ptr())
+        if k is None:
+            return
+        events = self._events[k]
+        for d in devices:
+            idx = torch.cuda.current_device() if d.index is None else d.index
+            e = events.get(idx)
+            if e is None:
+                e = events[idx] = torch.cuda.Event()
+            e.record(self._stream(idx))
+
+    def _stream(self, idx: int):
+        """Card ``idx``'s current stream, the object kept while that
+        stream stays current: making one (``torch.cuda.current_stream``)
+        costs the host several microseconds a call."""
+        s = self._streams.get(idx)
+        if s is None or s.stream_id != _current_stream_id(idx):
+            s = self._streams[idx] = torch.cuda.current_stream(idx)
+        return s
+
+
+def _current_stream_id(idx: int) -> int:
+    """The id of card ``idx``'s current stream, read without making a
+    stream object (``torch.cuda.current_stream``'s own first step)."""
+    return torch._C._cuda_getCurrentStream(idx)[0]
+
+
 def _eager_copy(x, device):
-    """A copy of a graph call's input, as the eager function takes it."""
+    """A copy of a graph call's input on ``device``, as the eager function
+    takes it."""
     if isinstance(x, torch.Tensor):
-        return x.clone()
+        return x.to(device, copy=True)
     if isinstance(x, np.ndarray):
         return torch.from_numpy(x.copy()).to(device)
     return torch.tensor(operator.index(x), dtype=torch.int32, device=device)

@@ -64,8 +64,16 @@ static buffers, one replay and the copies of its outputs.  Capacities are
 static, so a step makes no host sync; ``n_quads``, the counts and the
 totals stay on the device.  Where JAX's immutable arrays forced a copy,
 the port updates the quad pool in place (``apply_insert_payload``), also
-inside a graph.  Frames in flight, the resident append steps and
-``prepare_uploads`` run eagerly.
+inside a graph.  ``prepare_uploads``, which expands a settled draw list
+for the static frames, runs from a graph of its own ("expand"); frames
+in flight and the resident append steps run eagerly.
+
+Uploads: each upload of a draw list is written once, by the native
+packer (meshing/native_bridge.py ``pack_frame``); on the card it is
+written into a slot of the renderer's pinned ring (graphs.PinnedRing), a
+camera by ``_pack_cam`` into another, and each is copied onto the card
+from there.  ``_pack_frame`` is the packer's numpy twin, which a missing
+library and a list past the largest bucket take.
 """
 
 from __future__ import annotations
@@ -76,6 +84,7 @@ import numpy as np
 import torch
 
 from . import graphs
+from ..meshing import native_bridge
 from ..ops import geometry as geom_ops
 from ..ops import hiz as hiz_ops
 from ..ops import projection as proj_ops
@@ -530,8 +539,18 @@ def apply_insert_payload(pool, packed, *, k: int, mc: int):
 META_SHORTS = 11   # slots | counts6 | dir-mask bits | positions, per chunk
 
 
-def _pack_cam(view_proj, cam_pos) -> np.ndarray:
-    out = np.empty(19, np.float32)
+def _frame_words(vcap: int, camera: bool = True, payload=None) -> int:
+    """The i32 words of a ``_pack_frame`` upload: the meta, padded to whole
+    words, the camera's 19 where it has one, and the payload's."""
+    return ((META_SHORTS * vcap + 1) // 2 + (19 if camera else 0)
+            + (0 if payload is None else len(payload)))
+
+
+def _pack_cam(view_proj, cam_pos, out=None) -> np.ndarray:
+    """The camera as f32[19]: ``view_proj`` [4, 4] | ``cam_pos`` [3],
+    written into ``out`` where given."""
+    if out is None:
+        out = np.empty(19, np.float32)
     out[:16] = np.asarray(view_proj, np.float32).ravel()
     out[16:] = np.asarray(cam_pos, np.float32)
     return out
@@ -576,12 +595,14 @@ def _unpack_meta(meta_i, vcap: int):
 def _pack_frame(vcap, slots, counts6, mask6, positions, view_proj,
                 cam_pos, payload=None) -> np.ndarray:
     """A draw list's one i32 upload: its 11-short meta (``_pack_meta``,
-    padded to whole words) | the camera (19 f32 bits) | ``payload`` (u32
-    bits), if any."""
+    padded to whole words) | the camera (19 f32 bits), unless
+    ``view_proj`` is None | ``payload`` (u32 bits), if any.  The native
+    packer's twin (``Renderer._pack_into``)."""
     meta = _pack_meta(vcap, slots, counts6, mask6, positions)
     meta = np.append(meta, np.zeros(meta.size % 2, np.int16))
-    parts = [meta.view(np.int32),
-             _pack_cam(view_proj, cam_pos).view(np.int32)]
+    parts = [meta.view(np.int32)]
+    if view_proj is not None:
+        parts.append(_pack_cam(view_proj, cam_pos).view(np.int32))
     if payload is not None:
         parts.append(np.asarray(payload, np.uint32).view(np.int32))
     return np.concatenate(parts)
@@ -590,7 +611,7 @@ def _pack_frame(vcap, slots, counts6, mask6, positions, view_proj,
 def _split_frame(frame_u, vcap: int):
     """A ``_pack_frame`` upload on the device -> (meta i16[11 vcap], camera
     f32[19], the rest)."""
-    n_meta = (META_SHORTS * vcap + 1) // 2
+    n_meta = _frame_words(vcap, camera=False)
     meta_i = frame_u[:n_meta].view(torch.int16)[:META_SHORTS * vcap]
     cam_f = frame_u[n_meta:n_meta + 19].view(torch.float32)
     return meta_i, cam_f, frame_u[n_meta + 19:]
@@ -658,6 +679,13 @@ def _step_camf_hiz(quads, quad_world, n_quads, cam_f, hiz1, *,
     color, depth, stats = render_step(quads, quad_world, n_quads, view_proj,
                                       cam_pos, hiz_level1=hiz1, **step_kw)
     return color, depth, stats, hiz_ops.build_max_pyramid(depth)
+
+
+def _expand_frame(quad_pool, frame_u, *, vcap: int, gather_cap: int):
+    """A draw list's stream from its upload's meta (``prepare_uploads``):
+    (quads, quad_world, total)."""
+    return _expand_meta(quad_pool, _split_frame(frame_u, vcap)[0], vcap=vcap,
+                        gather_cap=gather_cap)
 
 
 def _fused_frame(quad_pool, frame_u, *, vcap: int, gather_cap: int,
@@ -843,7 +871,8 @@ class Renderer:
     through ``render_prepared_hiz``.
 
     The serial entry points (``render_fused``, ``render_prepared``,
-    ``render_prepared_hiz``, ``render_fused_insert``)
+    ``render_prepared_hiz``, ``render_fused_insert``) and
+    ``prepare_uploads``' expansion
     run from one ``graphs.CapturedCall`` each a gather bucket, as the
     reference's ``_steps_for`` / ``_hiz_step_for`` / ``_insert_step_for``
     jit one program each.  A graph is captured at its first frame (or in
@@ -855,6 +884,10 @@ class Renderer:
     INSERT_KP = 16
     INSERT_MC = 512
     INSERT_FP = 8192
+    # the pinned ring's slots: a serial frame takes one or two (the
+    # expansion's meta and the camera), and a caller keeps at most a few
+    # frames in flight, so a slot comes round once its copy has run
+    RING_SLOTS = 8
 
     def __init__(self, config: RenderConfig | None = None,
                  atlas: TextureAtlas | None = None, *, device="cuda"):
@@ -902,6 +935,16 @@ class Renderer:
             sorted(c for c in cands if c >= 16384)) or (cfg.gather_cap,)
         self._cam_cache: tuple | None = None
         self._pipe_carry: tuple | None = None  # (cap, uploads, cam_f, pre)
+        # the native packer that writes the draw lists' uploads (None
+        # where the library is not built), and on the card the pinned
+        # ring they are written into, sized for the largest one-view
+        # upload (a fused insert's)
+        self._packer = native_bridge.pack_frame
+        self._ring = None
+        if self.device.type == "cuda":
+            self._ring = graphs.PinnedRing(
+                self.RING_SLOTS, _frame_words(cfg.visible_chunks_cap)
+                + 3 * self.INSERT_KP + self.INSERT_FP)
 
     def _rebuild_tables(self) -> None:
         """The colour tables of ``config``'s shading and texture flags, on
@@ -948,10 +991,11 @@ class Renderer:
         """Capture every capacity bucket's graphs on a one-chunk draw list
         (one quad of pool slot 0, an identity camera), the results
         dropped, as the reference compiles each bucket's jit programs: the
-        fused frame, the static step and with ``RenderConfig.temporal_hiz``
-        the temporal step.  ``pipelined`` also runs the frames-in-flight
-        steps (kernel K3), eagerly.  On the card the kernels are built and
-        loaded first (``_build.lib``).  Nothing is written: the pool, the
+        fused frame, the expansion (``prepare_uploads``), the static step
+        and with ``RenderConfig.temporal_hiz`` the temporal step.
+        ``pipelined`` also runs the frames-in-flight steps (kernel K3),
+        eagerly.  On the card the kernels are built and loaded first
+        (``_build.lib``).  Nothing is written: the pool, the
         camera cache and the frames-in-flight state are as they were, so
         every later frame is what it would be without the call."""
         if pipelined:
@@ -968,9 +1012,10 @@ class Renderer:
                                np.ones((1, 6), np.int32),
                                np.zeros((1, 3), np.int32), eye, origin)
         meta, cam, _ = _split_frame(self._upload(frame_np), vcap)
+        meta_np = frame_np[:_frame_words(vcap, camera=False)]
         for cap in self.gather_buckets:
             self._fused(quad_pool, frame_np, cap)
-            up = _expand_meta(quad_pool, meta, vcap=vcap, gather_cap=cap)
+            up = self._expand(quad_pool, meta_np, cap)
             self.render_prepared(up, eye, origin)
             if self.config.temporal_hiz:
                 self.render_prepared_hiz(up, eye, origin, self.empty_hiz())
@@ -1001,19 +1046,21 @@ class Renderer:
         with prof.LOAD:
             for i, x in enumerate(inputs):
                 g.load(i, x, keep=i < keep)
+            for x in inputs:
+                self.copied(x, (self.device,))
         return g.run()
 
-    def _fused(self, quad_pool, frame_np: np.ndarray, cap: int):
-        """The frame of a changed draw list from its one upload
-        ``frame_np`` (``_pack_frame``) at gather bucket ``cap``, from graph
-        "fused" (``_fused_frame``).  Returns (color, depth, stats)."""
+    def _fused(self, quad_pool, frame, cap: int):
+        """The frame of a changed draw list from its one upload ``frame``
+        (``_frame_of``) at gather bucket ``cap``, from graph "fused"
+        (``_fused_frame``).  Returns (color, depth, stats)."""
         return self._run_graph(
             "fused", cap, functools.partial(
                 _fused_frame, vcap=self.config.visible_chunks_cap,
                 gather_cap=cap, **self._bucket_kw(cap)),
-            (quad_pool,), (frame_np,))
+            (quad_pool,), (frame,))
 
-    def _fused_insert(self, quad_pool, frame_np: np.ndarray, cap: int):
+    def _fused_insert(self, quad_pool, frame, cap: int):
         """``_fused`` with the upload's insert payload scattered into
         ``quad_pool`` first, from graph "insert" (``_fused_frame_insert``).
         Returns (color, depth, stats)."""
@@ -1022,7 +1069,7 @@ class Renderer:
                 _fused_frame_insert, vcap=self.config.visible_chunks_cap,
                 gather_cap=cap, kp=self.INSERT_KP, mc=self.INSERT_MC,
                 **self._bucket_kw(cap)),
-            (quad_pool,), (frame_np,))
+            (quad_pool,), (frame,))
 
     def warm_fused_insert(self, quad_pool, slot: int, counts6, payload,
                           buckets) -> None:
@@ -1040,16 +1087,40 @@ class Renderer:
         for cap in buckets:
             self._fused_insert(quad_pool, frame_np, cap)
 
-    def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        """Host array -> device tensor.  On CUDA the copy goes through
-        pinned memory and does not block the host (a pageable copy would
-        wait for every queued kernel)."""
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type != "cuda":
-            return t.to(self.device)
-        t = t.pin_memory()
+    def _host_words(self, words: int):
+        """A host buffer of ``words`` i32 for an upload: (what ``_upload``
+        and the graphs take, its numpy view), a slot of the pinned ring on
+        the card, a new array on the CPU."""
+        if self._ring is None:
+            a = np.empty(words, np.int32)
+            return a, a
+        return self._ring.take(words)
+
+    def _upload(self, x) -> torch.Tensor:
+        """An upload (``_host_words``) or a host array of 4-byte words -> a
+        new device tensor.  On the card the copy runs from a slot of the
+        pinned ring (an array is written into one first) and does not
+        block the host (a pageable copy would wait for every queued
+        kernel)."""
+        if self._ring is None:
+            return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        if isinstance(x, np.ndarray):
+            arr = np.ascontiguousarray(x)
+            up, out = self._ring.take(arr.size)
+            out[:] = arr.reshape(-1).view(np.int32)
+            x = up.view(torch.from_numpy(arr[:0]).dtype).reshape(arr.shape)
         prof.mark_enqueue()
-        return t.to(self.device, non_blocking=True)
+        t = x.to(self.device, non_blocking=True)
+        self.copied(x, (self.device,))
+        return t
+
+    def copied(self, up, devices) -> None:
+        """The copies of upload ``up`` (``_frame_of``, ``pack_views``) onto
+        ``devices`` are enqueued: on the card its slot of the pinned ring
+        is written again only once they have run (``PinnedRing.copied``).
+        Nothing where ``up`` is no slot."""
+        if self._ring is not None:
+            self._ring.copied(up, devices)
 
     def _prep_meta(self, visible_slots, counts_sel, positions_sel,
                    dir_mask):
@@ -1073,45 +1144,94 @@ class Renderer:
                 "or |chunk grid coord| > 32767)")
         return slots_a, counts6, mask6, pos_a, cap, total
 
-    def _frame_of(self, visible_slots, counts_sel, positions_sel, dir_mask,
-                  view_proj, cam_pos, payload=None):
-        """A draw list's one upload (``_pack_frame``) and its gather
-        bucket: (i32 array, cap, total)."""
+    def _pack_into(self, out: np.ndarray, visible_slots, counts_sel,
+                   positions_sel, dir_mask, view_proj, cam_pos,
+                   payload=None):
+        """Writes a draw list's upload (``_pack_frame``'s words; the meta
+        alone where ``view_proj`` is None) into ``out`` and returns (its
+        gather bucket, its quads).  The native packer writes it, without
+        the twin's normalization (``_prep_meta``); the twin,
+        ``_pack_frame``, where the native library is not built and for a
+        list past the largest bucket, whose suffix units lose quads.
+        Counts ``pack_native`` or ``pack_numpy``."""
+        vcap = self.config.visible_chunks_cap
+        if self._packer is not None:
+            total = self._packer(out, vcap, visible_slots, counts_sel,
+                                 dir_mask, positions_sel, view_proj, cam_pos,
+                                 payload)
+            cap = self.bucket_for(total)
+            if total <= cap:
+                prof.PACK_NATIVE.add(1)
+                return cap, total
+        prof.PACK_NUMPY.add(1)
         slots_a, counts6, mask6, pos_a, cap, total = self._prep_meta(
             visible_slots, counts_sel, positions_sel, dir_mask)
-        return (_pack_frame(self.config.visible_chunks_cap, slots_a, counts6,
-                            mask6, pos_a, view_proj, cam_pos, payload),
-                cap, total)
+        out[:] = _pack_frame(vcap, slots_a, counts6, mask6, pos_a, view_proj,
+                             cam_pos, payload)
+        return cap, total
+
+    def _frame_of(self, visible_slots, counts_sel, positions_sel, dir_mask,
+                  view_proj, cam_pos, payload=None):
+        """A draw list's one upload (``_pack_into``, in ``_host_words``)
+        and its gather bucket: (upload, cap, total)."""
+        up, out = self._host_words(_frame_words(
+            self.config.visible_chunks_cap, payload=payload))
+        cap, total = self._pack_into(out, visible_slots, counts_sel,
+                                     positions_sel, dir_mask, view_proj,
+                                     cam_pos, payload)
+        return up, cap, total
+
+    def _cam_upload(self, view_proj, cam_pos):
+        """The camera's upload f32[19] (``_pack_cam``), on the card written
+        into a slot of the pinned ring."""
+        if self._ring is None:
+            return _pack_cam(view_proj, cam_pos)
+        up, out = self._ring.take(19)
+        _pack_cam(view_proj, cam_pos, out.view(np.float32))
+        return up.view(torch.float32)
+
+    def _expand(self, quad_pool, meta_up, cap: int):
+        """The stream of the draw list whose meta upload is ``meta_up``
+        (``_pack_into`` without a camera) at gather bucket ``cap``, from
+        graph "expand" (``_expand_frame``): (quads, quad_world, total),
+        fresh tensors."""
+        return self._run_graph(
+            "expand", cap, functools.partial(
+                _expand_frame, vcap=self.config.visible_chunks_cap,
+                gather_cap=cap),
+            (quad_pool,), (meta_up,))
 
     def prepare_uploads(self, quad_pool, visible_slots, counts_sel,
                         positions_sel, dir_mask=None):
         """Expand the draw list into the device quad stream from its
-        11-short meta, one upload (the meta of ``render_fused``'s);
-        cacheable while the draw list (with its dir mask) is unchanged.
-        Returns (quads, quad_world, total)."""
+        11-short meta, one upload (the meta of ``render_fused``'s), from
+        the graph of its bucket (``_expand``); cacheable while the draw
+        list (with its dir mask) is unchanged.  Returns (quads,
+        quad_world, total)."""
         vcap = self.config.visible_chunks_cap
         with prof.PREPARE:
-            slots_a, counts6, mask6, pos_a, cap, _ = self._prep_meta(
-                visible_slots, counts_sel, positions_sel, dir_mask)
-            meta = self._upload(_pack_meta(vcap, slots_a, counts6, mask6,
-                                           pos_a))
-            return _expand_meta(quad_pool, meta, vcap=vcap, gather_cap=cap)
+            up, out = self._host_words(_frame_words(vcap, camera=False))
+            cap, _ = self._pack_into(out, visible_slots, counts_sel,
+                                     positions_sel, dir_mask, None, None)
+            return self._expand(quad_pool, up, cap)
 
-    def pack_views(self, views) -> tuple[np.ndarray, int, int]:
+    def pack_views(self, views):
         """The uploads of a batch of views (``Engine.render_views``):
         ``views`` [(draw list (app/engine.DrawList), view_proj, cam_pos)].
-        Each view's row is its ``render_fused`` upload (``_pack_frame``);
-        the batch takes the gather bucket of its largest stream.  Returns
-        (i32[B, L], the gather cap, the quads of all the views'
-        streams)."""
-        rows, cap, quads = [], 0, 0
-        for dl, view_proj, cam_pos in views:
-            row, c, total = self._frame_of(dl.slots, dl.counts6,
-                                           dl.positions, dl.dir_mask,
-                                           view_proj, cam_pos)
-            rows.append(row)
+        Each view's row is its ``render_fused`` upload (``_pack_into``),
+        all in one ``_host_words`` buffer (on the card, one slot of the
+        pinned ring); the batch takes the gather bucket of its largest
+        stream.  Returns (i32[B, L], the gather cap, the quads of all the
+        views' streams)."""
+        n = _frame_words(self.config.visible_chunks_cap)
+        up, out = self._host_words(len(views) * n)
+        cap, quads = 0, 0
+        for j, (dl, view_proj, cam_pos) in enumerate(views):
+            c, total = self._pack_into(out[j * n:(j + 1) * n], dl.slots,
+                                       dl.counts6, dl.positions, dl.dir_mask,
+                                       view_proj, cam_pos)
             cap, quads = max(cap, c), quads + total
-        return np.stack(rows), cap, quads
+        return up.reshape(len(views), n), cap, quads
 
     def render_fused(self, quad_pool, visible_slots, counts_sel,
                      positions_sel, view_proj, cam_pos, dir_mask=None):
@@ -1120,19 +1240,20 @@ class Renderer:
         expanded stream is not kept (``prepare_uploads`` makes it for the
         static frames)."""
         with prof.PREPARE:
-            frame_np, cap, _ = self._frame_of(visible_slots, counts_sel,
-                                              positions_sel, dir_mask,
-                                              view_proj, cam_pos)
-        return self._fused(quad_pool, frame_np, cap)
+            frame, cap, _ = self._frame_of(visible_slots, counts_sel,
+                                           positions_sel, dir_mask,
+                                           view_proj, cam_pos)
+        return self._fused(quad_pool, frame, cap)
 
     def _cam_dev(self, view_proj, cam_pos):
-        """Device copy of the packed camera, cached while it holds."""
-        packed = _pack_cam(view_proj, cam_pos)
-        key = packed.tobytes()
+        """Device copy of the packed camera (``_cam_upload``), cached while
+        it holds."""
+        key = (np.asarray(view_proj, np.float32).tobytes(),
+               np.asarray(cam_pos, np.float32).tobytes())
         c = self._cam_cache
         if c is not None and c[0] == key:
             return c[1]
-        dev = self._upload(packed)
+        dev = self._upload(self._cam_upload(view_proj, cam_pos))
         self._cam_cache = (key, dev)
         return dev
 
@@ -1142,7 +1263,7 @@ class Renderer:
         is not the one copied last."""
         cap = int(uploads[0].shape[0])
         with prof.PREPARE:
-            cam = _pack_cam(view_proj, cam_pos)
+            cam = self._cam_upload(view_proj, cam_pos)
         return self._run_graph(
             "prepared", cap,
             functools.partial(_step_camf, **self._bucket_kw(cap)), (),
@@ -1164,7 +1285,7 @@ class Renderer:
         camera, draw list and world, else ``empty_hiz()``."""
         cap = int(uploads[0].shape[0])
         with prof.PREPARE:
-            cam = _pack_cam(view_proj, cam_pos)
+            cam = self._cam_upload(view_proj, cam_pos)
         return self._run_graph(
             "hiz", cap,
             functools.partial(_step_camf_hiz, **self._bucket_kw(cap)), (),
@@ -1179,10 +1300,10 @@ class Renderer:
         if insert_payload.shape != (3 * self.INSERT_KP + self.INSERT_FP,):
             raise ValueError(f"insert payload of shape {insert_payload.shape}")
         with prof.PREPARE:
-            frame_np, cap, _ = self._frame_of(
+            frame, cap, _ = self._frame_of(
                 visible_slots, counts_sel, positions_sel, dir_mask,
                 view_proj, cam_pos, insert_payload)
-        return self._fused_insert(quad_pool, frame_np, cap)
+        return self._fused_insert(quad_pool, frame, cap)
 
     def _resident_kw(self, gather_cap: int) -> dict:
         kw = self._bucket_kw(gather_cap)
@@ -1304,11 +1425,11 @@ class Renderer:
         stream."""
         self._check_pipelined()
         vcap = self.config.visible_chunks_cap
-        frame_np, cap, _ = self._frame_of(visible_slots, counts_sel,
-                                          positions_sel, dir_mask,
-                                          view_proj, cam_pos)
+        frame, cap, _ = self._frame_of(visible_slots, counts_sel,
+                                       positions_sel, dir_mask, view_proj,
+                                       cam_pos)
         prof.mark_enqueue()
-        meta, cam, _ = _split_frame(self._upload(frame_np), vcap)
+        meta, cam, _ = _split_frame(self._upload(frame), vcap)
         out, carry = self._pipe_drain_if(cap)
         if carry is None:
             pre, quads, qw, total = _geom_fused(

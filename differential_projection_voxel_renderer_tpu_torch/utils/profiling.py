@@ -27,8 +27,10 @@ The frame path runs on one thread: spans of other threads would tangle.
         meshing          Engine._mesh_list and below (counter
                          chunks_meshed: each loaded chunk meshed)
       dispatch           the frame's renderer call
-        prepare          draw-list, camera and payload packing; the
-                         expansion of Renderer.prepare_uploads
+        prepare          draw-list, camera and payload packing (into
+                         the renderer's pinned ring on the card); the
+                         expansion of Renderer.prepare_uploads, whose
+                         graph's load and replay nest in it
         load             graphs.CapturedCall.load of the frame's inputs
         replay           the graph's replay (on the CPU: its function)
         copy_out         the clone of its outputs
@@ -48,9 +50,12 @@ and on the views path (``Engine.render_views``, one frame a call):
 
 Counters: ``CHUNKS_MESHED.add(n)`` and ``CHUNKS_GENERATED.add(n)`` add to
 the open frame's count, as do ``VIEWS`` (the views of a views call),
-``VIEW_QUADS`` (the quads of their streams, counted on the host) and
+``VIEW_QUADS`` (the quads of their streams, counted on the host),
 ``FUNNEL_NATIVE`` (the funnels whose draw list came from the native pass,
-``Engine._funnel_native``); they read no device tensor.
+``Engine._funnel_native``), and ``PACK_NATIVE`` and ``PACK_NUMPY`` (the
+renderer's uploads of a draw list written by the native packer, and by
+its numpy twin: rendering/pipeline.py ``Renderer._pack_into``); they read
+no device tensor.
 
 The card's clock.  In every ``MARK_EVERY``-th frame on a CUDA device
 (a timing event costs the host 3-7 us to record or read on the card's
@@ -109,7 +114,7 @@ PARENT = {"frame": None, "funnel": "frame", "world_update": "funnel",
           "views_load": "views_dispatch", "views_replay": "views_dispatch",
           "views_reduce": "views_dispatch", "views_gather": "views_dispatch"}
 COUNTER_NAMES = ("chunks_meshed", "chunks_generated", "views", "view_quads",
-                 "funnel_native")
+                 "funnel_native", "pack_native", "pack_numpy")
 IDLE_NAMES = ("idle", "idle_funnel", "idle_dispatch")
 
 HOLD = 1 << 15          # frames held
@@ -540,15 +545,15 @@ if ENABLED:
     DISPATCH = _Dispatch(SPAN_NAMES.index("dispatch"))
     VIEWS_DISPATCH = _Dispatch(SPAN_NAMES.index("views_dispatch"))
     ENQUEUE = _Enqueue()
-    CHUNKS_MESHED, CHUNKS_GENERATED, VIEWS, VIEW_QUADS, FUNNEL_NATIVE = (
-        _Counter(i) for i in range(_NC))
+    (CHUNKS_MESHED, CHUNKS_GENERATED, VIEWS, VIEW_QUADS, FUNNEL_NATIVE,
+     PACK_NATIVE, PACK_NUMPY) = (_Counter(i) for i in range(_NC))
     mark_enqueue = TRACER.mark_enqueue
 else:
     (FRAME, FUNNEL, WORLD_UPDATE, WORLD_QUEUE, WORLD_GENERATE, WORLD_UNLOAD,
      MESHING, DISPATCH, PREPARE, LOAD, REPLAY, COPY_OUT, VIEWS_PACK,
      VIEWS_DISPATCH, VIEWS_LOAD, VIEWS_REPLAY, VIEWS_REDUCE, VIEWS_GATHER,
      ENQUEUE, CHUNKS_MESHED, CHUNKS_GENERATED, VIEWS, VIEW_QUADS,
-     FUNNEL_NATIVE, mark_enqueue) = (NOOP,) * 25
+     FUNNEL_NATIVE, PACK_NATIVE, PACK_NUMPY, mark_enqueue) = (NOOP,) * 27
 
 
 @contextlib.contextmanager

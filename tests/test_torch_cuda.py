@@ -1033,7 +1033,7 @@ def test_graph_frame_equals_eager_frame(cuda_device, mode):
     _fly(eng, GRAPH_POSES)
     torch.cuda.synchronize()
     twin.close()
-    names = ["fused", "prepared", "insert"] + (
+    names = ["fused", "expand", "prepared", "insert"] + (
         ["hiz"] if mode == "temporal" else [])
     want = {(n, c) for n in names for c in eng.renderer.gather_buckets}
     assert set(twin.replays()) == want == set(eng.renderer._graphs)
@@ -1087,9 +1087,9 @@ def test_graphs_recapture_after_set_shading_and_a_new_pool(cuda_device):
 @pytest.mark.cuda
 def test_replay_runs_no_wrapper_and_counts_exactly(cuda_device):
     """After the warm-ups, static, moving and streaming frames replay
-    (one replay a frame, no capture) with every kernel wrapper made to
-    raise, and K1, tile_meta and K2 still count exactly one launch a
-    frame."""
+    (one replay a frame, and one more for the settled draw list's
+    expansion; no capture) with every kernel wrapper made to raise, and
+    K1, tile_meta and K2 still count exactly one launch a frame."""
     eng = _graph_engine(cuda_device)
     eng.warm_buckets()
     eng.warm_streaming()
@@ -1102,7 +1102,9 @@ def test_replay_runs_no_wrapper_and_counts_exactly(cuda_device):
     assert (geometry.launches, raster.launches_meta, raster.launches) == (
         before[0] + len(frames), before[1] + len(frames),
         before[2] + len(frames))
-    assert graphs.calls - calls == {"replays": len(frames)}
+    # the first frame holds the draw list of the frame before it: its
+    # expansion (prepare_uploads) replays, then its static step
+    assert graphs.calls - calls == {"replays": len(frames) + 1}
 
 
 @pytest.mark.cuda
@@ -1141,6 +1143,105 @@ def test_graphs_survive_profiler_windows(cuda_device):
     assert done.returncode == 0, (done.returncode, done.stdout,
                                   done.stderr[-3000:])
     assert done.stdout.split()[-1] == "ok"
+
+
+@pytest.mark.cuda
+def test_pinned_ring_reuse_waits_for_its_copies(cuda_device, monkeypatch):
+    """The renderer's uploads come round its pinned ring while the card is
+    still busy: behind a long kernel, fused frames and static frames
+    (their draw lists and cameras packed natively into the ring's slots)
+    alternate for three times the ring's slots.  A slot is written again
+    only once its copies have run (``take`` waits on its events), so each
+    graph call's input holds its own words: every frame equals its
+    function called eagerly on the words packed for it, and the frames
+    of the same calls packed by the twin, ``_pack_frame``, bit for bit."""
+    eng = _graph_engine(cuda_device)
+    eng.warm_buckets()
+    r, pool = eng.renderer, eng.pool
+    assert r._packer is not None
+    _fly(eng, GRAPH_POSES[:1])
+    args = (eng._last_visible_slots, eng._last_counts_sel,
+            eng._last_positions_sel)
+    mask = eng._last_dir_mask
+    uploads = r.prepare_uploads(pool.quads, *args, dir_mask=mask)
+    cams = []
+    for k in range(3 * r.RING_SLOTS):
+        eng.camera.yaw = 0.05 * k
+        cams.append((eng.camera.view_projection_matrix().copy(),
+                     eng.camera.position.copy()))
+
+    def calls(record=None):
+        out = []
+        for k, (vp, cp) in enumerate(cams):
+            if k % 2:
+                out.append(r.render_prepared(uploads, vp, cp))
+            else:
+                out.append(r.render_fused(pool.quads, *args, vp, cp,
+                                          dir_mask=mask))
+        return out
+
+    # the words of each graph call's upload, read on the host as packed
+    seen = []
+    run_graph = r._run_graph
+
+    def spy(name, cap, fn, fixed, inputs, keep=0):
+        seen.append((fn, fixed, [x.clone() if isinstance(x, torch.Tensor)
+                                 and x.device.type == "cpu" else x
+                                 for x in inputs]))
+        return run_graph(name, cap, fn, fixed, inputs, keep)
+
+    waits = []
+    real_sync = torch.cuda.Event.synchronize
+    monkeypatch.setattr(torch.cuda.Event, "synchronize",
+                        lambda e: (waits.append(1), real_sync(e))[1])
+    monkeypatch.setattr(r, "_run_graph", spy)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of the card
+    native = calls()
+    torch.cuda.synchronize()
+    assert waits, "no slot came round while its copy was pending"
+    monkeypatch.undo()
+    assert len(seen) == len(cams)
+    for got, (fn, fixed, inputs) in zip(native, seen):
+        want = fn(*fixed, *(x.to(cuda_device) if isinstance(x, torch.Tensor)
+                            else x for x in inputs))
+        assert all(torch.equal(a, b) for a, b in zip(_frame_bits(got),
+                                                     _frame_bits(want)))
+    r._packer = None
+    twin = calls()
+    for a, b in zip(native, twin):
+        assert all(torch.equal(x, y) for x, y in zip(_frame_bits(a),
+                                                     _frame_bits(b)))
+    assert not all(torch.equal(native[0][0], f[0]) for f in native[2::2])
+
+
+@pytest.mark.cuda
+def test_pinned_ring_records_on_the_slot_copied(cuda_device):
+    """``PinnedRing.copied`` records its events on the slot that holds the
+    tensor copied, found from any view of it, even where another slot
+    was taken since; a tensor of no slot records nothing.  ``take`` then
+    waits for that slot's copy, behind a long kernel, when it comes
+    round."""
+    ring = graphs.PinnedRing(2, 64)
+    a, a_np = ring.take(16)
+    b, _ = ring.take(32)
+    dst = torch.empty(16, dtype=torch.int32, device=cuda_device)
+    ring.copied(torch.zeros(4, dtype=torch.int32), (cuda_device,))
+    ring.copied(torch.zeros(4, dtype=torch.int32, device=cuda_device),
+                (cuda_device,))
+    assert not any(ring._events)
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of the card
+    a_np[:] = np.arange(16, dtype=np.int32)
+    dst.copy_(a, non_blocking=True)
+    ring.copied(a[2:].view(torch.float32), (cuda_device,))
+    assert ring._events[0] and not ring._events[1]
+    assert not ring._events[0][cuda_device.index or 0].query()
+    again, again_np = ring.take(16)  # slot 0: waits for the copy
+    assert again.data_ptr() == a.data_ptr()
+    assert ring._events[0][cuda_device.index or 0].query()
+    again_np[:] = -1
+    assert torch.equal(dst.cpu(), torch.arange(16, dtype=torch.int32))
+    assert b.data_ptr() != a.data_ptr()
 
 
 @pytest.mark.cuda

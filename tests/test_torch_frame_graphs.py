@@ -94,12 +94,15 @@ def flight():
             while settle and eng.world.update(eng.camera.position):
                 pass
             out.append(eng.render_frame(dt=0.0))
-        assert len(twin.calls) == n_calls + 1
+        # a settled draw list is expanded first, from its own graph
+        calls = twin.calls[n_calls:]
+        assert [c[0] for c in calls[:-1]] in ([], ["expand"]), calls
+        assert all(equal and not replayed  # the CPU has no graph to replay
+                   for _, _, replayed, equal in calls)
         name, cap, replayed, equal = twin.calls[-1]
-        assert equal and not replayed  # the CPU has no graph to replay
+        want = twin.eager[-1]
         frames.append((S.frame_tuple(out[0]), S.frame_tuple(out[1]),
-                       S.engine_records(teng), out[1],
-                       (name, cap, twin.eager[-1])))
+                       S.engine_records(teng), out[1], (name, cap, want)))
     return frames
 
 
@@ -157,7 +160,8 @@ def test_one_graph_per_entry_point_and_bucket():
     assert r.gather_buckets == (16384, 32768, 65536)
     pool = torch.zeros((4, 512), dtype=torch.int32)
     r.warm_buckets(pool)
-    assert set(r._graphs) == {(n, c) for n in ("fused", "prepared", "hiz")
+    assert set(r._graphs) == {(n, c) for n in ("fused", "expand", "prepared",
+                                               "hiz")
                               for c in r.gather_buckets}
     made = dict(r._graphs)
     r.warm_buckets(pool)
@@ -174,7 +178,9 @@ def test_set_shading_drops_every_graph():
     eng.toggle_shading()
     assert r._graphs == {}
     eng.render_frame(dt=0.0)
-    (g,) = r._graphs.values()
+    # the settled draw list's expansion, then the temporal static step
+    assert set(r._graphs) == {("expand", 16384), ("hiz", 16384)}
+    g = r._graphs["hiz", 16384]
     assert g.fn.keywords["color_tables"] is not tables
 
 
@@ -393,9 +399,11 @@ def test_eager_twin_records_and_closes():
     twin = graphs.EagerTwin(r, keep_eager=True)
     assert "_run_graph" in vars(r)
     eng.render_frame(dt=0.0)
-    ((name, cap, replayed, equal),) = twin.calls
+    # the settled draw list's expansion, then its static step
+    expand, (name, cap, replayed, equal) = twin.calls
+    assert expand == ("expand", 16384, False, True)
     assert (cap, replayed, equal) == (16384, False, True)
-    assert name in ("prepared", "hiz") and len(twin.eager) == 1
+    assert name in ("prepared", "hiz") and len(twin.eager) == 2
     assert twin.replays() == {} and not twin.all_replayed_equal()
     twin.close()
     assert "_run_graph" not in vars(r)
