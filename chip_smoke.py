@@ -53,9 +53,11 @@ and times kernels and frames.  Phases:
    written once);
 7. the static frame's device time under torch.profiler: the card's busy
    time per frame, its idle share and the largest device activities;
-8. frames in flight: a second Engine, settled and primed like the first,
-   drives render_frame_pipelined over phase 3's camera sequence (3 static,
-   20 timed static, the 10 moving frames), then flush_pipeline.  The
+8. frames in flight: a second Engine, settled and primed like the first
+   and warmed with ``warm_buckets(pipelined=True)``, drives
+   render_frame_pipelined over phase 3's camera sequence (3 static, 20
+   timed static, each step a graph replay, the 10 moving frames), then
+   flush_pipeline.  The
    counters are zeroed before it and read after it; K3 must launch once on
    every steady step (a frame of the carried frame's gather cap), only a
    change of cap may drain, and every emitted frame must equal phase 3's
@@ -585,14 +587,18 @@ def pipelined_path(torch, serial):
     timed against serial frames of the same engine in alternating blocks
     (serial, pipelined, pipelined, serial); each block checks its frames
     on the card, and a pipelined block is seeded and flushed outside the
-    timer, so it times steady steps only.
+    timer, so it times steady steps only, each a replay of its graph
+    (``warm_buckets(pipelined=True)`` captured them; a timed block that
+    captures or runs a step another way raises).
     Then 10 frames of each mode run under torch.profiler.  Returns
     (launches, {"serial"|"pipelined": [(events ms, host ms) per block]},
-    {"serial"|"pipelined": profile_frames' result})."""
+    {"serial"|"pipelined": profile_frames' result}, the graph replays of
+    each timed pipelined block)."""
     eng, t_world, t_prime = new_engine(torch)
+    eng.warm_buckets(pipelined=True)
     log(f"[8] second engine: {eng.world.chunk_count()} chunks in "
         f"{t_world:.1f} s; prime: {len(eng.pool.by_pos)} meshes in "
-        f"{t_prime:.1f} s")
+        f"{t_prime:.1f} s; warm_buckets(pipelined=True)")
     # (call, (K1, K2, K3, K4) launches, carried gather cap before, after)
     steps = []
 
@@ -626,6 +632,7 @@ def pipelined_path(torch, serial):
     check(call("flush"), static, "the flushed static frame")
     emitted += 1
     times = {"serial": [], "pipelined": []}
+    replays = []
     for kind in ("serial", "pipelined", "pipelined", "serial"):
         ok = torch.ones((), dtype=torch.bool, device=eng.device)
         n_out = 0
@@ -635,6 +642,7 @@ def pipelined_path(torch, serial):
         torch.cuda.synchronize()
         ev0 = torch.cuda.Event(enable_timing=True)
         ev1 = torch.cuda.Event(enable_timing=True)
+        graphs0 = graph_calls()
         h0 = time.perf_counter()
         ev0.record()
         for _ in range(N_TIMED_PIPELINED):
@@ -644,6 +652,13 @@ def pipelined_path(torch, serial):
                 n_out += 1
         ev1.record()
         ev1.synchronize()
+        if kind == "pipelined":
+            got = graph_calls() - graphs0
+            if got != {"replays": N_TIMED_PIPELINED}:
+                raise AssertionError(f"a timed pipelined block's graph calls "
+                                     f"{dict(got)}: one replay a step and "
+                                     f"no capture expected")
+            replays.append(got["replays"])
         times[kind].append((ev0.elapsed_time(ev1) / N_TIMED_PIPELINED,
                             (time.perf_counter() - h0) * 1e3
                             / N_TIMED_PIPELINED))
@@ -715,7 +730,7 @@ def pipelined_path(torch, serial):
         f"depth, stats[:2]); launches K1={launches[0]} K2={launches[1]} "
         f"K3={launches[2]} over {len(steps)} calls; K3 launched once on "
         f"each of the {steady} steady steps; {drains} bucket drains")
-    return launches, times, profiles
+    return launches, times, profiles, replays
 
 
 def packed_path(torch, serial):
@@ -3434,9 +3449,11 @@ def main() -> int:
     log_profile("7", "static frame", prof7, frame["static_ms"], card)
 
     # ---- 8. frames in flight
-    launches8, times8, profiles8 = pipelined_path(torch, serial)
+    launches8, times8, profiles8, replays8 = pipelined_path(torch, serial)
     for mode, runs in times8.items():
-        log(f"[8] static frame, {mode}, blocks of {N_TIMED_PIPELINED}: "
+        via = (f" from CUDA graphs ({', '.join(map(str, replays8))} "
+               f"replays, no capture)" if mode == "pipelined" else "")
+        log(f"[8] static frame, {mode}{via}, blocks of {N_TIMED_PIPELINED}: "
             + ", ".join(f"{ev:.3f} ms (CUDA events) / {host:.3f} ms (host)"
                         for ev, host in runs) + f"; {card}")
     log(f"[8] static frame, phase 3 serial (mean of {N_TIMED}): "

@@ -757,7 +757,7 @@ class Engine:
         (``Renderer.warm_buckets``), as the reference pre-traces its jit
         programs, so that a camera whose quad total crosses into another
         bucket replays a graph at once.  ``pipelined`` adds the
-        frames-in-flight steps (eager).  The pool, the caches and every
+        frames-in-flight steps' graphs.  The pool, the caches and every
         later frame are as without the call."""
         self.renderer.warm_buckets(self.pool.quads, pipelined=pipelined)
 
@@ -1336,7 +1336,8 @@ class Engine:
     def render_frame_pipelined(self, dt: float = 0.016) -> FrameResult | None:
         """Frames-in-flight frame: run this frame's funnel, enter it with
         its stage A in the previous frame's raster launch (kernel K3;
-        rendering/pipeline.py render_*_pipelined), and return the previous
+        rendering/pipeline.py render_*_pipelined, each a replay of the
+        renderer's graph for its gather bucket), and return the previous
         frame's FrameResult, or None on the first call.  Drain the last
         frame with flush_pipeline().  Every emitted frame equals
         render_frame's for the same camera sequence bit for bit, one frame

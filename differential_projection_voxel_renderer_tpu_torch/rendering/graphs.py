@@ -2,9 +2,10 @@
 per-bucket jitted entry points, which run a frame as one dispatch.
 
 ``CapturedCall`` holds one function's graph on one device.  Its callers:
-the ``Renderer``'s serial entry points (rendering/pipeline.py, one graph
-an entry point and gather bucket), ``make_repeated_step`` and the sharded
-render's shards (parallel/sharded_render.py).  ``PinnedRing`` holds the
+the ``Renderer``'s serial entry points and frames-in-flight steps
+(rendering/pipeline.py, one graph an entry point and gather bucket),
+``make_repeated_step`` and the sharded render's shards
+(parallel/sharded_render.py).  ``PinnedRing`` holds the
 pinned host buffers that the ``Renderer``'s uploads are written into and
 copied from, reused in turn.
 
@@ -319,12 +320,21 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
+def _leaves(x) -> list:
+    """The tensors of an output: itself, or those of nested tuples and
+    lists, in order."""
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _leaves(v)]
+    return [x]
+
+
 class EagerTwin:
     """Runs each graph-served call of a ``Renderer`` (its serial entry
-    points, ``Renderer._run_graph``) a second time eagerly, as the entry
-    points ran before they were graphs: the call's function on copies of
-    its fixed tensors and inputs taken before the call (a fused insert
-    scatters into the pool).  For tests and the smoke run.
+    points and frames-in-flight steps, ``Renderer._run_graph``) a second
+    time eagerly, as the entry points ran before they were graphs: the
+    call's function on copies of its fixed tensors and inputs taken before
+    the call (a fused insert scatters into the pool).  For tests and the
+    smoke run.
 
     Each call appends (entry point, gather cap, replayed, equal) to
     ``calls``: ``replayed``, the call replayed a graph captured earlier
@@ -347,8 +357,9 @@ class EagerTwin:
             want = fn(*fixed_c, *inputs_c)
             replayed = (calls["replays"] == before["replays"] + 1
                         and calls["captures"] == before["captures"])
-            equal = all(torch.equal(_bits(a), _bits(b))
-                        for a, b in zip(out, want))
+            got, ref = _leaves(out), _leaves(want)
+            equal = len(got) == len(ref) and all(
+                torch.equal(_bits(a), _bits(b)) for a, b in zip(got, ref))
             self.calls.append((name, cap, replayed, equal))
             if keep_eager:
                 self.eager.append(want)

@@ -23,7 +23,9 @@ Counterpart of the production branch of
 Frames in flight (``Renderer.render_*_pipelined``): a step renders frame
 N-1 from its carried stage-A result (``pre_geom``) and computes frame N's
 stage A in the same raster launch (``next_geom``, kernel K3); the frames
-equal the serial step's bit for bit, one frame later.
+equal the serial step's bit for bit, one frame later.  Between calls the
+carried stage A is one i32 tensor (``_pack_pre``) and the carried camera
+19 host floats (``_pack_cam``).
 
 Exact occlusion (``RenderConfig.two_pass_near_quads``, ``_two_pass_step``):
 stage A once, the nearest ``near_quads`` of the front-to-back stream
@@ -65,8 +67,10 @@ static, so a step makes no host sync; ``n_quads``, the counts and the
 totals stay on the device.  Where JAX's immutable arrays forced a copy,
 the port updates the quad pool in place (``apply_insert_payload``), also
 inside a graph.  ``prepare_uploads``, which expands a settled draw list
-for the static frames, runs from a graph of its own ("expand"); frames
-in flight and the resident append steps run eagerly.
+for the static frames, runs from a graph of its own ("expand"), and each
+frames-in-flight step from one too ("pipe_seed", "pipe_seed_fused",
+"pipe_prepared", "pipe_fused"; a drain replays "prepared"); the resident
+append steps run eagerly.
 
 Uploads: each upload of a draw list is written once, by the native
 packer (meshing/native_bridge.py ``pack_frame``); on the card it is
@@ -546,11 +550,9 @@ def _frame_words(vcap: int, camera: bool = True, payload=None) -> int:
             + (0 if payload is None else len(payload)))
 
 
-def _pack_cam(view_proj, cam_pos, out=None) -> np.ndarray:
-    """The camera as f32[19]: ``view_proj`` [4, 4] | ``cam_pos`` [3],
-    written into ``out`` where given."""
-    if out is None:
-        out = np.empty(19, np.float32)
+def _pack_cam(view_proj, cam_pos) -> np.ndarray:
+    """The camera as f32[19]: ``view_proj`` [4, 4] | ``cam_pos`` [3]."""
+    out = np.empty(19, np.float32)
     out[:16] = np.asarray(view_proj, np.float32).ravel()
     out[16:] = np.asarray(cam_pos, np.float32)
     return out
@@ -853,14 +855,70 @@ def _pipe_fused(quad_pool, meta_i, cam_c, quads_p, qw_p, n_p, cam_p, pre_p,
     return color, depth, stats, pre_c, quads_c, qw_c, total_c
 
 
-def _geom_fused(quad_pool, meta_i, cam_f, *, vcap: int, gather_cap: int,
-                **geom_kw):
-    """Draw-list expansion + stage A only: seeds the pipeline when the
-    draw list changed and no frame is carried.  Returns (pre, quads, qw,
-    total)."""
+def _pack_pre(pre):
+    """A stage A (``_pre_geom_of``'s tuple) as the one i32 tensor that the
+    frames in flight carry between calls: bbx | bby | depth_near's bits |
+    valid's bytes, padded to whole words | subpix_total."""
+    valid, bbx, bby, dn, sub = pre
+    vb = valid.view(torch.uint8)
+    if vb.shape[0] % 4:
+        vb = torch.cat([vb, vb.new_zeros(-vb.shape[0] % 4)])
+    return torch.cat([bbx, bby, dn.view(torch.int32), vb.view(torch.int32),
+                      sub.reshape(1)])
+
+
+def _unpack_pre(pre_u, gq: int):
+    """``_pack_pre``'s tensor of a ``gq``-quad stream -> the pre_geom tuple
+    (views of it)."""
+    bbx, bby, dn, vw, sub = pre_u.split((gq, gq, gq, (gq + 3) // 4, 1))
+    return (vw.view(torch.bool)[:gq], bbx, bby, dn.view(torch.float32),
+            sub[0])
+
+
+def _pipe_seed_step(quads, quad_world, n_quads, cam_f, **geom_kw):
+    """The stage A that seeds an empty pipeline with a prepared stream, packed
+    (graph "pipe_seed")."""
+    return _pack_pre(_geom_camf(quads, quad_world, n_quads, cam_f,
+                                **geom_kw))
+
+
+def _pipe_seed_fused_step(quad_pool, frame_u, *, vcap: int, gather_cap: int,
+                          **geom_kw):
+    """The draw list's expansion and stage A that seed an empty pipeline
+    (graph "pipe_seed_fused"): ``frame_u`` as ``_pipe_fused_step`` takes it,
+    its previous camera unread.  Returns (pre packed, quads, qw, total)."""
+    meta_i, cam_f, _ = _split_frame(frame_u, vcap)
     quads, qw, total = _expand_meta(quad_pool, meta_i, vcap=vcap,
                                     gather_cap=gather_cap)
-    return _geom_camf(quads, qw, total, cam_f, **geom_kw), quads, qw, total
+    return (_pipe_seed_step(quads, qw, total, cam_f, **geom_kw), quads, qw,
+            total)
+
+
+def _pipe_prepared_step(quads_p, qw_p, n_p, quads_c, qw_c, n_c, cams, pre_p,
+                        **step_kw):
+    """``_pipe_step_camf`` as graph "pipe_prepared" takes it: ``cams``
+    f32[38] the carried frame's camera | this frame's (``_pack_cam``),
+    ``pre_p`` the carried stage A packed (``_pack_pre``).  Returns the
+    carried frame's (color, depth, stats) and this frame's stage A,
+    packed."""
+    color, depth, stats, pre_c = _pipe_step_camf(
+        quads_p, qw_p, n_p, cams[:19], _unpack_pre(pre_p, quads_p.shape[0]),
+        quads_c, qw_c, n_c, cams[19:], **step_kw)
+    return color, depth, stats, _pack_pre(pre_c)
+
+
+def _pipe_fused_step(quad_pool, quads_p, qw_p, n_p, frame_u, pre_p, *,
+                     vcap: int, gather_cap: int, **step_kw):
+    """``_pipe_fused`` as graph "pipe_fused" takes it: ``frame_u`` the draw
+    list's upload (``_pack_frame``) | the carried frame's camera (19 f32
+    bits), ``pre_p`` the carried stage A packed.  Returns (color, depth,
+    stats, this frame's stage A packed, quads, qw, total)."""
+    meta_i, cam_c, cam_p = _split_frame(frame_u, vcap)
+    color, depth, stats, pre_c, quads, qw, total = _pipe_fused(
+        quad_pool, meta_i, cam_c, quads_p, qw_p, n_p,
+        cam_p.view(torch.float32), _unpack_pre(pre_p, quads_p.shape[0]),
+        vcap=vcap, gather_cap=gather_cap, **step_kw)
+    return color, depth, stats, _pack_pre(pre_c), quads, qw, total
 
 
 class Renderer:
@@ -871,11 +929,11 @@ class Renderer:
     through ``render_prepared_hiz``.
 
     The serial entry points (``render_fused``, ``render_prepared``,
-    ``render_prepared_hiz``, ``render_fused_insert``) and
-    ``prepare_uploads``' expansion
-    run from one ``graphs.CapturedCall`` each a gather bucket, as the
-    reference's ``_steps_for`` / ``_hiz_step_for`` / ``_insert_step_for``
-    jit one program each.  A graph is captured at its first frame (or in
+    ``render_prepared_hiz``, ``render_fused_insert``),
+    ``prepare_uploads``' expansion and the frames-in-flight steps run from
+    one ``graphs.CapturedCall`` each a gather bucket, as the reference's
+    ``_steps_for`` / ``_hiz_step_for`` / ``_insert_step_for`` /
+    ``_pipe_steps_for`` jit one program each.  A graph is captured at its first frame (or in
     ``warm_buckets``), again after ``set_shading`` (the colour tables are
     captured by address) and again when a frame brings other pool tensors
     than it captured.  Their outputs are copies: a frame a caller holds is
@@ -934,7 +992,9 @@ class Renderer:
         self.gather_buckets = tuple(
             sorted(c for c in cands if c >= 16384)) or (cfg.gather_cap,)
         self._cam_cache: tuple | None = None
-        self._pipe_carry: tuple | None = None  # (cap, uploads, cam_f, pre)
+        # frames in flight: (cap, uploads, camera f32[19] on the host,
+        # stage A packed) of the frame entered last
+        self._pipe_carry: tuple | None = None
         # the native packer that writes the draw lists' uploads (None
         # where the library is not built), and on the card the pinned
         # ring they are written into, sized for the largest one-view
@@ -993,11 +1053,12 @@ class Renderer:
         dropped, as the reference compiles each bucket's jit programs: the
         fused frame, the expansion (``prepare_uploads``), the static step
         and with ``RenderConfig.temporal_hiz`` the temporal step.
-        ``pipelined`` also runs the frames-in-flight steps (kernel K3),
-        eagerly.  On the card the kernels are built and loaded first
-        (``_build.lib``).  Nothing is written: the pool, the
-        camera cache and the frames-in-flight state are as they were, so
-        every later frame is what it would be without the call."""
+        ``pipelined`` also captures the frames-in-flight steps' graphs
+        (the seeds, the prepared and the fused step; kernel K3; a drain
+        replays the static step's).  On the card the kernels are built
+        and loaded first (``_build.lib``).  Nothing is written: the pool,
+        the camera cache and the frames-in-flight state are as they were,
+        so every later frame is what it would be without the call."""
         if pipelined:
             self._check_pipelined()
         if self.device.type == "cuda":
@@ -1006,13 +1067,15 @@ class Renderer:
             _build.lib()
         vcap = self.config.visible_chunks_cap
         eye, origin = np.eye(4, dtype=np.float32), np.zeros(3, np.float32)
+        cam = _pack_cam(eye, origin)
         one = np.zeros((1, 6), np.int32)
         one[0, 0] = 1
         frame_np = _pack_frame(vcap, np.zeros(1, np.int32), one,
                                np.ones((1, 6), np.int32),
                                np.zeros((1, 3), np.int32), eye, origin)
-        meta, cam, _ = _split_frame(self._upload(frame_np), vcap)
         meta_np = frame_np[:_frame_words(vcap, camera=False)]
+        # the frames-in-flight upload: the draw list's | the carried camera
+        pipe_np = np.concatenate([frame_np, cam.view(np.int32)])
         for cap in self.gather_buckets:
             self._fused(quad_pool, frame_np, cap)
             up = self._expand(quad_pool, meta_np, cap)
@@ -1020,15 +1083,10 @@ class Renderer:
             if self.config.temporal_hiz:
                 self.render_prepared_hiz(up, eye, origin, self.empty_hiz())
             if pipelined:
-                pre, q2, qw2, t2 = _geom_fused(
-                    quad_pool, meta, cam, vcap=vcap, gather_cap=cap,
-                    **self._geom_kw())
-                _geom_camf(q2, qw2, t2, cam, **self._geom_kw())
-                kw = self._bucket_kw(cap)
-                _pipe_step_camf(q2, qw2, t2, cam, pre, q2, qw2, t2, cam,
-                                **kw)
-                _pipe_fused(quad_pool, meta, cam, q2, qw2, t2, cam, pre,
-                            vcap=vcap, gather_cap=cap, **kw)
+                pre = self._pipe_seed(cap, up, cam)
+                self._pipe_step(cap, up, cam, pre, up, cam)
+                self._pipe_seed_fused(quad_pool, pipe_np, cap)
+                self._pipe_fused_step(quad_pool, pipe_np, cap, up, pre)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -1181,13 +1239,15 @@ class Renderer:
                                      cam_pos, payload)
         return up, cap, total
 
-    def _cam_upload(self, view_proj, cam_pos):
-        """The camera's upload f32[19] (``_pack_cam``), on the card written
-        into a slot of the pinned ring."""
+    def _cam_upload(self, *cams):
+        """Cameras packed by ``_pack_cam`` as one f32 upload (19 floats a
+        camera), on the card written into a slot of the pinned ring."""
         if self._ring is None:
-            return _pack_cam(view_proj, cam_pos)
-        up, out = self._ring.take(19)
-        _pack_cam(view_proj, cam_pos, out.view(np.float32))
+            return np.concatenate(cams)
+        up, out = self._ring.take(19 * len(cams))
+        f = out.view(np.float32)
+        for j, cam in enumerate(cams):
+            f[19 * j:19 * j + 19] = cam
         return up.view(torch.float32)
 
     def _expand(self, quad_pool, meta_up, cap: int):
@@ -1253,7 +1313,7 @@ class Renderer:
         c = self._cam_cache
         if c is not None and c[0] == key:
             return c[1]
-        dev = self._upload(self._cam_upload(view_proj, cam_pos))
+        dev = self._upload(self._cam_upload(_pack_cam(view_proj, cam_pos)))
         self._cam_cache = (key, dev)
         return dev
 
@@ -1263,7 +1323,7 @@ class Renderer:
         is not the one copied last."""
         cap = int(uploads[0].shape[0])
         with prof.PREPARE:
-            cam = self._cam_upload(view_proj, cam_pos)
+            cam = self._cam_upload(_pack_cam(view_proj, cam_pos))
         return self._run_graph(
             "prepared", cap,
             functools.partial(_step_camf, **self._bucket_kw(cap)), (),
@@ -1285,7 +1345,7 @@ class Renderer:
         camera, draw list and world, else ``empty_hiz()``."""
         cap = int(uploads[0].shape[0])
         with prof.PREPARE:
-            cam = self._cam_upload(view_proj, cam_pos)
+            cam = self._cam_upload(_pack_cam(view_proj, cam_pos))
         return self._run_graph(
             "hiz", cap,
             functools.partial(_step_camf_hiz, **self._bucket_kw(cap)), (),
@@ -1389,6 +1449,65 @@ class Renderer:
         return dict(width=k["width"], height=k["height"],
                     backface_culling=k["backface_culling"])
 
+    def _count_pipe(self) -> None:
+        """Counts a frames-in-flight step, seed or drain: ``pipe_graph`` on
+        the card, ``pipe_eager`` on the CPU (where a graph runs its
+        function)."""
+        (prof.PIPE_GRAPH if self.device.type == "cuda"
+         else prof.PIPE_EAGER).add(1)
+
+    def _pipe_graph(self, name: str, cap: int, fn, fixed, inputs,
+                    keep: int = 0):
+        """``_run_graph`` for a frames-in-flight step (``_count_pipe``)."""
+        self._count_pipe()
+        return self._run_graph(name, cap, fn, fixed, inputs, keep)
+
+    def _pipe_seed(self, cap: int, uploads, cam):
+        """The carried stage A (``_pack_pre``) of prepared stream
+        ``uploads`` seen by ``cam`` (``_pack_cam``), which seeds an empty
+        pipeline, from graph "pipe_seed"."""
+        with prof.PREPARE:
+            cam_up = self._cam_upload(cam)
+        return self._pipe_graph(
+            "pipe_seed", cap,
+            functools.partial(_pipe_seed_step, **self._geom_kw()), (),
+            (*uploads, cam_up), keep=3)
+
+    def _pipe_step(self, cap: int, up_p, cam_p, pre_p, uploads, cam):
+        """The carried frame (stream ``up_p``, camera ``cam_p``, stage A
+        ``pre_p``) rendered with stage A of prepared stream ``uploads`` seen
+        by ``cam`` in its raster launch (K3), from graph "pipe_prepared":
+        (color, depth, stats, the new stage A packed).  A stream is copied
+        into the graph only when it is not the one copied there last."""
+        with prof.PREPARE:
+            cams = self._cam_upload(cam_p, cam)
+        return self._pipe_graph(
+            "pipe_prepared", cap,
+            functools.partial(_pipe_prepared_step, **self._bucket_kw(cap)),
+            (), (*up_p, *uploads, cams, pre_p), keep=6)
+
+    def _pipe_seed_fused(self, quad_pool, frame, cap: int):
+        """A changed draw list's upload ``frame`` (as ``_pipe_fused_step``
+        takes it, the carried camera unread) expanded and its stage A, which
+        seed an empty pipeline, from graph "pipe_seed_fused": (stage A
+        packed, quads, qw, total)."""
+        return self._pipe_graph(
+            "pipe_seed_fused", cap, functools.partial(
+                _pipe_seed_fused_step, vcap=self.config.visible_chunks_cap,
+                gather_cap=cap, **self._geom_kw()),
+            (quad_pool,), (frame,))
+
+    def _pipe_fused_step(self, quad_pool, frame, cap: int, up_p, pre_p):
+        """The carried frame (stream ``up_p``, stage A ``pre_p``, its camera
+        in ``frame``) rendered with the changed draw list's expansion and
+        stage A in the same step, from graph "pipe_fused": (color, depth,
+        stats, the new stage A packed, quads, qw, total)."""
+        return self._pipe_graph(
+            "pipe_fused", cap, functools.partial(
+                _pipe_fused_step, vcap=self.config.visible_chunks_cap,
+                gather_cap=cap, **self._bucket_kw(cap)),
+            (quad_pool,), (*up_p, frame, pre_p), keep=3)
+
     def render_prepared_pipelined(self, uploads, view_proj, cam_pos):
         """Frames-in-flight render (one frame of latency): enter frame N
         (its stage A rides in the carried frame's raster launch, K3) and
@@ -1396,55 +1515,55 @@ class Renderer:
         was empty (drain the tail with pipeline_flush).  Exactly one result
         is emitted per entered frame across render_*_pipelined /
         pipeline_flush calls, in order, each equal to render_prepared's
-        frame bit for bit.  The carry keeps references to frame N-1's
-        stream; nothing writes a stream in place."""
+        frame bit for bit.  Each step replays a graph of its bucket; the
+        carry keeps references to frame N-1's stream; nothing writes a
+        stream in place."""
         self._check_pipelined()
-        prof.mark_enqueue()
-        quads, quad_world, total = uploads
-        cap = int(quads.shape[0])
-        cam = self._cam_dev(view_proj, cam_pos)
+        cap = int(uploads[0].shape[0])
+        cam = _pack_cam(view_proj, cam_pos)
         out, carry = self._pipe_drain_if(cap)
         if carry is None:
-            pre = _geom_camf(quads, quad_world, total, cam, **self._geom_kw())
-            self._pipe_carry = (cap, uploads, cam, pre)
-            return out
-        _, up_p, cam_p, pre_p = carry
-        color, depth, stats, pre_c = _pipe_step_camf(
-            up_p[0], up_p[1], up_p[2], cam_p, pre_p, quads, quad_world, total,
-            cam, **self._bucket_kw(cap))
-        self._pipe_carry = (cap, uploads, cam, pre_c)
-        return color, depth, stats
+            with prof.PIPE_DRAIN if out is not None else prof.NOOP:
+                pre = self._pipe_seed(cap, uploads, cam)
+        else:
+            _, up_p, cam_p, pre_p = carry
+            color, depth, stats, pre = self._pipe_step(cap, up_p, cam_p,
+                                                       pre_p, uploads, cam)
+            out = color, depth, stats
+        self._pipe_carry = (cap, uploads, cam, pre)
+        return out
 
     def render_fused_pipelined(self, quad_pool, visible_slots, counts_sel,
                                positions_sel, view_proj, cam_pos,
                                dir_mask=None):
         """Pipelined render with the CURRENT frame's draw-list expansion in
-        the same step (the moving/streaming path), from one upload.
-        Returns (result_or_None, uploads): ``result`` is the OLDEST pending
-        frame's (color, depth, stats) and ``uploads`` frame N's expanded
-        stream."""
+        the same step (the moving/streaming path), from one upload: the
+        draw list's (``_pack_into``) with the carried frame's camera after
+        it.  Returns (result_or_None, uploads): ``result`` is the OLDEST
+        pending frame's (color, depth, stats) and ``uploads`` frame N's
+        expanded stream."""
         self._check_pipelined()
-        vcap = self.config.visible_chunks_cap
-        frame, cap, _ = self._frame_of(visible_slots, counts_sel,
-                                       positions_sel, dir_mask, view_proj,
-                                       cam_pos)
-        prof.mark_enqueue()
-        meta, cam, _ = _split_frame(self._upload(frame), vcap)
+        n = _frame_words(self.config.visible_chunks_cap)
+        with prof.PREPARE:
+            frame, words = self._host_words(n + 19)
+            cap, _ = self._pack_into(words[:n], visible_slots, counts_sel,
+                                     positions_sel, dir_mask, view_proj,
+                                     cam_pos)
+            cam = _pack_cam(view_proj, cam_pos)
         out, carry = self._pipe_drain_if(cap)
         if carry is None:
-            pre, quads, qw, total = _geom_fused(
-                quad_pool, meta, cam, vcap=vcap, gather_cap=cap,
-                **self._geom_kw())
-            uploads = (quads, qw, total)
-            self._pipe_carry = (cap, uploads, cam, pre)
-            return out, uploads
-        _, up_p, cam_p, pre_p = carry
-        color, depth, stats, pre_c, quads, qw, total = _pipe_fused(
-            quad_pool, meta, cam, up_p[0], up_p[1], up_p[2], cam_p, pre_p,
-            vcap=vcap, gather_cap=cap, **self._bucket_kw(cap))
-        uploads = (quads, qw, total)
-        self._pipe_carry = (cap, uploads, cam, pre_c)
-        return (color, depth, stats), uploads
+            words[n:] = 0
+            with prof.PIPE_DRAIN if out is not None else prof.NOOP:
+                pre, *uploads = self._pipe_seed_fused(quad_pool, frame, cap)
+        else:
+            _, up_p, cam_p, pre_p = carry
+            words[n:] = cam_p.view(np.int32)
+            color, depth, stats, pre, *uploads = self._pipe_fused_step(
+                quad_pool, frame, cap, up_p, pre_p)
+            out = color, depth, stats
+        uploads = tuple(uploads)
+        self._pipe_carry = (cap, uploads, cam, pre)
+        return out, uploads
 
     def _pipe_drain_if(self, cap: int):
         """Drain a carry of another bucket.  Returns (result_or_None,
@@ -1457,15 +1576,18 @@ class Renderer:
 
     def pipeline_flush(self):
         """Drain the frames-in-flight state: render the carried frame
-        serially (its stage A runs again: the same math, the same frame).
-        Returns (color, depth, stats) or None."""
+        serially, from the static step's graph (its stage A runs again:
+        the same math, the same frame), in span ``pipe_drain``.  Returns
+        (color, depth, stats) or None."""
         carry = self._pipe_carry
         if carry is None:
             return None
         self._pipe_carry = None
         cap, up, cam, _pre = carry
-        prof.mark_enqueue()
-        return _step_camf(up[0], up[1], up[2], cam, **self._bucket_kw(cap))
+        prof.PIPE_DRAINS.add(1)
+        with prof.PIPE_DRAIN:
+            self._count_pipe()
+            return self.render_prepared(up, *_unpack_cam(cam))
 
 
 def make_repeated_step(renderer: Renderer, n_frames: int):

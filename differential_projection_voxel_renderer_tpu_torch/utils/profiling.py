@@ -34,6 +34,11 @@ The frame path runs on one thread: spans of other threads would tangle.
         load             graphs.CapturedCall.load of the frame's inputs
         replay           the graph's replay (on the CPU: its function)
         copy_out         the clone of its outputs
+        pipe_drain       frames in flight (``Engine.render_frame_pipelined``,
+                         ``flush_pipeline``): a carried frame drained
+                         serially, at a change of gather bucket or by the
+                         flush, with the seed's stage A after it (their
+                         graphs' load, replay and copy_out nest in it)
 
 and on the views path (``Engine.render_views``, one frame a call):
 
@@ -54,8 +59,11 @@ the open frame's count, as do ``VIEWS`` (the views of a views call),
 ``FUNNEL_NATIVE`` (the funnels whose draw list came from the native pass,
 ``Engine._funnel_native``), and ``PACK_NATIVE`` and ``PACK_NUMPY`` (the
 renderer's uploads of a draw list written by the native packer, and by
-its numpy twin: rendering/pipeline.py ``Renderer._pack_into``); they read
-no device tensor.
+its numpy twin: rendering/pipeline.py ``Renderer._pack_into``),
+``PIPE_GRAPH`` and ``PIPE_EAGER`` (the frames-in-flight steps, seeds and
+drains served from a CUDA graph on the card, and run eagerly, by the
+graph's function on the CPU) and ``PIPE_DRAINS`` (the carried frames
+drained); they read no device tensor.
 
 The card's clock.  In every ``MARK_EVERY``-th frame on a CUDA device
 (a timing event costs the host 3-7 us to record or read on the card's
@@ -104,7 +112,7 @@ SPAN_NAMES = ("frame", "funnel", "world_update", "world_queue",
               "world_generate", "world_unload", "meshing", "dispatch",
               "prepare", "load", "replay", "copy_out", "views_pack",
               "views_dispatch", "views_load", "views_replay", "views_reduce",
-              "views_gather")
+              "views_gather", "pipe_drain")
 PARENT = {"frame": None, "funnel": "frame", "world_update": "funnel",
           "world_queue": "world_update", "world_generate": "world_update",
           "world_unload": "world_update", "meshing": "funnel",
@@ -112,9 +120,11 @@ PARENT = {"frame": None, "funnel": "frame", "world_update": "funnel",
           "replay": "dispatch", "copy_out": "dispatch",
           "views_pack": "frame", "views_dispatch": "frame",
           "views_load": "views_dispatch", "views_replay": "views_dispatch",
-          "views_reduce": "views_dispatch", "views_gather": "views_dispatch"}
+          "views_reduce": "views_dispatch", "views_gather": "views_dispatch",
+          "pipe_drain": "dispatch"}
 COUNTER_NAMES = ("chunks_meshed", "chunks_generated", "views", "view_quads",
-                 "funnel_native", "pack_native", "pack_numpy")
+                 "funnel_native", "pack_native", "pack_numpy", "pipe_graph",
+                 "pipe_eager", "pipe_drains")
 IDLE_NAMES = ("idle", "idle_funnel", "idle_dispatch")
 
 HOLD = 1 << 15          # frames held
@@ -540,20 +550,22 @@ if ENABLED:
     (_FRAME_ID, FUNNEL, WORLD_UPDATE, WORLD_QUEUE, WORLD_GENERATE,
      WORLD_UNLOAD, MESHING, _DISPATCH_ID, PREPARE, LOAD, REPLAY,
      COPY_OUT, VIEWS_PACK, _VIEWS_DISPATCH_ID, VIEWS_LOAD, VIEWS_REPLAY,
-     VIEWS_REDUCE, VIEWS_GATHER) = (_Span(i) for i in range(_NS))
+     VIEWS_REDUCE, VIEWS_GATHER, PIPE_DRAIN) = (_Span(i) for i in range(_NS))
     FRAME = _Frame()
     DISPATCH = _Dispatch(SPAN_NAMES.index("dispatch"))
     VIEWS_DISPATCH = _Dispatch(SPAN_NAMES.index("views_dispatch"))
     ENQUEUE = _Enqueue()
     (CHUNKS_MESHED, CHUNKS_GENERATED, VIEWS, VIEW_QUADS, FUNNEL_NATIVE,
-     PACK_NATIVE, PACK_NUMPY) = (_Counter(i) for i in range(_NC))
+     PACK_NATIVE, PACK_NUMPY, PIPE_GRAPH, PIPE_EAGER,
+     PIPE_DRAINS) = (_Counter(i) for i in range(_NC))
     mark_enqueue = TRACER.mark_enqueue
 else:
     (FRAME, FUNNEL, WORLD_UPDATE, WORLD_QUEUE, WORLD_GENERATE, WORLD_UNLOAD,
      MESHING, DISPATCH, PREPARE, LOAD, REPLAY, COPY_OUT, VIEWS_PACK,
      VIEWS_DISPATCH, VIEWS_LOAD, VIEWS_REPLAY, VIEWS_REDUCE, VIEWS_GATHER,
-     ENQUEUE, CHUNKS_MESHED, CHUNKS_GENERATED, VIEWS, VIEW_QUADS,
-     FUNNEL_NATIVE, PACK_NATIVE, PACK_NUMPY, mark_enqueue) = (NOOP,) * 27
+     PIPE_DRAIN, ENQUEUE, CHUNKS_MESHED, CHUNKS_GENERATED, VIEWS, VIEW_QUADS,
+     FUNNEL_NATIVE, PACK_NATIVE, PACK_NUMPY, PIPE_GRAPH, PIPE_EAGER,
+     PIPE_DRAINS, mark_enqueue) = (NOOP,) * 31
 
 
 @contextlib.contextmanager

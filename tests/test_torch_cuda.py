@@ -1018,23 +1018,41 @@ def _frame_bits(out):
             for t in out]
 
 
+def _fly_pipelined(eng, poses):
+    """``_fly`` in frames-in-flight mode: the frames that come out, the
+    last one by the flush."""
+    out = []
+    for pos, tgt in poses:
+        eng.camera.position = np.array(pos, np.float32)
+        eng.camera.look_at(np.array(tgt, np.float32))
+        out.append(eng.render_frame_pipelined(dt=0.0))
+    return [r for r in out if r is not None] + [eng.flush_pipeline()]
+
+
+PIPE_GRAPHS = ["pipe_seed", "pipe_seed_fused", "pipe_prepared", "pipe_fused"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", sorted(GRAPH_MODES))
+@pytest.mark.parametrize("mode", sorted(GRAPH_MODES) + ["pipelined"])
 def test_graph_frame_equals_eager_frame(cuda_device, mode):
     """Every entry point's graph at every gather bucket (warm_buckets and
     warm_streaming twice: captures, then replays) and the engine's frames
     (static, moving, streaming) replayed: each replay's outputs equal its
-    function called eagerly on the same inputs, bit for bit."""
-    eng = _graph_engine(cuda_device, mode)
+    function called eagerly on the same inputs, bit for bit.  "pipelined":
+    the serial engine warmed with ``warm_buckets(pipelined=True)``, its
+    frames in flight."""
+    pipelined = mode == "pipelined"
+    eng = _graph_engine(cuda_device, "serial" if pipelined else mode)
     twin = graphs.EagerTwin(eng.renderer)
     for _ in range(2):
-        eng.warm_buckets()
+        eng.warm_buckets(pipelined=pipelined)
         eng.warm_streaming()
-    _fly(eng, GRAPH_POSES)
+    (_fly_pipelined if pipelined else _fly)(eng, GRAPH_POSES)
     torch.cuda.synchronize()
     twin.close()
     names = ["fused", "expand", "prepared", "insert"] + (
-        ["hiz"] if mode == "temporal" else [])
+        ["hiz"] if mode == "temporal" else []) + (
+        PIPE_GRAPHS if pipelined else [])
     want = {(n, c) for n in names for c in eng.renderer.gather_buckets}
     assert set(twin.replays()) == want == set(eng.renderer._graphs)
     assert all(equal for *_, equal in twin.calls), twin.calls
@@ -1085,23 +1103,37 @@ def test_graphs_recapture_after_set_shading_and_a_new_pool(cuda_device):
 
 
 @pytest.mark.cuda
-def test_replay_runs_no_wrapper_and_counts_exactly(cuda_device):
+@pytest.mark.parametrize("pipelined", [False, True])
+def test_replay_runs_no_wrapper_and_counts_exactly(cuda_device, pipelined):
     """After the warm-ups, static, moving and streaming frames replay
     (one replay a frame, and one more for the settled draw list's
     expansion; no capture) with every kernel wrapper made to raise, and
-    K1, tile_meta and K2 still count exactly one launch a frame."""
+    K1, tile_meta and K2 still count exactly one launch a frame.
+    ``pipelined``: steady frames in flight at the held pose replay their
+    graphs the same way -- the seed (K1), three steps (K3 and tile_meta
+    each), the flush's static step (K1, tile_meta, K2) -- each counting the
+    launches of one eager call."""
     eng = _graph_engine(cuda_device)
-    eng.warm_buckets()
+    eng.warm_buckets(pipelined=pipelined)
     eng.warm_streaming()
     _fly(eng, GRAPH_POSES[:1])
     torch.cuda.synchronize()
-    before = (geometry.launches, raster.launches_meta, raster.launches)
+    counts = (lambda: (geometry.launches, raster.launches_meta,
+                       raster.launches, raster.launches_geom))
+    before = counts()
     calls = graphs.calls.copy()
+    if pipelined:
+        with _wrappers_raise():
+            frames = _fly_pipelined(eng, GRAPH_POSES[:1] * 4)
+        assert len(frames) == 4 and all(r is not None for r in frames)
+        assert tuple(b - a for a, b in zip(before, counts())) == (2, 4, 1, 3)
+        assert graphs.calls - calls == {"replays": 5}
+        return
     with _wrappers_raise():
         frames = _fly(eng, GRAPH_POSES)
-    assert (geometry.launches, raster.launches_meta, raster.launches) == (
+    assert counts() == (
         before[0] + len(frames), before[1] + len(frames),
-        before[2] + len(frames))
+        before[2] + len(frames), before[3])
     # the first frame holds the draw list of the frame before it: its
     # expansion (prepare_uploads) replays, then its static step
     assert graphs.calls - calls == {"replays": len(frames) + 1}

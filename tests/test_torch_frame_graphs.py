@@ -150,21 +150,28 @@ def _engine_at_p0():
     return eng
 
 
-def test_one_graph_per_entry_point_and_bucket():
+@pytest.mark.parametrize("pipelined", [False, True])
+def test_one_graph_per_entry_point_and_bucket(pipelined):
     """warm_buckets makes one graph per (entry point, gather bucket) --
-    the fused frame, the static step and the temporal step of each of the
-    three buckets -- and a second warm_buckets reuses every one of them."""
+    the fused frame, the expansion, the static step and the temporal step
+    of each of the three buckets; with ``pipelined`` (which excludes the
+    temporal step) the frames-in-flight seeds and steps besides -- and a
+    second warm_buckets reuses every one of them."""
     r = TPL.Renderer(TE.RenderConfig(width=W, height=H, gather_cap=65536,
-                                     quads_cap=8192, temporal_hiz=True),
+                                     quads_cap=8192,
+                                     temporal_hiz=not pipelined),
                      device="cpu")
     assert r.gather_buckets == (16384, 32768, 65536)
     pool = torch.zeros((4, 512), dtype=torch.int32)
-    r.warm_buckets(pool)
-    assert set(r._graphs) == {(n, c) for n in ("fused", "expand", "prepared",
-                                               "hiz")
+    r.warm_buckets(pool, pipelined=pipelined)
+    names = ("fused", "expand", "prepared") + (
+        ("pipe_seed", "pipe_seed_fused", "pipe_prepared", "pipe_fused")
+        if pipelined else ("hiz",))
+    assert set(r._graphs) == {(n, c) for n in names
                               for c in r.gather_buckets}
+    assert r._pipe_carry is None
     made = dict(r._graphs)
-    r.warm_buckets(pool)
+    r.warm_buckets(pool, pipelined=pipelined)
     assert all(r._graphs[k] is g for k, g in made.items())
     assert len(r._graphs) == len(made)
     assert r._cam_cache is None

@@ -52,6 +52,7 @@ from differential_projection_voxel_renderer_tpu_torch.models.camera import (
     Camera,
 )
 from differential_projection_voxel_renderer_tpu_torch.ops import geometry
+from differential_projection_voxel_renderer_tpu_torch.rendering import graphs
 from differential_projection_voxel_renderer_tpu_torch.rendering import (
     parity as TPAR,
 )
@@ -385,6 +386,64 @@ def test_serial_fallback_keeps_order(fuzz_renderer, monkeypatch):
     for want, got in zip(serial, out):
         for a, b in zip(want, got):
             assert torch.equal(a, b)
+
+
+PIPE_GRAPHS = ("pipe_seed", "pipe_seed_fused", "pipe_prepared", "pipe_fused")
+
+
+@pytest.mark.parametrize("moving", [False, True])
+def test_pipelined_graphs_equal_their_eager_functions(fuzz_renderer, moving):
+    """Every frames-in-flight step through ``Renderer._run_graph`` against
+    its function called eagerly on the same inputs (``graphs.EagerTwin``),
+    bit for bit: a draw-list change (fused; its seed, then its step),
+    steady prepared frames, a bucket switch of each kind (the drain
+    replays the static step "prepared", then the seed) and the flush.
+    Every emitted frame equals render_fused's for its list and camera,
+    one call later, the streams the calls return included.  ``moving``
+    turns the camera every call, so each carried frame renders from its
+    own camera."""
+    renderer, pool, draw_list, sizes, cam = fuzz_renderer
+    small, big = sizes
+
+    def camera(i):
+        c = Camera(np.array([16.0 + (2.0 * i if moving else 0.0), 48.0,
+                             16.0], np.float32), 1.0)
+        c.look_at(np.array([16.0, 8.0, 16.0], np.float32))
+        return c.view_projection_matrix(), c.position
+
+    # (call, draw list): fused A, A prepared twice, fused B (another
+    # bucket: drain), fused B' (its step), B' prepared, A prepared (drain)
+    plan = [("fused", small), ("prepared", small), ("prepared", small),
+            ("fused", big), ("fused", big + 1), ("prepared", big + 1),
+            ("prepared", small)]
+    serial = [renderer.render_fused(pool, *draw_list(n), *camera(i))
+              for i, (_, n) in enumerate(plan)]
+    twin = graphs.EagerTwin(renderer)
+    try:
+        out, streams = [], {}
+        for i, (kind, n) in enumerate(plan):
+            if kind == "fused":
+                got, streams[n] = renderer.render_fused_pipelined(
+                    pool, *draw_list(n), *camera(i))
+            else:
+                got = renderer.render_prepared_pipelined(streams[n],
+                                                         *camera(i))
+            assert (got is None) == (i == 0)
+            out += [got] if got is not None else []
+        out.append(renderer.pipeline_flush())
+        assert renderer.pipeline_flush() is None
+    finally:
+        twin.close()
+    names = [c[0] for c in twin.calls]
+    assert names == ["pipe_seed_fused", "pipe_prepared", "pipe_prepared",
+                     "prepared", "pipe_seed_fused", "pipe_fused",
+                     "pipe_prepared", "prepared", "pipe_seed", "prepared"]
+    assert {c[1] for c in twin.calls} == {16384, 32768}
+    assert all(equal for *_, equal in twin.calls), twin.calls
+    assert len(out) == len(serial)
+    for want, got in zip(serial, out):
+        for a, b in zip(want, got):
+            _same(a, b)
 
 
 @pytest.mark.parametrize("make", ["Engine", "Renderer", "QuadPool"])

@@ -150,6 +150,30 @@ def test_spans_each_serial_entry_path_records(flight):
     assert (frames.child_ns <= frames.ns).all()
 
 
+def test_spans_and_counters_of_frames_in_flight():
+    """The frames-in-flight path on the CPU: each call's renderer call in
+    ``dispatch``, with its graph's load, replay and copy_out; every seed,
+    step and drain counted in ``pipe_eager`` (the CPU has no graph to
+    replay) and none in ``pipe_graph``; the flush a drain, in span
+    ``pipe_drain`` and counter ``pipe_drains``."""
+    P.TRACER.reset()
+    eng = _engine()
+    for _ in range(3):
+        eng.render_frame_pipelined(dt=0.0)
+    eng.flush_pipeline()
+    f = P.TRACER.frames(4)
+    assert len(f) == 4
+    for r in range(4):
+        assert _names(f, r) >= {"frame", "dispatch", "load", "replay",
+                                "copy_out"}
+        assert ("pipe_drain" in _names(f, r)) == (r == 3)
+    assert list(f.count("pipe_eager")) == [1, 1, 1, 1]
+    assert list(f.count("pipe_graph")) == [0, 0, 0, 0]
+    assert list(f.count("pipe_drains")) == [0, 0, 0, 1]
+    drain = P.SPAN_NAMES.index("pipe_drain")
+    assert f.child_ns[3, drain] > 0  # the drain's graph call nests in it
+
+
 def test_meshing_counter_is_the_benchmarks_count(flight):
     """The counter ``chunks_meshed`` a frame against the benchmark's
     wrapper of ``Engine._mesh_list`` (the loaded chunks it is handed)."""
